@@ -9,16 +9,26 @@ Phases, each of which exits non-zero on failure:
    CPU tests run in full float32);
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc);
 3. each kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it, with times: the kernel, the plain
-   version, one PyTorch library call for the same function where there
-   is one (a yardstick only, never called by the port), and the bound
-   (the larger of the bytes it must move over 3.35 TB/s and its float32
-   operations over 67 TFLOP/s, the H100 SXM's published peaks);
-4. the main path: ``train`` on ResNet-50 at full width (25,541,672
+   shapes the main path gives it, with device times (torch.profiler):
+   the kernel, the plain version, one PyTorch library call for the same
+   function where there is one (a yardstick only, never called by the
+   port), and the bound (the larger of the bytes it must move over
+   3.35 TB/s and its float32 operations over 67 TFLOP/s, the H100 SXM's
+   published peaks);
+4. the training path: ``train`` on ResNet-50 at full width (25,541,672
    parameters), R=8 workers, per-worker batch 8, 224x224 images, T=8,
    H=4, under RowSignTopK, TopK and QSGD, with the launch counts per
    sync; then a small ResNet on the card with dispatch "kernel" against
-   dispatch "reference" (same losses, same wire bits).
+   dispatch "reference" (same losses, same wire bits);
+5. the serving path: the four serving kernels against their plain
+   versions at Yi-6B's shapes (step 3's checks and times), then Yi-6B at
+   full width and depth (random weights from a seed) compressed at load
+   under its ``lm_hetero`` policy and served by ``ServeEngine`` three
+   times -- paged with a bf16 pool, paged with int8 pages, contiguous --
+   all through the decode-attention kernels, 16 requests of 64-128
+   prompt tokens and 64 new tokens each, with the launch counts per
+   step and the serving metrics; then the yi-6b smoke model in float32
+   served with dispatch "kernel" against "reference" (same tokens).
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX
@@ -42,6 +52,13 @@ R, B, T, H = 8, 8, 8, 4       # workers, per-worker batch, steps, local steps
 IMAGES = {"n": 512, "hw": 224, "classes": 1000, "seed": 0}
 N_PARAMS = 25_541_672         # ResNet-50 at full width, 1000 classes
 DISPATCH = "auto"
+#: the serving run: Yi-6B served from compressed weights
+SERVE = {"max_batch": 8, "max_len": 512, "prompt_pad": 128, "page_size": 16,
+         "requests": 16, "prompt_min": 64, "new_tokens": 64, "seed": 0}
+#: launches per decode step / per prefill on Yi-6B under lm_hetero: 7
+#: Top_k matmuls in each of 32 layers, the QSGD head once, one decode
+#: attention per layer
+YI_LAYERS = 32
 #: the kernel each operator must launch, and how often per sync round
 WANT_PER_SYNC = {"RowSignTopK": ("topk_compress", 1),
                  "TopK": ("topk_compress", 5), "QSGD": ("qsgd", 5)}
@@ -61,19 +78,26 @@ def card() -> str:
 
 
 def time_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls after a warm-up,
-    from CUDA events around the whole run."""
+    """Mean device time of ``fn`` per call: the kernels (and copies) its
+    ``reps`` calls ran on the card, summed from a torch.profiler (CUPTI)
+    trace after a warm-up call.  CUDA events around back-to-back calls
+    would also count the gaps that the host's launch overhead leaves
+    between kernels of a few microseconds."""
     import torch
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == cuda)
+    if us <= 0:
+        raise AssertionError("the profiler saw no device time")
+    return us / 1e3 / reps
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
@@ -304,6 +328,398 @@ def phase_small_agreement(dev):
         print(f"small agreement {type(op).__name__}: bits {k.bits} "
               f"losses {k.loss}", flush=True)
 
+# ---------------------------------------------------------------------------
+# the serving path
+# ---------------------------------------------------------------------------
+
+
+def close_to_scale(out, want, rtol: float, scale: float, what: str) -> float:
+    """Hold ``out`` to ``want`` within rtol and ``scale`` times the
+    largest |want|; returns the largest absolute difference."""
+    import torch
+    o, w = out.float(), want.float()
+    torch.testing.assert_close(
+        o, w, rtol=rtol, atol=scale * float(w.abs().max()),
+        msg=lambda m: f"{what}: {m}")
+    return float((o - w).abs().max())
+
+
+def compact_buffers(g, R: int, n: int, k: int, kcap: int, dev):
+    """k ascending random survivors per row, the sentinel (n, 0) after
+    them (compress_tree's layout); row 0 empty."""
+    import torch
+    idx = torch.full((R, kcap), n, dtype=torch.int32, device=dev)
+    keys = torch.rand((R, n), generator=g, device=dev)
+    idx[:, :k] = torch.sort(torch.topk(keys, k, dim=1).indices,
+                            dim=1).values.to(torch.int32)
+    val = torch.zeros((R, kcap), device=dev)
+    val[:, :k] = torch.randn((R, k), generator=g, device=dev)
+    idx[0], val[0] = n, 0.0
+    return idx, val
+
+
+def check_sparse_gemm(dev, M: int, R: int, n: int, k: int, reps: int):
+    """sparse_gemm on bf16 activations against its plain version
+    (densify, float32 matmul): within 1e-5 of the largest output, float32
+    sums in another order.  The library call is torch.matmul against the
+    densified float32 weight."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.sparse_gemm import sparse_gemm
+    g = torch.Generator(device=dev).manual_seed(M + R + n)
+    idx, val = compact_buffers(g, R, n, k, 128, dev)
+    x = torch.randn((M, n), generator=g, device=dev).to(torch.bfloat16)
+    err = close_to_scale(sparse_gemm(x, idx, val, n),
+                         ref.sparse_gemm_ref(x, idx, val, n), 1e-5, 1e-5,
+                         f"sparse_gemm {M}x{n} -> {R}")
+    ms = time_ms(lambda: sparse_gemm(x, idx, val, n), reps)
+    plain_ms = time_ms(lambda: ref.sparse_gemm_ref(x, idx, val, n), reps)
+    w = torch.zeros((R, n + 1), device=dev)
+    w.scatter_add_(1, idx.long(), val)
+    w, xf = w[:, :n].contiguous(), x.float()
+    library_ms = time_ms(lambda: torch.matmul(xf, w.T), reps)
+    nnz = int((idx < n).sum())
+    bms, by = bound_ms(8.0 * nnz + 2.0 * M * n + 4.0 * M * R, 2.0 * M * nnz)
+    return {"shape": [M, n, R], "kcap": 128, "k_row": k, "nnz": nnz,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bms, "bound_by": by}
+
+
+def check_qdq_gemm(dev, M: int, reps: int):
+    """qdq_gemm on the Yi-6B head (64000 x 4096 int8 levels) against its
+    plain version (dequantize, float32 matmul): within 1e-5 of the
+    largest output.  Library call: torch.matmul against the dequantized
+    float32 weight."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.sparse_gemm import qdq_gemm
+    R, n = 64000, 4096
+    g = torch.Generator(device=dev).manual_seed(M)
+    lv = torch.randint(-15, 16, (R, n), generator=g, device=dev,
+                       dtype=torch.int8)
+    scale = torch.rand((R, 1), generator=g, device=dev) * 0.01
+    x = torch.randn((M, n), generator=g, device=dev).to(torch.bfloat16)
+    err = close_to_scale(qdq_gemm(x, lv, scale),
+                         ref.qdq_gemm_ref(x, lv, scale), 1e-5, 1e-5,
+                         f"qdq_gemm M={M}")
+    ms = time_ms(lambda: qdq_gemm(x, lv, scale), reps)
+    plain_ms = time_ms(lambda: ref.qdq_gemm_ref(x, lv, scale), reps)
+    w, xf = lv.float() * scale, x.float()
+    library_ms = time_ms(lambda: torch.matmul(xf, w.T), reps)
+    del w
+    bms, by = bound_ms(1.0 * R * n + 4.0 * R + 2.0 * M * n + 4.0 * M * R,
+                       2.0 * M * R * n)
+    return {"shape": [M, n, R], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bms,
+            "bound_by": by}
+
+
+def decode_lengths(g, B: int, dev):
+    """Row lengths as the serve run has them: 64-128 prompt tokens plus up
+    to 64 decoded; row 0 a free slot (length 0)."""
+    import torch
+    lengths = torch.randint(64, 193, (B,), generator=g, device=dev,
+                            dtype=torch.int32)
+    lengths[0] = 0
+    return lengths
+
+
+def sdpa_ms(q, k, v, live, reps: int) -> float:
+    """One F.scaled_dot_product_attention call over already-gathered,
+    contiguous KV (expanded to every query head), the yardstick for the
+    decode kernels."""
+    import torch.nn.functional as F
+    G = q.shape[2] // k.shape[2]
+    qh = q.transpose(1, 2)                                 # [B, H, 1, hd]
+    kh = k.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+    vh = v.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+    mask = live[:, None, None, :]
+    return time_ms(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=mask), reps)
+
+
+def check_paged_decode(dev, quant: bool, reps: int):
+    """paged_decode at Yi-6B's decode shapes (batch 8, 32 query / 4 kv
+    heads of 128, pages of 16, 32 table entries per row, a 256-page
+    pool) against its plain version (gather, dequantize, masked softmax):
+    within one bf16 rounding (2^-7) of the largest output; the free
+    slot's row exactly zero."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_attention import paged_decode
+    B, H, KV, hd, ps, P, n_pages = 8, 32, 4, 128, 16, 32, 256
+    g = torch.Generator(device=dev).manual_seed(10 + int(quant))
+    q = torch.randn((B, 1, H, hd), generator=g, device=dev).to(torch.bfloat16)
+    shape = (n_pages, ps, KV, hd)
+    if quant:
+        kp = torch.randint(-127, 128, shape, generator=g, device=dev,
+                           dtype=torch.int8)
+        vp = torch.randint(-127, 128, shape, generator=g, device=dev,
+                           dtype=torch.int8)
+        ks = torch.rand((n_pages, ps), generator=g, device=dev) * 0.02
+        vs = torch.rand((n_pages, ps), generator=g, device=dev) * 0.02
+    else:
+        kp = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+        vp = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+        ks = vs = torch.zeros((n_pages, ps), device=dev)
+    lengths = decode_lengths(g, B, dev)
+    tables = torch.randperm(n_pages, generator=g, device=dev)[:B * P]
+    tables = tables.reshape(B, P).to(torch.int32)
+    need = ((lengths + ps - 1) // ps).clamp(min=1)
+    tables[torch.arange(P, device=dev)[None, :] >= need[:, None]] = -1
+    args = (q, kp, vp, ks, vs, tables, lengths)
+    out = paged_decode(*args)
+    if out[0].any():
+        raise AssertionError("paged_decode: a length-0 row is not zero")
+    err = close_to_scale(out, ref.paged_decode_ref(*args), 2 ** -7, 2 ** -7,
+                         f"paged_decode quant={quant}")
+    ms = time_ms(lambda: paged_decode(*args), reps)
+    plain_ms = time_ms(lambda: ref.paged_decode_ref(*args), reps)
+    tbl = tables.long().clamp(min=0)
+    kg, vg = kp[tbl].float(), vp[tbl].float()
+    if quant:
+        kg = kg * ks[tbl][..., None, None]
+        vg = vg * vs[tbl][..., None, None]
+    kg = kg.reshape(B, P * ps, KV, hd).to(torch.bfloat16)
+    vg = vg.reshape(B, P * ps, KV, hd).to(torch.bfloat16)
+    live = torch.arange(P * ps, device=dev)[None, :] < lengths[:, None]
+    library_ms = sdpa_ms(q, kg, vg, live, reps)
+    tokens = int(lengths.sum())
+    elem = 1 if quant else 2
+    nbytes = (2.0 * tokens * KV * hd * elem + (8.0 * tokens if quant else 0)
+              + 2 * 2.0 * B * H * hd + 4.0 * B * P + 4.0 * B)
+    bms, by = bound_ms(nbytes, 4.0 * H * hd * tokens)
+    return {"shape": [B, H, KV, hd], "pool": [n_pages, ps],
+            "quant": quant, "tokens": tokens, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": "scaled_dot_product_attention over gathered KV",
+            "bound_ms": bms, "bound_by": by}
+
+
+def check_flash_decode(dev, reps: int):
+    """flash_decode at Yi-6B's decode shapes (batch 8, a 512-slot ring
+    cache, 4 kv heads, a validity mask per row) against its plain version:
+    within one bf16 rounding of the largest output."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_decode
+    B, H, KV, hd, C = 8, 32, 4, 128, 512
+    g = torch.Generator(device=dev).manual_seed(20)
+    q = torch.randn((B, 1, H, hd), generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn((B, C, KV, hd), generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn((B, C, KV, hd), generator=g, device=dev).to(torch.bfloat16)
+    lengths = decode_lengths(g, B, dev)
+    lengths[0] = C                   # every row needs a valid slot
+    valid = torch.arange(C, device=dev)[None, :] < lengths[:, None]
+    err = close_to_scale(flash_decode(q, k, v, valid),
+                         ref.flash_decode_ref(q, k, v, valid), 2 ** -7,
+                         2 ** -7, "flash_decode")
+    ms = time_ms(lambda: flash_decode(q, k, v, valid), reps)
+    plain_ms = time_ms(lambda: ref.flash_decode_ref(q, k, v, valid), reps)
+    library_ms = sdpa_ms(q, k, v, valid, reps)
+    tokens = int(valid.sum())
+    nbytes = 2.0 * tokens * KV * hd * 2 + B * C + 2 * 2.0 * B * H * hd
+    bms, by = bound_ms(nbytes, 4.0 * H * hd * tokens)
+    return {"shape": [B, H, KV, hd], "cache": C, "tokens": tokens,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms,
+            "library": "scaled_dot_product_attention over the same KV",
+            "bound_ms": bms, "bound_by": by}
+
+
+def phase_serve_kernels(dev):
+    """The serving kernels at the Yi-6B serve run's shapes: the Top_k
+    matmuls at decode (batch 8: w1 / w3, w2, wq / wo, wk / wv) and at
+    prefill (128 prompt tokens), the QSGD head at decode and for the
+    prefill's last token, the page pool in bf16 and int8, the ring
+    cache."""
+    rows = {
+        "sparse_gemm": [check_sparse_gemm(dev, 8, 11008, 4096, 41, 20),
+                        check_sparse_gemm(dev, 8, 4096, 11008, 110, 20),
+                        check_sparse_gemm(dev, 8, 4096, 4096, 41, 20),
+                        check_sparse_gemm(dev, 8, 512, 4096, 41, 20),
+                        check_sparse_gemm(dev, 128, 11008, 4096, 41, 5)],
+        "qdq_gemm": [check_qdq_gemm(dev, 8, 10), check_qdq_gemm(dev, 1, 10)],
+        "paged_decode": [check_paged_decode(dev, False, 20),
+                         check_paged_decode(dev, True, 20)],
+        "flash_decode": [check_flash_decode(dev, 20)],
+    }
+    for name, checks in rows.items():
+        for row in checks:
+            print("kernel check", name, json.dumps(row), flush=True)
+    return rows
+
+
+def serve_requests(eng, vocab: int) -> None:
+    import numpy as np
+    rng = np.random.RandomState(SERVE["seed"])
+    for _ in range(SERVE["requests"]):
+        plen = int(rng.randint(SERVE["prompt_min"], SERVE["prompt_pad"] + 1))
+        eng.submit(rng.randint(0, vocab, plen).tolist(),
+                   max_new_tokens=SERVE["new_tokens"])
+
+
+def serve_run(params, cfg, name: str, layout: dict, dev):
+    """One ServeEngine run over the compressed weights: every step timed
+    on the host clock (a step ends in a device-to-host copy of the next
+    tokens, so it is synchronous); steps that admitted a request also ran
+    its prefill."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.dispatch import DispatchConfig
+    from repro_torch.kernels.launch_stats import LAUNCHES, reset_launches
+    from repro_torch.serve import compressed as sc
+    from repro_torch.serve.engine import ServeEngine
+    eng = ServeEngine(params, cfg, max_batch=SERVE["max_batch"],
+                      max_len=SERVE["max_len"],
+                      prompt_pad=SERVE["prompt_pad"],
+                      dispatch=DispatchConfig(mode=DISPATCH), **layout)
+    serve_requests(eng, cfg.vocab)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sc.reset_stats()
+    reset_launches()
+    decode_ms, admit_ms = [], []
+    t0 = time.perf_counter()
+    while eng.pending:
+        before = eng.admissions
+        t = time.perf_counter()
+        eng.step()
+        (admit_ms if eng.admissions > before else decode_ms).append(
+            (time.perf_counter() - t) * 1e3)
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    res = eng.run()                  # nothing pending: collects the results
+    outs, mets = res["outputs"], list(res["metrics"].values())
+    attn = "paged_decode" if layout.get("paged") else "flash_decode"
+    calls = eng.steps + eng.admissions
+    want = {"sparse_gemm": 7 * YI_LAYERS * calls, "qdq_gemm": calls,
+            attn: YI_LAYERS * eng.steps}
+    for k, v in launches.items():
+        if v != want.get(k, 0):
+            raise AssertionError(f"{name}: {v} {k} launches, want "
+                                 f"{want.get(k, 0)} ({eng.steps} decode "
+                                 f"steps, {eng.admissions} prefills)")
+    if sc.STATS["densify"]:
+        raise AssertionError(f"{name}: densified {sc.STATS['densify']}")
+    if sorted(outs) != list(range(SERVE["requests"])) or any(
+            len(t) != SERVE["new_tokens"] or min(t) < 0 or max(t) >= cfg.vocab
+            for t in outs.values()):
+        raise AssertionError(f"{name}: bad outputs")
+    ttft = [m.ttft_s * 1e3 for m in mets]
+    row = {"run": name, "steps": eng.steps, "prefills": eng.admissions,
+           "decode_ms_per_step": float(np.median(decode_ms)),
+           "decode_ms_mean": float(np.mean(decode_ms)),
+           "admit_step_ms_mean": float(np.mean(admit_ms)),
+           "ttft_ms_min": min(ttft), "ttft_ms_p50": float(np.median(ttft)),
+           "ttft_ms_max": max(ttft),
+           "tokens_per_s": sum(len(t) for t in outs.values()) / wall,
+           "wall_s": wall, "peak_device_bytes": torch.cuda.max_memory_allocated(),
+           # per decode step or prefill (GEMMs), per decode step (attention)
+           "launches_per_call": {k: v / (calls if k != attn else eng.steps)
+                                 for k, v in launches.items() if v},
+           "launches": {k: v for k, v in launches.items() if v}}
+    if layout.get("paged"):
+        pool = res["pool"]
+        row.update(peak_pool_pages=pool["peak_pages_used"],
+                   n_pages=pool["n_pages"], preemptions=pool["preemptions"],
+                   admission_stalls=pool["admission_stalls"])
+    print("serve", json.dumps(row), flush=True)
+    return launches
+
+
+def phase_serve(dev):
+    """Yi-6B at full width and depth, random bf16 weights from a seeded
+    generator, compressed at load under lm_hetero (the dense tree is let
+    go), then served three times.  Returns the kernel launches summed
+    over the three runs."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config, get_policy_preset
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import compressed as sc
+    from repro_torch.tree import tree_leaves
+    cfg = dataclasses.replace(get_config("yi-6b"), use_pallas=True)
+    t0 = time.perf_counter()
+    params = tf.init_params(
+        torch.Generator(device=dev).manual_seed(SERVE["seed"]), cfg,
+        device=dev)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    if n_params != cfg.param_count():
+        raise AssertionError(f"yi-6b has {n_params} parameters, want "
+                             f"{cfg.param_count()}")
+    params = sc.compress_tree(params, get_policy_preset("arch", "yi-6b"))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    sizes = sc.tree_bytes(params)
+    print(f"yi-6b {n_params} parameters, resident {sizes['compressed']} "
+          f"bytes compressed (dense {sizes['dense']}), init + compress "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    totals = {}
+    for name, layout in (
+            ("paged bf16", {"paged": True, "page_size": SERVE["page_size"]}),
+            ("paged int8", {"paged": True, "page_size": SERVE["page_size"],
+                            "kv_quant": True}),
+            ("contiguous", {})):
+        for k, v in serve_run(params, cfg, name, layout, dev).items():
+            totals[k] = totals.get(k, 0) + v
+    del params
+    torch.cuda.empty_cache()
+    return totals
+
+
+def phase_serve_agreement(dev):
+    """The yi-6b smoke model in float32 on the card, compressed under
+    lm_hetero, with dispatch "kernel" (the CUDA kernels) against
+    "reference" (their plain versions): prefill and decode logits within
+    rtol 1e-4 / atol 1e-4 (float32 sums in another order), the same
+    greedy tokens from paged, paged-int8 and contiguous engines."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config, get_policy_preset
+    from repro_torch.kernels.dispatch import DispatchConfig
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import compressed as sc
+    from repro_torch.serve.engine import ServeEngine
+    cfg = dataclasses.replace(get_config("yi-6b", smoke=True),
+                              use_pallas=True)
+    params = sc.compress_tree(
+        tf.init_params(torch.Generator(device=dev).manual_seed(1), cfg,
+                       device=dev), get_policy_preset("arch", "yi-6b"))
+    modes = {m: DispatchConfig(mode=m) for m in ("kernel", "reference")}
+    toks = torch.randint(0, cfg.vocab, (3, 21), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(2))
+    logits = {}
+    for m, dcfg in modes.items():
+        lg, cache, _ = tf.prefill(params, {"tokens": toks}, cfg, dcfg,
+                                  max_len=32)
+        out = [lg[:, 0]]
+        tok = lg[:, 0].argmax(-1)
+        for pos in range(21, 25):
+            lg, cache = tf.decode_step(params, cache, tok, pos, cfg, dcfg)
+            out.append(lg)
+            tok = lg.argmax(-1)
+        logits[m] = torch.stack(out)
+    torch.testing.assert_close(logits["kernel"], logits["reference"],
+                               rtol=1e-4, atol=1e-4)
+    err = float((logits["kernel"] - logits["reference"]).abs().max())
+    reqs = [([5, 6, 7], 12), ([1], 9), ([9, 8, 7, 6, 5], 14), ([3, 3], 10),
+            ([11, 2, 4, 200, 17], 11), ([8], 8)]
+    for layout in ({"paged": True, "page_size": 4},
+                   {"paged": True, "page_size": 4, "kv_quant": True}, {}):
+        outs = {}
+        for m, dcfg in modes.items():
+            eng = ServeEngine(params, cfg, max_batch=3, max_len=24,
+                              prompt_pad=6, dispatch=dcfg, **layout)
+            for p, n in reqs:
+                eng.submit(p, n)
+            outs[m] = eng.run()["outputs"]
+        if outs["kernel"] != outs["reference"]:
+            raise AssertionError(f"serve agreement {layout}: tokens differ")
+    print(f"serve agreement: logits within {err:.3g}, tokens equal on "
+          f"paged / paged-int8 / contiguous", flush=True)
+
+
 
 def main() -> int:
     import torch
@@ -336,8 +752,11 @@ def main() -> int:
           f"in {time.perf_counter() - t0:.1f}s", flush=True)
 
     topk, qsgd = phase_kernels(dev)
+    serve_checks = phase_serve_kernels(dev)
     runs, totals = phase_train(dev)
     phase_small_agreement(dev)
+    serve_totals = phase_serve(dev)
+    phase_serve_agreement(dev)
 
     head_topk, head_qsgd = topk[1], qsgd[0]
     kernels = [
@@ -358,6 +777,20 @@ def main() -> int:
                                        "library_ms")},
          "shape": head_qsgd["shape"]},
     ]
+    for name, src, replaces in (
+            ("sparse_gemm", "sparse_gemm.cu", "sparse_gemm.py:90"),
+            ("qdq_gemm", "sparse_gemm.cu", "sparse_gemm.py:146"),
+            ("paged_decode", "paged_decode.cu", "paged_attention.py:106"),
+            ("flash_decode", "flash_decode.cu", "flash_attention.py:144")):
+        head = serve_checks[name][0]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": f"src/repro/kernels/{replaces}",
+            "launches": serve_totals.get(name, 0), **{
+                k: head[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms")},
+            "shape": head["shape"]})
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} never launched on the path")

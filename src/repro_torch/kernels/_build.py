@@ -6,7 +6,8 @@ library with a plain C interface.  The library lands in ``build/`` next
 to this file (listed in ``.gitignore``) under a name that hashes the
 sources and flags, so an edit to a source rebuilds and an unchanged
 checkout loads what it built before.  Nothing here runs at import: the
-first kernel launch calls :func:`load`.
+first kernel launch calls :func:`load`.  The wrappers' shared checks on
+the tensors they hand over as raw pointers live here too.
 
 No ``--use_fast_math`` and no ``-ftz=true``: the kernels must compare,
 divide and take square roots exactly as IEEE float32 does, or the
@@ -33,6 +34,7 @@ FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
+_F32 = ctypes.c_float
 #: the C entry points and their argument types (pointers and the stream
 #: as void*, so ctypes never narrows them to 32 bits)
 SIGNATURES = {
@@ -41,6 +43,17 @@ SIGNATURES = {
                              _P],
     # x, u, out, rows, n, s, stream
     "qs_qsgd_quantize_f32": [_P, _P, _P, _I64, _I64, _I32, _P],
+    # x, idx, val, out, M, R, n, kcap, x_bf16, stream
+    "qs_sparse_gemm": [_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _P],
+    # x, levels, scale, out, M, R, n, x_bf16, stream
+    "qs_qdq_gemm": [_P, _P, _P, _P, _I32, _I32, _I32, _I32, _P],
+    # q, kp, vp, kscale, vscale, tables, lengths, out, B, H, KV, hd,
+    # n_pages, page_size, P, pages_per_block, scale, q_bf16, quant, stream
+    "qs_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32,
+                        _I32, _I32, _I32, _I32, _I32, _F32, _I32, _I32, _P],
+    # q, k, v, valid, out, B, H, KV, hd, C, scale, bf16, stream
+    "qs_flash_decode": [_P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32,
+                        _F32, _I32, _P],
     "qs_error_string": [_I32],
 }
 
@@ -125,6 +138,35 @@ def load() -> ctypes.CDLL:
                 else ctypes.c_int
         _LIB = lib
     return _LIB
+
+
+def check_tensor(name: str, t, ndim: int, dtypes) -> None:
+    """Raise unless ``t`` has ``ndim`` dims, one of ``dtypes`` and a
+    contiguous layout: the kernels index raw pointers."""
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must have {ndim} dims, got shape "
+                         f"{tuple(t.shape)}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} must be one of {dtypes}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def device_of(*ts):
+    """The one device all of ``ts`` are on (the CPU or a CUDA card)."""
+    dev = ts[0].device
+    for t in ts[1:]:
+        if t.device != dev:
+            raise ValueError(f"tensors on {dev} and {t.device}")
+    if dev.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"unsupported device {dev}")
+    return dev
+
+
+def stream_of(dev) -> int:
+    """The current CUDA stream of ``dev``, as the kernels take it."""
+    import torch
+    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def check(err: int) -> None:

@@ -1,4 +1,5 @@
-// Block-wide reductions shared by the compression kernels.
+// Block-wide reductions shared by the compression kernels, and the
+// float32 <-> storage-type conversions shared by the serving kernels.
 //
 // Each reduction reduces within a warp by shuffles, writes one partial
 // per warp to shared memory and lets every thread add the partials up,
@@ -10,7 +11,10 @@
 // launch is deterministic.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace qs {
 
@@ -56,6 +60,32 @@ __device__ __forceinline__ float block_max(float v, float* scratch) {
 // jnp.sign / torch.sign for finite floats: -1, 0 or +1
 __device__ __forceinline__ float sign_of(float v) {
   return v > 0.0f ? 1.0f : (v < 0.0f ? -1.0f : 0.0f);
+}
+
+// storage type -> float32 (exact) and float32 -> storage type (round to
+// nearest even, as torch's .to(dtype) does)
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float to_f32(int8_t v) {
+  return static_cast<float>(v);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// warp-wide sum (every lane leaves with the total)
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
+  return v;
 }
 
 }  // namespace qs

@@ -18,6 +18,11 @@ same dense output, same wire-bit accounting either way.
   ``QSGDQuantizer``         ``qsgd`` single bucket, given uniforms
   ========================  =======================================
 
+The serving entries (``sparse_gemm``, ``qdq_gemm``, ``paged_decode``,
+``flash_decode``) route the same way on their activations' device: the
+hand-written kernel, or the kernel's plain version (``ref.py``) under
+``mode="reference"``.
+
 Eligibility is ``repro``'s, unchanged, because it decides which leaves
 take which path: at least ``min_size`` elements (``mode="auto"`` only),
 rows of a multiple of 128 elements, rows no longer than ``max_row``.
@@ -55,7 +60,11 @@ from repro_torch.core.operators import (
     resolve_k,
     uniform,
 )
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import qsgd as _qsgd
+from repro_torch.kernels import ref
+from repro_torch.kernels import sparse_gemm as _sgemm
 from repro_torch.kernels import topk_compress as _topk
 from repro_torch.tree import tree_flatten, tree_unflatten
 
@@ -73,6 +82,10 @@ class DispatchConfig:
           "reference" — never dispatch (pure core/operators.py)
     min_size: smallest leaf (elements) worth a kernel launch in "auto"
     max_row:  longest kernel row (elements)
+    block_rows: kernel geometry where a kernel has one (``paged_decode``'s
+          pages per tile); None takes the kernel's default.  ``repro``
+          resolves it through its autotune table first, which is not
+          ported yet (ROADMAP queue 1 item 11).
     pack: megabuffer-pack same-bucket leaves (one kernel launch per
           bucket per sync round)
     """
@@ -80,6 +93,7 @@ class DispatchConfig:
     mode: str = "auto"
     min_size: int = 1 << 16
     max_row: int = 1 << 19
+    block_rows: Optional[int] = None
     pack: bool = True
 
     def __post_init__(self):
@@ -145,6 +159,11 @@ def _as_rows(xb: torch.Tensor, row_len: int) -> torch.Tensor:
 def _restore(out2d: torch.Tensor, B: int, shape: tuple, dtype):
     d = _size(shape)
     return out2d.reshape(B, -1)[:, :d].reshape((B,) + tuple(shape)).to(dtype)
+
+
+def capacity(k: int, n: int) -> int:
+    """Lane-aligned compact survivor-buffer capacity for (k, row n)."""
+    return min(_padded_len(max(k, 1), LANES), _padded_len(n, LANES))
 
 
 # ---------------------------------------------------------------------------
@@ -333,6 +352,82 @@ def topk_rows(rows: torch.Tensor, k: int, *, sign: bool = False,
     """Kernel Top_k/SignTop_k over pre-shaped [rows, n] blocks: (selected,
     new_memory, count_per_row).  Callers check :func:`rows_eligible`."""
     return _topk.topk_compress(rows.contiguous(), k, sign=sign)
+
+
+# ---------------------------------------------------------------------------
+# compact buffers and the serving kernels
+# ---------------------------------------------------------------------------
+
+
+def decode_rows(idx: torch.Tensor, val: torch.Tensor,
+                row_len: int) -> torch.Tensor:
+    """THE compact-buffer decoder: per-row scatter-add of [rows, kcap]
+    (idx, val) into dense [rows, row_len] float32.  Out-of-row sentinel
+    indices (``idx = row_len``, empty slots) land in a spare column that
+    is cut off, as ``repro``'s scatter drops them."""
+    out = torch.zeros((idx.shape[0], row_len + 1), dtype=torch.float32,
+                      device=idx.device)
+    out.scatter_add_(1, idx.to(torch.int64).clamp(0, row_len),
+                     val.to(torch.float32))
+    return out[:, :row_len]
+
+
+def paged_geometry(cfg: Optional[DispatchConfig], pages: int) -> int:
+    """Pages per tile for a ``paged_decode`` launch: an explicit
+    ``cfg.block_rows``, else the kernel's default; clamped to the table
+    width."""
+    cfg = _resolve(cfg)
+    pb = (cfg.block_rows if cfg.block_rows is not None
+          else _pa.DEFAULT_PAGES_PER_BLOCK)
+    return max(1, min(int(pb), pages))
+
+
+def sparse_gemm(x: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
+                row_len: int, cfg: Optional[DispatchConfig] = None
+                ) -> torch.Tensor:
+    """Serving entry for the sparse-weight x dense-activation GEMM.
+
+    x: [M, row_len] activations; idx/val: [R, kcap] compact survivor
+    buffers (rows enumerate output features).  The kernel when
+    ``cfg.kernels_enabled``, the densify-then-matmul version otherwise;
+    [M, R] float32 either way."""
+    if _resolve(cfg).kernels_enabled(x.device):
+        return _sgemm.sparse_gemm(x.contiguous(), idx, val, row_len)
+    return ref.sparse_gemm_ref(x, idx, val, row_len)
+
+
+def qdq_gemm(x: torch.Tensor, levels: torch.Tensor, scale: torch.Tensor,
+             cfg: Optional[DispatchConfig] = None) -> torch.Tensor:
+    """Serving entry for the QSGD-dequantize-fused GEMM: x [M, n], int8
+    levels [R, n], float32 scale [R, 1] -> [M, R] float32."""
+    if _resolve(cfg).kernels_enabled(x.device):
+        return _sgemm.qdq_gemm(x.contiguous(), levels, scale)
+    return ref.qdq_gemm_ref(x, levels, scale)
+
+
+def paged_decode(x: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
+                 kscale: torch.Tensor, vscale: torch.Tensor,
+                 tables: torch.Tensor, lengths: torch.Tensor,
+                 cfg: Optional[DispatchConfig] = None) -> torch.Tensor:
+    """Serving entry for paged decode attention: x [B, 1, H, hd] rope'd
+    queries against the page pool through block tables [B, P] and
+    lengths [B]; [B, 1, H, hd] either way."""
+    cfg = _resolve(cfg)
+    if cfg.kernels_enabled(x.device):
+        pb = paged_geometry(cfg, tables.shape[-1])
+        return _pa.paged_decode(x.contiguous(), kp, vp, kscale, vscale,
+                                tables, lengths, pages_per_block=pb)
+    return ref.paged_decode_ref(x, kp, vp, kscale, vscale, tables, lengths)
+
+
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 valid: torch.Tensor,
+                 cfg: Optional[DispatchConfig] = None) -> torch.Tensor:
+    """Serving entry for ring-cache decode attention: q [B, 1, H, hd]
+    against k, v [B, C, KV, hd] under the [B, C] (or [C]) slot mask."""
+    if _resolve(cfg).kernels_enabled(q.device):
+        return _fa.flash_decode(q.contiguous(), k, v, valid)
+    return ref.flash_decode_ref(q, k, v, valid)
 
 
 # ---------------------------------------------------------------------------

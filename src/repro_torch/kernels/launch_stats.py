@@ -14,7 +14,20 @@ LAUNCHES = {"topk_compress": 0, "topk_compact": 0, "qsgd": 0,
             "sparse_gemm": 0, "qdq_gemm": 0, "flash_decode": 0,
             "paged_decode": 0}
 
+#: serving page-pool gauges, refreshed by ``ServeEngine.step()`` when the
+#: paged KV runtime is active: pages used / free and peak, internal
+#: fragmentation (1 - live_tokens / (used_pages * page_size)),
+#: preemptions (recompute-from-start evictions) and admission stalls
+#: (queue head blocked on pages, not slots).
+PAGE_POOL = {"pages_used": 0, "pages_free": 0, "peak_pages_used": 0,
+             "fragmentation": 0.0, "preemptions": 0, "admission_stalls": 0}
+
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def reset_page_pool() -> None:
+    for k in PAGE_POOL:
+        PAGE_POOL[k] = 0.0 if k == "fragmentation" else 0

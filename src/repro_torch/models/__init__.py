@@ -1,3 +1,4 @@
 from repro_torch.models import resnet, softmax
+from repro_torch.models.api import get_model
 
-__all__ = ["resnet", "softmax"]
+__all__ = ["get_model", "resnet", "softmax"]

@@ -8,6 +8,11 @@ Compression dispatches to the CUDA kernels per ``RunConfig.dispatch``
 same-bucket leaves of all workers megabuffer-packed into one kernel
 launch per bucket per sync round.
 
+Compression comes from ``RunConfig.policy`` (a ``core.policy`` spec
+resolved per leaf against the parameters, uplink and optional downlink)
+or from the ``operator`` argument plus ``RunConfig.downlink_op``, as in
+``repro``.
+
 ``RunConfig`` keeps the ``repro`` fields that switch a module on.  Those
 whose modules have not been ported yet raise ``NotImplementedError``
 naming their ROADMAP item; the fields that only tune such a module
@@ -27,7 +32,7 @@ from typing import Any, Callable, Iterable, Optional, Union
 import numpy as np
 import torch
 
-from repro_torch.core import engine, schedule as sched
+from repro_torch.core import engine, policy as pol, schedule as sched
 from repro_torch.core.operators import CompressionOp
 from repro_torch.device import as_tensor, resolve_device
 from repro_torch.kernels.dispatch import DispatchConfig
@@ -51,11 +56,16 @@ class RunConfig:
     runtime: str = "step"   # "step"; "round" is ROADMAP queue 1 item 9
     overlap: bool = False
     tune: bool = False
-    policy: Optional[Union[str, CompressionOp, Any]] = None
+    # ``core.policy`` spec: PolicySpec / ChannelSpec / OpSpec or a DSL
+    # string; the ``operator`` argument and ``downlink_op`` then stay unset
+    policy: Optional[Union[str, pol.PolicySpec, pol.ChannelSpec,
+                           pol.OpSpec]] = None
     leaf_ledger: bool = False
     scenario: Optional[Any] = None
     aggregate: str = "mean_R"
-    downlink_op: Optional[CompressionOp] = None
+    # the pre-policy downlink knob (an operator or a spec string); prefer
+    # ``policy="<uplink> >> <downlink>"``
+    downlink_op: Optional[Union[CompressionOp, str]] = None
     faults: Optional[Any] = None
     resume: bool = False
 
@@ -65,8 +75,7 @@ class RunConfig:
 _NOT_YET = (
     ("runtime", "step", "queue 1 item 9 (round runtime)"),
     ("overlap", False, "queue 1 item 9 (round runtime, overlap)"),
-    ("policy", None, "queue 1 item 6 (core/policy.py)"),
-    ("leaf_ledger", False, "queue 1 item 6 (core/policy.py leaf groups)"),
+    ("leaf_ledger", False, "queue 1 item 5 (engine leaf_ledger)"),
     ("scenario", None, "queue 1 item 10 (scenarios)"),
     ("faults", None, "queue 1 item 10 (faults)"),
     ("tune", False, "queue 1 item 11 (kernels/autotune.py)"),
@@ -84,11 +93,32 @@ def _check_ported(run: RunConfig) -> None:
             raise NotImplementedError(
                 f"RunConfig.{field}={getattr(run, field)!r} is not ported "
                 f"to repro_torch yet: ROADMAP {item}")
-    if run.downlink_op is not None and not isinstance(run.downlink_op,
-                                                      CompressionOp):
-        raise NotImplementedError(
-            "RunConfig.downlink_op as a spec string needs core/policy.py: "
-            "ROADMAP queue 1 item 6; pass a CompressionOp")
+
+
+def resolve_run_channels(operator, run: RunConfig, params):
+    """(uplink_tree, downlink_tree | None) from ``run.policy``, or from
+    the ``operator`` argument and ``run.downlink_op`` (an operator or a
+    registry-validated spec string), as ``repro``'s trainer resolves
+    them."""
+    if run.policy is not None:
+        if operator is not None:
+            raise ValueError(
+                "pass the compression through RunConfig.policy OR the "
+                "operator argument, not both")
+        if run.downlink_op is not None:
+            raise ValueError(
+                "RunConfig.downlink_op conflicts with RunConfig.policy; "
+                "put the downlink in the policy ('uplink >> downlink')")
+        return pol.as_channel_spec(run.policy).resolve(params)
+    if operator is None:
+        raise ValueError("no compression configured: set RunConfig.policy "
+                         "or pass an operator")
+    downlink = run.downlink_op
+    if isinstance(downlink, str):
+        downlink = pol.resolve(downlink, params)
+    if isinstance(operator, (str, pol.OpSpec, pol.PolicySpec)):
+        operator = pol.resolve(operator, params)
+    return operator, downlink
 
 
 @dataclasses.dataclass
@@ -146,14 +176,12 @@ def train(
     cuda; raises when no GPU is present).  ``batches`` yields trees
     whose leaves lead with the worker axis (numpy or tensors)."""
     _check_ported(run)
-    if operator is None:
-        raise ValueError("no compression configured: pass an operator")
+    operator, downlink = resolve_run_channels(operator, run, params)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(run.seed)
     hist = History()
     t0 = time.time()
     dispatch = DispatchConfig(mode=run.dispatch, pack=run.pack)
-    downlink = run.downlink_op
     state = engine.init(params, inner_opt, run.R, downlink=downlink,
                         device=dev)
     mask = make_mask(run)

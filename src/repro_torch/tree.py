@@ -28,43 +28,67 @@ class TreeSpec:
 _LEAF = TreeSpec("leaf")
 
 
-def tree_flatten(tree, is_leaf: Optional[Callable[[Any], bool]] = None):
-    """(leaves, spec) in ``jax.tree_util`` order."""
-    leaves: list = []
-
-    def walk(node):
-        if is_leaf is not None and is_leaf(node):
-            leaves.append(node)
-            return _LEAF
-        if node is None:
-            return TreeSpec("none")
-        if isinstance(node, dict):
-            keys = sorted(node)
-            return TreeSpec("dict", keys, [walk(node[k]) for k in keys])
-        if isinstance(node, (list, tuple)):
-            kind = "list" if isinstance(node, list) else "tuple"
-            return TreeSpec(kind, None, [walk(c) for c in node])
+def _flatten(node, is_leaf, leaves: list) -> TreeSpec:
+    if is_leaf is not None and is_leaf(node):
         leaves.append(node)
         return _LEAF
+    if node is None:
+        return TreeSpec("none")
+    if isinstance(node, dict):
+        keys = sorted(node)
+        return TreeSpec("dict", keys,
+                        [_flatten(node[k], is_leaf, leaves) for k in keys])
+    if isinstance(node, (list, tuple)):
+        kind = "list" if isinstance(node, list) else "tuple"
+        return TreeSpec(kind, None,
+                        [_flatten(c, is_leaf, leaves) for c in node])
+    leaves.append(node)
+    return _LEAF
 
-    spec = walk(tree)
+
+def tree_flatten(tree, is_leaf: Optional[Callable[[Any], bool]] = None):
+    """(leaves, spec) in ``jax.tree_util`` order.  The walks here are
+    module-level functions, not nested closures: a recursive closure is a
+    reference cycle that would keep every leaf it saw (a whole dense
+    parameter tree) alive until the garbage collector runs."""
+    leaves: list = []
+    spec = _flatten(tree, is_leaf, leaves)
     return leaves, spec
 
 
+def _paths(s: TreeSpec, prefix: tuple, out: list) -> None:
+    if s.kind == "leaf":
+        out.append(prefix)
+    elif s.kind == "dict":
+        for k, c in zip(s.keys, s.children):
+            _paths(c, prefix + (k,), out)
+    elif s.kind in ("list", "tuple"):
+        for i, c in enumerate(s.children):
+            _paths(c, prefix + (i,), out)
+
+
+def tree_flatten_with_path(tree, is_leaf=None):
+    """([(path, leaf)], spec): each leaf with its key path (dict keys and
+    list / tuple indices, root first), in ``tree_flatten`` order."""
+    leaves, spec = tree_flatten(tree, is_leaf)
+    paths: list = []
+    _paths(spec, (), paths)
+    return list(zip(paths, leaves)), spec
+
+
+def _build(s: TreeSpec, it):
+    if s.kind == "leaf":
+        return next(it)
+    if s.kind == "none":
+        return None
+    kids = [_build(c, it) for c in s.children]
+    if s.kind == "dict":
+        return dict(zip(s.keys, kids))
+    return kids if s.kind == "list" else tuple(kids)
+
+
 def tree_unflatten(spec: TreeSpec, leaves):
-    it = iter(leaves)
-
-    def build(s: TreeSpec):
-        if s.kind == "leaf":
-            return next(it)
-        if s.kind == "none":
-            return None
-        kids = [build(c) for c in s.children]
-        if s.kind == "dict":
-            return dict(zip(s.keys, kids))
-        return kids if s.kind == "list" else tuple(kids)
-
-    return build(spec)
+    return _build(spec, iter(leaves))
 
 
 def tree_leaves(tree, is_leaf=None) -> list:

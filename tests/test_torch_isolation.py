@@ -13,7 +13,8 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "src", "repro_torch")
 SMOKE = os.path.join(REPO, "chip_smoke.py")
-TOOLS = [os.path.join(REPO, "tools", "profile_torch_sync.py")]
+TOOLS = [os.path.join(REPO, "tools", f) for f in
+         ("profile_torch_sync.py", "profile_torch_serve.py")]
 
 
 def port_files() -> list:

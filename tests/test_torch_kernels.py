@@ -171,3 +171,144 @@ def test_qsgd_kernel_matches_plain_on_card(cuda):
     torch.cuda.synchronize()
     far = ~torch.isclose(out, out_r, rtol=1e-6, atol=0)
     assert int(far.sum()) <= 16
+
+
+# ---------------------------------------------------------------------------
+# the serving kernels on the card, at Yi-6B's shapes: each against its
+# plain version with TF32 off.  Tolerances: the GEMMs sum float32
+# products in another order, within 1e-5 of the largest output; decode
+# attention within 1e-5 in float32 and one bfloat16 rounding (2^-7 of
+# the largest output) in bfloat16; length-0 rows exactly zero.
+# ---------------------------------------------------------------------------
+
+
+def compact_buffers(g, R, n, k, kcap, device):
+    """Ascending random survivors per row (k of them, one row empty),
+    the sentinel (n, 0) after them: the layout compress_tree builds."""
+    idx = torch.full((R, kcap), n, dtype=torch.int32, device=device)
+    keys = torch.rand((R, n), generator=g, device=device)
+    top = torch.sort(torch.topk(keys, k, dim=1).indices, dim=1).values
+    idx[:, :k] = top.to(torch.int32)
+    idx[0] = n
+    val = torch.zeros((R, kcap), device=device)
+    val[:, :k] = torch.randn((R, k), generator=g, device=device)
+    val[0] = 0.0
+    return idx, val
+
+
+def _close_to_scale(out, want, rtol, scale):
+    torch.testing.assert_close(out.float(), want.float(), rtol=rtol,
+                               atol=scale * float(want.float().abs().max()))
+
+
+@pytest.fixture
+def exact_f32(cuda):
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield cuda
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,R,n,k", [
+    (8, 11008, 4096, 41),       # w1 / w3 at decode
+    (8, 4096, 11008, 110),      # w2 at decode
+    (128, 512, 4096, 41),       # wk / wv at prefill
+    (1, 4096, 4096, 41)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sparse_gemm_kernel_matches_plain_on_card(exact_f32, M, R, n, k,
+                                                  dtype):
+    from repro_torch.kernels.sparse_gemm import sparse_gemm
+    g = torch.Generator(device=exact_f32).manual_seed(M + R)
+    idx, val = compact_buffers(g, R, n, k, 128, exact_f32)
+    x = torch.randn((M, n), generator=g, device=exact_f32).to(dtype)
+    y = sparse_gemm(x, idx, val, n)
+    want = ref.sparse_gemm_ref(x, idx, val, n)
+    torch.cuda.synchronize()
+    _close_to_scale(y, want, 1e-5, 1e-5)
+    assert not y[:, 0].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 8, 13])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_qdq_gemm_kernel_matches_plain_on_card(exact_f32, M, dtype):
+    from repro_torch.kernels.sparse_gemm import qdq_gemm
+    g = torch.Generator(device=exact_f32).manual_seed(M)
+    R, n = 64000, 4096
+    lv = torch.randint(-15, 16, (R, n), generator=g, device=exact_f32,
+                       dtype=torch.int8)
+    scale = torch.rand((R, 1), generator=g, device=exact_f32)
+    x = torch.randn((M, n), generator=g, device=exact_f32).to(dtype)
+    y = qdq_gemm(x, lv, scale)
+    want = ref.qdq_gemm_ref(x, lv, scale)
+    torch.cuda.synchronize()
+    _close_to_scale(y, want, 1e-5, 1e-5)
+
+
+def paged_case(g, device, dtype, quant, B=8, H=32, KV=4, hd=128, ps=16,
+               P=32, n_pages=256):
+    """A Yi-6B decode batch on a page pool: a free slot (length 0), a
+    full row, partial rows, -1 entries past each row's pages."""
+    q = torch.randn((B, 1, H, hd), generator=g, device=device).to(dtype)
+    shape = (n_pages, ps, KV, hd)
+    if quant:
+        kp = torch.randint(-127, 128, shape, generator=g, device=device,
+                           dtype=torch.int8)
+        vp = torch.randint(-127, 128, shape, generator=g, device=device,
+                           dtype=torch.int8)
+        ks = torch.rand((n_pages, ps), generator=g, device=device) * 0.02
+        vs = torch.rand((n_pages, ps), generator=g, device=device) * 0.02
+    else:
+        kp = torch.randn(shape, generator=g, device=device).to(dtype)
+        vp = torch.randn(shape, generator=g, device=device).to(dtype)
+        ks = torch.zeros((n_pages, ps), device=device)
+        vs = torch.zeros((n_pages, ps), device=device)
+    lengths = torch.randint(1, P * ps + 1, (B,), generator=g, device=device,
+                            dtype=torch.int32)
+    lengths[0], lengths[1] = 0, P * ps
+    perm = torch.randperm(n_pages, generator=g, device=device)[:B * P]
+    tables = perm.reshape(B, P).to(torch.int32)
+    need = (lengths + ps - 1) // ps
+    cols = torch.arange(P, device=device)[None, :]
+    tables = torch.where(cols < need.clamp(min=1)[:, None], tables,
+                         torch.full_like(tables, -1))
+    return q, kp, vp, ks, vs, tables, lengths
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pb", [1, 4])
+def test_paged_decode_kernel_matches_plain_on_card(cuda, quant, dtype, pb):
+    from repro_torch.kernels.paged_attention import paged_decode
+    g = torch.Generator(device=cuda).manual_seed(int(quant) + pb)
+    args = paged_case(g, cuda, dtype, quant)
+    out = paged_decode(*args, pages_per_block=pb)
+    want = ref.paged_decode_ref(*args)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype
+    assert not out[0].any()                   # length 0: exact zeros
+    _close_to_scale(out, want, 2 ** -7 if dtype == torch.bfloat16 else 1e-5,
+                    2 ** -7 if dtype == torch.bfloat16 else 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("per_row", [False, True])
+def test_flash_decode_kernel_matches_plain_on_card(cuda, dtype, per_row):
+    from repro_torch.kernels.flash_attention import flash_decode
+    g = torch.Generator(device=cuda).manual_seed(int(per_row))
+    B, H, KV, hd, C = 8, 32, 4, 128, 512
+    q = torch.randn((B, 1, H, hd), generator=g, device=cuda).to(dtype)
+    k = torch.randn((B, C, KV, hd), generator=g, device=cuda).to(dtype)
+    v = torch.randn((B, C, KV, hd), generator=g, device=cuda).to(dtype)
+    lengths = torch.randint(1, C + 1, (B, 1), generator=g, device=cuda)
+    valid = torch.arange(C, device=cuda)[None, :] < lengths
+    if not per_row:
+        valid = valid[0]
+    out = flash_decode(q, k, v, valid)
+    want = ref.flash_decode_ref(q, k, v, valid)
+    torch.cuda.synchronize()
+    _close_to_scale(out, want, 2 ** -7 if dtype == torch.bfloat16 else 1e-5,
+                    2 ** -7 if dtype == torch.bfloat16 else 1e-5)

@@ -133,10 +133,10 @@ def _tiny_run(**kw):
 
 
 @pytest.mark.parametrize("kw", [
-    {"runtime": "round"}, {"overlap": True}, {"policy": "topk:k=0.01"},
+    {"runtime": "round"}, {"overlap": True},
     {"leaf_ledger": True}, {"scenario": "preset:stragglers"},
     {"faults": "preset:none"}, {"tune": True}, {"ckpt_dir": "ckpt"},
-    {"resume": True}, {"downlink_op": "topk"},
+    {"resume": True},
 ])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
