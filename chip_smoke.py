@@ -28,7 +28,19 @@ Phases, each of which exits non-zero on failure:
    all through the decode-attention kernels, 16 requests of 64-128
    prompt tokens and 64 new tokens each, with the launch counts per
    step and the serving metrics; then the yi-6b smoke model in float32
-   served with dispatch "kernel" against "reference" (same tokens).
+   served with dispatch "kernel" against "reference" (same tokens);
+6. the distributed LM training path: ``topk_compact`` and
+   ``topk_compress`` against their plain versions at gemma3-1b's shapes
+   (step 3's checks and times), then the port's launcher
+   ``repro_torch.launch.train`` on gemma3-1b at full width and depth
+   (999,812,736 parameters, random weights from a seed) under its
+   ``lm_hetero`` policy, R = 1 (``--mesh 1x1``, NCCL), batch 2 of 2048
+   tokens, 8 steps at H = 4, once on the ``sparse_allgather`` wire and
+   once on ``dense_psum``, asserting 7 ``topk_compact`` /
+   ``topk_compress`` launches per sync; then the gemma3-1b smoke model at
+   R = 2 ranks sharing the card over gloo, spawned from here: dispatch
+   "kernel" against "reference" (same losses, equal wire bits) and the
+   sparse wire against the dense one (masters within 1e-5).
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX
@@ -59,6 +71,12 @@ SERVE = {"max_batch": 8, "max_len": 512, "prompt_pad": 128, "page_size": 16,
 #: Top_k matmuls in each of 32 layers, the QSGD head once, one decode
 #: attention per layer
 YI_LAYERS = 32
+#: the LM training run: gemma3-1b at full size through the launcher
+LM = {"arch": "gemma3-1b", "batch": 2, "seq": 2048, "steps": 8, "H": 4,
+      "n_params": 999_812_736, "topk_stacks": 7}
+#: the multi-rank agreement run: the gemma3-1b smoke model, ranks sharing
+#: the one card over gloo
+LM_RANKS = {"ranks": 2, "steps": 8, "H": 2}
 #: the kernel each operator must launch, and how often per sync round
 WANT_PER_SYNC = {"RowSignTopK": ("topk_compress", 1),
                  "TopK": ("topk_compress", 5), "QSGD": ("qsgd", 5)}
@@ -720,6 +738,232 @@ def phase_serve_agreement(dev):
           f"paged / paged-int8 / contiguous", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the distributed LM training path
+# ---------------------------------------------------------------------------
+
+
+def check_compact(dev, rows: int, n: int, k: int, kcap: int, sign: bool,
+                  reps: int, ties: bool = False):
+    """topk_compact against its plain version: idx, counts and sentinels
+    exactly; plain Top_k values and memory bit for bit; SignTop_k values
+    within rtol 1e-6 (its norm is a float sum in another order) and the
+    memory at the emitted slots within that error, exact elsewhere.
+    ``ties``: rows of equal magnitudes, every element a survivor, so the
+    first kcap are emitted and the rest stay in the memory."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.topk_compress import topk_compact
+    g = torch.Generator(device=dev).manual_seed(rows + n + k)
+    if ties:
+        x = torch.where(torch.rand((rows, n), generator=g, device=dev) < 0.5,
+                        -1.5, 1.5)
+        x[:, :5] = 3.0
+    else:
+        x = torch.randn((rows, n), generator=g, device=dev)
+    idx, val, mem, cnt = topk_compact(x, k, kcap, sign=sign)
+    idx_r, val_r, mem_r, cnt_r = ref.topk_compact_ref(x, k, kcap, sign=sign)
+    torch.cuda.synchronize()
+    what = f"topk_compact {rows}x{n} k={k} sign={sign} ties={ties}"
+    if not (torch.equal(cnt, cnt_r) and torch.equal(idx, idx_r)):
+        raise AssertionError(f"{what}: slots or counts differ")
+    empty = torch.arange(kcap, device=dev)[None, :] >= cnt[:, None]
+    if not (bool((idx[empty] == n).all()) and bool((val[empty] == 0).all())):
+        raise AssertionError(f"{what}: sentinels wrong")
+    if ties and not bool((cnt == kcap).all()):
+        raise AssertionError(f"{what}: the tied rows did not fill kcap")
+    err = max(float((val - val_r).abs().max()),
+              float((mem - mem_r).abs().max()))
+    if sign:
+        torch.testing.assert_close(val, val_r, rtol=1e-6, atol=0)
+        emitted = torch.zeros_like(x, dtype=torch.bool)
+        at = torch.arange(rows, device=dev)[:, None].expand_as(idx)
+        emitted[at[~empty], idx[~empty].long()] = True
+        if not torch.equal(mem[~emitted], mem_r[~emitted]):
+            raise AssertionError(f"{what}: memory off the emitted slots")
+        torch.testing.assert_close(
+            mem[emitted], mem_r[emitted], rtol=1e-6,
+            atol=1e-6 * float(val_r.abs().max()))
+    elif err != 0.0:
+        raise AssertionError(f"{what}: values differ by {err}")
+    out = {"shape": [rows, n], "k": k, "kcap": kcap, "sign": sign,
+           "ties": ties, "max_abs_err": err,
+           "survivors": int(cnt.sum())}
+    del idx, val, mem, cnt, idx_r, val_r, mem_r, cnt_r
+    if reps:
+        out["ms"] = time_ms(lambda: topk_compact(x, k, kcap, sign=sign),
+                            reps)
+        out["plain_ms"] = time_ms(
+            lambda: ref.topk_compact_ref(x, k, kcap, sign=sign), 2)
+        out["library_ms"] = time_ms(lambda: torch.topk(x.abs(), k, dim=1),
+                                    reps)
+        elems, iters = rows * n, 24
+        out["bound_ms"], out["bound_by"] = bound_ms(
+            8.0 * elems + 8.0 * rows * kcap + 4.0 * rows,
+            3.0 * (iters + 4) * elems)
+    return out
+
+
+def phase_lm_kernels(dev):
+    """The compression kernels at the LM path's shapes (gemma3-1b under
+    lm_hetero compresses each stack along its 1152-wide axis, k 12, kcap
+    128): topk_compact (the sparse wire) at w1 / w2 / w3's 179,712 rows,
+    sign and not, at the 26,624 rows of wq / wo, and on a heavy-tie block
+    that overflows kcap; topk_compress (the dense wire) at w1's rows."""
+    rows = [check_compact(dev, 179712, 1152, 12, 128, False, 10),
+            check_compact(dev, 179712, 1152, 12, 128, True, 10),
+            check_compact(dev, 26624, 1152, 12, 128, False, 10),
+            check_compact(dev, 4096, 1152, 12, 128, False, 0, ties=True),
+            check_compact(dev, 4096, 1152, 12, 128, True, 0, ties=True)]
+    for row in rows:
+        print("kernel check topk_compact", json.dumps(row), flush=True)
+    dense = check_topk(dev, 179712, 1152, 12, False, 10)
+    print("kernel check topk_compress", json.dumps(dense), flush=True)
+    return rows
+
+
+def lm_run(wire: str, dev):
+    """The launcher on gemma3-1b at full size, R = 1: returns its record
+    and the launches it made (counted from 0 at its start)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.launch_stats import LAUNCHES, reset_launches
+    from repro_torch.launch import train as lt
+    argv = ["--arch", LM["arch"], "--mesh", "1x1", "--policy", "preset:arch",
+            "--batch", str(LM["batch"]), "--seq", str(LM["seq"]),
+            "--steps", str(LM["steps"]), "--H", str(LM["H"]),
+            "--wire", wire, "--dispatch", DISPATCH]
+    torch.cuda.synchronize()
+    reset_launches()
+    rec = lt.main(argv)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    torch.cuda.empty_cache()
+    kinds = rec["kind"]
+    n_syncs = kinds.count("sync")
+    kern = "topk_compact" if wire == "sparse_allgather" else "topk_compress"
+    want = {kern: LM["topk_stacks"] * n_syncs}
+    for k, v in launches.items():
+        if v != want.get(k, 0):
+            raise AssertionError(f"LM {wire}: {v} {k} launches in {n_syncs} "
+                                 f"syncs, want {want.get(k, 0)}")
+    if rec["n_params"] != LM["n_params"]:
+        raise AssertionError(f"gemma3-1b has {rec['n_params']} parameters")
+    if not all(np.isfinite(rec["loss"])):
+        raise AssertionError(f"LM {wire}: loss not finite: {rec['loss']}")
+    ups, prev = [], 0.0
+    for kind, b in zip(kinds, rec["bits_up"]):
+        if kind == "sync":
+            ups.append(b - prev)
+        prev = b
+    local = [ms for ms, kd in zip(rec["ms"], kinds) if kd == "local"]
+    sync = [ms for ms, kd in zip(rec["ms"], kinds) if kd == "sync"]
+    row = {"wire": wire, "loss": rec["loss"], "ms_per_step": rec["ms"],
+           "ms_per_local_step": float(np.mean(local[1:] or local)),
+           "ms_per_sync_step": float(np.mean(sync)),
+           "bits_up_per_sync": ups, "bits_down": rec["bits_down"][-1],
+           "peak_device_bytes": rec["peak_device_bytes"],
+           "launches_per_sync": {k: v / n_syncs for k, v in launches.items()
+                                 if v},
+           "launches": {k: v for k, v in launches.items() if v}}
+    print("lm", json.dumps(row), flush=True)
+    return row, launches
+
+
+def phase_lm(dev):
+    """gemma3-1b through the launcher on both wires; the uplink bits of
+    each sync agree between them to the float rounding of the counted
+    survivors (the same survivors, one ledger in another layout)."""
+    sparse, launches = lm_run("sparse_allgather", dev)
+    dense, dense_launches = lm_run("dense_psum", dev)
+    for a, b in zip(sparse["bits_up_per_sync"], dense["bits_up_per_sync"]):
+        # one float32 rounding of a ledger near 4e8 bits is 32 bits
+        if abs(a - b) > 2.0 ** -23 * max(abs(a), abs(b)):
+            raise AssertionError(f"uplink bits per sync: sparse {a} vs "
+                                 f"dense {b}")
+    diff = max(abs(a - b) for a, b in zip(sparse["bits_up_per_sync"],
+                                          dense["bits_up_per_sync"]))
+    print(f"lm wires: uplink bits per sync differ by at most {diff} "
+          f"(sparse {sparse['bits_up_per_sync']}, dense "
+          f"{dense['bits_up_per_sync']})", flush=True)
+    return {k: launches[k] + dense_launches[k] for k in launches}
+
+
+def _rank_run(tmp: str, tag: str, wire: str, dispatch: str) -> dict:
+    """The launcher on the gemma3-1b smoke model at LM_RANKS ranks sharing
+    the card over gloo: rank 0's run record (--json) and the path of its
+    master (--ckpt)."""
+    from repro_torch.launch.mesh import run_local_ranks
+    ckpt, record = os.path.join(tmp, tag), os.path.join(tmp, tag + ".json")
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           LM["arch"], "--smoke", "--mesh", f"{LM_RANKS['ranks']}x1",
+           "--steps", str(LM_RANKS["steps"]), "--H", str(LM_RANKS["H"]),
+           "--policy", "preset:arch", "--backend", "gloo", "--wire", wire,
+           "--dispatch", dispatch, "--ckpt", ckpt, "--json", record]
+    env = dict(os.environ, PYTHONPATH=SRC)
+    ranks = run_local_ranks(cmd, LM_RANKS["ranks"], env=env, timeout=300)
+    for r, (rc, _out, err) in enumerate(ranks):
+        if rc != 0:
+            raise AssertionError(f"rank {r} of {tag} exited {rc}:\n"
+                                 f"{err[-3000:]}")
+    with open(record) as f:
+        rec = json.load(f)
+    if len(rec["loss"]) != LM_RANKS["steps"] or rec["R"] != LM_RANKS["ranks"]:
+        raise AssertionError(f"{tag}: {len(rec['loss'])} steps, R={rec['R']}")
+    rec["ckpt"] = ckpt
+    return rec
+
+
+def phase_lm_ranks(dev):
+    """Multi-rank agreement on the one card (the collective path with
+    R > 1): dispatch "kernel" (the CUDA kernels) against "reference"
+    (their plain versions) gives the same losses and equal wire bits on
+    the sparse wire; the sparse wire against the dense one gives equal
+    bits and masters within rtol 1e-5 / atol 1e-6 (the mean of R
+    payloads summed in another order)."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import checkpoint
+    from repro_torch.tree import tree_leaves
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=os.path.join(
+            SRC, "repro_torch", "kernels", "build")) as tmp:
+        runs = {tag: _rank_run(tmp, tag, wire, dispatch)
+                for tag, wire, dispatch in (
+                    ("sparse_kernel", "sparse_allgather", "kernel"),
+                    ("sparse_reference", "sparse_allgather", "reference"),
+                    ("dense_kernel", "dense_psum", "kernel"))}
+        k, r, d = (runs[t] for t in ("sparse_kernel", "sparse_reference",
+                                     "dense_kernel"))
+        if k["bits_up"] != r["bits_up"] or k["bits_up"] != d["bits_up"]:
+            raise AssertionError(f"multi-rank bits differ: {k['bits_up']} / "
+                                 f"{r['bits_up']} / {d['bits_up']}")
+        np.testing.assert_allclose(k["loss"], r["loss"], rtol=1e-5)
+        launched = [sum(c.values()) for c in r["launches_per_sync"]] + [
+            c["topk_compact"] - LM["topk_stacks"]
+            for c in k["launches_per_sync"]]
+        if any(launched):
+            raise AssertionError(
+                f"multi-rank launches: {k['launches_per_sync']} / "
+                f"{r['launches_per_sync']}")
+        like = tf.init_params(torch.Generator().manual_seed(0),
+                              get_config(LM["arch"], smoke=True),
+                              device="cpu")
+        masters = {t: tree_leaves(checkpoint.restore(runs[t]["ckpt"], like))
+                   for t in ("sparse_kernel", "dense_kernel")}
+        err = 0.0
+        for a, b in zip(masters["sparse_kernel"], masters["dense_kernel"]):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+            err = max(err, float((a - b).abs().max()))
+    print(f"lm ranks: R={LM_RANKS['ranks']} on one card over gloo, "
+          f"kernel vs reference losses {k['loss']} / {r['loss']}, bits "
+          f"equal ({k['bits_up'][-1]}), sparse vs dense masters within "
+          f"{err:.3g}, {time.perf_counter() - t0:.1f}s", flush=True)
+
+
 
 def main() -> int:
     import torch
@@ -757,13 +1001,17 @@ def main() -> int:
     phase_small_agreement(dev)
     serve_totals = phase_serve(dev)
     phase_serve_agreement(dev)
+    compact = phase_lm_kernels(dev)
+    lm_totals = phase_lm(dev)
+    phase_lm_ranks(dev)
 
     head_topk, head_qsgd = topk[1], qsgd[0]
     kernels = [
         {"name": "topk_compress", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/topk_compress.cu",
          "replaces": "src/repro/kernels/topk_compress.py:86",
-         "launches": totals["topk_compress"], **{
+         "launches": totals["topk_compress"] + lm_totals["topk_compress"],
+         **{
              k: head_topk[k] for k in ("max_abs_err", "ms", "plain_ms",
                                        "bound_ms", "bound_by",
                                        "library_ms")},
@@ -791,6 +1039,15 @@ def main() -> int:
                 k: head[k] for k in ("max_abs_err", "ms", "plain_ms",
                                      "bound_ms", "bound_by", "library_ms")},
             "shape": head["shape"]})
+    head = compact[0]
+    kernels.append({
+        "name": "topk_compact", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/topk_compact.cu",
+        "replaces": "src/repro/kernels/topk_compress.py:183",
+        "launches": lm_totals["topk_compact"], **{
+            k: head[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms")},
+        "shape": head["shape"]})
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} never launched on the path")

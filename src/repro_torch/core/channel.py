@@ -1,8 +1,8 @@
 """The compression *channel*: one abstraction for everything that
 crosses the wire, in either direction (DESIGN.md §5).
 
-A port of ``repro.core.channel`` (``ShardChannel``, the distributed
-engine's channel, comes with the distributed slice).  A Channel holds
+A port of ``repro.core.channel``: ``Channel`` for the single-process
+engine and ``ShardChannel`` for the distributed one.  A Channel holds
 the static policy — an operator (or tree of operators, Corollary 1), a
 kernel-dispatch policy and a direction tag — plus the error-feedback
 algebra
@@ -103,3 +103,38 @@ def as_channel(op_or_channel, direction: str, dispatch=None) -> Channel:
         return op_or_channel
     return Channel(operator=op_or_channel, direction=direction,
                    dispatch=dispatch)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardChannel:
+    """Channel of the distributed engine: wraps a
+    ``core.distributed.ShardCompressor`` (spec-aware, per-leaf
+    compression) with the same error-feedback algebra and direction tag.
+    Duck-typed, to keep channel and distributed free of an import cycle;
+    ``compressor`` None means Identity."""
+
+    compressor: Any
+    direction: str = "uplink"
+
+    def is_identity(self) -> bool:
+        return self.compressor is None or self.compressor.is_identity()
+
+    def init_memory(self, tree):
+        return tree_map(lambda x: torch.zeros(
+            x.shape, dtype=torch.float32, device=x.device), tree)
+
+    def apply(self, acc, param_specs, rng=None):
+        """Dense-form error-compensated compression of ``acc``:
+        ``(q, new_memory, bits)`` with ``q + new_memory == acc``.  ``rng``
+        feeds the stochastic operators of a heterogeneous policy."""
+        q, bits = self.compressor(acc, param_specs, rng=rng)
+        new_mem = tree_map(lambda a, g: a - g, acc, q)
+        return q, new_mem, bits
+
+    def compact(self, acc, param_specs, rng=None):
+        """Compact wire form (DESIGN.md §3.3): ``ShardCompressor.compact``'s
+        (payloads, spec, bits, memory)."""
+        return self.compressor.compact(acc, param_specs, rng=rng)
+
+    def dense_bits(self, tree, value_bits: int = 32) -> float:
+        return bitlib.bits_dense_tree(tree, value_bits)

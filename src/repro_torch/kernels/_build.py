@@ -41,6 +41,9 @@ SIGNATURES = {
     # acc, sel, mem, cnt, rows, n, k, iters, sign, stream
     "qs_topk_compress_f32": [_P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32,
                              _P],
+    # acc, idx, val, mem, cnt, rows, n, k, kcap, iters, sign, stream
+    "qs_topk_compact_f32": [_P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32,
+                            _I32, _P],
     # x, u, out, rows, n, s, stream
     "qs_qsgd_quantize_f32": [_P, _P, _P, _I64, _I64, _I32, _P],
     # x, idx, val, out, M, R, n, kcap, x_bf16, stream

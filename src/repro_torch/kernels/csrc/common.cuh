@@ -1,5 +1,6 @@
-// Block-wide reductions shared by the compression kernels, and the
-// float32 <-> storage-type conversions shared by the serving kernels.
+// Block-wide reductions, the block-wide prefix scan and the bisection
+// threshold shared by the compression kernels, and the float32 <->
+// storage-type conversions shared by the serving kernels.
 //
 // Each reduction reduces within a warp by shuffles, writes one partial
 // per warp to shared memory and lets every thread add the partials up,
@@ -55,6 +56,73 @@ __device__ __forceinline__ float block_max(float v, float* scratch) {
 #pragma unroll
   for (int w = 1; w < THREADS / 32; ++w) total = fmaxf(total, scratch[w]);
   return total;
+}
+
+// Exclusive prefix sum of one int per thread, in thread order; every
+// thread also leaves with the block's total.  Same scratch discipline as
+// the reductions above (alternate rows between consecutive calls).
+template <int THREADS>
+__device__ __forceinline__ int block_exclusive_scan(int v, int* scratch,
+                                                    int& total) {
+  static_assert(THREADS % 32 == 0 && THREADS <= 1024, "block size");
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int incl = v;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int t = __shfl_up_sync(FULL, incl, off);
+    if (lane >= off) incl += t;
+  }
+  if (lane == 31) scratch[warp] = incl;
+  __syncthreads();
+  int before = 0;
+  total = 0;
+#pragma unroll
+  for (int w = 0; w < THREADS / 32; ++w) {
+    const int s = scratch[w];
+    before += w < warp ? s : 0;
+    total += s;
+  }
+  return before + incl - v;
+}
+
+// The survivor threshold of repro's Top_k kernels (topk_compress.py
+// _bisect_threshold), shared by topk_compress and topk_compact so that
+// the two cannot drift: hi = max|x|, lo = 0; `iters` rounds of
+// mid = 0.5f*(lo+hi) and an int32 count of |x| >= mid (count > k raises
+// lo, else lowers hi); thr = count(|x| >= hi) >= k ? hi : lo.  Every
+// count is a block-wide integer reduction, so the threshold is
+// bit-identical to the plain version.  `value(i)` reads element i of
+// the row; int reductions alternate over iscratch's rows starting at
+// `buf` (updated), the max uses `fscratch`.
+template <int THREADS, typename ValueFn>
+__device__ __forceinline__ float bisect_threshold(ValueFn value, long long n,
+                                                  int k, int iters,
+                                                  int (&iscratch)[2][32],
+                                                  float* fscratch,
+                                                  int& buf) {
+  float m = 0.0f;
+  for (long long i = threadIdx.x; i < n; i += THREADS)
+    m = fmaxf(m, fabsf(value(i)));
+  float hi = block_max<THREADS>(m, fscratch);
+  float lo = 0.0f;
+  auto count_ge = [&](float t) -> int {
+    int c = 0;
+    for (long long i = threadIdx.x; i < n; i += THREADS)
+      c += fabsf(value(i)) >= t;
+    c = block_sum<THREADS>(c, iscratch[buf]);
+    buf ^= 1;
+    return c;
+  };
+  for (int it = 0; it < iters; ++it) {
+    const float mid = 0.5f * (lo + hi);
+    if (count_ge(mid) > k) {
+      lo = mid;
+    } else {
+      hi = mid;
+    }
+  }
+  return count_ge(hi) >= k ? hi : lo;
 }
 
 // jnp.sign / torch.sign for finite floats: -1, 0 or +1

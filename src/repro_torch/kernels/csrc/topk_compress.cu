@@ -27,9 +27,10 @@
 // (mostly L2) on every pass, with 1024 threads; that path is right but
 // not fast, and is left for a later change (a cluster of blocks sharing
 // one row through distributed shared memory would keep it on chip).
-// Every count is a block-wide integer reduction (warp reduce + shared
-// memory), so the threshold is bit-identical to the plain version; only
-// the SignTop_k norm is a float sum in another order.
+// The threshold is common.cuh's bisect_threshold, shared with
+// topk_compact: every count is a block-wide integer reduction, so it is
+// bit-identical to the plain version; only the SignTop_k norm is a
+// float sum in another order.
 #include <cuda_runtime.h>
 
 #include "common.cuh"
@@ -59,29 +60,9 @@ topk_compress_kernel(const float* __restrict__ acc, float* __restrict__ sel,
     return SMEM ? row_smem[i] : __ldg(src + i);
   };
 
-  float m = 0.0f;
-  for (long long i = tid; i < n; i += THREADS) m = fmaxf(m, fabsf(value(i)));
-  float hi = qs::block_max<THREADS>(m, fscratch[0]);
-  float lo = 0.0f;
-
   int buf = 0;
-  auto count_ge = [&](float t) -> int {
-    int c = 0;
-    for (long long i = tid; i < n; i += THREADS) c += fabsf(value(i)) >= t;
-    c = qs::block_sum<THREADS>(c, iscratch[buf]);
-    buf ^= 1;
-    return c;
-  };
-
-  for (int it = 0; it < iters; ++it) {
-    const float mid = 0.5f * (lo + hi);
-    if (count_ge(mid) > k) {
-      lo = mid;
-    } else {
-      hi = mid;
-    }
-  }
-  const float thr = count_ge(hi) >= k ? hi : lo;
+  const float thr = qs::bisect_threshold<THREADS>(value, n, k, iters,
+                                                  iscratch, fscratch[0], buf);
 
   int c = 0;
   float sq = 0.0f;

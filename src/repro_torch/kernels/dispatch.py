@@ -18,6 +18,11 @@ same dense output, same wire-bit accounting either way.
   ``QSGDQuantizer``         ``qsgd`` single bucket, given uniforms
   ========================  =======================================
 
+The Top_k family also has a compact wire form (``compact_rows``,
+``compact_compress``): ``topk_compact`` writes ``(idx, val)`` survivor
+slots and the fused memory, for the distributed ``sparse_allgather``
+sync (DESIGN.md §3.3).
+
 The serving entries (``sparse_gemm``, ``qdq_gemm``, ``paged_decode``,
 ``flash_decode``) route the same way on their activations' device: the
 hand-written kernel, or the kernel's plain version (``ref.py``) under
@@ -82,6 +87,9 @@ class DispatchConfig:
           "reference" — never dispatch (pure core/operators.py)
     min_size: smallest leaf (elements) worth a kernel launch in "auto"
     max_row:  longest kernel row (elements)
+    max_cap:  largest compact survivor capacity (slots per row) routed to
+          ``topk_compact`` (``repro``'s bound, kept so the same leaves
+          take the same path)
     block_rows: kernel geometry where a kernel has one (``paged_decode``'s
           pages per tile); None takes the kernel's default.  ``repro``
           resolves it through its autotune table first, which is not
@@ -93,6 +101,7 @@ class DispatchConfig:
     mode: str = "auto"
     min_size: int = 1 << 16
     max_row: int = 1 << 19
+    max_cap: int = 1 << 11
     block_rows: Optional[int] = None
     pack: bool = True
 
@@ -354,6 +363,37 @@ def topk_rows(rows: torch.Tensor, k: int, *, sign: bool = False,
     return _topk.topk_compress(rows.contiguous(), k, sign=sign)
 
 
+def compact_rows_eligible(row_len: int, kcap: int,
+                          cfg: Optional[DispatchConfig] = None,
+                          leaf_size: Optional[int] = None,
+                          device=None) -> bool:
+    """Can [rows, row_len] blocks go through the *compact* kernel?  The
+    dense row policy plus the survivor-capacity bound."""
+    cfg = _resolve(cfg)
+    return (rows_eligible(row_len, cfg, leaf_size, device)
+            and kcap <= cfg.max_cap)
+
+
+def compact_rows(rows: torch.Tensor, k: int, kcap: int, *,
+                 sign: bool = False, cfg: Optional[DispatchConfig] = None,
+                 leaf_size: Optional[int] = None):
+    """Compact Top_k / SignTop_k over pre-shaped [rows, n] blocks: the
+    kernel when :func:`compact_rows_eligible` on the rows' device, else
+    its plain version; the same outputs either way.
+
+    Returns (idx [rows, kcap] int32, val [rows, kcap] float32,
+    new_mem [rows, n] float32, cnt [rows] int32); empty slots carry the
+    out-of-row sentinel (idx = n, val = 0), DESIGN.md §3.3.  The launch
+    geometry is the kernel's own (``repro``'s autotuned ``block_rows`` /
+    ``chunk`` waits for the autotuner, ROADMAP queue 1 item 11).
+    """
+    n = rows.shape[1]
+    if compact_rows_eligible(n, kcap, cfg, leaf_size, rows.device):
+        return _topk.topk_compact(rows.to(torch.float32).contiguous(), k,
+                                  kcap, sign=sign)
+    return ref.topk_compact_ref(rows, k, kcap, sign=sign)
+
+
 # ---------------------------------------------------------------------------
 # compact buffers and the serving kernels
 # ---------------------------------------------------------------------------
@@ -370,6 +410,87 @@ def decode_rows(idx: torch.Tensor, val: torch.Tensor,
     out.scatter_add_(1, idx.to(torch.int64).clamp(0, row_len),
                      val.to(torch.float32))
     return out[:, :row_len]
+
+
+TOPK_FAMILY = ("topk_global", "row_topk", "signtopk_global", "row_signtopk")
+
+
+@dataclasses.dataclass(frozen=True)
+class CompactLeaf:
+    """One leaf in compact wire form (DESIGN.md §3.3).
+
+    idx / val are [rows, kcap] survivor buffers (rows = 1 for the global
+    operators); slot j of row r holds the j-th surviving coordinate of
+    that row in ascending index order, indices row-local.  Slots past
+    the row's count hold (idx = row_len, val = 0), the sentinel a
+    scatter-add decoder drops.  ``mem`` is the fused error memory (leaf
+    shape, float32) and ``bits`` the counted wire cost.
+    """
+
+    idx: torch.Tensor
+    val: torch.Tensor
+    mem: torch.Tensor
+    bits: torch.Tensor
+    row_len: int
+    kcap: int
+
+
+def densify_compact(leaf: CompactLeaf, shape, dtype=torch.float32):
+    """Dense decode of a CompactLeaf: scatter-add the rows, cut the
+    padding, reshape to the leaf's shape."""
+    out = decode_rows(leaf.idx, leaf.val, leaf.row_len)
+    return out.reshape(-1)[:_size(tuple(shape))].reshape(
+        tuple(shape)).to(dtype)
+
+
+def _topk_rule(op: CompressionOp) -> Optional[KernelRule]:
+    return next((r for r in RULES
+                 if r.name in TOPK_FAMILY and r.matches(op)), None)
+
+
+def would_compact(op: CompressionOp, shape: tuple, dtype=torch.float32,
+                  cfg: Optional[DispatchConfig] = None,
+                  device=None) -> bool:
+    """True iff :func:`compact_compress` would launch the compact kernel
+    (its plain version gives the same wire form either way)."""
+    rule = _topk_rule(op)
+    if rule is None or not dtype.is_floating_point:
+        return False
+    d = _size(shape)
+    if rule.name in ("topk_global", "signtopk_global"):
+        n = _padded_len(d, LANES)
+        k = resolve_k(op.k, d)
+    else:
+        n = _row_len_of(op, shape)
+        k = resolve_k(op.k, n)
+    return compact_rows_eligible(n, capacity(k, n), cfg, leaf_size=d,
+                                 device=device)
+
+
+def compact_compress(op: CompressionOp, rng, x: torch.Tensor,
+                     cfg: Optional[DispatchConfig] = None
+                     ) -> tuple[CompactLeaf, bool]:
+    """Compact counterpart of :func:`compress_leaf` for the Top_k family
+    (TopK / SignTopK(m=2) / RowTopK / RowSignTopK): (CompactLeaf,
+    used_kernel).  Where the kernel is not eligible its plain version
+    writes the same wire form.  Other operators have no compact form and
+    raise TypeError."""
+    rule = _topk_rule(op)
+    if rule is None:
+        raise TypeError(
+            f"{type(op).__name__} has no compact wire form; "
+            "compact_compress serves the Top_k family only")
+    rows, k, sign, bits_of = _plan_topk(rule.name, op, x[None])
+    n = rows.shape[1]
+    kcap = capacity(k, n)
+    used = would_compact(op, tuple(x.shape), x.dtype, cfg, x.device)
+    if used:
+        idx, val, mem, cnt = _topk.topk_compact(rows, k, kcap, sign=sign)
+    else:
+        idx, val, mem, cnt = ref.topk_compact_ref(rows, k, kcap, sign=sign)
+    mem_leaf = mem.reshape(-1)[:x.numel()].reshape(x.shape)
+    bits = bits_of(_worker_counts(cnt, 1))[0]
+    return CompactLeaf(idx, val, mem_leaf, bits, n, kcap), used
 
 
 def paged_geometry(cfg: Optional[DispatchConfig], pages: int) -> int:

@@ -51,6 +51,55 @@ def topk_compress_ref(acc: torch.Tensor, k: int, *, iters: int = 24,
     return sel, accf - sel, cnt
 
 
+def topk_compact_ref(acc: torch.Tensor, k: int, kcap: int, *,
+                     iters: int = 24, sign: bool = False):
+    """Compact form of :func:`topk_compress_ref`: the same threshold and
+    survivors, written into ``(idx, val)`` buffers of ``kcap`` slots per
+    row in ascending index order.  Slot ``pos`` of a survivor is the
+    count of survivors before it; survivors with ``pos >= kcap`` (heavy
+    ties only) are not emitted and stay in the memory.  The SignTop_k
+    norm and count are taken over the emitted survivors.  Empty slots
+    hold the out-of-row sentinel ``(idx = n, val = 0)``.
+
+    ``repro`` scatters the slots with a one-hot contraction because TPUs
+    have no scatter; here a cumsum gives the slots and an index_put
+    writes them.
+
+    Returns (idx [rows, kcap] int32, val [rows, kcap] float32,
+    new_memory [rows, n] float32, count_per_row int32).
+    """
+    accf = acc.to(torch.float32)
+    rows, n = accf.shape
+    a = accf.abs()
+    hi = a.amax(dim=1, keepdim=True)
+    lo = torch.zeros_like(hi)
+    half = torch.tensor(0.5, dtype=torch.float32, device=a.device)
+    for _ in range(iters):
+        mid = half * (lo + hi)
+        more = (a >= mid).sum(dim=1, keepdim=True) > k
+        lo = torch.where(more, mid, lo)
+        hi = torch.where(more, hi, mid)
+    c_hi = (a >= hi).sum(dim=1, keepdim=True)
+    thr = torch.where(c_hi >= k, hi, lo)
+    mask = (a >= thr) & (a > 0.0)
+    pos = torch.cumsum(mask.to(torch.int32), dim=1) - 1
+    emit = mask & (pos < kcap)
+    cnt = emit.sum(dim=1).to(torch.int32)
+    zero = torch.zeros((), dtype=torch.float32, device=a.device)
+    sel = torch.where(emit, accf, zero)
+    if sign:
+        norm = torch.sqrt((sel * sel).sum(dim=1, keepdim=True))
+        denom = torch.clamp(cnt[:, None].to(torch.float32), min=1.0)
+        sel = torch.where(emit, torch.sign(accf) * norm / denom, zero)
+    r, c = emit.nonzero(as_tuple=True)
+    slot = pos[r, c].to(torch.int64)
+    idx = torch.full((rows, kcap), n, dtype=torch.int32, device=a.device)
+    val = torch.zeros((rows, kcap), dtype=torch.float32, device=a.device)
+    idx[r, slot] = c.to(torch.int32)
+    val[r, slot] = sel[r, c]
+    return idx, val, accf - sel, cnt
+
+
 def qsgd_bucketed_ref(x: torch.Tensor, u: torch.Tensor, s: int):
     """x: [buckets, n]; u: uniforms [buckets, n] in [0, 1).  Per-bucket
     l2 norm; levels stochastically rounded against ``u``.  Returns the

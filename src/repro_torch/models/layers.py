@@ -409,8 +409,8 @@ def gqa_project(x, p, cfg: ModelConfig, dispatch=None):
 
 def attn_block_train(x, p, cfg: ModelConfig, window: int, positions,
                      dispatch=None):
-    """Full-sequence attention block (prefill).  Returns (out, (k, v)).
-    ``repro`` runs scanned stacks (every config) through
+    """Full-sequence attention block (prefill and training).  Returns
+    (out, (k, v)).  ``repro`` runs scanned stacks (every config) through
     ``chunked_attention`` whatever ``use_pallas`` says, so the port does
     too; its prefill flash kernel is not ported (ROADMAP queue 2)."""
     q, k, v = gqa_project(x, p, cfg, dispatch)

@@ -3,17 +3,27 @@ port of ``repro.models.transformer``'s serving path.
 
 Parameters are stacked on a leading [L] axis, as ``repro``'s scanned
 stacks are, and a Python loop over the layers takes the place of
-``lax.scan``; the per-layer attention window is a Python int.  A leaf of
-the stack is a tensor or a compressed serving weight
+``lax.scan``; the per-layer attention window is a Python int, so
+gemma3's 5:1 local / global pattern runs each layer at its own window.
+A leaf of the stack is a tensor or a compressed serving weight
 (``serve.compressed.CompressedTensor``), sliced per layer the same way.
-``loss_fn`` (LM training) waits for ROADMAP queue 1 item 13.
+
+Training (``loss_fn``) differentiates through the stack: each stacked
+tensor is unbound into its layers once per forward, so autograd stacks
+the layers' gradients once (indexing ``w[i]`` per layer would write a
+full-size zero gradient of the stack for every layer).  With
+``cfg.remat`` each layer and each chunk of the LM head runs under
+``torch.utils.checkpoint``, ``jax.checkpoint``'s counterpart: their
+activations are recomputed in the backward instead of kept.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -82,6 +92,24 @@ def _layer(tree, i: int):
     return tree.layer(i)
 
 
+def _unstack(tree, L: int) -> list:
+    """The L per-layer trees of the stacked layer dict, every tensor
+    unbound once (one ``UnbindBackward`` per leaf, which stacks the
+    layers' gradients in one write); compressed leaves sliced."""
+    if isinstance(tree, dict):
+        per_key = {k: _unstack(v, L) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(L)]
+    if isinstance(tree, torch.Tensor):
+        return list(torch.unbind(tree, 0))
+    return [tree.layer(i) for i in range(L)]
+
+
+def _remat(fn, *args):
+    """``fn(*args)`` under a non-reentrant activation checkpoint."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
 def _apply_head(h, params, cfg: ModelConfig, dispatch=None):
     """LM head: ``h @ head`` (or ``h @ embed.T`` when tied); a compressed
     table's rows enumerate the vocab either way."""
@@ -96,17 +124,35 @@ def _apply_head(h, params, cfg: ModelConfig, dispatch=None):
 # ---------------------------------------------------------------------------
 
 
+def _layer_fwd(h, lp, window: int, positions, cfg: ModelConfig, dispatch):
+    """One layer: (h, (k, v))."""
+    a, kv = attn_block_train(rmsnorm(h, lp["ln1"]), lp["attn"], cfg,
+                             window, positions, dispatch)
+    h = h + a
+    h = h + swiglu(rmsnorm(h, lp["ln2"]), lp["mlp"], dispatch)
+    return h, kv
+
+
+def _layer_out(h, lp, window, positions, cfg, dispatch):
+    return _layer_fwd(h, lp, window, positions, cfg, dispatch)[0]
+
+
 def apply_stack(params, h, positions, cfg: ModelConfig, dispatch=None,
                 collect_kv: bool = False):
-    """Runs all layers.  Returns (h, (k [L, B, S, KV, hd], v) | None)."""
+    """Runs all layers.  Returns (h, (k [L, B, S, KV, hd], v) | None).
+    Under ``cfg.remat``, a forward that autograd records checkpoints
+    each layer."""
     _check_scanned(cfg)
+    layers = _unstack(params["layers"], cfg.n_layers)
+    remat = cfg.remat and h.requires_grad and not collect_kv
     ks, vs = [], []
-    for i, w in enumerate(cfg.layer_windows()):
-        lp = _layer(params["layers"], i)
-        a, (k, v) = attn_block_train(rmsnorm(h, lp["ln1"]), lp["attn"], cfg,
-                                     int(w), positions, dispatch)
-        h = h + a
-        h = h + swiglu(rmsnorm(h, lp["ln2"]), lp["mlp"], dispatch)
+    for lp, w in zip(layers, cfg.layer_windows()):
+        if remat:
+            h = _remat(functools.partial(
+                _layer_out, lp=lp, window=int(w), positions=positions,
+                cfg=cfg, dispatch=dispatch), h)
+            continue
+        h, (k, v) = _layer_fwd(h, lp, int(w), positions, cfg, dispatch)
         if collect_kv:
             ks.append(k)
             vs.append(v)
@@ -133,10 +179,45 @@ def forward(params, batch: dict, cfg: ModelConfig, dispatch=None):
     return _apply_head(h, params, cfg, dispatch).to(torch.float32)
 
 
-def loss_fn(params, batch: dict, cfg: ModelConfig, dispatch=None):
-    raise NotImplementedError(
-        "the LM training loss is not ported to repro_torch yet: ROADMAP "
-        "queue 1 item 13")
+def _chunk_nll(hc, labels, params, cfg: ModelConfig, dispatch):
+    """Summed next-token negative log-likelihood of one chunk of final
+    hidden states [B, c, d] against labels [B, c]: the head's logits in
+    float32, logsumexp minus the gold logit."""
+    logits = _apply_head(hc, params, cfg, dispatch).to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return (lse - gold).sum()
+
+
+def loss_fn(params, batch: dict, cfg: ModelConfig, dispatch=None,
+            loss_chunk: int = 1024):
+    """Next-token cross-entropy over the token segment (prefix
+    embeddings are context only), ``repro``'s ``loss_fn``.  The LM head
+    is applied in sequence chunks of ``loss_chunk`` so the [B, S, V]
+    float32 logits are never formed whole; under ``cfg.remat`` each
+    chunk is checkpointed, so its logits are not kept for the backward
+    either.  Returns (loss, {"ntokens": B * S})."""
+    tokens = batch["tokens"]                          # [B, S + 1]
+    inp = {**batch, "tokens": tokens[:, :-1]}
+    labels = tokens[:, 1:].to(torch.int64)
+    h, n_prefix = embed_inputs(params, inp, cfg)
+    B, S, _ = h.shape
+    positions = torch.arange(S, device=h.device).expand(B, S)
+    h, _ = apply_stack(params, h, positions, cfg, dispatch)
+    h = rmsnorm(h, params["final_norm"])
+    if n_prefix:
+        h = h[:, n_prefix:]
+    Stok = h.shape[1]
+    c = min(loss_chunk, Stok)
+    chunk = functools.partial(_chunk_nll, params=params, cfg=cfg,
+                              dispatch=dispatch)
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, Stok, c):
+        hc, lc = h[:, c0:c0 + c], labels[:, c0:c0 + c]
+        nll = (_remat(chunk, hc, lc) if cfg.remat and hc.requires_grad
+               else chunk(hc, lc))
+        total = total + nll
+    return total / (B * Stok), {"ntokens": B * Stok}
 
 
 # ---------------------------------------------------------------------------
