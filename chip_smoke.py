@@ -9,7 +9,8 @@ Phases, each of which exits non-zero on failure:
    CPU tests run in full float32);
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc);
 3. each kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it, with device times (torch.profiler):
+   shapes the main path gives it, with device times (torch.profiler,
+   or CUDA events where the profiler records no device activity):
    the kernel, the plain version, one PyTorch library call for the same
    function where there is one (a yardstick only, never called by the
    port), and the bound (the larger of the bytes it must move over
@@ -29,7 +30,21 @@ Phases, each of which exits non-zero on failure:
    prompt tokens and 64 new tokens each, with the launch counts per
    step and the serving metrics; then the yi-6b smoke model in float32
    served with dispatch "kernel" against "reference" (same tokens);
-6. the distributed LM training path: ``topk_compact`` and
+6. the unscanned serving path, whose prefill runs the flash-attention
+   kernel: ``flash_attention`` against its plain version at gemma3-1b's
+   prefill shapes (2048 tokens under the 1024 window and global, a
+   ragged 1100) and Yi-6B's heads (step 3's checks and times, with
+   ``scaled_dot_product_attention`` as the yardstick); then gemma3-1b at
+   full width and depth, unscanned (``scan_layers=False,
+   use_pallas=True``), compressed at load under ``lm_hetero`` and served
+   contiguous by the continuous scheduler, 8 requests of 1100-2048
+   prompt tokens padded to 2048 and 32 new tokens each, asserting 26
+   ``flash_attention`` launches per admission, 26 ``flash_decode`` per
+   decode step, 182 ``sparse_gemm`` and 1 ``qdq_gemm`` per step or
+   prefill, no densify and finite logits; then the gemma3-1b and yi-6b
+   smoke models unscanned with dispatch "kernel" against "reference"
+   (logits within 1e-4, same tokens);
+7. the distributed LM training path: ``topk_compact`` and
    ``topk_compress`` against their plain versions at gemma3-1b's shapes
    (step 3's checks and times), then the port's launcher
    ``repro_torch.launch.train`` on gemma3-1b at full width and depth
@@ -60,6 +75,7 @@ SRC = os.path.join(HERE, "src")
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 R, B, T, H = 8, 8, 8, 4       # workers, per-worker batch, steps, local steps
 IMAGES = {"n": 512, "hw": 224, "classes": 1000, "seed": 0}
 N_PARAMS = 25_541_672         # ResNet-50 at full width, 1000 classes
@@ -67,6 +83,11 @@ DISPATCH = "auto"
 #: the serving run: Yi-6B served from compressed weights
 SERVE = {"max_batch": 8, "max_len": 512, "prompt_pad": 128, "page_size": 16,
          "requests": 16, "prompt_min": 64, "new_tokens": 64, "seed": 0}
+#: the unscanned serving run: gemma3-1b, whose prefill runs the
+#: flash-attention kernel (prompts past its 1024 window)
+FLASH_SERVE = {"arch": "gemma3-1b", "max_batch": 4, "max_len": 2304,
+               "prompt_pad": 2048, "requests": 8, "prompt_min": 1100,
+               "new_tokens": 32, "seed": 0}
 #: launches per decode step / per prefill on Yi-6B under lm_hetero: 7
 #: Top_k matmuls in each of 32 layers, the QSGD head once, one decode
 #: attention per layer
@@ -95,27 +116,74 @@ def card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+#: how the kernels were timed in this run: "profiler" until profiler
+#: sessions record no device activity PROFILE_TRIES times in a row, then
+#: "events" for the rest of it
+TIMING = {"clock": "profiler"}
+#: a profiler (CUPTI) session now and then records no device activity at
+#: all, even on a card where the sessions around it do: so many sessions
+#: are tried before the run gives the profiler up
+PROFILE_TRIES = 3
+
+
+def _device_events(fn, reps: int) -> list:
+    """The device activity (kernels, copies, memsets) of ``reps`` calls of
+    ``fn`` in one torch.profiler (CUPTI) session, retried while a session
+    records none; empty where every try recorded none."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    cuda = torch.autograd.DeviceType.CUDA
+    for _ in range(PROFILE_TRIES):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == cuda]
+        if events:
+            return events
+    return []
+
+
+def _event_ms(fn, reps: int) -> float:
+    """Milliseconds per call between two CUDA events around ``reps``
+    back-to-back calls: the device time plus whatever gaps the host's
+    launches leave between kernels."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def time_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` per call: the kernels (and copies) its
-    ``reps`` calls ran on the card, summed from a torch.profiler (CUPTI)
-    trace after a warm-up call.  CUDA events around back-to-back calls
-    would also count the gaps that the host's launch overhead leaves
-    between kernels of a few microseconds."""
+    """Mean device time of ``fn`` per call after a warm-up call: the
+    kernels (and copies) its ``reps`` calls ran on the card, summed from
+    a torch.profiler (CUPTI) trace, because CUDA events around
+    back-to-back calls also count the gaps that the host's launch
+    overhead leaves between kernels of a few microseconds.  Where
+    PROFILE_TRIES sessions in a row record no device activity, this and
+    every later timing of the run falls back to CUDA events, and
+    ``TIMING`` says so."""
     import torch
     fn()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == cuda)
-    if us <= 0:
-        raise AssertionError("the profiler saw no device time")
-    return us / 1e3 / reps
+    if TIMING["clock"] == "profiler":
+        events = _device_events(fn, reps)
+        if events:
+            return sum(e.time_range.elapsed_us() for e in events) / 1e3 / reps
+        TIMING["clock"] = "events"
+        print(f"timing: {PROFILE_TRIES} profiler sessions in a row recorded "
+              "no device activity; CUDA events time this and every later "
+              "kernel of the run", flush=True)
+    ms = _event_ms(fn, reps)
+    if ms <= 0:
+        raise AssertionError("CUDA events measured no time")
+    return ms
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
@@ -514,20 +582,26 @@ def check_paged_decode(dev, quant: bool, reps: int):
             "bound_ms": bms, "bound_by": by}
 
 
-def check_flash_decode(dev, reps: int):
-    """flash_decode at Yi-6B's decode shapes (batch 8, a 512-slot ring
-    cache, 4 kv heads, a validity mask per row) against its plain version:
-    within one bf16 rounding of the largest output."""
+def check_flash_decode(dev, reps: int, B=8, H=32, KV=4, hd=128, C=512,
+                       lengths=None):
+    """flash_decode against its plain version, by default at Yi-6B's
+    decode shapes (batch 8, a 512-slot ring cache, 4 kv heads, a validity
+    mask per row: the serve run's lengths, row 0 full): within one bf16
+    rounding of the largest output.  ``lengths`` ([lo, hi)) draws the
+    rows' valid slots instead."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_decode
-    B, H, KV, hd, C = 8, 32, 4, 128, 512
-    g = torch.Generator(device=dev).manual_seed(20)
+    g = torch.Generator(device=dev).manual_seed(
+        20 if lengths is None else 20 + C)
     q = torch.randn((B, 1, H, hd), generator=g, device=dev).to(torch.bfloat16)
     k = torch.randn((B, C, KV, hd), generator=g, device=dev).to(torch.bfloat16)
     v = torch.randn((B, C, KV, hd), generator=g, device=dev).to(torch.bfloat16)
-    lengths = decode_lengths(g, B, dev)
-    lengths[0] = C                   # every row needs a valid slot
+    if lengths is None:
+        lengths = decode_lengths(g, B, dev)
+        lengths[0] = C               # every row needs a valid slot
+    else:
+        lengths = torch.randint(*lengths, (B,), generator=g, device=dev)
     valid = torch.arange(C, device=dev)[None, :] < lengths[:, None]
     err = close_to_scale(flash_decode(q, k, v, valid),
                          ref.flash_decode_ref(q, k, v, valid), 2 ** -7,
@@ -543,6 +617,126 @@ def check_flash_decode(dev, reps: int):
             "library_ms": library_ms,
             "library": "scaled_dot_product_attention over the same KV",
             "bound_ms": bms, "bound_by": by}
+
+
+def live_pairs(S: int, window: int) -> int:
+    """(query, key) pairs a causal (window > 0: sliding-window) mask
+    keeps in a sequence of S positions."""
+    if window <= 0 or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def kernel_names(fn) -> list:
+    """The device kernels one call of ``fn`` runs (torch.profiler); empty
+    where the profiler records no device activity."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    if TIMING["clock"] != "profiler":
+        return []
+    return sorted({e.name for e in _device_events(fn, 1)})
+
+
+def sdpa_backend(names: list) -> str:
+    """The backend scaled_dot_product_attention ran, from its kernels'
+    names (cuDNN's own names say "flash" too, so it is tested first);
+    "not measured" without them."""
+    if not names:
+        return "not measured"
+    joined = " ".join(names).lower()
+    for key, backend in (("cudnn", "cudnn"), ("flash", "flash"),
+                         ("fmha", "efficient"), ("efficient", "efficient")):
+        if key in joined:
+            return backend
+    return "math"
+
+
+def check_flash_attention(dev, B: int, S: int, H: int, KV: int, D: int,
+                          window: int, reps: int):
+    """flash_attention_fwd in bf16 against its plain version (float32
+    scores, a masked softmax): within one bf16 rounding (2^-7) of the
+    largest output.  The bound counts the live (causal / window) pairs:
+    4 D operations per pair and query head in float32 (67 TFLOP/s)
+    against q, k, v and the output moved once; ``bound_bf16_ms`` is the
+    same operations at the bf16 tensor-core peak (989 TFLOP/s), the mark
+    for a redesign.  Library call: scaled_dot_product_attention on the
+    same tensors, K and V repeated per group, is_causal for the global
+    form and a boolean window mask for the local one."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    g = torch.Generator(device=dev).manual_seed(S + H + max(window, 0))
+    q, k, v = (torch.randn((B, S, h, D), generator=g, device=dev).to(
+        torch.bfloat16) for h in (H, KV, KV))
+    out = flash_attention_fwd(q, k, v, window=window)
+    if not bool(torch.isfinite(out.float()).all()):
+        raise AssertionError("flash_attention: non-finite output")
+    err = close_to_scale(out, ref.flash_attention_ref(q, k, v, window=window),
+                         2 ** -7, 2 ** -7,
+                         f"flash_attention S={S} H={H} D={D} w={window}")
+    del out
+    ms = time_ms(lambda: flash_attention_fwd(q, k, v, window=window), reps)
+    plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v,
+                                                       window=window),
+                       max(1, reps // 2))
+    G = H // KV
+    qh = q.transpose(1, 2)
+    kh = k.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+    vh = v.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+    if window > 0:
+        pos = torch.arange(S, device=dev)
+        mask = (pos[None, :] <= pos[:, None]) & (
+            pos[None, :] > pos[:, None] - window)
+
+        def lib():
+            return F.scaled_dot_product_attention(qh, kh, vh,
+                                                  attn_mask=mask)
+    else:
+        def lib():
+            return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+    library_ms = time_ms(lib, reps)
+    names = kernel_names(lib)
+    pairs = B * live_pairs(S, window)
+    ops = 4.0 * D * H * pairs
+    nbytes = 2.0 * B * S * D * (2 * H + 2 * KV)
+    bms, by = bound_ms(nbytes, ops)
+    return {"shape": [B, S, H, KV, D], "window": window, "dtype": "bfloat16",
+            "live_pairs": pairs, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": "scaled_dot_product_attention",
+            "library_backend": sdpa_backend(names),
+            "library_kernels": [n[:100] for n in names], "bound_ms": bms,
+            "bound_by": by,
+            "bound_bf16_ms": ops / BF16_OPS_PER_S * 1e3}
+
+
+def phase_flash_kernels(dev):
+    """flash_attention at the shapes prefill gives it: gemma3-1b's (one
+    2048-token prompt, 4 query heads on one kv head of 256) under its
+    1024 window and global, a ragged 1100-token prompt, and Yi-6B's
+    heads (32 on 4 of 128), causal.  Then the unscanned gemma3-1b serve
+    run's other kernels at its own shapes: sparse_gemm at prefill (2048
+    rows; w1's 1152 -> 6912 at k 12, w2's 6912 -> 1152 at k 69) and
+    flash_decode at batch 4 over a 1024-slot window ring (full) and the
+    2304-slot global ring (1100-2080 valid slots)."""
+    rows = [check_flash_attention(dev, 1, 2048, 4, 1, 256, 1024, 10),
+            check_flash_attention(dev, 1, 2048, 4, 1, 256, -1, 10),
+            check_flash_attention(dev, 1, 1100, 4, 1, 256, 1024, 10),
+            check_flash_attention(dev, 1, 2048, 32, 4, 128, -1, 10)]
+    for row in rows:
+        print("kernel check flash_attention", json.dumps(row), flush=True)
+    for row in (check_sparse_gemm(dev, 2048, 6912, 1152, 12, 5),
+                check_sparse_gemm(dev, 2048, 1152, 6912, 69, 5)):
+        print("kernel check sparse_gemm (gemma3-1b prefill)",
+              json.dumps(row), flush=True)
+    for C, lengths in ((1024, (1024, 1025)), (2304, (1100, 2081))):
+        row = check_flash_decode(dev, 10, B=4, H=4, KV=1, hd=256, C=C,
+                                 lengths=lengths)
+        print("kernel check flash_decode (gemma3-1b decode)",
+              json.dumps(row), flush=True)
+    return rows
 
 
 def phase_serve_kernels(dev):
@@ -568,51 +762,80 @@ def phase_serve_kernels(dev):
     return rows
 
 
-def serve_requests(eng, vocab: int) -> None:
+def serve_requests(eng, vocab: int, spec: dict) -> None:
     import numpy as np
-    rng = np.random.RandomState(SERVE["seed"])
-    for _ in range(SERVE["requests"]):
-        plen = int(rng.randint(SERVE["prompt_min"], SERVE["prompt_pad"] + 1))
+    rng = np.random.RandomState(spec["seed"])
+    for _ in range(spec["requests"]):
+        plen = int(rng.randint(spec["prompt_min"], spec["prompt_pad"] + 1))
         eng.submit(rng.randint(0, vocab, plen).tolist(),
-                   max_new_tokens=SERVE["new_tokens"])
+                   max_new_tokens=spec["new_tokens"])
 
 
-def serve_run(params, cfg, name: str, layout: dict, dev):
+class FiniteLogits:
+    """For the span of one engine run, wraps the model's ``prefill`` and
+    ``decode_step`` (the engine calls them through the module) and keeps
+    one device flag: every logit they returned was finite."""
+
+    def __enter__(self):
+        from repro_torch.models import transformer as tf
+        self.tf, self.orig = tf, (tf.prefill, tf.decode_step)
+        self.flag = None
+
+        def wrap(fn):
+            def inner(*args, **kwargs):
+                out = fn(*args, **kwargs)
+                ok = out[0].isfinite().all()
+                self.flag = ok if self.flag is None else self.flag & ok
+                return out
+            return inner
+
+        tf.prefill, tf.decode_step = map(wrap, self.orig)
+        return self
+
+    def __exit__(self, *exc):
+        self.tf.prefill, self.tf.decode_step = self.orig
+
+    @property
+    def ok(self) -> bool:
+        return self.flag is not None and bool(self.flag)
+
+
+def serve_run(params, cfg, name: str, layout: dict, dev, spec: dict,
+              want_fn):
     """One ServeEngine run over the compressed weights: every step timed
     on the host clock (a step ends in a device-to-host copy of the next
     tokens, so it is synchronous); steps that admitted a request also ran
-    its prefill."""
+    its prefill.  ``want_fn(eng)`` gives the launches each kernel must
+    have made; every logit must be finite."""
     import numpy as np
     import torch
     from repro_torch.kernels.dispatch import DispatchConfig
     from repro_torch.kernels.launch_stats import LAUNCHES, reset_launches
     from repro_torch.serve import compressed as sc
     from repro_torch.serve.engine import ServeEngine
-    eng = ServeEngine(params, cfg, max_batch=SERVE["max_batch"],
-                      max_len=SERVE["max_len"],
-                      prompt_pad=SERVE["prompt_pad"],
+    eng = ServeEngine(params, cfg, max_batch=spec["max_batch"],
+                      max_len=spec["max_len"],
+                      prompt_pad=spec["prompt_pad"],
                       dispatch=DispatchConfig(mode=DISPATCH), **layout)
-    serve_requests(eng, cfg.vocab)
+    serve_requests(eng, cfg.vocab, spec)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     sc.reset_stats()
     reset_launches()
     decode_ms, admit_ms = [], []
-    t0 = time.perf_counter()
-    while eng.pending:
-        before = eng.admissions
-        t = time.perf_counter()
-        eng.step()
-        (admit_ms if eng.admissions > before else decode_ms).append(
-            (time.perf_counter() - t) * 1e3)
-    wall = time.perf_counter() - t0
+    with FiniteLogits() as finite:
+        t0 = time.perf_counter()
+        while eng.pending:
+            before = eng.admissions
+            t = time.perf_counter()
+            eng.step()
+            (admit_ms if eng.admissions > before else decode_ms).append(
+                (time.perf_counter() - t) * 1e3)
+        wall = time.perf_counter() - t0
     launches = dict(LAUNCHES)
     res = eng.run()                  # nothing pending: collects the results
     outs, mets = res["outputs"], list(res["metrics"].values())
-    attn = "paged_decode" if layout.get("paged") else "flash_decode"
-    calls = eng.steps + eng.admissions
-    want = {"sparse_gemm": 7 * YI_LAYERS * calls, "qdq_gemm": calls,
-            attn: YI_LAYERS * eng.steps}
+    want = want_fn(eng)
     for k, v in launches.items():
         if v != want.get(k, 0):
             raise AssertionError(f"{name}: {v} {k} launches, want "
@@ -620,11 +843,18 @@ def serve_run(params, cfg, name: str, layout: dict, dev):
                                  f"steps, {eng.admissions} prefills)")
     if sc.STATS["densify"]:
         raise AssertionError(f"{name}: densified {sc.STATS['densify']}")
-    if sorted(outs) != list(range(SERVE["requests"])) or any(
-            len(t) != SERVE["new_tokens"] or min(t) < 0 or max(t) >= cfg.vocab
+    if not finite.ok:
+        raise AssertionError(f"{name}: non-finite logits")
+    if sorted(outs) != list(range(spec["requests"])) or any(
+            len(t) != spec["new_tokens"] or min(t) < 0 or max(t) >= cfg.vocab
             for t in outs.values()):
         raise AssertionError(f"{name}: bad outputs")
     ttft = [m.ttft_s * 1e3 for m in mets]
+    # launches per decode step (decode attention), per prefill (prefill
+    # attention) or per step or prefill (the GEMMs)
+    per = {"flash_decode": eng.steps, "paged_decode": eng.steps,
+           "flash_attention": eng.admissions}
+    calls = eng.steps + eng.admissions
     row = {"run": name, "steps": eng.steps, "prefills": eng.admissions,
            "decode_ms_per_step": float(np.median(decode_ms)),
            "decode_ms_mean": float(np.mean(decode_ms)),
@@ -633,8 +863,7 @@ def serve_run(params, cfg, name: str, layout: dict, dev):
            "ttft_ms_max": max(ttft),
            "tokens_per_s": sum(len(t) for t in outs.values()) / wall,
            "wall_s": wall, "peak_device_bytes": torch.cuda.max_memory_allocated(),
-           # per decode step or prefill (GEMMs), per decode step (attention)
-           "launches_per_call": {k: v / (calls if k != attn else eng.steps)
+           "launches_per_call": {k: v / per.get(k, calls)
                                  for k, v in launches.items() if v},
            "launches": {k: v for k, v in launches.items() if v}}
     if layout.get("paged"):
@@ -679,38 +908,100 @@ def phase_serve(dev):
             ("paged int8", {"paged": True, "page_size": SERVE["page_size"],
                             "kv_quant": True}),
             ("contiguous", {})):
-        for k, v in serve_run(params, cfg, name, layout, dev).items():
+        attn = "paged_decode" if layout.get("paged") else "flash_decode"
+
+        def want(eng, attn=attn):
+            calls = eng.steps + eng.admissions
+            return {"sparse_gemm": 7 * YI_LAYERS * calls, "qdq_gemm": calls,
+                    attn: YI_LAYERS * eng.steps}
+
+        for k, v in serve_run(params, cfg, name, layout, dev, SERVE,
+                              want).items():
             totals[k] = totals.get(k, 0) + v
     del params
     torch.cuda.empty_cache()
     return totals
 
 
-def phase_serve_agreement(dev):
-    """The yi-6b smoke model in float32 on the card, compressed under
-    lm_hetero, with dispatch "kernel" (the CUDA kernels) against
-    "reference" (their plain versions): prefill and decode logits within
-    rtol 1e-4 / atol 1e-4 (float32 sums in another order), the same
-    greedy tokens from paged, paged-int8 and contiguous engines."""
+def phase_serve_flash(dev):
+    """gemma3-1b at full width and depth (999,812,736 parameters),
+    unscanned (a list of 26 per-layer dicts) so that prefill runs
+    the flash-attention kernel, random bf16 weights from a seeded
+    generator, compressed at load under lm_hetero, served contiguous by
+    the continuous scheduler: 8 prompts of 1100-2048 tokens (past the
+    1024 window) padded to 2048, 32 new tokens each.  Returns the
+    launches."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config, get_policy_preset
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import compressed as sc
+    from repro_torch.tree import tree_leaves
+    cfg = dataclasses.replace(get_config(FLASH_SERVE["arch"]),
+                              scan_layers=False, use_pallas=True)
+    L = cfg.n_layers
+    t0 = time.perf_counter()
+    params = tf.init_params(
+        torch.Generator(device=dev).manual_seed(FLASH_SERVE["seed"]), cfg,
+        device=dev)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    if n_params != cfg.param_count() or len(params["layers"]) != L:
+        raise AssertionError(f"{cfg.name}: {n_params} parameters in "
+                             f"{len(params['layers'])} layers")
+    params = sc.compress_tree(params, get_policy_preset("arch",
+                                                        FLASH_SERVE["arch"]))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    sizes = sc.tree_bytes(params)
+    print(f"{cfg.name} unscanned: {n_params} parameters, resident "
+          f"{sizes['compressed']} bytes compressed (dense {sizes['dense']}), "
+          f"init + compress {time.perf_counter() - t0:.1f}s", flush=True)
+
+    def want(eng):
+        calls = eng.steps + eng.admissions
+        return {"flash_attention": L * eng.admissions,
+                "flash_decode": L * eng.steps,
+                "sparse_gemm": 7 * L * calls, "qdq_gemm": calls}
+
+    launches = serve_run(params, cfg, f"{cfg.name} unscanned contiguous", {},
+                         dev, FLASH_SERVE, want)
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_serve_agreement(dev, arch: str = "yi-6b", unscanned: bool = False):
+    """A smoke model in float32 on the card, compressed under its
+    preset, with dispatch "kernel" (the CUDA kernels) against "reference"
+    (their plain versions): prefill and decode logits within rtol 1e-4 /
+    atol 1e-4 (float32 sums in another order), the same greedy tokens
+    from paged, paged-int8 and contiguous engines (contiguous only for an
+    unscanned stack, whose prefill runs the flash-attention kernel)."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config, get_policy_preset
     from repro_torch.kernels.dispatch import DispatchConfig
+    from repro_torch.kernels.launch_stats import LAUNCHES, reset_launches
     from repro_torch.models import transformer as tf
     from repro_torch.serve import compressed as sc
     from repro_torch.serve.engine import ServeEngine
-    cfg = dataclasses.replace(get_config("yi-6b", smoke=True),
-                              use_pallas=True)
+    cfg = dataclasses.replace(get_config(arch, smoke=True), use_pallas=True,
+                              scan_layers=not unscanned)
     params = sc.compress_tree(
         tf.init_params(torch.Generator(device=dev).manual_seed(1), cfg,
-                       device=dev), get_policy_preset("arch", "yi-6b"))
+                       device=dev), get_policy_preset("arch", arch))
     modes = {m: DispatchConfig(mode=m) for m in ("kernel", "reference")}
     toks = torch.randint(0, cfg.vocab, (3, 21), device=dev,
                          generator=torch.Generator(device=dev).manual_seed(2))
     logits = {}
     for m, dcfg in modes.items():
+        reset_launches()
         lg, cache, _ = tf.prefill(params, {"tokens": toks}, cfg, dcfg,
                                   max_len=32)
+        want = cfg.n_layers if unscanned and m == "kernel" else 0
+        if LAUNCHES["flash_attention"] != want:
+            raise AssertionError(f"{arch}: {LAUNCHES['flash_attention']} "
+                                 f"flash_attention launches, want {want}")
         out = [lg[:, 0]]
         tok = lg[:, 0].argmax(-1)
         for pos in range(21, 25):
@@ -723,19 +1014,28 @@ def phase_serve_agreement(dev):
     err = float((logits["kernel"] - logits["reference"]).abs().max())
     reqs = [([5, 6, 7], 12), ([1], 9), ([9, 8, 7, 6, 5], 14), ([3, 3], 10),
             ([11, 2, 4, 200, 17], 11), ([8], 8)]
-    for layout in ({"paged": True, "page_size": 4},
-                   {"paged": True, "page_size": 4, "kv_quant": True}, {}):
+    kw = dict(max_batch=3, max_len=24, prompt_pad=6)
+    layouts = [{"paged": True, "page_size": 4},
+               {"paged": True, "page_size": 4, "kv_quant": True}, {}]
+    if unscanned:
+        # prompts past the smoke gemma3's 16-token window
+        reqs = [(list(range(1, 20)), 12), ([1], 9), ([9, 8] * 9, 14),
+                ([3, 3], 10), (list(range(40, 57)), 11), ([8], 8)]
+        kw = dict(max_batch=3, max_len=40, prompt_pad=20)
+        layouts = layouts[2:]
+    for layout in layouts:
         outs = {}
         for m, dcfg in modes.items():
-            eng = ServeEngine(params, cfg, max_batch=3, max_len=24,
-                              prompt_pad=6, dispatch=dcfg, **layout)
+            eng = ServeEngine(params, cfg, dispatch=dcfg, **kw, **layout)
             for p, n in reqs:
                 eng.submit(p, n)
             outs[m] = eng.run()["outputs"]
         if outs["kernel"] != outs["reference"]:
             raise AssertionError(f"serve agreement {layout}: tokens differ")
-    print(f"serve agreement: logits within {err:.3g}, tokens equal on "
-          f"paged / paged-int8 / contiguous", flush=True)
+    where = ("contiguous" if unscanned
+             else "paged / paged-int8 / contiguous")
+    print(f"serve agreement {arch}{' unscanned' if unscanned else ''}: "
+          f"logits within {err:.3g}, tokens equal on {where}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -997,10 +1297,16 @@ def main() -> int:
 
     topk, qsgd = phase_kernels(dev)
     serve_checks = phase_serve_kernels(dev)
+    flash_checks = phase_flash_kernels(dev)
     runs, totals = phase_train(dev)
     phase_small_agreement(dev)
     serve_totals = phase_serve(dev)
     phase_serve_agreement(dev)
+    flash_totals = phase_serve_flash(dev)
+    for k, v in flash_totals.items():
+        serve_totals[k] = serve_totals.get(k, 0) + v
+    for arch in ("gemma3-1b", "yi-6b"):
+        phase_serve_agreement(dev, arch, unscanned=True)
     compact = phase_lm_kernels(dev)
     lm_totals = phase_lm(dev)
     phase_lm_ranks(dev)
@@ -1039,6 +1345,15 @@ def main() -> int:
                 k: head[k] for k in ("max_abs_err", "ms", "plain_ms",
                                      "bound_ms", "bound_by", "library_ms")},
             "shape": head["shape"]})
+    head = flash_checks[0]
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:75",
+        "launches": flash_totals["flash_attention"], **{
+            k: head[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms")},
+        "shape": head["shape"], "window": head["window"]})
     head = compact[0]
     kernels.append({
         "name": "topk_compact", "route": "cuda",
@@ -1051,6 +1366,7 @@ def main() -> int:
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} never launched on the path")
+    print(f"timing: kernel times by {TIMING['clock']}", flush=True)
     print(card(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

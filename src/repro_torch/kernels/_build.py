@@ -57,6 +57,9 @@ SIGNATURES = {
     # q, k, v, valid, out, B, H, KV, hd, C, scale, bf16, stream
     "qs_flash_decode": [_P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32,
                         _F32, _I32, _P],
+    # q, k, v, out, B, S, H, KV, D, window, scale, bf16, stream
+    "qs_flash_attention": [_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32,
+                           _I32, _F32, _I32, _P],
     "qs_error_string": [_I32],
 }
 

@@ -24,9 +24,9 @@ slots and the fused memory, for the distributed ``sparse_allgather``
 sync (DESIGN.md §3.3).
 
 The serving entries (``sparse_gemm``, ``qdq_gemm``, ``paged_decode``,
-``flash_decode``) route the same way on their activations' device: the
-hand-written kernel, or the kernel's plain version (``ref.py``) under
-``mode="reference"``.
+``flash_decode``, ``flash_attention``) route the same way on their
+activations' device: the hand-written kernel, or the kernel's plain
+version (``ref.py``) under ``mode="reference"``.
 
 Eligibility is ``repro``'s, unchanged, because it decides which leaves
 take which path: at least ``min_size`` elements (``mode="auto"`` only),
@@ -549,6 +549,17 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if _resolve(cfg).kernels_enabled(q.device):
         return _fa.flash_decode(q.contiguous(), k, v, valid)
     return ref.flash_decode_ref(q, k, v, valid)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    window: int = -1,
+                    cfg: Optional[DispatchConfig] = None) -> torch.Tensor:
+    """Prefill entry for causal (sliding-window when ``window`` > 0) GQA
+    attention: q [B, S, H, hd] against k, v [B, S, KV, hd]."""
+    if _resolve(cfg).kernels_enabled(q.device):
+        return _fa.flash_attention_fwd(q.contiguous(), k.contiguous(),
+                                       v.contiguous(), window=window)
+    return ref.flash_attention_ref(q, k, v, window=window)
 
 
 # ---------------------------------------------------------------------------

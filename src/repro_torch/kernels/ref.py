@@ -153,6 +153,29 @@ def qdq_gemm_ref(x: torch.Tensor, levels: torch.Tensor,
 NEG_INF = -1e30
 
 
+def flash_attention_ref(q, k, v, *, window: int = -1):
+    """Causal GQA attention over a whole sequence, with a plain masked
+    softmax: query i sees keys j <= i, and only j > i - window when
+    ``window`` > 0.
+
+    q: [B, S, H, D]; k, v: [B, S, KV, D].  Scores and sums in float32 (q
+    scaled by D ** -0.5 before the product); returns [B, S, H, D] in q's
+    dtype."""
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qf = q.to(torch.float32).reshape(B, S, KV, G, D) * (D ** -0.5)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qf, k.to(torch.float32))
+    pos = torch.arange(S, device=q.device)
+    mask = pos[None, :] <= pos[:, None]
+    if window > 0:
+        mask &= pos[None, :] > pos[:, None] - window
+    s = s.masked_fill(~mask, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskh->bqkgh", p, v.to(torch.float32))
+    return o.reshape(B, S, H, D).to(q.dtype)
+
+
 def flash_decode_ref(q, k, v, valid):
     """Single-token GQA attention over ring-cache contents under a
     slot-validity mask, with a plain masked softmax.

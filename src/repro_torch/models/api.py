@@ -3,8 +3,9 @@ the model families the port has.
 
 Each family exposes ``init_params(gen, cfg, device)``, ``loss_fn``,
 ``prefill``, ``decode_step``, ``init_cache`` and ``forward``.  Only the
-dense transformer is ported; the MoE, RWKV-6 and Zamba2 families are
-ROADMAP queue 1 item 13.
+dense transformer is ported, in both of its layer layouts (stacked, and
+unscanned with ``scan_layers=False``); the MoE, RWKV-6 and Zamba2
+families are ROADMAP queue 1 item 13.
 """
 
 from __future__ import annotations

@@ -2,11 +2,11 @@
 ``repro.models.layers`` that the ported models use).
 
 Everything is a function over explicit parameter trees (nested dicts of
-tensors, per-layer leaves stacked on a leading [L] axis).  Numerics
-follow ``repro`` cast for cast: norms, rope and attention compute in
-float32 and cast back to the activation dtype at the same points, and a
-compressed weight's matmul computes in float32 and casts to the weight's
-dtype.
+tensors, per-layer leaves stacked on a leading [L] axis or one dict per
+layer).  Numerics follow ``repro`` cast for cast: norms, rope and
+attention compute in float32 and cast back to the activation dtype at
+the same points, and a compressed weight's matmul computes in float32
+and casts to the weight's dtype.
 
 KV state is updated in place (``cache_write``, ``cache_prefill``,
 ``paged_write``, ``paged_prefill_insert`` return the object they were
@@ -14,8 +14,9 @@ given), where ``repro``'s functional updates return new arrays: the
 serving engine keeps one cache and one page pool for its whole life.
 
 ``dispatch`` arguments are a ``kernels.dispatch.DispatchConfig`` (None
-= the module default): they decide whether compressed matmuls and
-decode attention run the hand-written kernels or their plain versions.
+= the module default): they decide whether compressed matmuls, prefill
+attention and decode attention run the hand-written kernels or their
+plain versions.
 """
 
 from __future__ import annotations
@@ -410,13 +411,19 @@ def gqa_project(x, p, cfg: ModelConfig, dispatch=None):
 def attn_block_train(x, p, cfg: ModelConfig, window: int, positions,
                      dispatch=None):
     """Full-sequence attention block (prefill and training).  Returns
-    (out, (k, v)).  ``repro`` runs scanned stacks (every config) through
-    ``chunked_attention`` whatever ``use_pallas`` says, so the port does
-    too; its prefill flash kernel is not ported (ROADMAP queue 2)."""
+    (out, (k, v)).  As in ``repro``, the flash-attention kernel runs
+    where the window is static, i.e. on unscanned stacks under
+    ``cfg.use_pallas``; scanned stacks (whose windows ``repro`` traces)
+    run ``chunked_attention``.  The port passes every window as an int,
+    so the test is on ``cfg.scan_layers``.  The kernel has no backward:
+    differentiating through it raises."""
     q, k, v = gqa_project(x, p, cfg, dispatch)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    o = chunked_attention(q, k, v, window=window, q_chunk=cfg.q_chunk)
+    if cfg.use_pallas and not cfg.scan_layers:
+        o = dsp.flash_attention(q, k, v, window, dispatch)
+    else:
+        o = chunked_attention(q, k, v, window=window, q_chunk=cfg.q_chunk)
     B, S = x.shape[:2]
     out = matmul(o.reshape(B, S, cfg.n_heads * cfg.hd), p["wo"], dispatch)
     return out, (k, v)

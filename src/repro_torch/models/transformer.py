@@ -1,12 +1,16 @@
 """Dense decoder-only transformer (yi, stablelm, gemma3 backbones): a
-port of ``repro.models.transformer``'s serving path.
+port of ``repro.models.transformer``.
 
-Parameters are stacked on a leading [L] axis, as ``repro``'s scanned
-stacks are, and a Python loop over the layers takes the place of
-``lax.scan``; the per-layer attention window is a Python int, so
-gemma3's 5:1 local / global pattern runs each layer at its own window.
-A leaf of the stack is a tensor or a compressed serving weight
-(``serve.compressed.CompressedTensor``), sliced per layer the same way.
+Two layouts, as in ``repro``: with ``cfg.scan_layers`` (every config's
+default) the layer parameters are stacked on a leading [L] axis, and a
+Python loop over the layers takes the place of ``lax.scan``; without it
+``params["layers"]`` is a list of L per-layer dicts with 2-D leaves, and
+prefill under ``cfg.use_pallas`` runs the flash-attention kernel
+(``models.layers.attn_block_train``).  Either way the per-layer
+attention window is a Python int, so gemma3's 5:1 local / global pattern
+runs each layer at its own window.  A leaf is a tensor or a compressed
+serving weight (``serve.compressed.CompressedTensor``); a stacked one is
+sliced per layer the same way.
 
 Training (``loss_fn``) differentiates through the stack: each stacked
 tensor is unbound into its layers once per forward, so autograd stacks
@@ -14,7 +18,10 @@ the layers' gradients once (indexing ``w[i]`` per layer would write a
 full-size zero gradient of the stack for every layer).  With
 ``cfg.remat`` each layer and each chunk of the LM head runs under
 ``torch.utils.checkpoint``, ``jax.checkpoint``'s counterpart: their
-activations are recomputed in the backward instead of kept.
+activations are recomputed in the backward instead of kept.  The
+flash-attention kernel has no backward, in ``repro`` as here: on an
+unscanned stack under ``use_pallas`` the loss evaluates but does not
+differentiate.
 """
 
 from __future__ import annotations
@@ -45,14 +52,6 @@ from repro_torch.models.layers import (
 )
 
 
-def _check_scanned(cfg: ModelConfig) -> None:
-    if not cfg.scan_layers:
-        raise NotImplementedError(
-            "repro_torch runs stacked ([L, ...]) layer parameters only; "
-            "scan_layers=False (and the prefill flash_attention_fwd kernel "
-            "it reaches) is ROADMAP queue 1 item 13 / queue 2")
-
-
 # ---------------------------------------------------------------------------
 # params
 # ---------------------------------------------------------------------------
@@ -60,16 +59,20 @@ def _check_scanned(cfg: ModelConfig) -> None:
 
 def init_params(gen: torch.Generator, cfg: ModelConfig, device=None):
     """Random weights from ``gen`` (drawn on the generator's device) on
-    ``device`` (default cuda)."""
-    _check_scanned(cfg)
+    ``device`` (default cuda): layers stacked on [L] with
+    ``cfg.scan_layers``, else a list of L per-layer dicts."""
     dev = resolve_device(device)
-    L = cfg.n_layers
-    layers = {
-        "ln1": norm_params(cfg, L, dev),
-        "attn": attn_params(gen, cfg, L, dev),
-        "ln2": norm_params(cfg, L, dev),
-        "mlp": mlp_params(gen, cfg, L, device=dev),
-    }
+
+    def block(L):
+        return {
+            "ln1": norm_params(cfg, L, dev),
+            "attn": attn_params(gen, cfg, L, dev),
+            "ln2": norm_params(cfg, L, dev),
+            "mlp": mlp_params(gen, cfg, L, device=dev),
+        }
+
+    layers = (block(cfg.n_layers) if cfg.scan_layers
+              else [block(None) for _ in range(cfg.n_layers)])
     params = {
         "embed": dense_init(gen, (cfg.vocab, cfg.d_model), cfg.pdtype,
                             scale=1.0, device=dev),
@@ -83,8 +86,11 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device=None):
 
 
 def _layer(tree, i: int):
-    """Layer ``i`` of the stacked layer dict: tensors are indexed,
-    compressed leaves sliced (``CompressedTensor.layer``)."""
+    """Layer ``i`` of the layers: an entry of the per-layer list, or of
+    the stacked dict (tensors indexed, compressed leaves sliced with
+    ``CompressedTensor.layer``)."""
+    if isinstance(tree, list):
+        return tree[i]
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
     if isinstance(tree, torch.Tensor):
@@ -93,9 +99,12 @@ def _layer(tree, i: int):
 
 
 def _unstack(tree, L: int) -> list:
-    """The L per-layer trees of the stacked layer dict, every tensor
-    unbound once (one ``UnbindBackward`` per leaf, which stacks the
-    layers' gradients in one write); compressed leaves sliced."""
+    """The L per-layer trees: the per-layer list as it is, or the
+    stacked dict with every tensor unbound once (one ``UnbindBackward``
+    per leaf, which stacks the layers' gradients in one write) and
+    compressed leaves sliced."""
+    if isinstance(tree, list):
+        return list(tree)
     if isinstance(tree, dict):
         per_key = {k: _unstack(v, L) for k, v in tree.items()}
         return [{k: v[i] for k, v in per_key.items()} for i in range(L)]
@@ -139,10 +148,9 @@ def _layer_out(h, lp, window, positions, cfg, dispatch):
 
 def apply_stack(params, h, positions, cfg: ModelConfig, dispatch=None,
                 collect_kv: bool = False):
-    """Runs all layers.  Returns (h, (k [L, B, S, KV, hd], v) | None).
-    Under ``cfg.remat``, a forward that autograd records checkpoints
-    each layer."""
-    _check_scanned(cfg)
+    """Runs all layers.  Returns (h, (ks, vs) | None): per-layer lists of
+    k, v [B, S, KV, hd].  Under ``cfg.remat``, a forward that autograd
+    records checkpoints each layer."""
     layers = _unstack(params["layers"], cfg.n_layers)
     remat = cfg.remat and h.requires_grad and not collect_kv
     ks, vs = [], []
@@ -156,7 +164,7 @@ def apply_stack(params, h, positions, cfg: ModelConfig, dispatch=None,
         if collect_kv:
             ks.append(k)
             vs.append(v)
-    return h, ((torch.stack(ks), torch.stack(vs)) if collect_kv else None)
+    return h, ((ks, vs) if collect_kv else None)
 
 
 def embed_inputs(params, batch: dict, cfg: ModelConfig):
@@ -230,10 +238,10 @@ def uniform_windows(cfg: ModelConfig) -> bool:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
-    """[L]-stacked ring caches when every layer has the same window, else
-    one cache per layer (their lengths differ)."""
+    """[L]-stacked ring caches for a scanned stack whose layers share one
+    window, else one cache per layer (``repro``'s rule)."""
     wins = cfg.layer_windows()
-    if uniform_windows(cfg):
+    if uniform_windows(cfg) and cfg.scan_layers:
         return init_kv_cache(cfg, batch, wins[0], max_len,
                              stacked=cfg.n_layers, device=device)
     return [init_kv_cache(cfg, batch, w, max_len, device=device)

@@ -12,7 +12,8 @@ Two KV layouts:
 
 - **contiguous** (default): a ``max_len`` ring cache per slot, the slot
   axis as the cache's batch axis ([L, max_batch, C, KV, hd], one
-  position map per slot).  ``repro`` decodes the slots one at a time
+  position map per slot; one cache per layer for mixed windows or an
+  unscanned stack, whose prefill runs the flash-attention kernel).  ``repro`` decodes the slots one at a time
   (``vmap`` of a batch-1 step); the port decodes the slot batch at once,
   each row at its own position.
 - **paged** (``paged=True``): one shared page pool (``models.layers.

@@ -161,8 +161,9 @@ def test_channel_compress_tree_matches_repro(case, pack):
         op_t, feed, {k: torch.from_numpy(v) for k, v in tree.items()}, tcfg,
         want_leaf_bits=True)
     assert feed.remaining() == 0
+    # repro has no flash_attention counter: it must not move here either
     assert {k: TLAUNCHES[k] - t0[k] for k in t0} == \
-        {k: JLAUNCHES[k] - j0[k] for k in t0}
+        {k: JLAUNCHES.get(k, 0) - j0.get(k, 0) for k in t0}
     assert [float(b) for b in lb_t] == [float(b) for b in lb_j]
     assert float(b_t) == float(b_j)
     for k in tree:
@@ -186,8 +187,9 @@ def test_compress_tree_matches_repro(case):
         op_t, feed_for(op_j, key, tree),
         {k: torch.from_numpy(v) for k, v in tree.items()},
         tdsp.DispatchConfig(mode="kernel", max_row=MAX_ROW))
+    # repro has no flash_attention counter: it must not move here either
     assert {k: TLAUNCHES[k] - t0[k] for k in t0} == \
-        {k: JLAUNCHES[k] - j0[k] for k in t0}
+        {k: JLAUNCHES.get(k, 0) - j0.get(k, 0) for k in t0}
     assert float(bits_t) == float(bits_j)
     for k in tree:
         assert_close_leaf(out_t[k].numpy(), np.asarray(out_j[k]), name)

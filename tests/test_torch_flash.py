@@ -1,0 +1,181 @@
+"""The prefill flash-attention kernel's function against ``repro``.
+
+The same numpy inputs go through ``repro``'s Pallas kernel (interpret
+mode, 32-row query and key blocks, as ``tests/test_kernels.py`` runs it)
+and through the port's wrapper, which on the CPU runs the kernel's plain
+version; and through both packages' plain versions.  bfloat16 inputs are
+rounded from the same float32 values by each framework (round to nearest
+even in both).  Tolerances: the wrapper within 2e-4 (float32) / 2e-2
+(bfloat16, one rounding of the output) of ``repro``'s kernel, which sums
+in another order; the plain versions within 1e-5 of each other (float32
+einsums in another order).  The CUDA kernel runs only on the card
+(``gpu`` marker): there it is held to its plain version within one
+bfloat16 rounding of the largest output (2^-7), or 2e-5 in float32.
+The card has no JAX, so ``repro`` is imported by the parity tests
+themselves and ``pytest -m gpu tests/test_torch_flash.py`` runs there.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import _build, dispatch as dsp, ref
+from repro_torch.kernels.flash_attention import (
+    FLASH_HEAD_DIMS,
+    flash_attention_fwd,
+    flash_attention_smem,
+)
+from repro_torch.kernels.launch_stats import LAUNCHES
+
+#: repro's flash-attention test shapes (tests/test_kernels.py)
+SHAPES = [
+    (2, 64, 4, 2, 32, -1),
+    (1, 100, 4, 4, 16, -1),      # ragged S against the 32-row blocks
+    (2, 128, 8, 2, 64, 24),      # sliding window
+    (1, 256, 2, 1, 128, 64),     # MQA, bigger head width
+]
+DTYPES = {"float32": (torch.float32, 2e-4),
+          "bfloat16": (torch.bfloat16, 2e-2)}
+
+
+def inputs(B, S, H, KV, D, seed=0):
+    rng = np.random.default_rng(seed + S + H)
+    return tuple(rng.standard_normal(shape).astype(np.float32)
+                 for shape in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D)))
+
+
+def as_f32(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32).numpy()
+    return np.asarray(x, np.float32)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("B,S,H,KV,D,w", SHAPES)
+def test_wrapper_matches_repro_kernel(B, S, H, KV, D, w, dtype):
+    import jax.numpy as jnp
+    from repro.kernels import ops as jops
+    tdt, tol = DTYPES[dtype]
+    jdt = getattr(jnp, dtype)
+    q, k, v = inputs(B, S, H, KV, D)
+    want = jops.flash_attention(*(jnp.asarray(a).astype(jdt)
+                                  for a in (q, k, v)),
+                                window=w, q_block=32, kv_block=32,
+                                interpret=True)
+    got = flash_attention_fwd(*(torch.from_numpy(a).to(tdt)
+                                for a in (q, k, v)), window=w)
+    assert got.dtype == tdt and got.shape == (B, S, H, D)
+    np.testing.assert_allclose(as_f32(got), as_f32(want), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("B,S,H,KV,D,w", SHAPES)
+def test_plain_version_matches_repro_oracle(B, S, H, KV, D, w):
+    import jax.numpy as jnp
+    from repro.kernels import ref as jref
+    q, k, v = inputs(B, S, H, KV, D, seed=1)
+    want = jref.flash_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), window=w)
+    got = ref.flash_attention_ref(torch.from_numpy(q), torch.from_numpy(k),
+                                  torch.from_numpy(v), window=w)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_window_wider_than_sequence_is_causal():
+    q, k, v = (torch.from_numpy(a) for a in inputs(1, 40, 2, 1, 32))
+    torch.testing.assert_close(flash_attention_fwd(q, k, v, window=64),
+                               flash_attention_fwd(q, k, v, window=-1),
+                               rtol=0, atol=0)
+
+
+def test_wrapper_counts_one_launch_per_call():
+    q, k, v = (torch.from_numpy(a) for a in inputs(1, 48, 4, 1, 32))
+    before = LAUNCHES["flash_attention"]
+    flash_attention_fwd(q, k, v)
+    flash_attention_fwd(q, k, v, window=16)
+    assert LAUNCHES["flash_attention"] == before + 2
+    # the dispatch entry: the wrapper under "kernel", the plain version
+    # (no launch) under "reference", the same values either way
+    a = dsp.flash_attention(q, k, v, 16, dsp.DispatchConfig(mode="kernel"))
+    b = dsp.flash_attention(q, k, v, 16,
+                            dsp.DispatchConfig(mode="reference"))
+    assert LAUNCHES["flash_attention"] == before + 3
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_wrapper_has_no_backward():
+    q, k, v = (torch.from_numpy(a) for a in inputs(1, 32, 4, 2, 16))
+    q.requires_grad_(True)
+    before = LAUNCHES["flash_attention"]
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attention_fwd(q, k, v)
+    with pytest.raises(RuntimeError, match="no backward"):
+        dsp.flash_attention(q, k, v, -1, dsp.DispatchConfig(mode="kernel"))
+    assert LAUNCHES["flash_attention"] == before
+    with torch.no_grad():
+        out = flash_attention_fwd(q, k, v)
+    assert not out.requires_grad
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    q, k, v = (torch.from_numpy(a) for a in inputs(1, 32, 4, 2, 16))
+    with pytest.raises(TypeError):
+        flash_attention_fwd(q.double(), k.double(), v.double())
+    with pytest.raises(TypeError):
+        flash_attention_fwd(q, k.to(torch.bfloat16), v)
+    with pytest.raises(ValueError, match="do not fit"):
+        flash_attention_fwd(q[:, :, :3].contiguous(), k, v)   # H % KV
+    with pytest.raises(ValueError, match="do not fit"):
+        flash_attention_fwd(q, k[:, :16].contiguous(),
+                            v[:, :16].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_fwd(q.transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="head widths"):
+        flash_attention_fwd(q[..., :8].contiguous(), k[..., :8].contiguous(),
+                            v[..., :8].contiguous())
+
+
+def test_kernel_is_declared_and_built_lazily():
+    assert "qs_flash_attention" in _build.SIGNATURES
+    assert any(s.endswith("flash_attention.cu") for s in _build.sources())
+    q, k, v = (torch.from_numpy(a) for a in inputs(1, 32, 4, 2, 16))
+    flash_attention_fwd(q, k, v)
+    assert _build._LIB is None
+    # every instantiated head width fits one block's shared memory
+    assert max(flash_attention_smem(d) for d in FLASH_HEAD_DIMS) \
+        <= 232_448
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel against its plain version, on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _on_card(cuda, B, S, H, KV, D, w, tdt):
+    q, k, v = (torch.from_numpy(a).to(cuda, tdt)
+               for a in inputs(B, S, H, KV, D, seed=2))
+    out = flash_attention_fwd(q, k, v, window=w)
+    want = ref.flash_attention_ref(q, k, v, window=w)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    scale = 2 ** -7 if tdt == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(out.float(), want.float(), rtol=scale,
+                               atol=scale * float(want.float().abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("B,S,H,KV,D,w", SHAPES + [
+    (1, 300, 4, 1, 256, 100),    # gemma3's head width, partial windows
+    (1, 200, 8, 8, 80, -1),      # stablelm's head width
+    (2, 130, 4, 2, 64, 1)])      # a window of one key
+def test_kernel_matches_plain_on_card(cuda, B, S, H, KV, D, w, dtype):
+    _on_card(cuda, B, S, H, KV, D, w, DTYPES[dtype][0])

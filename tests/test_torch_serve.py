@@ -278,9 +278,15 @@ def test_get_model_and_unported_paths_raise():
     assert m.loss_fn is tf.loss_fn
     with pytest.raises(NotImplementedError, match="queue 1 item 13"):
         get_model(get_config("qwen3-moe-30b-a3b", smoke=True))
-    with pytest.raises(NotImplementedError):
-        tf.init_params(torch.Generator(),
-                       dataclasses.replace(cfg, scan_layers=False), "cpu")
+    # unscanned stacks are ported: repro's list of per-layer dicts
+    flat = dataclasses.replace(cfg, scan_layers=False)
+    got = tf.init_params(torch.Generator(), flat, "cpu")
+    want = jax.eval_shape(lambda: jtf.init_params(
+        jax.random.PRNGKey(0), dataclasses.replace(
+            j_get_config("yi-6b", smoke=True), scan_layers=False)))
+    assert isinstance(got["layers"], list)
+    assert [tuple(t.shape) for t in tree_leaves(got)] == [
+        l.shape for l in jax.tree_util.tree_leaves(want)]
 
 
 # ---------------------------------------------------------------------------

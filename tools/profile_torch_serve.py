@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
-"""Where a serving decode step's time goes in the PyTorch/CUDA port, on
-one GPU.
+"""Where a serving step's time goes in the PyTorch/CUDA port, on one
+GPU.
 
-    python3 tools/profile_torch_serve.py [--layout paged|paged-int8|contiguous]
+    python3 tools/profile_torch_serve.py [--config yi-6b|gemma3-1b-unscanned]
+        [--layout paged|paged-int8|contiguous] [--prefill]
 
-Builds ``chip_smoke.py``'s serving configuration (Yi-6B at full width and
-depth, random bf16 weights, compressed at load under ``lm_hetero``,
-batch 8, decode attention through the kernels), admits the first eight
-requests and takes a few warm-up steps, then profiles ``--steps`` decode
-steps that admit nothing under ``torch.profiler``.  Prints each step's
-host time, the device time of the kernels that ran in it and the
-device's busy share, then the operators that take the most device and
-host time.  Needs a CUDA device.
+Builds one of ``chip_smoke.py``'s serving configurations at full width
+and depth (random bf16 weights, compressed at load under ``lm_hetero``,
+the kernels on): Yi-6B at batch 8 (``--layout`` picks the KV layout), or
+gemma3-1b unscanned at batch 4, contiguous, whose prefill runs the
+flash-attention kernel.  Admits the first batch and takes a few warm-up
+steps, then profiles ``--steps`` decode steps that admit nothing under
+``torch.profiler``; with ``--prefill`` it profiles ``--steps`` prefills
+of one ``prompt_pad``-token prompt instead (what an admission runs).
+Prints each profiled call's host time, the device time of the kernels
+that ran in it and the device's busy share, then the operators that
+take the most device and host time.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -35,7 +39,10 @@ def main() -> int:
         print("needs a CUDA device", file=sys.stderr)
         return 2
     ap = argparse.ArgumentParser()
+    ap.add_argument("--config", default="yi-6b",
+                    choices=["yi-6b", "gemma3-1b-unscanned"])
     ap.add_argument("--layout", default="paged", choices=sorted(LAYOUTS))
+    ap.add_argument("--prefill", action="store_true")
     ap.add_argument("--steps", type=int, default=5)
     args = ap.parse_args()
 
@@ -49,22 +56,42 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     print(cs.card(), flush=True)
     dev = torch.device("cuda")
-    cfg = dataclasses.replace(get_config("yi-6b"), use_pallas=True)
+    if args.config == "yi-6b":
+        spec, arch = cs.SERVE, "yi-6b"
+        cfg = dataclasses.replace(get_config(arch), use_pallas=True)
+        layout = dict(LAYOUTS[args.layout])
+        if layout:
+            layout["page_size"] = spec["page_size"]
+    else:
+        spec, arch = cs.FLASH_SERVE, cs.FLASH_SERVE["arch"]
+        cfg = dataclasses.replace(get_config(arch), use_pallas=True,
+                                  scan_layers=False)
+        layout, args.layout = {}, "contiguous"
     params = sc.compress_tree(
         tf.init_params(torch.Generator(device=dev).manual_seed(
-            cs.SERVE["seed"]), cfg, device=dev),
-        get_policy_preset("arch", "yi-6b"))
+            spec["seed"]), cfg, device=dev),
+        get_policy_preset("arch", arch))
     torch.cuda.empty_cache()
-    layout = dict(LAYOUTS[args.layout])
-    if layout:
-        layout["page_size"] = cs.SERVE["page_size"]
-    eng = ServeEngine(params, cfg, max_batch=cs.SERVE["max_batch"],
-                      max_len=cs.SERVE["max_len"],
-                      prompt_pad=cs.SERVE["prompt_pad"],
-                      dispatch=DispatchConfig(mode="auto"), **layout)
-    cs.serve_requests(eng, cfg.vocab)
+    dispatch = DispatchConfig(mode="auto")
+    eng = ServeEngine(params, cfg, max_batch=spec["max_batch"],
+                      max_len=spec["max_len"],
+                      prompt_pad=spec["prompt_pad"], dispatch=dispatch,
+                      **layout)
+    cs.serve_requests(eng, cfg.vocab, spec)
     for _ in range(3):               # admits the first batch, warms up
         eng.step()
+    prompt = {"tokens": torch.randint(
+        0, cfg.vocab, (1, spec["prompt_pad"]), device=dev,
+        generator=torch.Generator(device=dev).manual_seed(1))}
+
+    def call():
+        if args.prefill:
+            tf.prefill(params, prompt, cfg, dispatch, max_len=eng.max_len)
+            torch.cuda.synchronize()
+        else:
+            eng.step()               # ends in a copy of the next tokens
+
+    call()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -72,7 +99,7 @@ def main() -> int:
     with torch.profiler.profile(activities=acts) as prof:
         for i in range(args.steps):
             with torch.profiler.record_function(f"step {i}"):
-                eng.step()           # ends in a copy of the next tokens
+                call()
     if eng.admissions != before:
         raise AssertionError("a profiled step admitted a request")
     evs = prof.events()
@@ -81,8 +108,10 @@ def main() -> int:
              and e.device_type != cuda]
     kernels = [e for e in evs if e.device_type == cuda
                and not e.name.startswith("step ")]
-    print(f"layout {args.layout}: per decode step, host ms and the device "
-          f"time of the kernels that ran in it")
+    what = (f"prefill of {spec['prompt_pad']} tokens" if args.prefill
+            else "decode step")
+    print(f"{args.config}, layout {args.layout}: per {what}, host ms and "
+          f"the device time of the kernels that ran in it")
     for st in sorted(steps, key=lambda e: e.time_range.start):
         mine = [k for k in kernels
                 if st.time_range.start <= k.time_range.start
