@@ -14,8 +14,9 @@ Phases, each of which exits non-zero on failure:
    the kernel, the plain version, one PyTorch library call for the same
    function where there is one (a yardstick only, never called by the
    port), and the bound (the larger of the bytes it must move over
-   3.35 TB/s and its float32 operations over 67 TFLOP/s, the H100 SXM's
-   published peaks);
+   3.35 TB/s and its operations over the peak for their type: 67
+   TFLOP/s float32, 989 TFLOP/s for the bf16 tensor-core attention; the
+   H100 SXM's published peaks);
 4. the training path: ``train`` on ResNet-50 at full width (25,541,672
    parameters), R=8 workers, per-worker batch 8, 224x224 images, T=8,
    H=4, under RowSignTopK, TopK and QSGD, with the launch counts per
@@ -186,8 +187,9 @@ def time_ms(fn, reps: int) -> float:
     return ms
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+def bound_ms(nbytes: float, ops: float,
+             ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -430,6 +432,26 @@ def close_to_scale(out, want, rtol: float, scale: float, what: str) -> float:
     return float((o - w).abs().max())
 
 
+def close_per_row(out, want, scale: float, what: str) -> tuple:
+    """Hold ``out`` to ``want`` within ``scale`` times the largest |want|
+    of each row (the last dim: one position or token and one head), so
+    that rows which average many keys, whose outputs are small, are held
+    to their own size and not to the largest row's.  Returns the largest
+    absolute difference and the largest difference over its row's
+    largest |want|."""
+    import torch
+    o, w = out.float(), want.float()
+    diff = (o - w).abs()
+    top = w.abs().amax(dim=-1, keepdim=True)
+    bad = diff > scale * top
+    if bool(bad.any()):
+        raise AssertionError(
+            f"{what}: {int(bad.sum())} of {bad.numel()} outputs differ by "
+            f"more than {scale} of their row's largest |output|; worst "
+            f"{float((diff / top.clamp_min(1e-30)).max())}")
+    return float(diff.max()), float((diff / top.clamp_min(1e-30)).max())
+
+
 def compact_buffers(g, R: int, n: int, k: int, kcap: int, dev):
     """k ascending random survivors per row, the sentinel (n, 0) after
     them (compress_tree's layout); row 0 empty."""
@@ -587,8 +609,8 @@ def check_flash_decode(dev, reps: int, B=8, H=32, KV=4, hd=128, C=512,
     """flash_decode against its plain version, by default at Yi-6B's
     decode shapes (batch 8, a 512-slot ring cache, 4 kv heads, a validity
     mask per row: the serve run's lengths, row 0 full): within one bf16
-    rounding of the largest output.  ``lengths`` ([lo, hi)) draws the
-    rows' valid slots instead."""
+    rounding of each row's largest output.  ``lengths`` ([lo, hi)) draws
+    the rows' valid slots instead."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_decode
@@ -603,9 +625,9 @@ def check_flash_decode(dev, reps: int, B=8, H=32, KV=4, hd=128, C=512,
     else:
         lengths = torch.randint(*lengths, (B,), generator=g, device=dev)
     valid = torch.arange(C, device=dev)[None, :] < lengths[:, None]
-    err = close_to_scale(flash_decode(q, k, v, valid),
-                         ref.flash_decode_ref(q, k, v, valid), 2 ** -7,
-                         2 ** -7, "flash_decode")
+    err, row_err = close_per_row(flash_decode(q, k, v, valid),
+                                 ref.flash_decode_ref(q, k, v, valid),
+                                 2 ** -7, "flash_decode")
     ms = time_ms(lambda: flash_decode(q, k, v, valid), reps)
     plain_ms = time_ms(lambda: ref.flash_decode_ref(q, k, v, valid), reps)
     library_ms = sdpa_ms(q, k, v, valid, reps)
@@ -613,10 +635,69 @@ def check_flash_decode(dev, reps: int, B=8, H=32, KV=4, hd=128, C=512,
     nbytes = 2.0 * tokens * KV * hd * 2 + B * C + 2 * 2.0 * B * H * hd
     bms, by = bound_ms(nbytes, 4.0 * H * hd * tokens)
     return {"shape": [B, H, KV, hd], "cache": C, "tokens": tokens,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": err, "max_row_rel_err": row_err, "ms": ms,
+            "plain_ms": plain_ms,
             "library_ms": library_ms,
             "library": "scaled_dot_product_attention over the same KV",
             "bound_ms": bms, "bound_by": by}
+
+
+#: flash_decode correctness cases (B, H, KV, hd, C, slots): gemma3-1b's
+#: shapes, a row with no valid slot (the uniform average), splits with no
+#: valid slot, one slot, a ragged last chunk, a cache the unsplit kernel
+#: refused (8 heads on 16384 slots), head groups that are not a power of 2
+DECODE_CASES = (
+    (4, 4, 1, 256, 1024, "full"), (4, 4, 1, 256, 2304, "ragged"),
+    (4, 4, 1, 256, 1024, "empty_row"), (4, 8, 2, 128, 2304, "empty_split"),
+    (3, 8, 2, 64, 1, "full"), (2, 8, 2, 64, 1000, "ragged"),
+    (1, 8, 1, 128, 16384, "ragged"), (2, 12, 2, 80, 300, "ragged"),
+    (2, 16, 1, 64, 700, "ragged"))
+
+
+def check_flash_decode_cases(dev) -> dict:
+    """flash_decode against its plain version at DECODE_CASES, in float32
+    (within 1e-5 of the largest output) and bfloat16 (2^-7 of each row's
+    largest output), with a mask per row and one shared mask; the empty
+    row against the mean of V.
+    Correctness only; returns the largest error per dtype."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_decode
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    for B, H, KV, hd, C, slots in DECODE_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator(device=dev).manual_seed(C + H)
+            q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype)
+                       for shape in ((B, 1, H, hd), (B, C, KV, hd),
+                                     (B, C, KV, hd)))
+            pos = torch.arange(C, device=dev)[None, :].expand(B, C)
+            if slots == "ragged":
+                lengths = torch.randint(1, C + 1, (B, 1), generator=g,
+                                        device=dev)
+                valid = pos < lengths
+            elif slots == "empty_split":
+                valid = pos >= C - 10
+            else:
+                valid = pos < C
+            if slots == "empty_row":
+                valid = valid.clone()
+                valid[0] = False
+            tol = 2 ** -7 if dtype == torch.bfloat16 else 1e-5
+            name = str(dtype).split(".")[1]
+            for mask in (valid, valid[0]):
+                what = f"flash_decode {name} {[B, H, KV, hd, C]} {slots}"
+                out = flash_decode(q, k, v, mask)
+                want = ref.flash_decode_ref(q, k, v, mask)
+                err = close_per_row(out, want, tol, what)[0] \
+                    if dtype == torch.bfloat16 else \
+                    close_to_scale(out, want, tol, tol, what)
+                errs[name] = max(errs[name], err)
+                if slots == "empty_row":
+                    mean = v[0].float().mean(dim=0).repeat_interleave(
+                        H // KV, dim=0)
+                    close_to_scale(out[0, 0], mean, tol, tol, what)
+    torch.cuda.synchronize()
+    return errs
 
 
 def live_pairs(S: int, window: int) -> int:
@@ -654,28 +735,32 @@ def sdpa_backend(names: list) -> str:
 
 def check_flash_attention(dev, B: int, S: int, H: int, KV: int, D: int,
                           window: int, reps: int):
-    """flash_attention_fwd in bf16 against its plain version (float32
-    scores, a masked softmax): within one bf16 rounding (2^-7) of the
-    largest output.  The bound counts the live (causal / window) pairs:
-    4 D operations per pair and query head in float32 (67 TFLOP/s)
-    against q, k, v and the output moved once; ``bound_bf16_ms`` is the
-    same operations at the bf16 tensor-core peak (989 TFLOP/s), the mark
-    for a redesign.  Library call: scaled_dot_product_attention on the
-    same tensors, K and V repeated per group, is_causal for the global
-    form and a boolean window mask for the local one."""
+    """flash_attention_fwd in bf16 (the tensor-core route) against its
+    plain version (float32 scores, a masked softmax): within one bf16
+    rounding (2^-7) of the largest output of each row (position and
+    head), the rounding of P to bf16 and of the output.
+    The bound counts the live (causal / window) pairs: 4 D operations per
+    pair and query head at the bf16 tensor-core peak (989 TFLOP/s)
+    against q, k, v and the output moved once; ``bound_f32_ms`` is the
+    same operations at the float32 peak outside the tensor cores (67
+    TFLOP/s), the bound of the float32 FMA route.  Library call:
+    scaled_dot_product_attention on the same tensors, K and V repeated
+    per group, is_causal for the global form and a boolean window mask
+    for the local one."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.flash_attention import (
+        ROUTES, flash_attention_fwd, split_tiles)
     g = torch.Generator(device=dev).manual_seed(S + H + max(window, 0))
     q, k, v = (torch.randn((B, S, h, D), generator=g, device=dev).to(
         torch.bfloat16) for h in (H, KV, KV))
     out = flash_attention_fwd(q, k, v, window=window)
     if not bool(torch.isfinite(out.float()).all()):
         raise AssertionError("flash_attention: non-finite output")
-    err = close_to_scale(out, ref.flash_attention_ref(q, k, v, window=window),
-                         2 ** -7, 2 ** -7,
-                         f"flash_attention S={S} H={H} D={D} w={window}")
+    err, row_err = close_per_row(
+        out, ref.flash_attention_ref(q, k, v, window=window), 2 ** -7,
+        f"flash_attention S={S} H={H} D={D} w={window}")
     del out
     ms = time_ms(lambda: flash_attention_fwd(q, k, v, window=window), reps)
     plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v,
@@ -701,15 +786,18 @@ def check_flash_attention(dev, B: int, S: int, H: int, KV: int, D: int,
     pairs = B * live_pairs(S, window)
     ops = 4.0 * D * H * pairs
     nbytes = 2.0 * B * S * D * (2 * H + 2 * KV)
-    bms, by = bound_ms(nbytes, ops)
+    bms, by = bound_ms(nbytes, ops, BF16_OPS_PER_S)
     return {"shape": [B, S, H, KV, D], "window": window, "dtype": "bfloat16",
-            "live_pairs": pairs, "max_abs_err": err, "ms": ms,
+            "route": ROUTES[torch.bfloat16],
+            "split_tiles": split_tiles(S, H, KV, D, window),
+            "live_pairs": pairs, "max_abs_err": err,
+            "max_row_rel_err": row_err, "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "library": "scaled_dot_product_attention",
             "library_backend": sdpa_backend(names),
             "library_kernels": [n[:100] for n in names], "bound_ms": bms,
             "bound_by": by,
-            "bound_bf16_ms": ops / BF16_OPS_PER_S * 1e3}
+            "bound_f32_ms": ops / F32_OPS_PER_S * 1e3}
 
 
 def phase_flash_kernels(dev):
@@ -720,7 +808,9 @@ def phase_flash_kernels(dev):
     run's other kernels at its own shapes: sparse_gemm at prefill (2048
     rows; w1's 1152 -> 6912 at k 12, w2's 6912 -> 1152 at k 69) and
     flash_decode at batch 4 over a 1024-slot window ring (full) and the
-    2304-slot global ring (1100-2080 valid slots)."""
+    2304-slot global ring (1100-2080 valid slots), then flash_decode's
+    correctness cases (DECODE_CASES).  Returns the timed flash_attention
+    and gemma3-1b flash_decode rows."""
     rows = [check_flash_attention(dev, 1, 2048, 4, 1, 256, 1024, 10),
             check_flash_attention(dev, 1, 2048, 4, 1, 256, -1, 10),
             check_flash_attention(dev, 1, 1100, 4, 1, 256, 1024, 10),
@@ -731,12 +821,16 @@ def phase_flash_kernels(dev):
                 check_sparse_gemm(dev, 2048, 1152, 6912, 69, 5)):
         print("kernel check sparse_gemm (gemma3-1b prefill)",
               json.dumps(row), flush=True)
+    decode = []
     for C, lengths in ((1024, (1024, 1025)), (2304, (1100, 2081))):
-        row = check_flash_decode(dev, 10, B=4, H=4, KV=1, hd=256, C=C,
-                                 lengths=lengths)
+        decode.append(check_flash_decode(dev, 10, B=4, H=4, KV=1, hd=256,
+                                         C=C, lengths=lengths))
         print("kernel check flash_decode (gemma3-1b decode)",
-              json.dumps(row), flush=True)
-    return rows
+              json.dumps(decode[-1]), flush=True)
+    errs = check_flash_decode_cases(dev)
+    print(f"kernel check flash_decode: {len(DECODE_CASES)} cases x 2 dtypes "
+          f"x 2 mask forms agree, largest error {errs}", flush=True)
+    return rows, decode
 
 
 def phase_serve_kernels(dev):
@@ -1297,7 +1391,7 @@ def main() -> int:
 
     topk, qsgd = phase_kernels(dev)
     serve_checks = phase_serve_kernels(dev)
-    flash_checks = phase_flash_kernels(dev)
+    flash_checks, gemma_decode = phase_flash_kernels(dev)
     runs, totals = phase_train(dev)
     phase_small_agreement(dev)
     serve_totals = phase_serve(dev)
@@ -1345,6 +1439,12 @@ def main() -> int:
                 k: head[k] for k in ("max_abs_err", "ms", "plain_ms",
                                      "bound_ms", "bound_by", "library_ms")},
             "shape": head["shape"]})
+    timed = ("shape", "max_abs_err", "max_row_rel_err", "ms", "plain_ms",
+             "bound_ms", "bound_by", "library_ms")
+    # the redesigned decode kernel's gemma3-1b rows beside its head row
+    kernels[-1]["max_row_rel_err"] = head["max_row_rel_err"]
+    kernels[-1]["rows"] = [{"cache": r["cache"], **{k: r[k] for k in timed}}
+                           for r in gemma_decode]
     head = flash_checks[0]
     kernels.append({
         "name": "flash_attention", "route": "cuda",
@@ -1353,7 +1453,11 @@ def main() -> int:
         "launches": flash_totals["flash_attention"], **{
             k: head[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                  "bound_by", "library_ms")},
-        "shape": head["shape"], "window": head["window"]})
+        "shape": head["shape"], "window": head["window"],
+        "max_row_rel_err": head["max_row_rel_err"],
+        "kernel_route": head["route"],
+        "rows": [{"window": r["window"], **{k: r[k] for k in timed}}
+                 for r in flash_checks[1:]]})
     head = compact[0]
     kernels.append({
         "name": "topk_compact", "route": "cuda",

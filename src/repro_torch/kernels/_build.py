@@ -54,12 +54,20 @@ SIGNATURES = {
     # n_pages, page_size, P, pages_per_block, scale, q_bf16, quant, stream
     "qs_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32,
                         _I32, _I32, _I32, _I32, _I32, _F32, _I32, _I32, _P],
-    # q, k, v, valid, out, B, H, KV, hd, C, scale, bf16, stream
-    "qs_flash_decode": [_P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32,
-                        _F32, _I32, _P],
-    # q, k, v, out, B, S, H, KV, D, window, scale, bf16, stream
+    # q, k, v, valid, out, part_m, part_l, part_o, tickets, B, H, KV, hd,
+    # C, GT, splits, chunk, scale, bf16, stream
+    "qs_flash_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32,
+                        _I32, _I32, _I32, _I32, _I32, _I32, _F32, _I32, _P],
+    # q, k, v, out, B, S, H, KV, D, window, scale, stream (float32)
     "qs_flash_attention": [_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32,
-                           _I32, _F32, _I32, _P],
+                           _I32, _F32, _P],
+    # q, k, v, out, scratch, tickets, B, S, H, KV, D, window, scale,
+    # n_split, stream (bf16)
+    "qs_flash_attention_bf16": [_P, _P, _P, _P, _P, _P, _I32, _I32, _I32,
+                                _I32, _I32, _I32, _F32, _I32, _P],
+    # D, geo (int[4]: tile rows, tile keys, smem bytes, scratch floats)
+    "qs_flash_attention_bf16_geometry": [_I32, ctypes.POINTER(_I32)],
+    "qs_flash_decode_max_splits": [],
     "qs_error_string": [_I32],
 }
 

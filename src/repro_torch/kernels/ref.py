@@ -196,6 +196,40 @@ def flash_decode_ref(q, k, v, valid):
     return o.reshape(B, 1, H, D).to(q.dtype)
 
 
+def flash_decode_split_ref(q, k, v, valid, splits: int, chunk: int):
+    """The arithmetic of the split ``flash_decode`` kernel, in plain
+    PyTorch, for the tests only (nothing on a serving path calls it):
+    the C slots in ``splits`` chunks of ``chunk`` (the last one ragged);
+    per chunk a partial (m, l, o) of the masked scores (masked slots at
+    the finite -1e30, so an all-masked chunk has m = -1e30 and l = its
+    slot count); then the log-sum-exp merge M = max m, w = exp(m - M),
+    out = sum(w o) / max(sum(w l), 1e-30).  Same arguments and result as
+    ``flash_decode_ref``."""
+    B, _, H, D = q.shape
+    C, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    live = valid.to(torch.bool).reshape(-1, C).expand(B, C)
+    qf = q.to(torch.float32).reshape(B, KV, G, D) * (D ** -0.5)
+    ms, ls, os_ = [], [], []
+    for c0 in range(0, splits * chunk, chunk):
+        kc = k[:, c0:c0 + chunk].to(torch.float32)
+        vc = v[:, c0:c0 + chunk].to(torch.float32)
+        s = torch.einsum("bkgh,bckh->bkgc", qf, kc)
+        s = torch.where(live[:, None, None, c0:c0 + chunk], s,
+                        torch.full_like(s, NEG_INF))
+        m = s.amax(dim=-1)
+        p = torch.exp(s - m[..., None])
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        os_.append(torch.einsum("bkgc,bckh->bkgh", p, vc))
+    m = torch.stack(ms)                            # [splits, B, KV, G]
+    w = torch.exp(m - m.amax(dim=0))
+    lsum = (w * torch.stack(ls)).sum(dim=0)
+    o = (w[..., None] * torch.stack(os_)).sum(dim=0)
+    o = o / lsum.clamp(min=1e-30)[..., None]
+    return o.reshape(B, 1, H, D).to(q.dtype)
+
+
 def paged_decode_ref(q, kp, vp, kscale, vscale, tables, lengths):
     """Gather-then-attend version of ``paged_decode``.
 

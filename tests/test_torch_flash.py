@@ -8,9 +8,11 @@ rounded from the same float32 values by each framework (round to nearest
 even in both).  Tolerances: the wrapper within 2e-4 (float32) / 2e-2
 (bfloat16, one rounding of the output) of ``repro``'s kernel, which sums
 in another order; the plain versions within 1e-5 of each other (float32
-einsums in another order).  The CUDA kernel runs only on the card
-(``gpu`` marker): there it is held to its plain version within one
-bfloat16 rounding of the largest output (2^-7), or 2e-5 in float32.
+einsums in another order).  The CUDA kernels run only on the card
+(``gpu`` marker): there bfloat16 inputs go through the tensor-core kernel,
+held to the plain version within 2^-7 of the largest output of each
+row (the rounding of the probabilities to bf16 for P V, and of the
+output), and float32 inputs through the FMA kernel, within 2e-5.
 The card has no JAX, so ``repro`` is imported by the parity tests
 themselves and ``pytest -m gpu tests/test_torch_flash.py`` runs there.
 """
@@ -22,10 +24,20 @@ import torch
 from repro_torch.kernels import _build, dispatch as dsp, ref
 from repro_torch.kernels.flash_attention import (
     FLASH_HEAD_DIMS,
+    attention_schedule,
     flash_attention_fwd,
     flash_attention_smem,
 )
 from repro_torch.kernels.launch_stats import LAUNCHES
+from repro_torch.kernels.paged_attention import MAX_SMEM
+
+#: the tensor-core kernel's geometry as its library reports it (pinned on
+#: the card by test_kernel_geometry_on_card): head width -> (tile rows,
+#: tile keys, shared-memory bytes, scratch floats of a split tile)
+TC_GEOMETRY = {D: (128 if D <= 128 else 64, 64,
+                   ((128 if D <= 128 else 64) + 4 * 64) * (D + 8) * 2,
+                   2 * (2 if D <= 128 else 1) * (D // 2 + 4) * 128)
+               for D in FLASH_HEAD_DIMS}
 
 #: repro's flash-attention test shapes (tests/test_kernels.py)
 SHAPES = [
@@ -147,6 +159,45 @@ def test_kernel_is_declared_and_built_lazily():
         <= 232_448
 
 
+def schedule(S, H, KV, w, D):
+    rows, keys = TC_GEOMETRY[D][:2]
+    return attention_schedule(S, H, KV, w, rows, keys)
+
+
+@pytest.mark.parametrize("S,H,KV,D,w,want", [
+    (2048, 4, 1, 256, -1, 64),     # gemma3-1b global: 128 tiles
+    (2048, 4, 1, 256, 1024, 0),    # windowed: keys bounded
+    (1100, 4, 1, 256, 1024, 0),
+    (2048, 32, 4, 128, -1, 64),    # Yi-6B's heads: 128 tiles a kv head
+    (1, 4, 1, 256, -1, 0),
+    (150, 8, 2, 256, -1, 2),
+    (150, 8, 2, 64, -1, 1),        # 128-row tiles
+])
+def test_attention_schedule_at_the_prefill_shapes(S, H, KV, D, w, want):
+    assert schedule(S, H, KV, w, D) == want
+
+
+@pytest.mark.parametrize("S", [1, 17, 64, 150, 700, 2048, 5000])
+@pytest.mark.parametrize("G", [1, 4, 7, 8])
+@pytest.mark.parametrize("KV", [1, 4])
+@pytest.mark.parametrize("D", [64, 256])
+def test_attention_schedule_evens_out_causal_tiles(S, G, KV, D):
+    """The split tiles are the longest ones, and no block walks more key
+    tiles than half the longest tile (rounded up) plus one."""
+    n_split = schedule(S, G * KV, KV, -1, D)
+    rows = TC_GEOMETRY[D][0]
+    tiles = -(-S * G // rows)
+    n_kt = [min(S - 1, (t * rows + rows - 1) // G) // 64 + 1
+            for t in range(tiles)]
+    assert n_kt == sorted(n_kt)          # so the split ones are the last
+    assert 0 <= n_split <= tiles
+    split, whole = n_kt[tiles - n_split:], n_kt[:tiles - n_split]
+    longest = max(n_kt)
+    assert all(n >= 2 for n in split)
+    blocks = [n - n // 2 for n in split] + whole
+    assert max(blocks) <= -(-longest // 2) + 1
+
+
 # ---------------------------------------------------------------------------
 # the CUDA kernel against its plain version, on the card
 # ---------------------------------------------------------------------------
@@ -159,6 +210,16 @@ def cuda():
     return torch.device("cuda")
 
 
+def close_per_row(out, want, scale):
+    """Every output within ``scale`` times the largest |want| of its own
+    row (one position and head), so that rows which average many keys
+    (small outputs) are held to their own size, not to the early rows'."""
+    o, w = out.float(), want.float()
+    atol = scale * w.abs().amax(dim=-1, keepdim=True)
+    excess = ((o - w).abs() - atol).max()
+    assert excess <= 0, f"{float(excess)} past {scale} of a row's largest"
+
+
 def _on_card(cuda, B, S, H, KV, D, w, tdt):
     q, k, v = (torch.from_numpy(a).to(cuda, tdt)
                for a in inputs(B, S, H, KV, D, seed=2))
@@ -166,9 +227,11 @@ def _on_card(cuda, B, S, H, KV, D, w, tdt):
     want = ref.flash_attention_ref(q, k, v, window=w)
     torch.cuda.synchronize()
     assert torch.isfinite(out.float()).all()
-    scale = 2 ** -7 if tdt == torch.bfloat16 else 2e-5
-    torch.testing.assert_close(out.float(), want.float(), rtol=scale,
-                               atol=scale * float(want.float().abs().max()))
+    if tdt == torch.bfloat16:
+        close_per_row(out, want, 2 ** -7)
+    else:
+        torch.testing.assert_close(out.float(), want.float(), rtol=2e-5,
+                                   atol=2e-5 * float(want.abs().max()))
 
 
 @pytest.mark.gpu
@@ -176,6 +239,29 @@ def _on_card(cuda, B, S, H, KV, D, w, tdt):
 @pytest.mark.parametrize("B,S,H,KV,D,w", SHAPES + [
     (1, 300, 4, 1, 256, 100),    # gemma3's head width, partial windows
     (1, 200, 8, 8, 80, -1),      # stablelm's head width
-    (2, 130, 4, 2, 64, 1)])      # a window of one key
+    (2, 130, 4, 2, 64, 1),       # a window of one key
+    # bfloat16 runs the tensor-core kernel: every head width, 4 heads of
+    # a kv group packed into one tile
+    *[(1, 150, 8, 2, d, -1) for d in FLASH_HEAD_DIMS],
+    (1, 1, 4, 1, 256, -1),       # one position
+    (1, 1100, 4, 1, 256, 1024),  # gemma3-1b's ragged prompt, windowed
+    (1, 300, 4, 1, 256, 1),      # a window of one key at D = 256
+    (1, 300, 4, 1, 256, 37),     # partial windows inside a key tile
+    (1, 200, 14, 2, 64, 50),     # 7 heads a group: tiles cut positions
+    (1, 700, 4, 1, 256, -1),     # the longest causal tiles split in two
+    (2, 300, 4, 1, 256, -1),     # split tiles of two batch rows
+    (2, 300, 8, 2, 64, -1),      # 〃, 128-row tiles, two kv heads
+    (2, 600, 32, 4, 128, -1)])   # Yi-6B's heads, split tiles
 def test_kernel_matches_plain_on_card(cuda, B, S, H, KV, D, w, dtype):
     _on_card(cuda, B, S, H, KV, D, w, DTYPES[dtype][0])
+
+
+@pytest.mark.gpu
+def test_kernel_geometry_on_card(cuda):
+    """The library's tensor-core geometry is the one the schedule tests
+    above are pinned with, and every head width fits a block's shared
+    memory."""
+    from repro_torch.kernels.flash_attention import tc_geometry
+    for D in FLASH_HEAD_DIMS:
+        assert tuple(tc_geometry(D)) == TC_GEOMETRY[D]
+        assert TC_GEOMETRY[D][2] <= MAX_SMEM

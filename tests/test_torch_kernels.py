@@ -293,22 +293,89 @@ def test_paged_decode_kernel_matches_plain_on_card(cuda, quant, dtype, pb):
                     2 ** -7 if dtype == torch.bfloat16 else 1e-5)
 
 
+#: flash_decode card cases: (B, H, KV, hd, C, valid slots).  "random":
+#: each row valid on a random prefix; "full"; "ragged" (lo, hi): prefixes
+#: drawn in [lo, hi); "empty_row": row 0 has no valid slot (uniform
+#: average); "empty_split": only the last 10 slots are valid, so every
+#: earlier split of each row is all masked
+DECODE_CASES = {
+    "yi6b": (8, 32, 4, 128, 512, "random"),
+    "gemma_window": (4, 4, 1, 256, 1024, "full"),
+    "gemma_global": (4, 4, 1, 256, 2304, (1100, 2081)),
+    "empty_row": (4, 4, 1, 256, 1024, "empty_row"),
+    "empty_split": (4, 8, 2, 128, 2304, "empty_split"),
+    "one_slot": (3, 8, 2, 64, 1, "full"),
+    "one_split": (2, 8, 2, 64, 100, "random"),   # the block writes out
+    "ragged_chunk": (2, 8, 2, 64, 1000, "random"),
+    # the old wrapper refused this cache (its [G, C] score tile needed
+    # 540 KB of shared memory)
+    "long_cache": (1, 8, 1, 128, 16384, "random"),
+    "six_heads_hd80": (2, 12, 2, 80, 300, "random"),
+    "sixteen_heads": (2, 16, 1, 64, 700, "random"),
+}
+
+
+def decode_case(g, device, dtype, B, H, KV, hd, C, slots):
+    q = torch.randn((B, 1, H, hd), generator=g, device=device).to(dtype)
+    k = torch.randn((B, C, KV, hd), generator=g, device=device).to(dtype)
+    v = torch.randn((B, C, KV, hd), generator=g, device=device).to(dtype)
+    if slots == "random":
+        lengths = torch.randint(1, C + 1, (B,), generator=g, device=device)
+    elif slots == "full" or slots == "empty_row":
+        lengths = torch.full((B,), C, device=device)
+    elif slots == "empty_split":
+        lengths = None
+    else:
+        lengths = torch.randint(*slots, (B,), generator=g, device=device)
+    pos = torch.arange(C, device=device)[None, :].expand(B, C)
+    valid = pos >= C - 10 if lengths is None else pos < lengths[:, None]
+    if slots == "empty_row":
+        valid = valid.clone()
+        valid[0] = False
+    return q, k, v, valid
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("per_row", [False, True])
-def test_flash_decode_kernel_matches_plain_on_card(cuda, dtype, per_row):
-    from repro_torch.kernels.flash_attention import flash_decode
-    g = torch.Generator(device=cuda).manual_seed(int(per_row))
-    B, H, KV, hd, C = 8, 32, 4, 128, 512
-    q = torch.randn((B, 1, H, hd), generator=g, device=cuda).to(dtype)
-    k = torch.randn((B, C, KV, hd), generator=g, device=cuda).to(dtype)
-    v = torch.randn((B, C, KV, hd), generator=g, device=cuda).to(dtype)
-    lengths = torch.randint(1, C + 1, (B, 1), generator=g, device=cuda)
-    valid = torch.arange(C, device=cuda)[None, :] < lengths
+@pytest.mark.parametrize("case", sorted(DECODE_CASES))
+def test_flash_decode_kernel_matches_plain_on_card(cuda, dtype, per_row,
+                                                   case):
+    from repro_torch.kernels.flash_attention import decode_max_splits, \
+        decode_splits, flash_decode, sm_count
+    B, H, KV, hd, C, slots = DECODE_CASES[case]
+    g = torch.Generator(device=cuda).manual_seed(int(per_row) + C)
+    q, k, v, valid = decode_case(g, cuda, dtype, B, H, KV, hd, C, slots)
     if not per_row:
         valid = valid[0]
+    if case == "empty_split":
+        assert decode_splits(B, KV, C, sm_count(torch.cuda.current_device()),
+                             decode_max_splits())[0] > 1
+    before = LAUNCHES["flash_decode"]
     out = flash_decode(q, k, v, valid)
+    assert LAUNCHES["flash_decode"] == before + 1
     want = ref.flash_decode_ref(q, k, v, valid)
     torch.cuda.synchronize()
-    _close_to_scale(out, want, 2 ** -7 if dtype == torch.bfloat16 else 1e-5,
-                    2 ** -7 if dtype == torch.bfloat16 else 1e-5)
+    assert out.dtype == dtype and out.shape == q.shape
+    tol = 2 ** -7 if dtype == torch.bfloat16 else 1e-5
+    _close_to_scale(out, want, tol, tol)
+    if dtype == torch.bfloat16:
+        # and within one bf16 rounding of each head's own largest output:
+        # rows that average many slots are small
+        row_tol = tol * want.float().abs().amax(dim=-1, keepdim=True)
+        assert ((out.float() - want.float()).abs() <= row_tol).all()
+    if case == "empty_row":
+        # no valid slot: the uniform average of V over all C slots
+        mean = v[0].float().mean(dim=0).repeat_interleave(H // KV, dim=0)
+        _close_to_scale(out[0, 0], mean, tol, tol)
+    # a second call reuses the ticket counters, which the kernel reset
+    torch.testing.assert_close(flash_decode(q, k, v, valid), out, rtol=0,
+                               atol=0)
+
+
+@pytest.mark.gpu
+def test_flash_decode_max_splits_on_card(cuda):
+    """The library's split cap is the one tests/test_torch_flash_decode.py
+    pins ``decode_splits`` with."""
+    from repro_torch.kernels.flash_attention import decode_max_splits
+    assert decode_max_splits() == 128
