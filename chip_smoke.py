@@ -550,8 +550,9 @@ def check_paged_decode(dev, quant: bool, reps: int):
     """paged_decode at Yi-6B's decode shapes (batch 8, 32 query / 4 kv
     heads of 128, pages of 16, 32 table entries per row, a 256-page
     pool) against its plain version (gather, dequantize, masked softmax):
-    within one bf16 rounding (2^-7) of the largest output; the free
-    slot's row exactly zero."""
+    within one bf16 rounding (2^-7) of each row's (position and head's)
+    largest output, so that a faulty split merge shows; the free slot's
+    row exactly zero."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_attention import paged_decode
@@ -579,8 +580,8 @@ def check_paged_decode(dev, quant: bool, reps: int):
     out = paged_decode(*args)
     if out[0].any():
         raise AssertionError("paged_decode: a length-0 row is not zero")
-    err = close_to_scale(out, ref.paged_decode_ref(*args), 2 ** -7, 2 ** -7,
-                         f"paged_decode quant={quant}")
+    err, row_err = close_per_row(out, ref.paged_decode_ref(*args), 2 ** -7,
+                                 f"paged_decode quant={quant}")
     ms = time_ms(lambda: paged_decode(*args), reps)
     plain_ms = time_ms(lambda: ref.paged_decode_ref(*args), reps)
     tbl = tables.long().clamp(min=0)
@@ -598,7 +599,8 @@ def check_paged_decode(dev, quant: bool, reps: int):
               + 2 * 2.0 * B * H * hd + 4.0 * B * P + 4.0 * B)
     bms, by = bound_ms(nbytes, 4.0 * H * hd * tokens)
     return {"shape": [B, H, KV, hd], "pool": [n_pages, ps],
-            "quant": quant, "tokens": tokens, "max_abs_err": err, "ms": ms,
+            "quant": quant, "tokens": tokens, "max_abs_err": err,
+            "max_row_rel_err": row_err, "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "library": "scaled_dot_product_attention over gathered KV",
             "bound_ms": bms, "bound_by": by}
@@ -1213,7 +1215,7 @@ def phase_lm_kernels(dev):
         print("kernel check topk_compact", json.dumps(row), flush=True)
     dense = check_topk(dev, 179712, 1152, 12, False, 10)
     print("kernel check topk_compress", json.dumps(dense), flush=True)
-    return rows
+    return rows, [dense]
 
 
 def lm_run(wire: str, dev):
@@ -1401,7 +1403,7 @@ def main() -> int:
         serve_totals[k] = serve_totals.get(k, 0) + v
     for arch in ("gemma3-1b", "yi-6b"):
         phase_serve_agreement(dev, arch, unscanned=True)
-    compact = phase_lm_kernels(dev)
+    compact, lm_topk = phase_lm_kernels(dev)
     lm_totals = phase_lm(dev)
     phase_lm_ranks(dev)
 
@@ -1415,7 +1417,12 @@ def main() -> int:
              k: head_topk[k] for k in ("max_abs_err", "ms", "plain_ms",
                                        "bound_ms", "bound_by",
                                        "library_ms")},
-         "shape": head_topk["shape"]},
+         "shape": head_topk["shape"],
+         # the other shapes: the long rows' cluster kernel among them
+         "rows": [{"k": r["k"], "sign": r["sign"], **{
+             k: r[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
+                               "bound_ms", "bound_by", "library_ms")}}
+             for r in topk + lm_topk if r is not head_topk]},
         {"name": "qsgd_quantize", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/qsgd.cu",
          "replaces": "src/repro/kernels/qsgd.py:36",
@@ -1441,7 +1448,12 @@ def main() -> int:
             "shape": head["shape"]})
     timed = ("shape", "max_abs_err", "max_row_rel_err", "ms", "plain_ms",
              "bound_ms", "bound_by", "library_ms")
-    # the redesigned decode kernel's gemma3-1b rows beside its head row
+    # the split decode kernels' other rows beside their head rows
+    paged = kernels[-2]
+    paged["max_row_rel_err"] = serve_checks["paged_decode"][0][
+        "max_row_rel_err"]
+    paged["rows"] = [{"quant": r["quant"], **{k: r[k] for k in timed}}
+                     for r in serve_checks["paged_decode"][1:]]
     kernels[-1]["max_row_rel_err"] = head["max_row_rel_err"]
     kernels[-1]["rows"] = [{"cache": r["cache"], **{k: r[k] for k in timed}}
                            for r in gemma_decode]

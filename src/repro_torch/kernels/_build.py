@@ -41,6 +41,11 @@ SIGNATURES = {
     # acc, sel, mem, cnt, rows, n, k, iters, sign, stream
     "qs_topk_compress_f32": [_P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32,
                              _P],
+    # acc, sel, mem, cnt, rows, n, k, iters, sign, cs, chunk, stream
+    "qs_topk_compress_cluster_f32": [_P, _P, _P, _P, _I64, _I64, _I32, _I32,
+                                     _I32, _I32, _I64, _P],
+    # cs, chunk
+    "qs_topk_cluster_capacity": [_I32, _I64],
     # acc, idx, val, mem, cnt, rows, n, k, kcap, iters, sign, stream
     "qs_topk_compact_f32": [_P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32,
                             _I32, _P],
@@ -50,10 +55,12 @@ SIGNATURES = {
     "qs_sparse_gemm": [_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _P],
     # x, levels, scale, out, M, R, n, x_bf16, stream
     "qs_qdq_gemm": [_P, _P, _P, _P, _I32, _I32, _I32, _I32, _P],
-    # q, kp, vp, kscale, vscale, tables, lengths, out, B, H, KV, hd,
-    # n_pages, page_size, P, pages_per_block, scale, q_bf16, quant, stream
-    "qs_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32,
-                        _I32, _I32, _I32, _I32, _I32, _F32, _I32, _I32, _P],
+    # q, kp, vp, kscale, vscale, tables, lengths, out, part_m, part_l,
+    # part_o, tickets, B, H, KV, hd, n_pages, page_size, P,
+    # pages_per_block, GT, scale, q_bf16, quant, stream
+    "qs_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _I32, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _I32,
+                        _F32, _I32, _I32, _P],
     # q, k, v, valid, out, part_m, part_l, part_o, tickets, B, H, KV, hd,
     # C, GT, splits, chunk, scale, bf16, stream
     "qs_flash_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32,

@@ -1,6 +1,7 @@
 // Block-wide reductions, the block-wide prefix scan and the bisection
 // threshold shared by the compression kernels, and the float32 <->
-// storage-type conversions shared by the serving kernels.
+// storage-type conversions and lane-group helpers shared by the serving
+// kernels.
 //
 // Each reduction reduces within a warp by shuffles, writes one partial
 // per warp to shared memory and lets every thread add the partials up,
@@ -154,6 +155,46 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
   return v;
+}
+
+// The decode kernels' (flash_decode, paged_decode) lane-group helpers:
+// 16-byte vector -> float32 elements
+__device__ __forceinline__ void unpack(const uint4& u, float (&f)[4]) {
+  f[0] = __uint_as_float(u.x);
+  f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z);
+  f[3] = __uint_as_float(u.w);
+}
+__device__ __forceinline__ void unpack(const uint4& u, float (&f)[8]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+// 8-byte vector of int8 levels -> float32 elements
+__device__ __forceinline__ void unpack(const uint2& u, float (&f)[8]) {
+  const uint32_t w[2] = {u.x, u.y};
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      f[4 * i + b] = static_cast<float>(
+          static_cast<int32_t>(w[i] << (24 - 8 * b)) >> 24);
+}
+
+// merge (mb, lb, ob) into (ma, la, oa): log-sum-exp rescaling
+template <int N>
+__device__ __forceinline__ void merge(float& ma, float& la, float (&oa)[N],
+                                      float mb, float lb,
+                                      const float (&ob)[N]) {
+  const float m = fmaxf(ma, mb);
+  const float a = expf(ma - m), c = expf(mb - m);
+  la = la * a + lb * c;
+#pragma unroll
+  for (int e = 0; e < N; ++e) oa[e] = oa[e] * a + ob[e] * c;
+  ma = m;
 }
 
 }  // namespace qs

@@ -69,35 +69,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMaxSplits = 128;   // qs_flash_decode_max_splits
 constexpr float kNegInf = -1e30f;
 
-// 16-byte vector -> float32 elements
-__device__ __forceinline__ void unpack(const uint4& u, float (&f)[4]) {
-  f[0] = __uint_as_float(u.x);
-  f[1] = __uint_as_float(u.y);
-  f[2] = __uint_as_float(u.z);
-  f[3] = __uint_as_float(u.w);
-}
-__device__ __forceinline__ void unpack(const uint4& u, float (&f)[8]) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(w[i] << 16);
-    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-
-// merge (mb, lb, ob) into (ma, la, oa): log-sum-exp rescaling
-template <int N>
-__device__ __forceinline__ void merge(float& ma, float& la, float (&oa)[N],
-                                      float mb, float lb,
-                                      const float (&ob)[N]) {
-  const float m = fmaxf(ma, mb);
-  const float a = expf(ma - m), c = expf(mb - m);
-  la = la * a + lb * c;
-#pragma unroll
-  for (int e = 0; e < N; ++e) oa[e] = oa[e] * a + ob[e] * c;
-  ma = m;
-}
-
 // T: float or __nv_bfloat16; GT: query heads a block serves; NV: 16-byte
 // vectors of a slot row each lane reads (hd * sizeof(T) / 16 over the
 // group's lanes, rounded up).
@@ -207,7 +178,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < NV; ++i) {
         float kf[kEpv];
-        unpack(kb[u][i], kf);
+        qs::unpack(kb[u][i], kf);
 #pragma unroll
         for (int g = 0; g < GT; ++g)
 #pragma unroll
@@ -249,7 +220,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int i = 0; i < NV; ++i) {
           float vf[kEpv];
-          unpack(vb[u][i], vf);
+          qs::unpack(vb[u][i], vf);
 #pragma unroll
           for (int e = 0; e < kEpv; ++e)
             o[g][i * kEpv + e] = fmaf(p[u], vf[e], o[g][i * kEpv + e]);
@@ -269,7 +240,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
         ob[e] = __shfl_xor_sync(qs::FULL, o[g][e], off);
       const float mb = __shfl_xor_sync(qs::FULL, m[g], off);
       const float lb = __shfl_xor_sync(qs::FULL, l[g], off);
-      merge(m[g], l[g], o[g], mb, lb, ob);
+      qs::merge(m[g], l[g], o[g], mb, lb, ob);
     }
   }
   // then the warps of the block, through shared memory

@@ -17,29 +17,59 @@
 // What bounds it on an H100: memory.  The function must read each
 // element once and write two (sel, mem): 12 bytes per element, against
 // about 2 x 26 compare-and-add operations per element, well below the
-// card's float32 rate per byte.  But the bisection reads the row 26
-// times.  Design: one block per row.  A row of up to 12,288 floats
-// (48 KB; the main path's RowTopK rows are 4096) is staged once in
-// shared memory, so the 26 counting passes read shared memory and
-// device memory is touched once in each direction.  Longer rows (up to
-// dispatch's max_row, 512Ki floats = 2 MiB, from the global TopK
-// operator) do not fit one SM and re-read the row from device memory
-// (mostly L2) on every pass, with 1024 threads; that path is right but
-// not fast, and is left for a later change (a cluster of blocks sharing
-// one row through distributed shared memory would keep it on chip).
-// The threshold is common.cuh's bisect_threshold, shared with
-// topk_compact: every count is a block-wide integer reduction, so it is
-// bit-identical to the plain version; only the SignTop_k norm is a
-// float sum in another order.
+// card's float32 rate per byte.  A serial bisection reads the row 26
+// times, so the row must stay on chip (in shared memory or L2).  Two
+// designs, by row length:
+//
+// - Rows of up to 12,288 floats (48 KB; the main path's RowTopK rows
+//   are 4096, gemma3-1b's 1152): one block per row, the row staged once
+//   in shared memory, the 26 counting passes over shared memory.  The
+//   threshold is common.cuh's bisect_threshold, shared with
+//   topk_compact: every count is a block-wide integer reduction.
+// - Longer rows (up to dispatch's max_row, 512Ki floats = 2 MiB, from
+//   the global TopK operator) do not fit one SM: each row is spread over
+//   a thread-block cluster of CS = 8 or 16 blocks (the wrapper picks,
+//   kernels/topk_compress.py:cluster_geometry), each block owning a
+//   contiguous chunk.  One pass finds the chunk's max and how many
+//   elements equal it; then each counting pass takes kLevels = 3
+//   bisection levels at once: from (lo, hi) the next three levels of
+//   mids form a tree of 7 floats, each computed with the serial
+//   expression 0.5f*(lo+hi) from its own (lo, hi), so each is the float
+//   the serial loop would reach.  One pass counts |x| >= mid for all of
+//   them; the blocks publish their integer counts in their own shared
+//   memory, cluster-sync, read every block's counts through distributed
+//   shared memory (one load per thread, all ranks at once), and each
+//   walks the levels to the same new (lo, hi): 24 rounds take 8 passes.
+//   Only elements in [lo, hi) are compared against the tree: every mid
+//   lies in [lo, hi], so an element at or above hi counts for every mid
+//   (its count, count(|x| >= hi), is known from the walk) and one below
+//   lo for none.  After the first pass few elements are left in the
+//   band, and the second pass lists their magnitudes in shared memory (a
+//   quarter of the chunk, at most 8192); bands only shrink, so while the
+//   list held the whole band the later passes read it alone.  The chunk
+//   itself is read four times (max, the first two passes, the output),
+//   from L2 after the first (ResNet-50's 16 rows of 2 MiB fit the 50 MB
+//   L2): staging it in shared memory instead allowed one block an SM
+//   and took 1.25x as long at [16, 524288] (PERF.md).  Where hi exceeds
+//   FLT_MAX / 2, lo + hi may overflow to a mid above hi, and the row is
+//   counted in full instead.  The final count(|x| >= hi) is then known
+//   without a pass.  Integer sums are order-free, so the threshold is
+//   bit-identical to the plain version; the SignTop_k norm is a float
+//   sum over the cluster's blocks in a fixed shuffle tree
+//   (deterministic, in another order than the plain version's).
+//   Cluster barriers are hardware: no scratch, no ticket, one launch.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr long long kSmemMaxElems = 12288;  // 48 KB of float32
 
-template <int THREADS, bool SMEM>
+template <int THREADS>
 __global__ void __launch_bounds__(THREADS)
 topk_compress_kernel(const float* __restrict__ acc, float* __restrict__ sel,
                      float* __restrict__ mem, int* __restrict__ cnt_out,
@@ -52,13 +82,9 @@ topk_compress_kernel(const float* __restrict__ acc, float* __restrict__ sel,
   const float* __restrict__ src = acc + base;
   const int tid = threadIdx.x;
 
-  if (SMEM) {
-    for (long long i = tid; i < n; i += THREADS) row_smem[i] = src[i];
-    __syncthreads();
-  }
-  auto value = [&](long long i) -> float {
-    return SMEM ? row_smem[i] : __ldg(src + i);
-  };
+  for (long long i = tid; i < n; i += THREADS) row_smem[i] = src[i];
+  __syncthreads();
+  auto value = [&](long long i) -> float { return row_smem[i]; };
 
   int buf = 0;
   const float thr = qs::bisect_threshold<THREADS>(value, n, k, iters,
@@ -94,28 +120,464 @@ topk_compress_kernel(const float* __restrict__ acc, float* __restrict__ sel,
   if (tid == 0) cnt_out[blockIdx.x] = cnt;
 }
 
+// ---------------------------------------------------------------------------
+// long rows: one thread-block cluster per row
+// ---------------------------------------------------------------------------
+
+constexpr int kLevels = 3;                    // bisection levels a pass
+constexpr int kMids = (1 << kLevels) - 1;     // mids of one pass's tree
+constexpr int kMaxCluster = 16;
+// chunks up to this many floats take 256-thread blocks (four an SM),
+// longer ones 512-thread blocks (two an SM)
+constexpr int kSmallChunk = 8192;
+// lo + hi cannot overflow while hi <= FLT_MAX / 2
+constexpr float kNoOverflow = 0x1.fffffep+126f;
+
+// floats of the band list a block keeps in shared memory
+__host__ __device__ constexpr int band_cap(long long chunk) {
+  return chunk / 4 > 8192 ? 8192 : (chunk / 4 < 256 ? 256 : chunk / 4);
+}
+
+// sum / max over groups of W consecutive lanes (every lane of a group
+// leaves with its group's result); a fixed tree, so deterministic
+template <int W, typename T>
+__device__ __forceinline__ T group_sum(T v) {
+#pragma unroll
+  for (int off = W / 2; off > 0; off >>= 1)
+    v += __shfl_xor_sync(qs::FULL, v, off);
+  return v;
+}
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(qs::FULL, v, off));
+  return v;
+}
+
+// Calls f4(i, float4) on the groups of four and f1(i, float) on the rest
+// of a block's chunk, 16-byte loads where `vec`; i is the index within
+// the chunk.
+template <int THREADS, typename F4, typename F1>
+__device__ __forceinline__ void visit_chunk(const float* __restrict__ src,
+                                            int len, bool vec, F4 f4,
+                                            F1 f1) {
+  const int tid = threadIdx.x;
+  int i0 = 0;
+  if (vec) {
+    const int n4 = len >> 2;
+    const float4* g4 = reinterpret_cast<const float4*>(src);
+#pragma unroll 4
+    for (int i = tid; i < n4; i += THREADS) f4(4 * i, __ldg(g4 + i));
+    i0 = 4 * n4;
+  }
+  for (int i = i0 + tid; i < len; i += THREADS) f1(i, __ldg(src + i));
+}
+
+// tallies |v| against the pass's tree of mids where it lies in the band
+// [lo, hi) (or everywhere, `full`); returns whether it does
+__device__ __forceinline__ bool tally(float v, bool full, float lo, float hi,
+                                      const float (&mid)[kMids],
+                                      int (&c)[kMids]) {
+  const float a = fabsf(v);
+  const bool in = full || (a >= lo && a < hi);
+  if (in) {
+#pragma unroll
+    for (int j = 0; j < kMids; ++j) c[j] += a >= mid[j];
+  }
+  return in;
+}
+
+template <int THREADS>
+__global__ void __launch_bounds__(THREADS, 1024 / THREADS)
+topk_cluster_kernel(const float* __restrict__ acc, float* __restrict__ sel,
+                    float* __restrict__ mem, int* __restrict__ cnt_out,
+                    long long n, long long chunk, int k, int iters,
+                    int sign, int vec) {
+  constexpr int kWarps = THREADS / 32;
+  // the transposed reductions below run on whole warps
+  static_assert((kMids + 1) * kWarps % 32 == 0 &&
+                (kMids + 1) * kMaxCluster % 32 == 0 &&
+                (kMids + 1) * kMaxCluster <= THREADS, "reduction layout");
+  extern __shared__ float band[];  // |x| of the band, from the second pass
+  __shared__ int warp_i[kWarps][kMids + 1];
+  __shared__ float warp_f[kWarps];
+  // what a block publishes to the cluster, two rounds alternating: a
+  // round's values are rewritten only after the next cluster barrier,
+  // which every reader of the round passes only after reading them
+  __shared__ int pub_i[2][kMids + 1];
+  __shared__ float pub_f[2];
+  __shared__ int tot_i[kMids + 1];
+  __shared__ float tot_f;
+  __shared__ int band_n;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const long long row = blockIdx.x / cs;
+  const long long beg = min(n, rank * chunk);
+  const int len = static_cast<int>(min(n, beg + chunk) - beg);
+  const float* __restrict__ src = acc + row * n + beg;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int cap = band_cap(chunk);
+  int buf = 0;
+  if (tid == 0) band_n = 0;
+
+  // pass 0: the chunk's max |x| and how many elements equal it
+  float m = 0.0f;
+  int meq = 0;
+  auto see = [&](float v) {
+    const float a = fabsf(v);
+    if (a > m) {
+      m = a;
+      meq = 1;
+    } else if (a == m) {
+      meq += 1;
+    }
+  };
+  visit_chunk<THREADS>(
+      src, len, vec,
+      [&](int, float4 v) {
+        see(v.x);
+        see(v.y);
+        see(v.z);
+        see(v.w);
+      },
+      [&](int, float v) { see(v); });
+  {
+    // |x| >= 0, so float order is the order of the bits
+    const float mw = __uint_as_float(__reduce_max_sync(qs::FULL,
+                                                       __float_as_uint(m)));
+    const int cw = __reduce_add_sync(qs::FULL, m == mw ? meq : 0);
+    if (lane == 0) {
+      warp_f[warp] = mw;
+      warp_i[warp][0] = cw;
+    }
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const float mv = lane < kWarps ? warp_f[lane] : 0.0f;
+    const float mb = warp_max(mv);
+    const int cb = group_sum<32>(lane < kWarps && mv == mb
+                                     ? warp_i[lane][0] : 0);
+    if (lane == 0) {
+      pub_f[buf] = mb;
+      pub_i[buf][0] = cb;
+    }
+  }
+  cluster.sync();
+  if (warp == 0) {
+    // lane r reads block r's (max, count) through distributed shared
+    // memory, all ranks at once
+    float mv = 0.0f;
+    int cv = 0;
+    if (lane < cs) {
+      mv = *cluster.map_shared_rank(&pub_f[buf], lane);
+      cv = *cluster.map_shared_rank(&pub_i[buf][0], lane);
+    }
+    const float mc = warp_max(mv);
+    const int cc = group_sum<32>(mv == mc ? cv : 0);
+    if (lane == 0) {
+      tot_f = mc;
+      tot_i[0] = cc;
+    }
+  }
+  __syncthreads();
+  buf ^= 1;
+
+  float lo = 0.0f, hi = tot_f;
+  int cnt_hi = tot_i[0];  // count(|x| >= hi)
+  const bool full = !(hi <= kNoOverflow);
+
+  for (int pass = 0, done = 0; done < iters; ++pass, done += kLevels) {
+    // the pass's tree: node j's children 2j+1 (hi = mid) and 2j+2
+    // (lo = mid), each mid from its own (lo, hi) as the serial loop has it
+    float mid[kMids], nlo[kMids], nhi[kMids];
+    nlo[0] = lo;
+    nhi[0] = hi;
+#pragma unroll
+    for (int j = 0; j < kMids; ++j) {
+      mid[j] = 0.5f * (nlo[j] + nhi[j]);
+      if (2 * j + 2 < kMids) {
+        nlo[2 * j + 1] = nlo[j];
+        nhi[2 * j + 1] = mid[j];
+        nlo[2 * j + 2] = mid[j];
+        nhi[2 * j + 2] = nhi[j];
+      }
+    }
+    int c[kMids];
+#pragma unroll
+    for (int j = 0; j < kMids; ++j) c[j] = 0;
+    // The second pass also lists the |x| in its band; bands only shrink,
+    // so while the list held them all, later passes read the list alone.
+    // (Its order is the atomics' and varies; the counts do not.)
+    const bool build = pass == 1 && !full;
+    if (pass >= 2 && !full && band_n <= cap) {
+      for (int i = tid; i < band_n; i += THREADS)
+        tally(band[i], false, lo, hi, mid, c);
+    } else {
+      auto note = [&](float v) {
+        if (tally(v, full, lo, hi, mid, c) && build) {
+          const int at = atomicAdd(&band_n, 1);
+          if (at < cap) band[at] = fabsf(v);
+        }
+      };
+      visit_chunk<THREADS>(
+          src, len, vec,
+          [&](int, float4 v) {
+            note(v.x);
+            note(v.y);
+            note(v.z);
+            note(v.w);
+          },
+          [&](int, float v) { note(v); });
+    }
+#pragma unroll
+    for (int j = 0; j < kMids; ++j) {
+      const int s = __reduce_add_sync(qs::FULL, c[j]);
+      if (lane == 0) warp_i[warp][j] = s;
+    }
+    __syncthreads();
+    if (tid < (kMids + 1) * kWarps) {
+      // thread j * kWarps + w adds warp w's count of mid j
+      const int j = tid / kWarps, w = tid % kWarps;
+      const int s = group_sum<kWarps>(j < kMids ? warp_i[w][j] : 0);
+      if (w == 0 && j < kMids) pub_i[buf][j] = s;
+    }
+    cluster.sync();
+    if (tid < (kMids + 1) * kMaxCluster) {
+      // thread j * 16 + r reads block r's count of mid j: all at once
+      const int j = tid / kMaxCluster, r = tid % kMaxCluster;
+      const int s = group_sum<kMaxCluster>(
+          j < kMids && r < cs ? cluster.map_shared_rank(&pub_i[buf][0], r)[j]
+                              : 0);
+      if (r == 0 && j < kMids) tot_i[j] = s;
+    }
+    __syncthreads();
+    buf ^= 1;
+    // walk the levels this pass has (the last pass may have fewer)
+    const int levels = min(kLevels, iters - done);
+    const int base = full ? 0 : cnt_hi;
+    int node = 0;
+    for (int l = 0; l < levels; ++l) {
+      const float md = 0.5f * (lo + hi);
+      const int cm = base + tot_i[node];
+      if (cm > k) {
+        lo = md;
+        node = 2 * node + 2;
+      } else {
+        hi = md;
+        cnt_hi = cm;
+        node = 2 * node + 1;
+      }
+    }
+  }
+  const float thr = cnt_hi >= k ? hi : lo;
+
+  // survivors: their count (and SignTop_k's sum of squares) over the
+  // cluster, and the outputs
+  float* __restrict__ sel_c = sel + row * n + beg;
+  float* __restrict__ mem_c = mem + row * n + beg;
+  auto out_of = [&](float v, float scale) -> float {
+    const float a = fabsf(v);
+    if (!(a >= thr && a > 0.0f)) return 0.0f;
+    return sign ? qs::sign_of(v) * scale : v;
+  };
+  auto write = [&](int i, float v, float scale) {
+    const float s = out_of(v, scale);
+    sel_c[i] = s;
+    mem_c[i] = v - s;
+  };
+  auto write4 = [&](int i, float4 v, float scale) {
+    const float4 s = make_float4(out_of(v.x, scale), out_of(v.y, scale),
+                                 out_of(v.z, scale), out_of(v.w, scale));
+    *reinterpret_cast<float4*>(sel_c + i) = s;
+    *reinterpret_cast<float4*>(mem_c + i) =
+        make_float4(v.x - s.x, v.y - s.y, v.z - s.z, v.w - s.w);
+  };
+  int cs_cnt = 0;
+  float sq = 0.0f;
+  auto keep = [&](float v) {
+    const float a = fabsf(v);
+    if (a >= thr && a > 0.0f) {
+      cs_cnt += 1;
+      sq += v * v;
+    }
+  };
+  if (sign) {
+    visit_chunk<THREADS>(
+        src, len, vec,
+        [&](int, float4 v) {
+          keep(v.x);
+          keep(v.y);
+          keep(v.z);
+          keep(v.w);
+        },
+        [&](int, float v) { keep(v); });
+  } else {
+    // no scale to wait for: count while writing
+    visit_chunk<THREADS>(
+        src, len, vec,
+        [&](int i, float4 v) {
+          keep(v.x);
+          keep(v.y);
+          keep(v.z);
+          keep(v.w);
+          write4(i, v, 0.0f);
+        },
+        [&](int i, float v) {
+          keep(v);
+          write(i, v, 0.0f);
+        });
+  }
+  {
+    const int cw = __reduce_add_sync(qs::FULL, cs_cnt);
+    const float sw = group_sum<32>(sq);
+    if (lane == 0) {
+      warp_i[warp][0] = cw;
+      warp_f[warp] = sw;
+    }
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int cb = group_sum<32>(lane < kWarps ? warp_i[lane][0] : 0);
+    const float sb = group_sum<32>(lane < kWarps ? warp_f[lane] : 0.0f);
+    if (lane == 0) {
+      pub_i[buf][0] = cb;
+      pub_f[buf] = sb;
+    }
+  }
+  cluster.sync();
+  if (warp == 0) {
+    int cv = 0;
+    float sv = 0.0f;
+    if (lane < cs) {
+      cv = *cluster.map_shared_rank(&pub_i[buf][0], lane);
+      sv = *cluster.map_shared_rank(&pub_f[buf], lane);
+    }
+    const int cc = group_sum<32>(cv);
+    const float sc = group_sum<32>(sv);  // a fixed tree: deterministic
+    if (lane == 0) {
+      tot_i[0] = cc;
+      tot_f = sc;
+      if (rank == 0) cnt_out[row] = cc;
+    }
+  }
+  // no block may leave while another still reads its shared memory
+  cluster.sync();
+  if (sign) {
+    const int cnt = tot_i[0];
+    const float norm = sqrtf(tot_f);
+    const float scale = norm / fmaxf(static_cast<float>(cnt), 1.0f);
+    visit_chunk<THREADS>(
+        src, len, vec,
+        [&](int i, float4 v) { write4(i, v, scale); },
+        [&](int i, float v) { write(i, v, scale); });
+  }
+}
+
+// The kernel's launch for rows of `chunk`-float chunks: its block size
+// (256 threads for a short chunk, four blocks an SM; 512 for a long one,
+// two an SM), shared memory (the band list) and cluster size, with the
+// attributes set that a cluster of 16 and the shared memory need.
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  const void* fn;
+};
+
+int cluster_launch(ClusterLaunch& l, long long rows, int cs, long long chunk,
+                   cudaStream_t st) {
+  const int smem = static_cast<int>(band_cap(chunk) * sizeof(float));
+  const bool small = chunk <= kSmallChunk;
+  l = {};
+  l.fn = small ? reinterpret_cast<const void*>(topk_cluster_kernel<256>)
+               : reinterpret_cast<const void*>(topk_cluster_kernel<512>);
+  cudaError_t err = cudaFuncSetAttribute(
+      l.fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        l.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  l.cfg.gridDim = dim3(static_cast<unsigned>(rows * cs));
+  l.cfg.blockDim = dim3(small ? 256 : 512);
+  l.cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  l.cfg.stream = st;
+  l.attr.id = cudaLaunchAttributeClusterDimension;
+  l.attr.val.clusterDim.x = static_cast<unsigned>(cs);
+  l.attr.val.clusterDim.y = 1;
+  l.attr.val.clusterDim.z = 1;
+  l.cfg.attrs = &l.attr;
+  l.cfg.numAttrs = 1;
+  return static_cast<int>(err);
+}
+
 }  // namespace
 
+// Rows of up to 12,288 floats: one block per row.
 extern "C" int qs_topk_compress_f32(const float* acc, float* sel, float* mem,
                                     int* cnt, long long rows, long long n,
                                     int k, int iters, int sign,
                                     void* stream) {
   if (rows <= 0) return 0;
+  if (n > kSmemMaxElems) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(static_cast<unsigned>(rows));
-  if (n <= kSmemMaxElems) {
-    const size_t smem = static_cast<size_t>(n) * sizeof(float);
-    // The kernel's own 512 B of reduction scratch plus a 48 KB row pass
-    // the default 48 KB per-block limit: opt in to the row's size.
-    const cudaError_t err = cudaFuncSetAttribute(
-        topk_compress_kernel<256, true>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    topk_compress_kernel<256, true><<<grid, 256, smem, st>>>(
-        acc, sel, mem, cnt, n, k, iters, sign);
-  } else {
-    topk_compress_kernel<1024, false><<<grid, 1024, 0, st>>>(
-        acc, sel, mem, cnt, n, k, iters, sign);
-  }
+  const size_t smem = static_cast<size_t>(n) * sizeof(float);
+  // The kernel's own 512 B of reduction scratch plus a 48 KB row pass
+  // the default 48 KB per-block limit: opt in to the row's size.
+  const cudaError_t err = cudaFuncSetAttribute(
+      topk_compress_kernel<256>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  topk_compress_kernel<256><<<grid, 256, smem, st>>>(acc, sel, mem, cnt, n,
+                                                     k, iters, sign);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Longer rows: a cluster of cs (8 or 16) blocks per row, block r owning
+// elements [r * chunk, (r + 1) * chunk) (chunk a multiple of 4, cs *
+// chunk >= n, no block empty).
+extern "C" int qs_topk_compress_cluster_f32(const float* acc, float* sel,
+                                            float* mem, int* cnt,
+                                            long long rows, long long n,
+                                            int k, int iters, int sign,
+                                            int cs, long long chunk,
+                                            void* stream) {
+  if (rows <= 0) return 0;
+  if ((cs != 8 && cs != 16) || chunk <= 0 || chunk % 4 ||
+      static_cast<long long>(cs) * chunk < n || (cs - 1) * chunk >= n ||
+      chunk > (1LL << 30))
+    return static_cast<int>(cudaErrorInvalidValue);
+  ClusterLaunch l;
+  const int err =
+      cluster_launch(l, rows, cs, chunk, static_cast<cudaStream_t>(stream));
+  if (err) return err;
+  // 16-byte loads and stores where every chunk starts on a 16-byte
+  // boundary of all three rows
+  int vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(acc) % 16 == 0 &&
+            reinterpret_cast<uintptr_t>(sel) % 16 == 0 &&
+            reinterpret_cast<uintptr_t>(mem) % 16 == 0;
+  void* args[] = {&acc, &sel, &mem, &cnt, &n, &chunk, &k, &iters, &sign,
+                  &vec};
+  const cudaError_t e = cudaLaunchKernelExC(&l.cfg, l.fn, args);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// How many clusters of cs blocks, each owning `chunk` floats, the card
+// holds at once (cudaOccupancyMaxActiveClusters; 0: such a cluster does
+// not schedule), or minus a cudaError_t.
+extern "C" int qs_topk_cluster_capacity(int cs, long long chunk) {
+  if (cs < 1 || cs > kMaxCluster || chunk <= 0)
+    return -static_cast<int>(cudaErrorInvalidValue);
+  ClusterLaunch l;
+  const int err = cluster_launch(l, cs, cs, chunk, nullptr);
+  if (err) return -err;
+  int clusters = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveClusters(&clusters, l.fn,
+                                                       &l.cfg);
+  if (e != cudaSuccess) {
+    cudaGetLastError();  // a refused size is an answer, not a sticky fault
+    return e == cudaErrorInvalidClusterSize ? 0 : -static_cast<int>(e);
+  }
+  return clusters;
 }

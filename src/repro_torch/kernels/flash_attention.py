@@ -27,7 +27,6 @@ import torch
 
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.launch_stats import LAUNCHES
-from repro_torch.kernels.paged_attention import MAX_SMEM
 
 #: head widths ``csrc/flash_attention.cu`` is instantiated for
 FLASH_HEAD_DIMS = (16, 32, 64, 80, 128, 256)
@@ -35,6 +34,8 @@ FLASH_HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 ROUTES = {torch.bfloat16: "bf16 tensor cores (mma.sync m16n8k16)",
           torch.float32: "float32 FMA"}
 _BQ, _BK = 64, 32  # float32 kernel: query rows per block, keys per tile
+#: shared memory one block may use on an H100 (227 KB)
+MAX_SMEM = 232_448
 #: flash_decode: least slots a split takes, most query heads a block
 #: serves (head groups beyond)
 DECODE_MIN_CHUNK = 64
@@ -191,10 +192,10 @@ def flash_attention_fwd(q, k, v, *, window: int = -1):
     return out
 
 
-#: the kernels' ticket counters (flash_decode's splits, flash_attention's
-#: split tiles), one zeroed int32 buffer per (device, stream); the block
-#: that merges resets its counter to 0, so the buffer is zero between
-#: launches
+#: the kernels' ticket counters (flash_decode's and paged_decode's
+#: splits, flash_attention's split tiles), one zeroed int32 buffer per
+#: (device, stream); the block that merges resets its counter to 0, so
+#: the buffer is zero between launches
 _TICKETS: dict = {}
 
 

@@ -1,6 +1,8 @@
 """Paged single-token decode attention over a shared KV page pool
 (``repro``'s ``kernels/paged_attention.py::paged_decode_fwd``),
-hand-written in CUDA C++ for Hopper (``csrc/paged_decode.cu``).
+hand-written in CUDA C++ for Hopper (``csrc/paged_decode.cu``), split
+over each row's pages (``paged_splits``) with the live splits' partials
+merged by the last of them.
 
 A CUDA tensor launches the kernel on the current stream; a CPU tensor
 runs the plain version (``ref.paged_decode_ref``).  There is no other
@@ -12,18 +14,18 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels.flash_attention import (
+    _tickets, decode_heads_per_block)
 from repro_torch.kernels.launch_stats import LAUNCHES
 
-#: pages staged per tile when the caller names no geometry
+#: logical pages one block takes when the caller names no geometry
 DEFAULT_PAGES_PER_BLOCK = 4
-#: shared memory one block may use on an H100 (227 KB)
-MAX_SMEM = 232_448
 
 
-def smem_bytes(G: int, hd: int, tile_tokens: int) -> int:
-    """Dynamic shared memory of one block (``csrc/paged_decode.cu``)."""
-    return 4 * (2 * G * hd + 2 * tile_tokens * (hd + 1)
-                + G * tile_tokens + 3 * G)
+def paged_splits(P: int, pages_per_block: int) -> int:
+    """Blocks a (row, kv head) has: its ``P`` table entries in splits of
+    ``pages_per_block`` consecutive pages, the last one ragged."""
+    return -(-P // pages_per_block)
 
 
 def paged_decode(q, kp, vp, kscale, vscale, tables, lengths, *,
@@ -57,22 +59,37 @@ def paged_decode(q, kp, vp, kscale, vscale, tables, lengths, *,
         raise ValueError(f"tables {tuple(tables.shape)} / lengths "
                          f"{tuple(lengths.shape)} do not match B={B}")
     dev = _build.device_of(q, kp, vp, kscale, vscale, tables, lengths)
+    if dev.type == "cuda" and (hd % 8 or hd > 256):
+        raise ValueError(f"paged_decode takes head widths that are "
+                         f"multiples of 8 up to 256, got {hd}")
     pb = max(1, min(int(pages_per_block), P))
     LAUNCHES["paged_decode"] += 1
     if dev.type == "cpu":
         return ref.paged_decode_ref(q, kp, vp, kscale, vscale, tables,
                                     lengths)
-    smem = smem_bytes(H // KV, hd, pb * ps)
-    if smem > MAX_SMEM:
-        raise ValueError(f"paged_decode needs {smem} bytes of shared memory "
-                         f"(G={H // KV}, hd={hd}, {pb} pages of {ps}); "
-                         f"at most {MAX_SMEM}: lower pages_per_block")
+    # the kernel reads K and V rows in 16-byte vectors (8 bytes of int8)
+    align = 8 if kp.dtype == torch.int8 else 16
+    if kp.data_ptr() % align or vp.data_ptr() % align:
+        raise ValueError(f"kp and vp must start on a {align}-byte boundary")
+    G = H // KV
+    # at most 4 query heads a block: the registers of 8 heads' query and
+    # output slices would leave room for 2 positions in flight, not 8
+    GT = min(4, decode_heads_per_block(G))
+    units = B * KV * -(-G // GT)
+    splits = paged_splits(P, pb)
+    # the partials of every split in one allocation: o (16-byte aligned
+    # at the start), then m, then l
+    n_part = units * splits * GT if splits > 1 else 0
+    part = torch.empty(n_part * (hd + 2), dtype=torch.float32, device=dev)
+    p_o = part.data_ptr()
+    p_m = p_o + 4 * n_part * hd
     lib = _build.load()
     out = torch.empty_like(q)
     _build.check(lib.qs_paged_decode(
         q.data_ptr(), kp.data_ptr(), vp.data_ptr(), kscale.data_ptr(),
         vscale.data_ptr(), tables.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), B, H, KV, hd, n_pages, ps, P, pb, hd ** -0.5,
-        int(q.dtype == torch.bfloat16), int(kp.dtype == torch.int8),
-        _build.stream_of(dev)))
+        out.data_ptr(), p_m, p_m + 4 * n_part, p_o,
+        _tickets(dev, units).data_ptr(), B, H, KV, hd, n_pages, ps, P, pb,
+        GT, hd ** -0.5, int(q.dtype == torch.bfloat16),
+        int(kp.dtype == torch.int8), _build.stream_of(dev)))
     return out

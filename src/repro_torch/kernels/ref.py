@@ -51,6 +51,87 @@ def topk_compress_ref(acc: torch.Tensor, k: int, *, iters: int = 24,
     return sel, accf - sel, cnt
 
 
+#: FLT_MAX / 2: while hi is at most this, lo + hi cannot overflow
+_NO_OVERFLOW = float.fromhex("0x1.fffffep+126")
+
+
+def topk_threshold_levels_ref(acc: torch.Tensor, k: int, *, iters: int = 24,
+                              sign: bool = False, levels: int = 4,
+                              clusters: int = 8):
+    """The arithmetic of ``topk_compress``'s long-row (cluster) kernel, in
+    plain PyTorch, for the tests only (nothing on a training path calls
+    it).  Same arguments and results as :func:`topk_compress_ref`, plus
+    the threshold per row.
+
+    Each row is cut into ``clusters`` chunks of ceil(n / clusters)
+    elements rounded up to a multiple of 4.  Pass 0 takes each chunk's
+    max |acc| and how many elements equal it; the row's max is hi and
+    count(|acc| >= hi) the counts of the chunks that reach it.  Each
+    later pass builds the tree of the next ``levels`` bisection mids
+    from (lo, hi), every mid ``0.5 * (lo + hi)`` of its own (lo, hi);
+    counts per chunk, for every mid, the elements in [lo, hi) at or
+    above it (every element where hi > FLT_MAX / 2: then lo + hi may
+    overflow); sums the chunks' integer counts; and walks the levels,
+    adding count(|acc| >= hi) to each count.  The SignTop_k sum of
+    squares is folded over the chunks in order.
+
+    Returns (selected, new_memory, count_per_row int32, threshold)."""
+    accf = acc.to(torch.float32)
+    a = accf.abs()
+    rows, n = a.shape
+    dev = a.device
+    per = -(-n // clusters)
+    chunk = -(-per // 4) * 4
+    parts = [a[:, c0:c0 + chunk] for c0 in range(0, clusters * chunk, chunk)]
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    half = torch.tensor(0.5, dtype=torch.float32, device=dev)
+    # pass 0: every chunk's max (0 for an empty one) and its count
+    pm = torch.stack([p.amax(dim=1) if p.shape[1] else
+                      torch.zeros(rows, device=dev) for p in parts])
+    pc = torch.stack([(p == m[:, None]).sum(dim=1)
+                      for p, m in zip(parts, pm)])
+    hi = pm.amax(dim=0)
+    lo = torch.zeros_like(hi)
+    cnt_hi = torch.where(pm == hi, pc, torch.zeros_like(pc)).sum(dim=0)
+    full = ~(hi <= _NO_OVERFLOW)
+    n_mids = (1 << levels) - 1
+    for done in range(0, iters, levels):
+        nlo, nhi, mids = [lo] + [None] * (n_mids - 1), \
+            [hi] + [None] * (n_mids - 1), []
+        for j in range(n_mids):
+            mids.append(half * (nlo[j] + nhi[j]))
+            if 2 * j + 2 < n_mids:
+                nlo[2 * j + 1], nhi[2 * j + 1] = nlo[j], mids[j]
+                nlo[2 * j + 2], nhi[2 * j + 2] = mids[j], nhi[j]
+        mid = torch.stack(mids, dim=1)                       # [rows, mids]
+        tot = torch.zeros((rows, n_mids), dtype=torch.int64, device=dev)
+        for p in parts:
+            band = full[:, None] | ((p >= lo[:, None]) & (p < hi[:, None]))
+            tot += ((p[:, :, None] >= mid[:, None, :])
+                    & band[:, :, None]).sum(dim=1)
+        base = torch.where(full, torch.zeros_like(cnt_hi), cnt_hi)
+        node = torch.zeros(rows, dtype=torch.int64, device=dev)
+        for _ in range(min(levels, iters - done)):
+            md = half * (lo + hi)
+            c = base + tot.gather(1, node[:, None])[:, 0]
+            more = c > k
+            lo = torch.where(more, md, lo)
+            hi = torch.where(more, hi, md)
+            cnt_hi = torch.where(more, cnt_hi, c)
+            node = torch.where(more, 2 * node + 2, 2 * node + 1)
+    thr = torch.where(cnt_hi >= k, hi, lo)
+    mask = (a >= thr[:, None]) & (a > 0.0)
+    cnt = mask.sum(dim=1).to(torch.int32)
+    sel = torch.where(mask, accf, zero)
+    if sign:
+        sq = torch.zeros(rows, dtype=torch.float32, device=dev)
+        for c0 in range(0, clusters * chunk, chunk):
+            sq = sq + (sel[:, c0:c0 + chunk] ** 2).sum(dim=1)
+        scale = torch.sqrt(sq) / torch.clamp(cnt.to(torch.float32), min=1.0)
+        sel = torch.where(mask, torch.sign(accf) * scale[:, None], zero)
+    return sel, accf - sel, cnt, thr
+
+
 def topk_compact_ref(acc: torch.Tensor, k: int, kcap: int, *,
                      iters: int = 24, sign: bool = False):
     """Compact form of :func:`topk_compress_ref`: the same threshold and
@@ -261,4 +342,61 @@ def paged_decode_ref(q, kp, vp, kscale, vscale, tables, lengths):
                     torch.zeros_like(s))
     denom = p.sum(dim=-1, keepdim=True)
     o = torch.einsum("bkgc,bckh->bkgh", p, v) / denom.clamp(min=1e-30)
+    return o.reshape(B, 1, H, D).to(q.dtype)
+
+
+def paged_decode_split_ref(q, kp, vp, kscale, vscale, tables, lengths,
+                           pages_per_block: int):
+    """The arithmetic of the split ``paged_decode`` kernel, in plain
+    PyTorch, for the tests only (nothing on a serving path calls it).
+    Same arguments and result as :func:`paged_decode_ref`, plus the
+    kernel's geometry.
+
+    Each row's table is cut into splits of ``pages_per_block`` logical
+    pages (``pb * page_size`` positions); only the row's live splits,
+    the first max(1, ceil(length / (pb * page_size))), take part.  Per
+    split a partial (m, l, o) with dead positions masked on the score
+    (-1e30) and on p itself (exactly 0), so a split with no live position
+    has l = 0 and o = 0; then the log-sum-exp merge M = max m, w =
+    exp(m - M), out = sum(w o) / max(sum(w l), 1e-30).  A length-0 row
+    gives exact zeros."""
+    B, _, H, D = q.shape
+    n_pages, ps, KV, _ = kp.shape
+    P = tables.shape[1]
+    G = H // KV
+    pb = max(1, min(int(pages_per_block), P))
+    span = pb * ps
+    splits = -(-P // pb)
+    tbl = tables.to(torch.int64).clamp(0, n_pages - 1)
+    k = kp[tbl].to(torch.float32)
+    v = vp[tbl].to(torch.float32)
+    if kp.dtype == torch.int8:
+        k = k * kscale[tbl].to(torch.float32)[..., None, None]
+        v = v * vscale[tbl].to(torch.float32)[..., None, None]
+    k = k.reshape(B, P * ps, KV, D)
+    v = v.reshape(B, P * ps, KV, D)
+    lens = lengths.to(device=q.device, dtype=torch.int64)
+    n_live = (-(-lens // span)).clamp(1, splits)
+    qf = q.to(torch.float32).reshape(B, KV, G, D) * (D ** -0.5)
+    ms, ls, os_ = [], [], []
+    for s in range(splits):
+        c0 = s * span
+        kc, vc = k[:, c0:c0 + span], v[:, c0:c0 + span]
+        pos = torch.arange(c0, c0 + kc.shape[1], device=q.device)
+        live = (pos[None, :] < lens[:, None])[:, None, None, :]
+        sc = torch.einsum("bkgh,bckh->bkgc", qf, kc)
+        sc = torch.where(live, sc, torch.full_like(sc, NEG_INF))
+        m = sc.amax(dim=-1)
+        p = torch.where(live, torch.exp(sc - m[..., None]),
+                        torch.zeros_like(sc))
+        takes = (s < n_live)[:, None, None]
+        ms.append(torch.where(takes, m, torch.full_like(m, NEG_INF)))
+        ls.append(torch.where(takes, p.sum(dim=-1), torch.zeros_like(m)))
+        o = torch.einsum("bkgc,bckh->bkgh", p, vc)
+        os_.append(torch.where(takes[..., None], o, torch.zeros_like(o)))
+    m = torch.stack(ms)                            # [splits, B, KV, G]
+    w = torch.exp(m - m.amax(dim=0))
+    lsum = (w * torch.stack(ls)).sum(dim=0)
+    o = (w[..., None] * torch.stack(os_)).sum(dim=0)
+    o = o / lsum.clamp(min=1e-30)[..., None]
     return o.reshape(B, 1, H, D).to(q.dtype)

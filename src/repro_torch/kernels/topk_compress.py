@@ -8,15 +8,72 @@ its two emission modes:
     ``(idx, val)`` survivor slots, the wire form of the sparse
     all-gather sync.
 
-Both share one threshold (``csrc/common.cuh``).
+Both share one threshold (``csrc/common.cuh``).  ``topk_compress``
+takes rows longer than ``SMEM_ROW`` floats through a cluster of blocks
+per row (``cluster_geometry``).
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.launch_stats import LAUNCHES
+
+#: longest row ``topk_compress`` stages in one block's shared memory
+#: (``csrc/topk_compress.cu`` kSmemMaxElems); longer rows take a cluster
+SMEM_ROW = 12288
+#: the cluster sizes the long-row kernel takes: 8 (portable) or 16
+CLUSTER_SIZES = (8, 16)
+
+
+class ClusterGeometry(NamedTuple):
+    """How ``topk_compress`` spreads a long row over a cluster."""
+    cs: int        # blocks a row (the cluster size)
+    chunk: int     # elements a block owns (a multiple of 4)
+
+
+def _chunk(n: int, cs: int) -> int:
+    """ceil(n / cs), rounded up to a multiple of 4 (16-byte chunks)."""
+    per = -(-n // cs)
+    return -(-per // 4) * 4
+
+
+def cluster_geometry(rows: int, n: int, cap8: int,
+                     cap16: int) -> ClusterGeometry:
+    """The long-row kernel's geometry: block r of a row owns elements
+    [r * chunk, (r + 1) * chunk).
+
+    ``cap8`` / ``cap16``: how many clusters of 8 / 16 blocks (each with
+    its chunk) the card holds at once; 0 where they do not schedule (16
+    exceeds the portable 8).  The size whose waves over the rows times
+    its chunk is least wins, ties going to 8: a wave of either size
+    costs about its chunk's passes, and a cluster of 8 joins half as
+    many blocks in each of its barriers."""
+    cost = {}
+    for cs, cap in ((8, cap8), (16, cap16)):
+        if cap > 0:
+            cost[cs] = -(-rows // cap) * _chunk(n, cs)
+    if not cost:
+        raise RuntimeError(f"no cluster of {CLUSTER_SIZES} blocks schedules "
+                           f"for rows of {n} floats")
+    cs = min(cost, key=lambda c: (cost[c], c))
+    return ClusterGeometry(cs, _chunk(n, cs))
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_capacity(index: int, cs: int, chunk: int) -> int:
+    """Clusters of ``cs`` blocks, each owning ``chunk`` floats, that card
+    ``index`` holds at once (0: they do not schedule), as the library's
+    occupancy query reports it."""
+    with torch.cuda.device(index):
+        got = _build.load().qs_topk_cluster_capacity(cs, chunk)
+    if got < 0:
+        _build.check(-got)
+    return got
 
 
 def _check_rows(name: str, t: torch.Tensor) -> None:
@@ -59,11 +116,19 @@ def topk_compress(acc: torch.Tensor, k: int, *, iters: int = 24,
     sel = torch.empty_like(acc)
     mem = torch.empty_like(acc)
     cnt = torch.empty((rows,), dtype=torch.int32, device=acc.device)
+    ptrs = (acc.data_ptr(), sel.data_ptr(), mem.data_ptr(), cnt.data_ptr())
+    args = (rows, n, int(k), int(iters), int(bool(sign)))
     with torch.cuda.device(acc.device):
         stream = torch.cuda.current_stream().cuda_stream
-        _build.check(lib.qs_topk_compress_f32(
-            acc.data_ptr(), sel.data_ptr(), mem.data_ptr(), cnt.data_ptr(),
-            rows, n, int(k), int(iters), int(bool(sign)), stream))
+        if n <= SMEM_ROW:
+            _build.check(lib.qs_topk_compress_f32(*ptrs, *args, stream))
+        else:
+            index = acc.device.index
+            geo = cluster_geometry(rows, n, *(
+                cluster_capacity(index, cs, _chunk(n, cs))
+                for cs in CLUSTER_SIZES))
+            _build.check(lib.qs_topk_compress_cluster_f32(
+                *ptrs, *args, *geo, stream))
     return sel, mem, cnt
 
 

@@ -29,7 +29,7 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_smem,
 )
 from repro_torch.kernels.launch_stats import LAUNCHES
-from repro_torch.kernels.paged_attention import MAX_SMEM
+from repro_torch.kernels.flash_attention import MAX_SMEM
 
 #: the tensor-core kernel's geometry as its library reports it (pinned on
 #: the card by test_kernel_geometry_on_card): head width -> (tile rows,

@@ -141,17 +141,10 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("rows,n,k", [
-    (64, 4096, 41), (4, 65536, 655),
-    # around the longest row staged in shared memory (12288 floats, more
-    # than the default 48 KB per block with the kernel's scratch)
-    (4, 12160, 121), (4, 12288, 123), (4, 12416, 124)])
-@pytest.mark.parametrize("sign", [False, True])
-def test_topk_kernel_matches_plain_on_card(cuda, rows, n, k, sign):
-    x = torch.from_numpy(topk_input(7, rows, n)).to(cuda)
-    sel, mem, cnt = topk_compress(x, k, sign=sign)
-    sel_r, mem_r, cnt_r = ref.topk_compress_ref(x, k, sign=sign)
+def _same_topk(got, want, sign):
+    """Counts and survivor masks exactly; plain Top_k values and memory
+    bit for bit, SignTop_k values within rtol 1e-6."""
+    (sel, mem, cnt), (sel_r, mem_r, cnt_r) = got, want
     torch.cuda.synchronize()
     assert torch.equal(cnt, cnt_r)
     assert torch.equal(sel != 0, sel_r != 0)
@@ -159,6 +152,88 @@ def test_topk_kernel_matches_plain_on_card(cuda, rows, n, k, sign):
         torch.testing.assert_close(sel, sel_r, rtol=1e-6, atol=0)
     else:
         assert torch.equal(sel, sel_r) and torch.equal(mem, mem_r)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,n,k", [
+    (64, 4096, 41), (4, 65536, 655),
+    # around the longest row staged in shared memory (12288 floats, more
+    # than the default 48 KB per block with the kernel's scratch)
+    (4, 12160, 121), (4, 12288, 123), (4, 12416, 124),
+    # the global TopK shapes chip_smoke.py times (clusters of 16 and 8),
+    # and a 2^21 row
+    (16, 524288, 5243), (8, 524288, 5243), (56, 65536, 655),
+    (3, 1 << 21, 20972)])
+@pytest.mark.parametrize("sign", [False, True])
+def test_topk_kernel_matches_plain_on_card(cuda, rows, n, k, sign):
+    x = torch.from_numpy(topk_input(7, rows, n)).to(cuda)
+    _same_topk(topk_compress(x, k, sign=sign),
+               ref.topk_compress_ref(x, k, sign=sign), sign)
+
+
+def long_rows(seed, rows, n):
+    """Rows the cluster kernel must get exactly right: heavy ties at the
+    threshold (few distinct magnitudes), zeros with -0.0, subnormals,
+    magnitudes past FLT_MAX / 2 (counted in full, lo + hi may overflow),
+    one magnitude throughout (hi is never lowered), a spike."""
+    rng = np.random.default_rng(seed)
+    x = np.empty((rows, n), np.float32)
+    for r in range(rows):
+        kind = r % 6
+        if kind == 0:
+            x[r] = rng.choice([-2.0, -1.0, 0.0, 0.5, 1.0, 2.0], n)
+        elif kind == 1:
+            x[r] = np.where(rng.random(n) < 0.5, -0.0, 0.0)
+            x[r, rng.integers(n, size=50)] = rng.standard_normal(50)
+        elif kind == 2:
+            x[r] = rng.standard_normal(n) * 1e-40
+        elif kind == 3:
+            x[r] = rng.uniform(-3.4e38, 3.4e38, n)
+        elif kind == 4:
+            x[r] = np.where(rng.random(n) < 0.5, -3.0, 3.0)
+        else:
+            x[r] = 0.0
+            x[r, rng.integers(n)] = 5.0
+    return x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("force8", [False, True])
+@pytest.mark.parametrize("n,k", [(65536, 655), (524288, 5243),
+                                 (13001, 1)])
+@pytest.mark.parametrize("sign", [False, True])
+def test_topk_cluster_kernel_edge_rows_on_card(cuda, monkeypatch, n, k,
+                                               sign, force8):
+    """The long-row kernel at both cluster sizes (``force8``: as on a card
+    where clusters of 16 do not schedule), on heavy-tie and edge rows,
+    a row length that is not a multiple of 4 and a start that is not on
+    a 16-byte boundary (both take the scalar loads)."""
+    from repro_torch.kernels import topk_compress as tk
+    if force8:
+        capacity = tk.cluster_capacity
+        monkeypatch.setattr(tk, "cluster_capacity",
+                            lambda index, cs, chunk: 0 if cs == 16
+                            else capacity(index, cs, chunk))
+    x = torch.from_numpy(long_rows(n + k, 6, n)).to(cuda)
+    _same_topk(topk_compress(x, k, sign=sign),
+               ref.topk_compress_ref(x, k, sign=sign), sign)
+    flat = torch.zeros(6 * n + 1, device=cuda)
+    flat[1:] = x.reshape(-1)
+    shifted = flat[1:].view(6, n)          # 4 bytes past the allocation
+    assert shifted.data_ptr() % 16
+    _same_topk(topk_compress(shifted, k, sign=sign),
+               ref.topk_compress_ref(x, k, sign=sign), sign)
+
+
+@pytest.mark.gpu
+def test_topk_cluster_capacity_on_card(cuda):
+    """Clusters of 16 blocks schedule on an H100 for 524288-float rows,
+    and the portable 8 do, as many at once as
+    tests/test_torch_topk_levels.py's MAIN_SHAPES take."""
+    from repro_torch.kernels.topk_compress import cluster_capacity
+    index = torch.cuda.current_device()
+    assert cluster_capacity(index, 8, 65536) >= 16
+    assert cluster_capacity(index, 16, 32768) >= 8
 
 
 @pytest.mark.gpu
@@ -276,6 +351,21 @@ def paged_case(g, device, dtype, quant, B=8, H=32, KV=4, hd=128, ps=16,
     return q, kp, vp, ks, vs, tables, lengths
 
 
+def _close_per_row(out, want, tol):
+    """Within ``tol`` of each row's (position and head's) largest
+    |output|: rows that average many positions are small, and a
+    whole-tensor bound would not see a bad merge there.  A row of zeros
+    (a free slot) must be exactly zero."""
+    top = want.float().abs().amax(dim=-1, keepdim=True)
+    assert ((out.float() - want.float()).abs() <= tol * top).all()
+
+
+def _check_paged(out, want, dtype):
+    tol = 2 ** -7 if dtype == torch.bfloat16 else 1e-5
+    _close_to_scale(out, want, tol, tol)
+    _close_per_row(out, want, tol)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("quant", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -289,8 +379,73 @@ def test_paged_decode_kernel_matches_plain_on_card(cuda, quant, dtype, pb):
     torch.cuda.synchronize()
     assert out.dtype == dtype
     assert not out[0].any()                   # length 0: exact zeros
-    _close_to_scale(out, want, 2 ** -7 if dtype == torch.bfloat16 else 1e-5,
-                    2 ** -7 if dtype == torch.bfloat16 else 1e-5)
+    _check_paged(out, want, dtype)
+
+
+#: split cases (B, P, pages per split, lengths): many splits (64 of one
+#: page, rows ending mid-page and mid-split); a long table whose rows
+#: end early, so most splits lie past the length; one split a row; the
+#: Yi-6B serve run's lengths (64-192) over 32 entries of 16
+PAGED_SPLIT_CASES = {
+    "many_splits": (4, 64, 1, (0, 1024, 517, 33)),
+    "past_length": (4, 64, 4, (0, 70, 3, 129)),
+    "one_split": (3, 8, 8, (0, 128, 77)),
+    "yi6b": (8, 32, 4, (0, 64, 100, 128, 129, 150, 191, 192)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", ["float32", "bfloat16", "int8_f32",
+                                  "int8_bf16"])
+@pytest.mark.parametrize("case", sorted(PAGED_SPLIT_CASES))
+def test_paged_decode_splits_on_card(cuda, case, pool):
+    """The split kernel against its plain version per row; every page
+    slot it must not read (past each row's length, and the pages -1
+    entries clamp to) holds NaN, so a read of one would show; one launch
+    a call, and a second call (the ticket counters reset) equal."""
+    from repro_torch.kernels.paged_attention import paged_decode
+    B, P, pb, lengths = PAGED_SPLIT_CASES[case]
+    dtype = torch.bfloat16 if pool.endswith("bf16") or pool == "bfloat16" \
+        else torch.float32
+    quant = pool.startswith("int8")
+    g = torch.Generator(device=cuda).manual_seed(P + pb)
+    q, kp, vp, ks, vs, _, _ = paged_case(g, cuda, dtype, quant, B=B, P=P,
+                                         n_pages=2 * B * P)
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    ps = kp.shape[1]
+    need = (lengths + ps - 1) // ps
+    cols = torch.arange(P, device=cuda)[None, :]
+    perm = torch.randperm(2 * B * P, generator=g, device=cuda)[:B * P]
+    tables = torch.where(cols < need.clamp(min=1)[:, None],
+                         perm.reshape(B, P).to(torch.int32),
+                         torch.full((B, P), -1, dtype=torch.int32,
+                                    device=cuda))
+    want = ref.paged_decode_ref(q, kp, vp, ks, vs, tables, lengths)
+    # poison every slot no live position maps to
+    live = torch.zeros(kp.shape[:2], dtype=torch.bool, device=cuda)
+    for b, n in enumerate(lengths.tolist()):
+        pos = torch.arange(n, device=cuda)
+        live[tables[b, pos // ps].long(), pos % ps] = True
+    if quant:                                 # int8 holds no NaN: the scales
+        ks, vs = ks.clone(), vs.clone()
+        ks[~live] = vs[~live] = float("nan")
+    else:
+        kp, vp = kp.clone(), vp.clone()
+        kp[~live] = vp[~live] = float("nan")
+    before = LAUNCHES["paged_decode"]
+    out = paged_decode(q, kp, vp, ks, vs, tables, lengths,
+                       pages_per_block=pb)
+    assert LAUNCHES["paged_decode"] == before + 1
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == q.shape
+    assert bool(torch.isfinite(out.float()).all())
+    for b, n in enumerate(lengths.tolist()):
+        if n == 0:
+            assert not out[b].any()           # a free slot: exact zeros
+    _check_paged(out, want, dtype)
+    torch.testing.assert_close(
+        paged_decode(q, kp, vp, ks, vs, tables, lengths, pages_per_block=pb),
+        out, rtol=0, atol=0)
 
 
 #: flash_decode card cases: (B, H, KV, hd, C, valid slots).  "random":
