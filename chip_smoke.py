@@ -35,7 +35,10 @@ Phases, each of which exits non-zero on failure:
    kernel: ``flash_attention`` against its plain version at gemma3-1b's
    prefill shapes (2048 tokens under the 1024 window and global, a
    ragged 1100) and Yi-6B's heads (step 3's checks and times, with
-   ``scaled_dot_product_attention`` as the yardstick); then gemma3-1b at
+   ``scaled_dot_product_attention`` as the yardstick), and the gemma3-1b
+   run's GEMMs at its shapes: ``sparse_gemm`` at a 2048-token prefill and
+   at decode (batch 4), ``qdq_gemm`` on the tied 262144 x 1152 head at
+   decode and for a prefill's last token; then gemma3-1b at
    full width and depth, unscanned (``scan_layers=False,
    use_pallas=True``), compressed at load under ``lm_hetero`` and served
    contiguous by the continuous scheduler, 8 requests of 1100-2048
@@ -493,23 +496,22 @@ def check_sparse_gemm(dev, M: int, R: int, n: int, k: int, reps: int):
             "library_ms": library_ms, "bound_ms": bms, "bound_by": by}
 
 
-def check_qdq_gemm(dev, M: int, reps: int):
-    """qdq_gemm on the Yi-6B head (64000 x 4096 int8 levels) against its
-    plain version (dequantize, float32 matmul): within 1e-5 of the
-    largest output.  Library call: torch.matmul against the dequantized
-    float32 weight."""
+def check_qdq_gemm(dev, M: int, R: int, n: int, reps: int):
+    """qdq_gemm on a QSGD head (R x n int8 levels: Yi-6B's 64000 x 4096,
+    gemma3-1b's tied 262144 x 1152) against its plain version
+    (dequantize, float32 matmul): within 1e-5 of the largest output.
+    Library call: torch.matmul against the dequantized float32 weight."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.sparse_gemm import qdq_gemm
-    R, n = 64000, 4096
-    g = torch.Generator(device=dev).manual_seed(M)
+    g = torch.Generator(device=dev).manual_seed(M + R)
     lv = torch.randint(-15, 16, (R, n), generator=g, device=dev,
                        dtype=torch.int8)
     scale = torch.rand((R, 1), generator=g, device=dev) * 0.01
     x = torch.randn((M, n), generator=g, device=dev).to(torch.bfloat16)
     err = close_to_scale(qdq_gemm(x, lv, scale),
                          ref.qdq_gemm_ref(x, lv, scale), 1e-5, 1e-5,
-                         f"qdq_gemm M={M}")
+                         f"qdq_gemm {M}x{n} x {R}")
     ms = time_ms(lambda: qdq_gemm(x, lv, scale), reps)
     plain_ms = time_ms(lambda: ref.qdq_gemm_ref(x, lv, scale), reps)
     w, xf = lv.float() * scale, x.float()
@@ -808,21 +810,29 @@ def phase_flash_kernels(dev):
     1024 window and global, a ragged 1100-token prompt, and Yi-6B's
     heads (32 on 4 of 128), causal.  Then the unscanned gemma3-1b serve
     run's other kernels at its own shapes: sparse_gemm at prefill (2048
-    rows; w1's 1152 -> 6912 at k 12, w2's 6912 -> 1152 at k 69) and
-    flash_decode at batch 4 over a 1024-slot window ring (full) and the
-    2304-slot global ring (1100-2080 valid slots), then flash_decode's
-    correctness cases (DECODE_CASES).  Returns the timed flash_attention
-    and gemma3-1b flash_decode rows."""
+    rows; w1's 1152 -> 6912 at k 12, w2's 6912 -> 1152 at k 69) and at
+    decode (batch 4), qdq_gemm on the tied 262144 x 1152 head at decode
+    (batch 4) and for a prefill's last token, and flash_decode at batch 4
+    over a 1024-slot window ring (full) and the 2304-slot global ring
+    (1100-2080 valid slots), then flash_decode's correctness cases
+    (DECODE_CASES).  Returns the timed flash_attention rows, the gemma3-1b
+    flash_decode rows and the gemma3-1b GEMM rows by kernel."""
     rows = [check_flash_attention(dev, 1, 2048, 4, 1, 256, 1024, 10),
             check_flash_attention(dev, 1, 2048, 4, 1, 256, -1, 10),
             check_flash_attention(dev, 1, 1100, 4, 1, 256, 1024, 10),
             check_flash_attention(dev, 1, 2048, 32, 4, 128, -1, 10)]
     for row in rows:
         print("kernel check flash_attention", json.dumps(row), flush=True)
-    for row in (check_sparse_gemm(dev, 2048, 6912, 1152, 12, 5),
-                check_sparse_gemm(dev, 2048, 1152, 6912, 69, 5)):
-        print("kernel check sparse_gemm (gemma3-1b prefill)",
-              json.dumps(row), flush=True)
+    gemm = {"sparse_gemm": [check_sparse_gemm(dev, 2048, 6912, 1152, 12, 5),
+                            check_sparse_gemm(dev, 2048, 1152, 6912, 69, 5),
+                            check_sparse_gemm(dev, 4, 6912, 1152, 12, 20),
+                            check_sparse_gemm(dev, 4, 1152, 6912, 69, 20)],
+            "qdq_gemm": [check_qdq_gemm(dev, 4, 262144, 1152, 10),
+                         check_qdq_gemm(dev, 1, 262144, 1152, 10)]}
+    for name, checks in gemm.items():
+        for row in checks:
+            print("kernel check", name, "(gemma3-1b)", json.dumps(row),
+                  flush=True)
     decode = []
     for C, lengths in ((1024, (1024, 1025)), (2304, (1100, 2081))):
         decode.append(check_flash_decode(dev, 10, B=4, H=4, KV=1, hd=256,
@@ -832,7 +842,7 @@ def phase_flash_kernels(dev):
     errs = check_flash_decode_cases(dev)
     print(f"kernel check flash_decode: {len(DECODE_CASES)} cases x 2 dtypes "
           f"x 2 mask forms agree, largest error {errs}", flush=True)
-    return rows, decode
+    return rows, decode, gemm
 
 
 def phase_serve_kernels(dev):
@@ -847,7 +857,8 @@ def phase_serve_kernels(dev):
                         check_sparse_gemm(dev, 8, 4096, 4096, 41, 20),
                         check_sparse_gemm(dev, 8, 512, 4096, 41, 20),
                         check_sparse_gemm(dev, 128, 11008, 4096, 41, 5)],
-        "qdq_gemm": [check_qdq_gemm(dev, 8, 10), check_qdq_gemm(dev, 1, 10)],
+        "qdq_gemm": [check_qdq_gemm(dev, 8, 64000, 4096, 10),
+                     check_qdq_gemm(dev, 1, 64000, 4096, 10)],
         "paged_decode": [check_paged_decode(dev, False, 20),
                          check_paged_decode(dev, True, 20)],
         "flash_decode": [check_flash_decode(dev, 20)],
@@ -1393,7 +1404,7 @@ def main() -> int:
 
     topk, qsgd = phase_kernels(dev)
     serve_checks = phase_serve_kernels(dev)
-    flash_checks, gemma_decode = phase_flash_kernels(dev)
+    flash_checks, gemma_decode, gemma_gemm = phase_flash_kernels(dev)
     runs, totals = phase_train(dev)
     phase_small_agreement(dev)
     serve_totals = phase_serve(dev)
@@ -1448,6 +1459,12 @@ def main() -> int:
             "shape": head["shape"]})
     timed = ("shape", "max_abs_err", "max_row_rel_err", "ms", "plain_ms",
              "bound_ms", "bound_by", "library_ms")
+    # the GEMMs' other rows: Yi-6B's beside the head row, then gemma3-1b's
+    for k in kernels:
+        if k["name"] in gemma_gemm:
+            k["rows"] = [
+                {key: r[key] for key in timed + ("k_row",) if key in r}
+                for r in serve_checks[k["name"]][1:] + gemma_gemm[k["name"]]]
     # the split decode kernels' other rows beside their head rows
     paged = kernels[-2]
     paged["max_row_rel_err"] = serve_checks["paged_decode"][0][

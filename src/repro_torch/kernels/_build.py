@@ -53,6 +53,12 @@ SIGNATURES = {
     "qs_qsgd_quantize_f32": [_P, _P, _P, _I64, _I64, _I32, _P],
     # x, idx, val, out, M, R, n, kcap, x_bf16, stream
     "qs_sparse_gemm": [_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _P],
+    # x, idx, val, out, M, R, n, kcap, x_bf16, route, stream
+    "qs_sparse_gemm_route": [_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32,
+                             _I32, _P],
+    # geo (int[7]: crossover M, tile rows, output rows of a 16- / 32-warp
+    # block, chunk columns for float32 / bfloat16 x, smem bytes)
+    "qs_sparse_gemm_geometry": [ctypes.POINTER(_I32)],
     # x, levels, scale, out, M, R, n, x_bf16, stream
     "qs_qdq_gemm": [_P, _P, _P, _P, _I32, _I32, _I32, _I32, _P],
     # q, kp, vp, kscale, vscale, tables, lengths, out, part_m, part_l,

@@ -218,12 +218,80 @@ def sparse_gemm_ref(x: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
     return x.to(torch.float32) @ w[:, :row_len].T
 
 
+def sparse_gemm_tiled_ref(x: torch.Tensor, idx: torch.Tensor,
+                          val: torch.Tensor, row_len: int, tile_m: int,
+                          tile_r: int, chunk: int):
+    """A plain model of the tiled ``sparse_gemm`` kernel's walk.
+
+    x is padded with zero rows to whole tiles of ``tile_m`` activation
+    rows and the buffers with empty rows to whole slabs of ``tile_r``
+    output rows.  The columns are walked in chunks of ``chunk``; every
+    row keeps a cursor (its next slot) and a batch of the 32 slots from
+    ``cursor & ~31`` (slots past kcap, and indices outside [0, row_len),
+    read as the sentinel).  In a chunk [c0, c1) a row adds the slots from
+    its cursor to the batch's count of indices below c1, and loads the
+    next batch while that count is 32.  Each output is summed over its
+    slots in ascending order, in float32.
+
+    Returns (y [M, R] float32, visits [R, kcap] int64: how often the walk
+    added each slot).
+    """
+    M, n = x.shape
+    R, kcap = idx.shape
+    Mp = -(-M // tile_m) * tile_m
+    Rp = -(-R // tile_r) * tile_r
+    xf = torch.zeros((Mp, n), dtype=torch.float32)
+    xf[:M] = x.to(torch.float32).cpu()
+    width = -(-kcap // 32) * 32 + 32          # room for one sentinel batch
+    bidx = torch.full((Rp, width), n, dtype=torch.int64)
+    bval = torch.zeros((Rp, width), dtype=torch.float32)
+    i64 = idx.to(torch.int64).cpu()
+    bidx[:R, :kcap] = torch.where((i64 >= 0) & (i64 <= n), i64, n)
+    bval[:R, :kcap] = val.to(torch.float32).cpu()
+    cur = torch.zeros(Rp, dtype=torch.int64)
+    acc = torch.zeros((Mp, Rp), dtype=torch.float32)
+    visits = torch.zeros((Rp, width), dtype=torch.int64)
+    rows = torch.arange(Rp)
+    lanes = torch.arange(32)
+    for c0 in range(0, n, chunk):
+        c1 = min(n, c0 + chunk)
+        walking = torch.ones(Rp, dtype=torch.bool)
+        while bool(walking.any()):
+            b = cur & ~31
+            batch = bidx.gather(1, b[:, None] + lanes)
+            below = (batch < c1).sum(dim=1)
+            end = torch.where(walking, b + below, cur)
+            for t in range(int((end - cur).max())):
+                s = cur + t
+                on = s < end
+                c = bidx[rows, s]
+                if bool((on & ((c < c0) | (c >= c1))).any()):
+                    raise AssertionError("a run left its chunk: indices "
+                                         "must ascend")
+                r_on, c_on = rows[on], c[on]
+                acc[:, r_on] += xf[:, c_on] * bval[r_on, s[on]]
+                visits[r_on, s[on]] += 1
+            cur = end
+            walking &= below == 32
+    return (acc[:M, :R].to(x.device),
+            visits[:R, :kcap].to(x.device))
+
+
 def qdq_gemm_ref(x: torch.Tensor, levels: torch.Tensor,
                  scale: torch.Tensor) -> torch.Tensor:
     """Dequantize-then-matmul version of ``qdq_gemm``: per-row integer
     levels times the [R, 1] f32 scale, contracted in f32."""
     w = levels.to(torch.float32) * scale.to(torch.float32).reshape(-1, 1)
     return x.to(torch.float32) @ w.T
+
+
+def qdq_gemm_factored_ref(x: torch.Tensor, levels: torch.Tensor,
+                          scale: torch.Tensor) -> torch.Tensor:
+    """``qdq_gemm`` with the scale folded out of the row's sum, as the
+    kernel computes it: ``scale[r] * sum_c x[m, c] * levels[r, c]`` in
+    float32 (the levels are exact integers)."""
+    dot = x.to(torch.float32) @ levels.to(torch.float32).T
+    return dot * scale.to(torch.float32).reshape(1, -1)
 
 
 # ---------------------------------------------------------------------------

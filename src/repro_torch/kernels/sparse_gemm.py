@@ -6,9 +6,17 @@ A CUDA tensor launches the kernel on the current stream; a CPU tensor
 runs the kernel's plain version (``ref.sparse_gemm_ref`` /
 ``ref.qdq_gemm_ref``).  There is no other route: a failed build or
 launch raises.  Both count one launch per call in ``LAUNCHES``.
+``sparse_gemm`` runs one of two kernels, picked inside the launch
+(decode widths: a warp per output row; prefill widths: activation tiles
+staged in shared memory, ``tile_geometry`` and ``tiled_route``);
+``qdq_gemm`` runs bfloat16 activations at M >= 2 on the tensor cores
+and the rest on FMAs, one pass over the levels for every 8 rows.
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -16,6 +24,46 @@ from repro_torch.kernels import _build, ref
 from repro_torch.kernels.launch_stats import LAUNCHES
 
 _X_DTYPES = (torch.float32, torch.bfloat16)
+#: ``sparse_gemm_route``'s kernels: the one M picks, a warp per output
+#: row, the tiled one
+ROUTES = {"auto": -1, "rows": 0, "tiled": 1}
+#: the longest row ``qdq_gemm`` takes: one row of x, as float32, beside
+#: the warps' 64 KB of level stages in a block's 227 KB of shared memory
+QDQ_MAX_ROW = (232448 - 65536) // 4
+
+
+class TileGeometry(NamedTuple):
+    """The tiled ``sparse_gemm`` kernel's geometry."""
+    min_m: int        # M from which the launch may take the tiled kernel
+    always_m: int     # M from which it always does
+    tile_m: int       # activation rows a block
+    tile_r: int       # output rows a block of 16 warps
+    tile_r_wide: int  # output rows a block of 32 warps
+    chunk_f32: int    # columns a staged chunk, float32 x
+    chunk_bf16: int   # columns a staged chunk, bfloat16 x
+    smem: int         # shared memory of a block of 32 warps, bytes
+
+
+def tile_geometry() -> TileGeometry:
+    """The tiled kernel's geometry, as the library reports it
+    (``qs_sparse_gemm_geometry``)."""
+    geo = (ctypes.c_int * 8)()
+    _build.check(_build.load().qs_sparse_gemm_geometry(geo))
+    return TileGeometry(*geo)
+
+
+def tiled_route(M: int, R: int, sms: int, geo: TileGeometry) -> bool:
+    """Whether ``sparse_gemm`` takes the tiled kernel for [M, n] x
+    [R, kcap] on a card of ``sms`` SMs: from ``always_m`` on, and from
+    ``min_m`` on where its 16-warp blocks fill a third of the SMs (below
+    ``tile_m`` rows its time hardly moves with M).  The launch decides
+    in the library; this mirrors it for the tests."""
+    if M >= geo.always_m:
+        return True
+    if M < geo.min_m:
+        return False
+    blocks = -(-M // geo.tile_m) * -(-R // geo.tile_r)
+    return 3 * blocks >= sms
 
 
 def sparse_gemm(x: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
@@ -28,6 +76,16 @@ def sparse_gemm(x: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
     after its survivors (the layout ``serve.compressed`` builds).
     Returns [M, R] float32.
     """
+    return sparse_gemm_route(x, idx, val, row_len, "auto")
+
+
+def sparse_gemm_route(x: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
+                      row_len: int, route: str) -> torch.Tensor:
+    """``sparse_gemm`` on the kernel ``route`` names (``ROUTES``): the
+    card tests and the crossover bench run both kernels at one M."""
+    if route not in ROUTES:
+        raise ValueError(f"route must be one of {sorted(ROUTES)}, got "
+                         f"{route!r}")
     _build.check_tensor("x", x, 2, _X_DTYPES)
     _build.check_tensor("idx", idx, 2, (torch.int32,))
     _build.check_tensor("val", val, 2, (torch.float32,))
@@ -43,9 +101,10 @@ def sparse_gemm(x: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
         return ref.sparse_gemm_ref(x, idx, val, row_len)
     lib = _build.load()
     out = torch.empty((M, R), dtype=torch.float32, device=dev)
-    _build.check(lib.qs_sparse_gemm(
+    _build.check(lib.qs_sparse_gemm_route(
         x.data_ptr(), idx.data_ptr(), val.data_ptr(), out.data_ptr(), M, R,
-        n, kcap, int(x.dtype == torch.bfloat16), _build.stream_of(dev)))
+        n, kcap, int(x.dtype == torch.bfloat16), ROUTES[route],
+        _build.stream_of(dev)))
     return out
 
 
@@ -71,9 +130,13 @@ def qdq_gemm(x: torch.Tensor, levels: torch.Tensor,
     LAUNCHES["qdq_gemm"] += 1
     if dev.type == "cpu":
         return ref.qdq_gemm_ref(x, levels, scale)
-    if n % 4:
+    if n % 4 or levels.data_ptr() % 4:
         raise ValueError(f"qdq_gemm reads levels 4 at a time: row length "
-                         f"{n} is not a multiple of 4")
+                         f"{n} is not a multiple of 4 or the levels are "
+                         f"not 4-byte aligned")
+    if n > QDQ_MAX_ROW:
+        raise ValueError(f"qdq_gemm stages a row of x in shared memory: at "
+                         f"most {QDQ_MAX_ROW} features, got {n}")
     lib = _build.load()
     out = torch.empty((M, R), dtype=torch.float32, device=dev)
     _build.check(lib.qs_qdq_gemm(

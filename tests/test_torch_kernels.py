@@ -289,7 +289,18 @@ def exact_f32(cuda):
     (8, 11008, 4096, 41),       # w1 / w3 at decode
     (8, 4096, 11008, 110),      # w2 at decode
     (128, 512, 4096, 41),       # wk / wv at prefill
-    (1, 4096, 4096, 41)])
+    (1, 4096, 4096, 41),
+    (128, 11008, 4096, 41),     # w1 / w3 at prefill: the tiled kernel
+    (4, 6912, 1152, 12),        # gemma3-1b w1 / w3 and w2 at decode
+    (4, 1152, 6912, 69),
+    (2048, 6912, 1152, 12),     # ... at a 2048-token prefill
+    (2048, 1152, 6912, 69),
+    (1100, 6912, 1152, 12),     # ... a ragged one
+    (1100, 1152, 6912, 69),
+    (2048, 256, 1152, 12),      # gemma3-1b wk / wv
+    (47, 6912, 1152, 12),       # one below, at and above the crossover
+    (48, 6912, 1152, 12),
+    (49, 6912, 1152, 12)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_sparse_gemm_kernel_matches_plain_on_card(exact_f32, M, R, n, k,
                                                   dtype):
@@ -305,16 +316,84 @@ def test_sparse_gemm_kernel_matches_plain_on_card(exact_f32, M, R, n, k,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("M", [1, 8, 13])
+@pytest.mark.parametrize("M,R,n,k", [
+    (47, 6912, 1152, 12), (48, 6912, 1152, 12), (128, 4096, 11008, 110),
+    (300, 1152, 6912, 69), (130, 300, 100, 128), (64, 6000, 4096, 41)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_qdq_gemm_kernel_matches_plain_on_card(exact_f32, M, dtype):
+def test_sparse_gemm_routes_on_card(exact_f32, M, R, n, k, dtype):
+    """Both kernels agree with the plain version at one shape, and the
+    launch takes the one ``tiled_route`` names: its output is that
+    kernel's, bit for bit (each sums in its own fixed order)."""
+    from repro_torch.kernels.sparse_gemm import (
+        sparse_gemm, sparse_gemm_route, tile_geometry, tiled_route)
+    from repro_torch.kernels.flash_attention import sm_count
+    g = torch.Generator(device=exact_f32).manual_seed(M * R + n)
+    idx, val = compact_buffers(g, R, n, min(k, n), 128, exact_f32)
+    x = torch.randn((M, n), generator=g, device=exact_f32).to(dtype)
+    want = ref.sparse_gemm_ref(x, idx, val, n)
+    got = {r: sparse_gemm_route(x, idx, val, n, r) for r in ("rows", "tiled")}
+    auto = sparse_gemm(x, idx, val, n)
+    torch.cuda.synchronize()
+    for y in got.values():
+        _close_to_scale(y, want, 1e-5, 1e-5)
+    tiled = tiled_route(M, R, sm_count(exact_f32.index or 0), tile_geometry())
+    assert torch.equal(auto, got["tiled" if tiled else "rows"])
+
+
+@pytest.mark.gpu
+def test_sparse_gemm_tiled_unaligned_on_card(exact_f32):
+    """x at an offset of one element (not 16-byte aligned) and a row
+    length that is not a multiple of 8: the staging's element path."""
+    from repro_torch.kernels.sparse_gemm import sparse_gemm_route
+    g = torch.Generator(device=exact_f32).manual_seed(5)
+    for n in (1152, 1150):
+        idx, val = compact_buffers(g, 700, n, 12, 128, exact_f32)
+        flat = torch.randn(300 * n + 1, generator=g, device=exact_f32).to(
+            torch.bfloat16)
+        x = flat[1:].view(300, n)
+        y = sparse_gemm_route(x, idx, val, n, "tiled")
+        want = ref.sparse_gemm_ref(x, idx, val, n)
+        torch.cuda.synchronize()
+        _close_to_scale(y, want, 1e-5, 1e-5)
+
+
+#: (R, n): the two QSGD heads (Yi-6B's 64000 x 4096, gemma3-1b's tied
+#: 262144 x 1152), a row length that is a multiple of 4 but not of 16,
+#: and a long one (the tensor cores' partial sums)
+QDQ_HEADS = [(64000, 4096), (262144, 1152), (3000, 4100), (3000, 11008)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 2, 4, 8, 13])
+@pytest.mark.parametrize("R,n", QDQ_HEADS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_qdq_gemm_kernel_matches_plain_on_card(exact_f32, M, R, n, dtype):
     from repro_torch.kernels.sparse_gemm import qdq_gemm
-    g = torch.Generator(device=exact_f32).manual_seed(M)
-    R, n = 64000, 4096
-    lv = torch.randint(-15, 16, (R, n), generator=g, device=exact_f32,
+    g = torch.Generator(device=exact_f32).manual_seed(M + R)
+    lv = torch.randint(-127, 128, (R, n), generator=g, device=exact_f32,
                        dtype=torch.int8)
     scale = torch.rand((R, 1), generator=g, device=exact_f32)
     x = torch.randn((M, n), generator=g, device=exact_f32).to(dtype)
+    y = qdq_gemm(x, lv, scale)
+    want = ref.qdq_gemm_ref(x, lv, scale)
+    torch.cuda.synchronize()
+    _close_to_scale(y, want, 1e-5, 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [4, 8, 12, 16])
+def test_qdq_gemm_level_views_on_card(exact_f32, offset):
+    """Levels that start 4, 8 or 12 bytes past a 16-byte boundary (a
+    layer view of a stacked leaf) take the 4-byte loads; 16 the wide
+    ones."""
+    from repro_torch.kernels.sparse_gemm import qdq_gemm
+    g = torch.Generator(device=exact_f32).manual_seed(offset)
+    R, n = 5000, 1152
+    flat = torch.randint(-127, 128, (R * n + offset,), generator=g,
+                         device=exact_f32, dtype=torch.int8)
+    lv = flat[offset:].view(R, n)
+    scale = torch.rand((R, 1), generator=g, device=exact_f32)
+    x = torch.randn((4, n), generator=g, device=exact_f32).to(torch.bfloat16)
     y = qdq_gemm(x, lv, scale)
     want = ref.qdq_gemm_ref(x, lv, scale)
     torch.cuda.synchronize()

@@ -3,7 +3,8 @@
 GPU, for the checkout this file sits in or for another one.
 
     python3 tools/bench_flash_kernels.py [--tree DIR]
-        [--kernels attention|topk_paged] [--serve [gemma3-1b|yi-6b]]
+        [--kernels attention|topk_paged|gemm]
+        [--serve [gemma3-1b|yi-6b]] [--plain-gemm]
 
 Imports ``chip_smoke.py`` and ``src/`` from DIR (default: this
 checkout), builds that tree's kernels into its own build directory, and
@@ -17,17 +18,29 @@ topk_paged``: ``check_topk`` at the ResNet-50 shapes (RowSignTopK's
 [49312, 4096], the global TopK's [16, 524288], [8, 524288], [56, 65536]
 and [8, 65536]) and gemma3-1b's [179712, 1152], and
 ``check_paged_decode`` at Yi-6B's decode shape over bf16 and int8 pages,
-with ``torch.topk`` and SDPA as the library calls.  Prints the card's
-name and power limit, then one JSON line per row tagged with DIR.
+with ``torch.topk`` and SDPA as the library calls.  ``--kernels gemm``:
+``check_sparse_gemm`` at gemma3-1b's w1 / w2 at a 2048-token prefill and
+at decode (batch 4), Yi-6B's w1 at a 128-token prefill and w1 / w2 at
+decode (batch 8), and ``check_qdq_gemm`` on Yi-6B's head (M = 1, 8) and
+gemma3-1b's tied head (M = 4, 1), with ``torch.matmul`` against the
+dense weight as the library call; these checks are this checkout's,
+run against DIR's kernels (an older tree's checks took other
+arguments).  Where DIR's wrapper has ``sparse_gemm_route``, both
+``sparse_gemm`` kernels are also timed at M = 8 .. 256 on those shapes
+(``route`` lines: the crossover).  Prints the card's name and power
+limit, then one JSON line per row tagged with DIR.
 
 ``--serve`` runs that tree's serve phase instead: ``gemma3-1b`` (the
 default) the unscanned gemma3-1b run (``chip_smoke.phase_serve_flash``),
 ``yi-6b`` the Yi-6B runs over paged bf16, paged int8 and contiguous KV
 (``chip_smoke.phase_serve``); their ``serve`` lines have the decode
 ms/step, TTFT and tok/s, and a ``tokens`` line per run gives a digest of
-every request's greedy tokens.  To compare two commits, unpack the
-parent (``git archive``) into a git-ignored directory and run parent,
-change, change, parent in one call on one card.
+every request's greedy tokens (``--tokens-out FILE`` keeps them, a JSON
+line a run); ``--plain-gemm`` runs the two GEMM
+wrappers through their plain versions on the card (launches still
+counted), for the tokens of the plain path.  To compare two commits,
+unpack the parent (``git archive``) into a git-ignored directory and run
+parent, change, change, parent in one call on one card.
 """
 
 from __future__ import annotations
@@ -40,10 +53,11 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def record_tokens() -> None:
+def record_tokens(path=None) -> None:
     """Print a digest of each ServeEngine run's greedy tokens (request
     id, tokens), so that two trees' runs can be compared token for
-    token."""
+    token; with ``path``, append each run's tokens there as a JSON
+    line."""
     import hashlib
     from repro_torch.serve.engine import ServeEngine
     run = ServeEngine.run
@@ -55,18 +69,80 @@ def record_tokens() -> None:
         digest = hashlib.sha256(json.dumps(outs).encode()).hexdigest()
         print("tokens", json.dumps({"requests": len(outs),
                                     "sha256": digest[:16]}), flush=True)
+        if path:
+            with open(path, "a") as f:
+                f.write(json.dumps(outs) + "\n")
         return res
 
     ServeEngine.run = wrapped
 
 
+def plain_gemms() -> None:
+    """Route ``sparse_gemm`` / ``qdq_gemm`` through their plain versions
+    (dispatch looks the wrappers up at each call), counting launches as
+    the kernels do."""
+    from repro_torch.kernels import ref, sparse_gemm as sg
+    from repro_torch.kernels.launch_stats import LAUNCHES
+
+    def sparse(x, idx, val, row_len):
+        LAUNCHES["sparse_gemm"] += 1
+        return ref.sparse_gemm_ref(x, idx, val, row_len)
+
+    def qdq(x, levels, scale):
+        LAUNCHES["qdq_gemm"] += 1
+        return ref.qdq_gemm_ref(x, levels, scale)
+
+    sg.sparse_gemm, sg.qdq_gemm = sparse, qdq
+
+
+def gemm_rows(dev) -> list:
+    """The GEMM rows, timed by this checkout's checks."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "bench_gemm_checks", os.path.join(HERE, "chip_smoke.py"))
+    ck = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ck)
+    rows = [("sparse_gemm", ck.check_sparse_gemm(dev, *shape))
+            for shape in ((2048, 6912, 1152, 12, 5),
+                          (2048, 1152, 6912, 69, 5),
+                          (128, 11008, 4096, 41, 5),
+                          (8, 11008, 4096, 41, 20),
+                          (8, 4096, 11008, 110, 20),
+                          (4, 6912, 1152, 12, 20),
+                          (4, 1152, 6912, 69, 20))]
+    rows += [("qdq_gemm", ck.check_qdq_gemm(dev, *shape))
+             for shape in ((1, 64000, 4096, 10), (8, 64000, 4096, 10),
+                           (4, 262144, 1152, 10), (1, 262144, 1152, 10))]
+    from repro_torch.kernels import sparse_gemm as sg
+    if hasattr(sg, "sparse_gemm_route"):
+        import torch
+        for R, n, k in ((6912, 1152, 12), (1152, 6912, 69),
+                        (11008, 4096, 41), (4096, 11008, 110)):
+            g = torch.Generator(device=dev).manual_seed(R + n)
+            idx, val = ck.compact_buffers(g, R, n, k, 128, dev)
+            for M in (8, 16, 32, 40, 48, 56, 64, 96, 128, 256):
+                x = torch.randn((M, n), generator=g, device=dev).to(
+                    torch.bfloat16)
+                ms = {route: ck.time_ms(
+                    lambda route=route: sg.sparse_gemm_route(
+                        x, idx, val, n, route), 20)
+                    for route in ("rows", "tiled", "auto")}
+                print("route", json.dumps({"shape": [M, n, R], "k_row": k,
+                                           **ms}), flush=True)
+    print("gemm", ck.TIMING, flush=True)
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=HERE)
-    ap.add_argument("--kernels", choices=("attention", "topk_paged"),
+    ap.add_argument("--kernels", choices=("attention", "topk_paged", "gemm"),
                     default="attention")
     ap.add_argument("--serve", nargs="?", const="gemma3-1b",
                     choices=("gemma3-1b", "yi-6b"))
+    ap.add_argument("--plain-gemm", action="store_true")
+    ap.add_argument("--tokens-out", help="append each serve run's tokens "
+                    "to this file (one JSON line a run)")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path[:0] = [os.path.join(tree, "src"), tree]
@@ -85,14 +161,19 @@ def main() -> int:
     _build.build()
     dev = torch.device("cuda")
     if args.serve:
-        print("bench serve", tree, args.serve, flush=True)
-        record_tokens()
+        print("bench serve", tree, args.serve,
+              "plain GEMMs" if args.plain_gemm else "kernels", flush=True)
+        record_tokens(args.tokens_out)
+        if args.plain_gemm:
+            plain_gemms()
         if args.serve == "yi-6b":
             cs.phase_serve(dev)
         else:
             cs.phase_serve_flash(dev)
         return 0
-    if args.kernels == "topk_paged":
+    if args.kernels == "gemm":
+        rows = gemm_rows(dev)
+    elif args.kernels == "topk_paged":
         from repro_torch.kernels import topk_compress as tk
         if hasattr(tk, "cluster_capacity"):
             idx = torch.cuda.current_device()
@@ -126,7 +207,7 @@ def main() -> int:
         keep = {k: row[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
                                     "library_ms", "bound_ms", "bound_by")}
         for extra in ("window", "cache", "route", "split_tiles", "k", "sign",
-                      "quant", "max_row_rel_err", "bound_f32_ms"):
+                      "quant", "max_row_rel_err", "bound_f32_ms", "k_row"):
             if extra in row:
                 keep[extra] = row[extra]
         print("bench", json.dumps({"tree": tree, "kernel": name, **keep}),
