@@ -37,7 +37,7 @@ Phases, each of which exits non-zero on failure:
    ragged 1100) and Yi-6B's heads (step 3's checks and times, with
    ``scaled_dot_product_attention`` as the yardstick), and the gemma3-1b
    run's GEMMs at its shapes: ``sparse_gemm`` at a 2048-token prefill and
-   at decode (batch 4), ``qdq_gemm`` on the tied 262144 x 1152 head at
+   at decode (batch 4, all five matrix shapes), ``qdq_gemm`` on the tied 262144 x 1152 head at
    decode and for a prefill's last token; then gemma3-1b at
    full width and depth, unscanned (``scan_layers=False,
    use_pallas=True``), compressed at load under ``lm_hetero`` and served
@@ -50,6 +50,7 @@ Phases, each of which exits non-zero on failure:
    (logits within 1e-4, same tokens);
 7. the distributed LM training path: ``topk_compact`` and
    ``topk_compress`` against their plain versions at gemma3-1b's shapes
+   (``topk_compress`` at each stack's rows: 179,712, 26,624 and 6,656)
    (step 3's checks and times), then the port's launcher
    ``repro_torch.launch.train`` on gemma3-1b at full width and depth
    (999,812,736 parameters, random weights from a seed) under its
@@ -811,7 +812,8 @@ def phase_flash_kernels(dev):
     heads (32 on 4 of 128), causal.  Then the unscanned gemma3-1b serve
     run's other kernels at its own shapes: sparse_gemm at prefill (2048
     rows; w1's 1152 -> 6912 at k 12, w2's 6912 -> 1152 at k 69) and at
-    decode (batch 4), qdq_gemm on the tied 262144 x 1152 head at decode
+    decode (batch 4: w1 / w3, w2, wq 1152 -> 1024, wo 1024 -> 1152 at k
+    10, wk / wv 1152 -> 256), qdq_gemm on the tied 262144 x 1152 head at decode
     (batch 4) and for a prefill's last token, and flash_decode at batch 4
     over a 1024-slot window ring (full) and the 2304-slot global ring
     (1100-2080 valid slots), then flash_decode's correctness cases
@@ -826,7 +828,10 @@ def phase_flash_kernels(dev):
     gemm = {"sparse_gemm": [check_sparse_gemm(dev, 2048, 6912, 1152, 12, 5),
                             check_sparse_gemm(dev, 2048, 1152, 6912, 69, 5),
                             check_sparse_gemm(dev, 4, 6912, 1152, 12, 20),
-                            check_sparse_gemm(dev, 4, 1152, 6912, 69, 20)],
+                            check_sparse_gemm(dev, 4, 1152, 6912, 69, 20),
+                            check_sparse_gemm(dev, 4, 1024, 1152, 12, 20),
+                            check_sparse_gemm(dev, 4, 1152, 1024, 10, 20),
+                            check_sparse_gemm(dev, 4, 256, 1152, 12, 20)],
             "qdq_gemm": [check_qdq_gemm(dev, 4, 262144, 1152, 10),
                          check_qdq_gemm(dev, 1, 262144, 1152, 10)]}
     for name, checks in gemm.items():
@@ -1216,7 +1221,8 @@ def phase_lm_kernels(dev):
     lm_hetero compresses each stack along its 1152-wide axis, k 12, kcap
     128): topk_compact (the sparse wire) at w1 / w2 / w3's 179,712 rows,
     sign and not, at the 26,624 rows of wq / wo, and on a heavy-tie block
-    that overflows kcap; topk_compress (the dense wire) at w1's rows."""
+    that overflows kcap; topk_compress (the dense wire) at w1 / w2 /
+    w3's rows, sign and not, wq / wo's 26,624 and wk / wv's 6,656."""
     rows = [check_compact(dev, 179712, 1152, 12, 128, False, 10),
             check_compact(dev, 179712, 1152, 12, 128, True, 10),
             check_compact(dev, 26624, 1152, 12, 128, False, 10),
@@ -1224,9 +1230,13 @@ def phase_lm_kernels(dev):
             check_compact(dev, 4096, 1152, 12, 128, True, 0, ties=True)]
     for row in rows:
         print("kernel check topk_compact", json.dumps(row), flush=True)
-    dense = check_topk(dev, 179712, 1152, 12, False, 10)
-    print("kernel check topk_compress", json.dumps(dense), flush=True)
-    return rows, [dense]
+    dense = [check_topk(dev, 179712, 1152, 12, False, 10),
+             check_topk(dev, 179712, 1152, 12, True, 10),
+             check_topk(dev, 26624, 1152, 12, False, 10),
+             check_topk(dev, 6656, 1152, 12, False, 10)]
+    for row in dense:
+        print("kernel check topk_compress", json.dumps(row), flush=True)
+    return rows, dense
 
 
 def lm_run(wire: str, dev):

@@ -59,6 +59,8 @@ SIGNATURES = {
     # geo (int[7]: crossover M, tile rows, output rows of a 16- / 32-warp
     # block, chunk columns for float32 / bfloat16 x, smem bytes)
     "qs_sparse_gemm_geometry": [ctypes.POINTER(_I32)],
+    # geo (int[3]: most activation rows, most staged bytes, warps a block)
+    "qs_sparse_gemm_decode_geometry": [ctypes.POINTER(_I32)],
     # x, levels, scale, out, M, R, n, x_bf16, stream
     "qs_qdq_gemm": [_P, _P, _P, _P, _I32, _I32, _I32, _I32, _P],
     # q, kp, vp, kscale, vscale, tables, lengths, out, part_m, part_l,

@@ -1,5 +1,6 @@
-// Block-wide reductions, the block-wide prefix scan and the bisection
-// threshold shared by the compression kernels, and the float32 <->
+// Block-wide reductions, the block-wide prefix scan, the bisection
+// threshold and the short-row select-and-replay threshold shared by the
+// compression kernels, and the float32 <->
 // storage-type conversions and lane-group helpers shared by the serving
 // kernels.
 //
@@ -155,6 +156,233 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
   return v;
+}
+
+// ---------------------------------------------------------------------------
+// The short-row threshold: exact order statistics, then a scalar replay
+// ---------------------------------------------------------------------------
+//
+// Let a(j) be the j-th largest |x| of a row, counted with multiplicity,
+// NaN left out (fabsf(NaN) >= t is false and fmaxf skips it), a(j) = -inf
+// past the last.  bisect_threshold's test count(|x| >= mid) > k is exactly
+// a(k+1) >= mid, its last test count(|x| >= hi) >= k is exactly
+// a(k) >= hi, and hi starts at max(0, a(1)).  So once a(1), a(k) and
+// a(k+1) are known, its `iters` rounds replay on one thread, in the same
+// float32 operations, to the same threshold bit for bit
+// (ref.topk_threshold_select_ref; tests/test_torch_topk_select.py).
+//
+// For |x| >= 0 the order of the floats is the order of their bits, so
+// a(k) is found by a radix select on the bits, 8 at a time from the top:
+// a histogram of the digit over the elements that match the digits
+// chosen so far, and the digit where the count from the top reaches k.
+// After a digit, where a(k) is the largest (or the smallest) element of
+// its bin, one max (min) over the bin ends the search.  a(k+1) is a(k)
+// where at least k + 1 elements reach a(k), else the largest element
+// below it.  Every step is an integer count or an integer max / min, so
+// the order of the sums does not matter.
+
+// The RW warps that own one row: a warp (RW = 1, no block barrier) or a
+// whole block (RW > 1).  Reductions leave every thread of the group with
+// the result; a block's alternate between two scratch rows, so one
+// __syncthreads() each suffices (as in block_sum above).
+template <int RW>
+struct RowGroup {
+  int (*iscr)[RW];     // [2][RW]
+  unsigned (*uscr)[RW];
+  float (*fscr)[RW];
+  int buf;
+
+  __device__ __forceinline__ void sync() const {
+    if constexpr (RW == 1) {
+      __syncwarp();
+    } else {
+      __syncthreads();
+    }
+  }
+  __device__ __forceinline__ int sum(int v) {
+    v = __reduce_add_sync(FULL, v);
+    if constexpr (RW == 1) {
+      return v;
+    } else {
+      if ((threadIdx.x & 31) == 0) iscr[buf][threadIdx.x >> 5] = v;
+      __syncthreads();
+      int t = 0;
+#pragma unroll
+      for (int w = 0; w < RW; ++w) t += iscr[buf][w];
+      buf ^= 1;
+      return t;
+    }
+  }
+  template <bool MAX>
+  __device__ __forceinline__ unsigned extreme(unsigned v) {
+    v = MAX ? __reduce_max_sync(FULL, v) : __reduce_min_sync(FULL, v);
+    if constexpr (RW == 1) {
+      return v;
+    } else {
+      if ((threadIdx.x & 31) == 0) uscr[buf][threadIdx.x >> 5] = v;
+      __syncthreads();
+      unsigned t = uscr[buf][0];
+#pragma unroll
+      for (int w = 1; w < RW; ++w)
+        t = MAX ? max(t, uscr[buf][w]) : min(t, uscr[buf][w]);
+      buf ^= 1;
+      return t;
+    }
+  }
+  // a float sum in a fixed order (a warp's butterfly, then the warps in
+  // order): deterministic for a fixed RW
+  __device__ __forceinline__ float fsum(float v) {
+    v = warp_sum(v);
+    if constexpr (RW == 1) {
+      return v;
+    } else {
+      if ((threadIdx.x & 31) == 0) fscr[buf][threadIdx.x >> 5] = v;
+      __syncthreads();
+      float t = 0.0f;
+#pragma unroll
+      for (int w = 0; w < RW; ++w) t += fscr[buf][w];
+      buf ^= 1;
+      return t;
+    }
+  }
+};
+
+// |x|'s bits, or kAbsent for NaN (left out of every count)
+constexpr unsigned kAbsent = 0xffffffffu;
+__device__ __forceinline__ unsigned abs_key(float v) {
+  const unsigned u = __float_as_uint(v) & 0x7fffffffu;
+  return u > 0x7f800000u ? kAbsent : u;
+}
+
+// The digit (bits shift .. shift + 7) at which the count of a group's
+// matching elements, from the top, reaches `need`: bins h[0 .. 256) read
+// by every warp of the group, lane l holding bins 8 l .. 8 l + 7.  Returns
+// false where fewer than `need` elements match; else sets digit, need (its
+// rank inside the bin) and in_bin (the bin's count).
+__device__ __forceinline__ bool pick_digit(const int* h, int& need,
+                                           int& digit, int& in_bin) {
+  const int lane = threadIdx.x & 31;
+  const int4 lo = reinterpret_cast<const int4*>(h)[2 * lane];
+  const int4 hi = reinterpret_cast<const int4*>(h)[2 * lane + 1];
+  const int b[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+  int t = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) t += b[j];
+  int incl = t;  // count in lanes >= this one
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_down_sync(FULL, incl, off);
+    if (lane + off < 32) incl += y;
+  }
+  const int above = incl - t;
+  const unsigned at = __ballot_sync(FULL, above < need && need <= incl);
+  if (!at) return false;
+  const int src = __ffs(at) - 1;
+  int d = 0, r = 0, c = 0;
+  if (lane == src) {
+    int cum = above;
+#pragma unroll
+    for (int j = 7; j >= 0; --j) {
+      if (r == 0 && cum + b[j] >= need) {  // r >= 1 once found
+        d = 8 * lane + j;
+        r = need - cum;
+        c = b[j];
+      }
+      cum += b[j];
+    }
+  }
+  digit = __shfl_sync(FULL, d, src);
+  need = __shfl_sync(FULL, r, src);
+  in_bin = __shfl_sync(FULL, c, src);
+  return true;
+}
+
+// The short-row threshold: `each(f)` calls f(v) on every element of this
+// thread's share of the row (NaN for a padding slot: left out); `hist`
+// holds three 256-bin histograms for the group; `a1` is the row's largest
+// key (abs_key; 0 for a row of NaN).  Returns the threshold of
+// bisect_threshold bit for bit.
+template <int RW, typename Each>
+__device__ __forceinline__ float select_threshold(Each each, unsigned a1,
+                                                  int k, int iters,
+                                                  int (*hist)[256],
+                                                  RowGroup<RW>& g) {
+  constexpr int T = RW * 32;
+  const int t = threadIdx.x % T;
+  // a(k): a radix select on the bits; kAbsent where fewer than k keys
+  unsigned ak = kAbsent;
+  {
+    unsigned prefix = 0, mask = 0;
+    int need = k;
+    for (int shift = 24, p = 0; shift >= 0; shift -= 8, ++p) {
+      int* h = hist[p % 3];
+      each([&](float v) {
+        const unsigned u = abs_key(v);
+        if (u != kAbsent && (u & mask) == prefix)
+          atomicAdd(h + ((u >> shift) & 255u), 1);
+      });
+      g.sync();
+      int digit, in_bin;
+      const bool found = pick_digit(h, need, digit, in_bin);
+      // the histogram after the next is free: its readers have passed the
+      // barrier above, its writers come after the next one
+      for (int i = t; i < 256; i += T) hist[(p + 2) % 3][i] = 0;
+      if (!found) break;
+      prefix |= static_cast<unsigned>(digit) << shift;
+      mask |= 255u << shift;
+      if (shift == 0) {
+        ak = prefix;
+        break;
+      }
+      if (need == 1 || need == in_bin) {
+        // a(k) is the bin's largest (smallest) element.  Both extremes
+        // are reduced and the loop's state is read through constants: a
+        // warp collective under a condition, with the lambda reading the
+        // mutable prefix, miscompiled where registers spilled (PERF.md).
+        const unsigned pm = prefix, mm = mask;
+        unsigned top = 0u, bottom = kAbsent;
+        each([&](float v) {
+          const unsigned u = abs_key(v);
+          const bool in = u != kAbsent && (u & mm) == pm;
+          top = in ? max(top, u) : top;
+          bottom = in ? min(bottom, u) : bottom;
+        });
+        top = g.template extreme<true>(top);
+        bottom = g.template extreme<false>(bottom);
+        ak = need == 1 ? top : bottom;
+        break;
+      }
+    }
+  }
+  // a(k+1): a(k) again where k + 1 keys reach it, else the largest below
+  // (kAbsent where a(k) is: no key reaches it)
+  const unsigned akc = ak;
+  int ge = 0;
+  unsigned below = 0;
+  each([&](float v) {
+    const unsigned u = abs_key(v);
+    if (u != kAbsent) {
+      ge += u >= akc;
+      below = u < akc ? max(below, u + 1) : below;
+    }
+  });
+  ge = g.sum(ge);
+  below = g.template extreme<true>(below);  // the largest below, plus one
+  const unsigned ak1 = akc == kAbsent ? kAbsent
+                       : ge >= k + 1  ? akc
+                       : below        ? below - 1
+                                      : kAbsent;
+  // the serial loop's rounds, replayed
+  float hi = __uint_as_float(a1), lo = 0.0f;
+  for (int it = 0; it < iters; ++it) {
+    const float mid = 0.5f * (lo + hi);
+    if (ak1 != kAbsent && __uint_as_float(ak1) >= mid) {
+      lo = mid;
+    } else {
+      hi = mid;
+    }
+  }
+  return ak != kAbsent && __uint_as_float(ak) >= hi ? hi : lo;
 }
 
 // The decode kernels' (flash_decode, paged_decode) lane-group helpers:

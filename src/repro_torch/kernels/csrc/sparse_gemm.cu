@@ -8,15 +8,26 @@
 // the sentinel idx = row_len after the row's survivors).  The TPU kernel
 // decodes a dense weight tile in VMEM with a one-hot contraction and feeds
 // the MXU; on Hopper that would spend row_len / k more work on zeros.
-// Two kernels, picked inside the one launch (take_tiled):
+// Three kernels, picked inside the one launch:
 //
-// * Decode widths: one warp owns one output row r; its lanes hold the
-//   row's live slots 32 at a time, gather x[m, idx] (x stays in L1/L2: it
-//   is max_batch rows of d_model) and each lane's partial sums are reduced
-//   across the warp.  A row stops at the first 32 slots that are all
-//   sentinels.  At prefill widths this gathers each x element once per
-//   output row that uses it, a lone 2-4 byte read per 32-byte L2 sector,
-//   and the L2 traffic sets the time.
+// * Decode batches, M <= kDecodeMaxM = 8 where x fits a block's shared
+//   memory (every serving shape in bfloat16): one block a SM stages all of
+//   x once, transposed into records of a column's activation rows (16
+//   bytes at M = 8 in bfloat16), so a live slot costs one shared-memory
+//   read where it cost M scattered gathers.  A warp walks a batch of 2-4
+//   output rows of its block's contiguous range 32 slots a round, without
+//   a branch; up to two rounds of the next batch load while this one is
+//   summed (as many as it walked), and rows still walking load further
+//   rounds together.  A row stops in the round that holds its first
+//   sentinel.  The batch's partial sums leave by one reduce-scatter
+//   across the warp.  What bounds it: the live (idx, val) slots (8 bytes
+//   a slot) and the latency of their loads, one a batch, and staging,
+//   which reads all of x from L2 in every block (PERF.md).
+// * Other batches below the tiled kernel's M (the warp-per-row kernel):
+//   one warp owns one output row r; its lanes hold the row's live slots 32
+//   at a time, gather x[m, idx] from L1/L2 and reduce each lane's partial
+//   sums across the warp.  A row stops at the first 32 slots that are all
+//   sentinels.
 // * Prefill widths: a block owns kTileM = 128 activation rows and a slab of
 //   128 or 256 output rows (16 or 32 warps of kTileRowsPerWarp rows).  It
 //   walks x in chunks of 64 KB: a chunk lands row-major in shared memory by
@@ -114,6 +125,374 @@ sparse_gemm_kernel(const T* __restrict__ x, const int* __restrict__ idx,
   }
 }
 
+// Reduce-scatter of a lane's C values over the warp's lanes, halving the
+// values kept at each of the offsets O, O / 2, .., 1 while more than one
+// is left (then plain butterfly adds).  Afterwards a[0 .. max(C / 32, 1))
+// hold the warp's sums of values base, base + 1, ..
+template <int C, int O, int V>
+__device__ __forceinline__ void reduce_scatter(float (&a)[V], int lane,
+                                               int& base) {
+  if constexpr (O > 0) {
+    if constexpr (C > 1) {
+      constexpr int h = C / 2;
+      const bool up = (lane & O) != 0;
+#pragma unroll
+      for (int i = 0; i < h; ++i) {
+        const float send = up ? a[i] : a[i + h];
+        const float keep = up ? a[i + h] : a[i];
+        a[i] = keep + __shfl_xor_sync(qs::FULL, send, O);
+      }
+      if (up) base += h;
+      reduce_scatter<h, O / 2>(a, lane, base);
+    } else {
+      a[0] += __shfl_xor_sync(qs::FULL, a[0], O);
+      reduce_scatter<1, O / 2>(a, lane, base);
+    }
+  }
+}
+
+// 16-byte copies from device to shared memory that do not wait
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// as cp_async16, reading `bytes` (16 or 0: zeros) from src
+__device__ __forceinline__ void cp_async16_fill(void* dst, const void* src,
+                                                int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes));
+}
+
+// ---------------------------------------------------------------------------
+// sparse_gemm at decode widths: x staged once a block, a column a record
+// ---------------------------------------------------------------------------
+
+constexpr int kDecodeMaxM = 8;        // activation rows the kernel takes
+constexpr int kDecodeWarps = 16;      // a block: one a SM
+constexpr int kDecodeSmem = 232448;   // staged x may fill a block's 227 KB
+
+// 2..32 bytes as one shared-memory access (two for 32)
+template <int B>
+struct VecOf;
+template <>
+struct VecOf<2> { using type = uint16_t; };
+template <>
+struct VecOf<4> { using type = uint32_t; };
+template <>
+struct VecOf<8> { using type = uint2; };
+template <>
+struct VecOf<16> { using type = uint4; };
+struct alignas(16) Uint4x2 { uint4 a, b; };
+template <>
+struct VecOf<32> { using type = Uint4x2; };
+
+// x staged as records: column c's MP activation rows (rows past M are
+// zeros) side by side in raw storage U (bfloat16 bits or float32), so a
+// live slot reads its column's MP values in one shared-memory access.
+// Staging reads x row by row, 16 bytes (kVC columns) a thread, and writes
+// kVC records; record c sits at c ^ ((c / kVC) % kVC), so the kVC records
+// one thread writes at a time fall in different bank groups across the
+// quarter-warp.  A warp walks kRB output rows at once: kRB * MP sums a
+// lane (16 from 4 activation rows up), reduce-scattered across the warp.
+template <typename U, int MP>
+struct Decode {
+  static constexpr int kBytes = MP * static_cast<int>(sizeof(U));
+  using Vec = typename VecOf<kBytes>::type;
+  union Rec {
+    Vec w;
+    U v[MP];
+  };
+  static constexpr int kVC = 16 / static_cast<int>(sizeof(U));
+  static constexpr int kRB = MP >= 4 ? 16 / MP : 4;  // output rows a batch
+  static constexpr int kNV = kRB * MP;               // sums a lane
+  __device__ __forceinline__ static int at(int c) {
+    return c ^ ((c / kVC) & (kVC - 1));
+  }
+};
+
+// rounds of 32 slots of a batch's rows in flight at most
+constexpr int kDecodeDepth = 2;
+
+// word s / element j of 16 bytes (of bfloat16 bits / float32)
+__device__ __forceinline__ uint32_t word_of(const uint4& v, int s) {
+  return s == 0 ? v.x : s == 1 ? v.y : s == 2 ? v.z : v.w;
+}
+__device__ __forceinline__ uint16_t elem_of(const uint4& r, int j,
+                                            uint16_t) {
+  return static_cast<uint16_t>(word_of(r, j >> 1) >> (16 * (j & 1)));
+}
+__device__ __forceinline__ float elem_of(const uint4& r, int j, float) {
+  return __uint_as_float(word_of(r, j));
+}
+
+__device__ __forceinline__ float u_to_f32(uint16_t u) {
+  return __uint_as_float(static_cast<uint32_t>(u) << 16);
+}
+__device__ __forceinline__ float u_to_f32(float u) { return u; }
+
+// Shared memory of the decode kernel: x as records, whole 16-byte groups
+// of columns.
+__host__ __device__ inline long long decode_records(int n, int vc) {
+  return (static_cast<long long>(n) + vc - 1) / vc * vc;
+}
+__host__ __device__ inline long long decode_x_bytes(int n, int mp,
+                                                    int x_bytes) {
+  return decode_records(n, 16 / x_bytes) * mp * x_bytes;
+}
+
+template <typename U, int MP>
+__global__ void __launch_bounds__(kDecodeWarps * 32, 1)
+sparse_gemm_decode_kernel(const U* __restrict__ x, const int* __restrict__ idx,
+                          const float* __restrict__ val,
+                          float* __restrict__ out, int M, int R, int n,
+                          int kcap, int rows_per_block, int vec) {
+  using D = Decode<U, MP>;
+  using Vec = typename D::Vec;
+  using Rec = typename D::Rec;
+  constexpr int kRB = D::kRB, kNV = D::kNV, kVC = D::kVC;
+  constexpr int kD = kDecodeDepth;
+  constexpr unsigned kAll = (1u << kRB) - 1;
+  extern __shared__ __align__(16) unsigned char smem[];
+  Vec* xs = reinterpret_cast<Vec*>(smem);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r_beg = blockIdx.x * rows_per_block;
+  const int r_end = min(R, r_beg + rows_per_block);
+  const int batches = max(0, (r_end - r_beg + kRB - 1) / kRB);
+
+  // Slot 32 j + lane of row i of batch q where row i is in `rows` (else,
+  // past r_end and past kcap: the sentinel n).
+  auto load = [&](int& c, float& v, int q, int i, int j, unsigned rows) {
+    const int r = r_beg + q * kRB + i, s = 32 * j + lane;
+    c = n;
+    v = 0.0f;
+    if (((rows >> i) & 1u) && r < r_end && s < kcap) {
+      const long long o = static_cast<long long>(r) * kcap + s;
+      c = __ldg(idx + o);
+      v = __ldg(val + o);
+    }
+  };
+  // cc[j] / cn[j] hold round j of every row of this batch / the next.
+  // `depth` rounds of the next batch load while this one is summed: as
+  // many as the last batch's rows walked, up to kD (the rows of one
+  // matrix have one k).
+  int cc[kD][kRB], cn[kD][kRB];
+  float vc[kD][kRB], vn[kD][kRB];
+  int depth = 1;
+#pragma unroll
+  for (int i = 0; i < kRB; ++i) load(cn[0][i], vn[0][i], warp, i, 0, kAll);
+
+  // Stage x.  The first batch's first round lands while the first loads
+  // of x are in flight; rows it fills load their second round before
+  // anything waits on x.
+  bool first = true;
+  auto second_round = [&]() {
+    if (!first) return;
+    first = false;
+    unsigned full = 0;
+#pragma unroll
+    for (int i = 0; i < kRB; ++i)
+      full |= (__all_sync(qs::FULL, cn[0][i] >= 0 && cn[0][i] < n) ? 1u : 0u)
+              << i;
+    if (full && kcap > 32) {
+      depth = 2;
+#pragma unroll
+      for (int i = 0; i < kRB; ++i) load(cn[1][i], vn[1][i], warp, i, 1, full);
+    }
+  };
+  if (vec) {
+    const long long groups = decode_records(n, kVC) / kVC;
+    for (long long g0 = 0; g0 < groups; g0 += blockDim.x) {
+      const long long g = g0 + threadIdx.x;
+      uint4 row[MP];
+#pragma unroll
+      for (int m = 0; m < MP; ++m)
+        row[m] = m < M && g < groups
+                     ? __ldg(reinterpret_cast<const uint4*>(
+                                 x + static_cast<long long>(m) * n) + g)
+                     : make_uint4(0, 0, 0, 0);
+      second_round();
+      if (g < groups) {
+#pragma unroll
+        for (int j = 0; j < kVC; ++j) {
+          Rec rec;
+#pragma unroll
+          for (int m = 0; m < MP; ++m) rec.v[m] = elem_of(row[m], j, U());
+          xs[D::at(static_cast<int>(g) * kVC + j)] = rec.w;
+        }
+      }
+    }
+  } else {
+    for (int col = threadIdx.x; col < n; col += blockDim.x) {
+      Rec rec;
+#pragma unroll
+      for (int m = 0; m < MP; ++m)
+        rec.v[m] = m < M ? x[static_cast<long long>(m) * n + col] : U(0);
+      xs[D::at(col)] = rec.w;
+    }
+  }
+  second_round();
+  __syncthreads();
+
+  int ahead = depth;  // rounds of the batch in cn in flight
+  for (int q = warp; q < batches; q += kDecodeWarps) {
+    const int now = ahead;
+#pragma unroll
+    for (int j = 0; j < kD; ++j)
+#pragma unroll
+      for (int i = 0; i < kRB; ++i) {
+        cc[j][i] = cn[j][i];
+        vc[j][i] = vn[j][i];
+      }
+    const bool more = q + kDecodeWarps < batches;
+    auto prefetch = [&](int from, int to) {
+#pragma unroll
+      for (int j = 0; j < kD; ++j)
+        if (more && j >= from && j < to) {
+#pragma unroll
+          for (int i = 0; i < kRB; ++i)
+            load(cn[j][i], vn[j][i], q + kDecodeWarps, i, j, kAll);
+        }
+    };
+    prefetch(0, depth);
+    ahead = depth;
+    float acc[kNV];
+#pragma unroll
+    for (int t = 0; t < kNV; ++t) acc[t] = 0.0f;
+    // Rows walk 32 slots a round; a row stops in the round that holds its
+    // first sentinel (an index outside [0, n)), whose later slots are not
+    // added.  Each step runs for all the batch's rows at once (they are
+    // independent) and without a branch: slots not taken read record 0
+    // and add nothing.  Rounds not in flight load for the rows walking.
+    unsigned walking = kAll;
+    int rounds = 0;
+    auto walk = [&](const int (&c)[kRB], const float (&v)[kRB]) {
+      unsigned stop[kRB];
+#pragma unroll
+      for (int i = 0; i < kRB; ++i)
+        stop[i] = __ballot_sync(qs::FULL, !(c[i] >= 0 && c[i] < n) ||
+                                              !((walking >> i) & 1u));
+#pragma unroll
+      for (int i = 0; i < kRB; ++i) {
+        const bool take =
+            stop[i] ? lane < __ffs(static_cast<int>(stop[i])) - 1 : true;
+        Rec rec;
+        rec.w = xs[D::at(take ? c[i] : 0)];
+#pragma unroll
+        for (int m = 0; m < MP; ++m) {
+          const float f = fmaf(v[i], u_to_f32(rec.v[m]), acc[m * kRB + i]);
+          acc[m * kRB + i] = take ? f : acc[m * kRB + i];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kRB; ++i)
+        if (stop[i]) walking &= ~(1u << i);
+      ++rounds;
+    };
+#pragma unroll
+    for (int j = 0; j < kD; ++j) {
+      if (!walking || 32 * j >= kcap) break;
+      if (j >= now) {
+#pragma unroll
+        for (int i = 0; i < kRB; ++i)
+          load(cc[j][i], vc[j][i], q, i, j, walking);
+      }
+      walk(cc[j], vc[j]);
+    }
+    for (int j = kD; walking && 32 * j < kcap; ++j) {
+      int c[kRB];
+      float v[kRB];
+#pragma unroll
+      for (int i = 0; i < kRB; ++i) load(c[i], v[i], q, i, j, walking);
+      walk(c, v);
+    }
+    // as many rounds of the next batch in flight as this one walked
+    depth = min(max(rounds, 1), kD);
+    if (depth > ahead) {
+      prefetch(ahead, depth);
+      ahead = depth;
+    }
+    // sums: value t = m * kRB + i is activation row m of batch row i
+    int base = 0;
+    reduce_scatter<kNV, 16>(acc, lane, base);
+    constexpr int kKept = kNV >= 32 ? kNV / 32 : 1;
+    if (kNV >= 32 || (lane & (32 / kNV - 1)) == 0) {
+#pragma unroll
+      for (int t = 0; t < kKept; ++t) {
+        const int m = (base + t) / kRB;
+        const int r = r_beg + q * kRB + (base + t) % kRB;
+        if (m < M && r < r_end) out[static_cast<long long>(m) * R + r] = acc[t];
+      }
+    }
+  }
+}
+
+// Blocks of the decode kernel and rows a block: one block a SM, but no
+// more than give each warp a batch of output rows (every block stages the
+// whole of x, so blocks beyond that only add L2 reads).
+void decode_grid(int R, int rb, int sms, int& blocks, int& rows) {
+  const int per_round = kDecodeWarps * rb;
+  const int want = (R + per_round - 1) / per_round;
+  blocks = want < sms ? want : sms;
+  if (blocks < 1) blocks = 1;
+  rows = (R + blocks - 1) / blocks;
+}
+
+// activation rows a record holds: M rounded up to a power of two
+inline int decode_rows(int M) { return M <= 1 ? 1 : M <= 2 ? 2 : M <= 4 ? 4 : 8; }
+
+int sm_count();
+
+template <typename U, int MP>
+int launch_decode_mp(const void* x, const int* idx, const float* val,
+                     float* out, int M, int R, int n, int kcap,
+                     cudaStream_t st) {
+  auto kern = sparse_gemm_decode_kernel<U, MP>;
+  const long long smem = decode_x_bytes(n, MP, sizeof(U));
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int blocks = 0, rows = 0;
+  decode_grid(R, Decode<U, MP>::kRB, sm_count(), blocks, rows);
+  const int vec = n % Decode<U, MP>::kVC == 0 &&
+                  reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  kern<<<blocks, kDecodeWarps * 32, static_cast<size_t>(smem), st>>>(
+      static_cast<const U*>(x), idx, val, out, M, R, n, kcap, rows, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// whether the decode kernel takes [M, n] x of x_bytes an element
+bool decode_fits(int M, int n, int x_bytes) {
+  return M >= 1 && M <= kDecodeMaxM &&
+         decode_x_bytes(n, decode_rows(M), x_bytes) <= kDecodeSmem;
+}
+
+template <typename U>
+int launch_decode(const void* x, const int* idx, const float* val,
+                  float* out, int M, int R, int n, int kcap,
+                  cudaStream_t st) {
+  switch (decode_rows(M)) {
+    case 1:
+      return launch_decode_mp<U, 1>(x, idx, val, out, M, R, n, kcap, st);
+    case 2:
+      return launch_decode_mp<U, 2>(x, idx, val, out, M, R, n, kcap, st);
+    case 4:
+      return launch_decode_mp<U, 4>(x, idx, val, out, M, R, n, kcap, st);
+    default:
+      return launch_decode_mp<U, 8>(x, idx, val, out, M, R, n, kcap, st);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // sparse_gemm at prefill widths: the tiled kernel
 // ---------------------------------------------------------------------------
@@ -143,28 +522,6 @@ struct TileShape {
   static constexpr int kSmem = kTileRegion + kR * 32 * 8 + 2 * kR * 4;
   static_assert(64 * kOutStride * 4 <= kTileRegion, "out tile fits");
 };
-
-// 16-byte copies from device to shared memory that do not wait
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// as cp_async16, reading `bytes` (16 or 0: zeros) from src
-__device__ __forceinline__ void cp_async16_fill(void* dst, const void* src,
-                                                int bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(bytes));
-}
 
 // A chunk of x lands row-major in `land`: row mm's 16-byte unit u (columns
 // kVec u ..) at mm * 32 + (u ^ (mm & 7)), so that 8 consecutive rows' units
@@ -501,32 +858,6 @@ __device__ __forceinline__ float dot4(const float (&f)[4], const float4& xv,
   return fmaf(f[3], xv.w, acc);
 }
 
-// Reduce-scatter of a lane's C values over the warp's lanes, halving the
-// values kept at each of the offsets O, O / 2, .., 1 while more than one
-// is left (then plain butterfly adds).  Afterwards a[0 .. max(C / 32, 1))
-// hold the warp's sums of values base, base + 1, ..
-template <int C, int O, int V>
-__device__ __forceinline__ void reduce_scatter(float (&a)[V], int lane,
-                                               int& base) {
-  if constexpr (O > 0) {
-    if constexpr (C > 1) {
-      constexpr int h = C / 2;
-      const bool up = (lane & O) != 0;
-#pragma unroll
-      for (int i = 0; i < h; ++i) {
-        const float send = up ? a[i] : a[i + h];
-        const float keep = up ? a[i + h] : a[i];
-        a[i] = keep + __shfl_xor_sync(qs::FULL, send, O);
-      }
-      if (up) base += h;
-      reduce_scatter<h, O / 2>(a, lane, base);
-    } else {
-      a[0] += __shfl_xor_sync(qs::FULL, a[0], O);
-      reduce_scatter<1, O / 2>(a, lane, base);
-    }
-  }
-}
-
 // One pass of MT activation rows (blockIdx.y) against every weight row.
 // acc[j * kQdqRows + i]: activation row j of the pass, weight row i of the
 // warp's group.  Each warp walks its row groups' 512-column tiles in one
@@ -680,10 +1011,6 @@ __device__ __forceinline__ void levels4_bf16(uint32_t w, uint32_t& lo,
   levels4(w, f);
   lo = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
   hi = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
-}
-
-__device__ __forceinline__ uint32_t word_of(const uint4& v, int s) {
-  return s == 0 ? v.x : s == 1 ? v.y : s == 2 ? v.z : v.w;
 }
 
 __global__ void __launch_bounds__(kQdqWarps * 32)
@@ -849,14 +1176,24 @@ int launch_qdq(const void* x, const int8_t* lv, const float* scale,
 }  // namespace
 
 // As qs_sparse_gemm, on the kernel `route` names: 0 the warp-per-row
-// kernel, 1 the tiled one, -1 the one M picks (kTiledMinM).
+// kernel, 1 the tiled one, 2 the decode one, -1 the one the shapes pick
+// (the decode kernel where M <= kDecodeMaxM and x fits its staging, else
+// take_tiled).
 extern "C" int qs_sparse_gemm_route(const void* x, const int* idx,
                                     const float* val, float* out, int M,
                                     int R, int n, int kcap, int x_bf16,
                                     int route, void* stream) {
   if (M <= 0 || R <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (route < 0) route = take_tiled(M, R);
+  if (route < 0)
+    route = decode_fits(M, n, x_bf16 ? 2 : 4) ? 2 : take_tiled(M, R);
+  if (route == 2 && !decode_fits(M, n, x_bf16 ? 2 : 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (route == 2)
+    return x_bf16 ? launch_decode<uint16_t>(x, idx, val, out, M, R, n, kcap,
+                                            st)
+                  : launch_decode<float>(x, idx, val, out, M, R, n, kcap,
+                                         st);
   if (route == 1)
     return x_bf16 ? launch_tiled<uint16_t>(x, idx, val, out, M, R, n, kcap,
                                            st)
@@ -888,6 +1225,15 @@ extern "C" int qs_sparse_gemm_geometry(int* geo) {
   geo[5] = Tile<uint32_t>::kCols;
   geo[6] = Tile<uint16_t>::kCols;
   geo[7] = TileShape<32>::kSmem;
+  return 0;
+}
+
+// The decode kernel's geometry: the most activation rows it takes, the
+// most bytes of staged x, warps a block.
+extern "C" int qs_sparse_gemm_decode_geometry(int* geo) {
+  geo[0] = kDecodeMaxM;
+  geo[1] = kDecodeSmem;
+  geo[2] = kDecodeWarps;
   return 0;
 }
 

@@ -18,14 +18,23 @@
 // element once and write two (sel, mem): 12 bytes per element, against
 // about 2 x 26 compare-and-add operations per element, well below the
 // card's float32 rate per byte.  A serial bisection reads the row 26
-// times, so the row must stay on chip (in shared memory or L2).  Two
+// times, so the row must stay on chip (in registers or L2).  Two
 // designs, by row length:
 //
-// - Rows of up to 12,288 floats (48 KB; the main path's RowTopK rows
-//   are 4096, gemma3-1b's 1152): one block per row, the row staged once
-//   in shared memory, the 26 counting passes over shared memory.  The
-//   threshold is common.cuh's bisect_threshold, shared with
-//   topk_compact: every count is a block-wide integer reduction.
+// - Rows of up to 12,288 floats (the main path's RowTopK rows are 4096,
+//   gemma3-1b's 1152): the row stays in registers, a warp a row up to 2048
+//   floats (36 a lane at 1152; eight rows a block, no block barrier), else
+//   a block of 4, 8 or 12 warps a row (32 floats a thread at 4096).  The
+//   threshold is common.cuh's select_threshold: the serial loop's 24
+//   rounds need only a(1), a(k) and a(k+1), the largest, k-th and (k+1)-th
+//   largest |x|, so these are selected exactly (a radix select on the
+//   bits of |x|, a 256-bin shared-memory histogram of the next 8 bits per
+//   pass, usually ending after two by a max or min over the bin) and the
+//   rounds are replayed on each thread in the same float32 operations.
+//   Counts are integer sums, so the threshold is the plain version's bit
+//   for bit.  No block barrier stands between the passes of a warp's row,
+//   and a block's row takes about 8 (26 block reductions bounded the time
+//   of a bisection over a block's shared memory, PERF.md).
 // - Longer rows (up to dispatch's max_row, 512Ki floats = 2 MiB, from
 //   the global TopK operator) do not fit one SM: each row is spread over
 //   a thread-block cluster of CS = 8 or 16 blocks (the wrapper picks,
@@ -67,57 +76,134 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr long long kSmemMaxElems = 12288;  // 48 KB of float32
+constexpr long long kShortMaxElems = 12288;  // longer rows take a cluster
 
-template <int THREADS>
-__global__ void __launch_bounds__(THREADS)
-topk_compress_kernel(const float* __restrict__ acc, float* __restrict__ sel,
-                     float* __restrict__ mem, int* __restrict__ cnt_out,
-                     long long n, int k, int iters, int sign) {
-  extern __shared__ float row_smem[];
-  __shared__ int iscratch[2][32];
-  __shared__ float fscratch[2][32];
+__device__ __forceinline__ float comp(const float4& v, int q) {
+  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
+}
 
-  const long long base = static_cast<long long>(blockIdx.x) * n;
-  const float* __restrict__ src = acc + base;
-  const int tid = threadIdx.x;
-
-  for (long long i = tid; i < n; i += THREADS) row_smem[i] = src[i];
-  __syncthreads();
-  auto value = [&](long long i) -> float { return row_smem[i]; };
-
-  int buf = 0;
-  const float thr = qs::bisect_threshold<THREADS>(value, n, k, iters,
-                                                  iscratch, fscratch[0], buf);
-
-  int c = 0;
-  float sq = 0.0f;
-  for (long long i = tid; i < n; i += THREADS) {
-    const float v = value(i);
-    const float a = fabsf(v);
-    if (a >= thr && a > 0.0f) {
-      c += 1;
-      sq += v * v;
+// Rows of up to kShortMaxElems floats: RW warps a row (RW = 1: eight rows
+// a block, no block barrier), the row in registers, V4 float4s a thread;
+// the threshold is common.cuh's select_threshold.  Slot (j, q) of thread
+// t holds element 4 (j T + t) + q (`vec`: 16-byte loads) or (4 j + q) T +
+// t, T = 32 RW; slots past n hold NaN, which no count sees.
+template <int RW, int V4>
+__global__ void __launch_bounds__(RW == 1 ? 256 : RW * 32)
+topk_rows_kernel(const float* __restrict__ acc, float* __restrict__ sel,
+                 float* __restrict__ mem, int* __restrict__ cnt_out,
+                 long long rows, long long n, int k, int iters, int sign,
+                 int vec) {
+  constexpr int kGroups = RW == 1 ? 8 : 1;  // rows a block
+  constexpr int T = RW * 32;                // threads a row
+  __shared__ __align__(16) int hist[kGroups][3][256];
+  __shared__ int iscr[2][RW];
+  __shared__ unsigned uscr[2][RW];
+  __shared__ float fscr[2][RW];
+  const int grp = RW == 1 ? static_cast<int>(threadIdx.x >> 5) : 0;
+  const int t = static_cast<int>(threadIdx.x) % T;
+  const long long row = static_cast<long long>(blockIdx.x) * kGroups + grp;
+  if (row >= rows) return;  // uniform across the row's group
+  const float* __restrict__ src = acc + row * n;
+  auto index = [&](int j, int q) -> long long {
+    return vec ? 4LL * (j * T + t) + q : (4LL * j + q) * T + t;
+  };
+  const float nan = __uint_as_float(0x7fc00000u);
+  float4 v[V4];
+#pragma unroll
+  for (int j = 0; j < V4; ++j) {
+    if (vec) {
+      const long long i = index(j, 0);
+      v[j] = i < n ? __ldg(reinterpret_cast<const float4*>(src + i))
+                   : make_float4(nan, nan, nan, nan);
+    } else {
+      float e[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const long long i = index(j, q);
+        e[q] = i < n ? __ldg(src + i) : nan;
+      }
+      v[j] = make_float4(e[0], e[1], e[2], e[3]);
     }
   }
-  const int cnt = qs::block_sum<THREADS>(c, iscratch[buf]);
-  float scale = 0.0f;
-  if (sign) {
-    const float norm = sqrtf(qs::block_sum<THREADS>(sq, fscratch[1]));
-    const float denom = fmaxf(static_cast<float>(cnt), 1.0f);
-    scale = norm / denom;
-    // repro computes sign(acc) * norm / denom; sign * norm is exact, so
-    // (sign * norm) / denom == sign * (norm / denom) bit for bit
-  }
-  for (long long i = tid; i < n; i += THREADS) {
-    const float v = value(i);
-    const float a = fabsf(v);
-    float s = 0.0f;
-    if (a >= thr && a > 0.0f) s = sign ? qs::sign_of(v) * scale : v;
-    sel[base + i] = s;
-    mem[base + i] = v - s;
-  }
-  if (tid == 0) cnt_out[blockIdx.x] = cnt;
+  auto each = [&](auto f) {
+#pragma unroll
+    for (int j = 0; j < V4; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) f(comp(v[j], q));
+  };
+  for (int i = t; i < 2 * 256; i += T) hist[grp][i >> 8][i & 255] = 0;
+  qs::RowGroup<RW> g{iscr, uscr, fscr, 0};
+  unsigned m = 0;
+  each([&](float x) {
+    const unsigned u = qs::abs_key(x);
+    if (u != qs::kAbsent) m = max(m, u);
+  });
+  const unsigned a1 = g.template extreme<true>(m);
+  if constexpr (RW == 1) __syncwarp();  // the cleared histograms
+  const float thr =
+      qs::select_threshold<RW>(each, a1, k, iters, hist[grp], g);
+
+  auto kept = [&](float x) {
+    const float a = fabsf(x);
+    return a >= thr && a > 0.0f;
+  };
+  float* __restrict__ sel_r = sel + row * n;
+  float* __restrict__ mem_r = mem + row * n;
+  auto write = [&](float scale) {
+    auto out = [&](float x) {
+      return kept(x) ? (sign ? qs::sign_of(x) * scale : x) : 0.0f;
+    };
+#pragma unroll
+    for (int j = 0; j < V4; ++j) {
+      if (vec) {
+        const long long i = index(j, 0);
+        if (i < n) {
+          const float4 s = make_float4(out(v[j].x), out(v[j].y),
+                                       out(v[j].z), out(v[j].w));
+          *reinterpret_cast<float4*>(sel_r + i) = s;
+          *reinterpret_cast<float4*>(mem_r + i) = make_float4(
+              v[j].x - s.x, v[j].y - s.y, v[j].z - s.z, v[j].w - s.w);
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const long long i = index(j, q);
+          if (i < n) {
+            const float x = comp(v[j], q);
+            const float s = out(x);
+            sel_r[i] = s;
+            mem_r[i] = x - s;
+          }
+        }
+      }
+    }
+  };
+  int c = 0;
+  float sq = 0.0f;
+  each([&](float x) {
+    if (kept(x)) {
+      c += 1;
+      sq += x * x;
+    }
+  });
+  if (!sign) write(0.0f);
+  const int cnt = g.sum(c);
+  const float norm = sqrtf(g.fsum(sq));
+  // repro computes sign(acc) * norm / denom; sign * norm is exact, so
+  // (sign * norm) / denom == sign * (norm / denom) bit for bit
+  if (sign) write(norm / fmaxf(static_cast<float>(cnt), 1.0f));
+  if (t == 0) cnt_out[row] = cnt;
+}
+
+template <int RW, int V4>
+int launch_rows(const float* acc, float* sel, float* mem, int* cnt,
+                long long rows, long long n, int k, int iters, int sign,
+                int vec, cudaStream_t st) {
+  const unsigned blocks =
+      static_cast<unsigned>(RW == 1 ? (rows + 7) / 8 : rows);
+  topk_rows_kernel<RW, V4><<<blocks, RW == 1 ? 256 : RW * 32, 0, st>>>(
+      acc, sel, mem, cnt, rows, n, k, iters, sign, vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -512,25 +598,33 @@ int cluster_launch(ClusterLaunch& l, long long rows, int cs, long long chunk,
 
 }  // namespace
 
-// Rows of up to 12,288 floats: one block per row.
+// Rows of up to 12,288 floats: a warp a row up to 2048 floats, else a
+// block of 4, 8 or 12 warps (up to 4096, 8192, 12288 floats).
 extern "C" int qs_topk_compress_f32(const float* acc, float* sel, float* mem,
                                     int* cnt, long long rows, long long n,
                                     int k, int iters, int sign,
                                     void* stream) {
   if (rows <= 0) return 0;
-  if (n > kSmemMaxElems) return static_cast<int>(cudaErrorInvalidValue);
+  if (n > kShortMaxElems) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned>(rows));
-  const size_t smem = static_cast<size_t>(n) * sizeof(float);
-  // The kernel's own 512 B of reduction scratch plus a 48 KB row pass
-  // the default 48 KB per-block limit: opt in to the row's size.
-  const cudaError_t err = cudaFuncSetAttribute(
-      topk_compress_kernel<256>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  topk_compress_kernel<256><<<grid, 256, smem, st>>>(acc, sel, mem, cnt, n,
-                                                     k, iters, sign);
-  return static_cast<int>(cudaGetLastError());
+  const int vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(acc) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(sel) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(mem) % 16 == 0;
+#define QS_ROWS(RW, V4) \
+  launch_rows<RW, V4>(acc, sel, mem, cnt, rows, n, k, iters, sign, vec, st)
+  if (n > 8192) return QS_ROWS(12, 8);
+  if (n > 4096) return QS_ROWS(8, 8);
+  if (n > 2048) return QS_ROWS(4, 8);
+  // a warp a row: ceil(n / 128) float4s a lane, rounded up to one of these
+  const long long v4 = (n + 127) / 128;
+  if (v4 <= 1) return QS_ROWS(1, 1);
+  if (v4 <= 2) return QS_ROWS(1, 2);
+  if (v4 <= 4) return QS_ROWS(1, 4);
+  if (v4 <= 6) return QS_ROWS(1, 6);
+  if (v4 <= 9) return QS_ROWS(1, 9);  // gemma3-1b's 1152 floats: 9 exactly
+  if (v4 <= 12) return QS_ROWS(1, 12);
+  return QS_ROWS(1, 16);
+#undef QS_ROWS
 }
 
 // Longer rows: a cluster of cs (8 or 16) blocks per row, block r owning

@@ -8,6 +8,7 @@ and ``chip_smoke.py`` holds each kernel against them on the card.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -130,6 +131,106 @@ def topk_threshold_levels_ref(acc: torch.Tensor, k: int, *, iters: int = 24,
         scale = torch.sqrt(sq) / torch.clamp(cnt.to(torch.float32), min=1.0)
         sel = torch.where(mask, torch.sign(accf) * scale[:, None], zero)
     return sel, accf - sel, cnt, thr
+
+
+#: the key of a NaN: left out of every count and order statistic
+_ABSENT = -1
+
+
+def abs_keys(acc: torch.Tensor) -> torch.Tensor:
+    """The bits of |acc| as int64 keys (for |x| >= 0 the order of the bits
+    is the order of the floats); NaN -> ``_ABSENT``."""
+    bits = acc.to(torch.float32).contiguous().view(torch.int32).to(
+        torch.int64) & 0x7FFFFFFF
+    return torch.where(bits > 0x7F800000, torch.full_like(bits, _ABSENT),
+                       bits)
+
+
+def radix_select(keys: torch.Tensor, k: int) -> tuple:
+    """The k-th largest present key of one row as the short-row kernel
+    selects it (``csrc/common.cuh`` select_threshold): 8 bits a pass from
+    the top, a histogram of the next digit over the keys that match the
+    digits chosen so far, the digit where the count from the top reaches
+    the rank still needed; after a digit, where that rank is 1 (or the
+    bin's count) the bin's largest (smallest) key is the answer.
+    Returns (key or ``_ABSENT`` where fewer than k keys, passes taken)."""
+    live = keys[keys != _ABSENT]
+    prefix, mask, need = 0, 0, k
+    for p, shift in enumerate((24, 16, 8, 0)):
+        cand = live[(live & mask) == prefix]
+        hist = torch.bincount((cand >> shift) & 255, minlength=256)
+        above = torch.flip(torch.cumsum(torch.flip(hist, (0,)), 0), (0,))
+        reach = (above >= need).nonzero()
+        if not len(reach):
+            return _ABSENT, p + 1
+        digit = int(reach[-1])
+        need -= int(above[digit] - hist[digit])
+        prefix |= digit << shift
+        mask |= 255 << shift
+        if shift == 0:
+            return prefix, p + 1
+        if need == 1 or need == int(hist[digit]):
+            inbin = live[(live & mask) == prefix]
+            return int(inbin.max() if need == 1 else inbin.min()), p + 1
+    raise AssertionError("unreachable")
+
+
+def topk_threshold_select_ref(acc: torch.Tensor, k: int, *, iters: int = 24,
+                              sign: bool = False):
+    """The arithmetic of ``topk_compress``'s short-row kernel, in plain
+    PyTorch, for the tests only (nothing on a training path calls it).
+    Same arguments and results as :func:`topk_compress_ref`, plus the
+    threshold per row.
+
+    Per row, with a(j) the j-th largest |acc| counted with multiplicity,
+    NaN left out (the CUDA loop's fmaxf skips it and no count sees it):
+    a(1) by a max, a(k) by :func:`radix_select`, a(k+1) = a(k) where at
+    least k + 1 elements reach it, else the largest below it.  Then the
+    serial bisection is replayed in float32: hi = max(0, a(1)), lo = 0;
+    ``iters`` rounds of mid = 0.5 * (lo + hi), lo = mid where a(k+1) >=
+    mid (count(|acc| >= mid) > k), else hi = mid; thr = hi where a(k) >=
+    hi (count(|acc| >= hi) >= k), else lo.  The SignTop_k norm is summed
+    in PyTorch's order (the kernel's is another fixed order).
+
+    Returns (selected, new_memory, count_per_row int32, threshold)."""
+    accf = acc.to(torch.float32)
+    a = accf.abs()
+    keys = abs_keys(accf).cpu()
+    half = np.float32(0.5)
+    thr = np.zeros(accf.shape[0], np.float32)
+
+    def as_float(key: int) -> np.float32:
+        return np.array([key], np.uint32).view(np.float32)[0]
+
+    for r in range(accf.shape[0]):
+        row = keys[r]
+        live = row[row != _ABSENT]
+        a1 = int(live.max()) if len(live) else 0
+        ak, _ = radix_select(row, k)
+        ak1 = _ABSENT
+        if ak != _ABSENT:
+            below = live[live < ak]
+            ak1 = (ak if int((live >= ak).sum()) >= k + 1 else
+                   int(below.max()) if len(below) else _ABSENT)
+        hi, lo = as_float(a1), np.float32(0.0)
+        with np.errstate(over="ignore"):
+            for _ in range(iters):
+                mid = half * (lo + hi)
+                if ak1 != _ABSENT and as_float(ak1) >= mid:
+                    lo = mid
+                else:
+                    hi = mid
+        thr[r] = hi if ak != _ABSENT and as_float(ak) >= hi else lo
+    t = torch.from_numpy(thr).to(a.device)[:, None]
+    mask = (a >= t) & (a > 0.0)
+    cnt = mask.sum(dim=1).to(torch.int32)
+    zero = torch.zeros((), dtype=torch.float32, device=a.device)
+    sel = torch.where(mask, accf, zero)
+    if sign:
+        norm = torch.sqrt((sel * sel).sum(dim=1, keepdim=True))
+        denom = torch.clamp(cnt[:, None].to(torch.float32), min=1.0)
+        sel = torch.where(mask, torch.sign(accf) * norm / denom, zero)
+    return sel, accf - sel, cnt, t[:, 0]
 
 
 def topk_compact_ref(acc: torch.Tensor, k: int, kcap: int, *,
@@ -275,6 +376,72 @@ def sparse_gemm_tiled_ref(x: torch.Tensor, idx: torch.Tensor,
             walking &= below == 32
     return (acc[:M, :R].to(x.device),
             visits[:R, :kcap].to(x.device))
+
+
+def sparse_gemm_rows_ref(x: torch.Tensor, idx: torch.Tensor,
+                         val: torch.Tensor, row_len: int, blocks: int,
+                         rows: int, warps: int = 16):
+    """A plain model of the decode ``sparse_gemm`` kernel's walk (M <= 8).
+
+    x's M rows are padded with zero rows to ``rec`` = 1, 2, 4 or 8 (a
+    staged record).  Block b owns output rows [b * rows, (b + 1) * rows)
+    (``kernels.sparse_gemm.decode_grid``), cut into batches of ``batch``
+    rows (16 / rec from rec 4 up, else 4); batch q is walked by warp q %
+    ``warps``.  Each row walks 32 slots a round, lane l holding slot
+    32 j + l (slots past kcap, and indices outside [0, row_len), read as
+    the sentinel): in the round that holds its first sentinel the lanes
+    before it add their slot and the row stops; otherwise every lane adds
+    and the row goes on while slots are left.  A lane sums its slots in
+    order, one rounding each (``fmaf``, modelled in float64); the 32
+    lanes' sums are added in the butterfly order of the kernel's
+    reduce-scatter (lane l with l + 16, then + 8, ..).
+
+    Returns (y [M, R] float32, visits [R, kcap] int64: how often the walk
+    added each slot, walks [R] int64: how many warps walked each row).
+    """
+    M, n = x.shape
+    R, kcap = idx.shape
+    rec = 1 if M <= 1 else 2 if M <= 2 else 4 if M <= 4 else 8
+    batch = 16 // rec if rec >= 4 else 4
+    xf = torch.zeros((rec, n + 1), dtype=torch.float64)
+    xf[:M, :n] = x.to(torch.float32).cpu().to(torch.float64)
+    i64 = idx.to(torch.int64).cpu()
+    vf = val.to(torch.float32).cpu()
+    y = torch.zeros((rec, R), dtype=torch.float32)
+    visits = torch.zeros((R, kcap), dtype=torch.int64)
+    walks = torch.zeros(R, dtype=torch.int64)
+    lanes = torch.arange(32)
+    for b in range(blocks):
+        r_beg = b * rows
+        nrows = max(0, min(R, r_beg + rows) - r_beg)
+        for w in range(warps):
+            for q in range(w, -(-nrows // batch), warps):
+                for r in range(r_beg + q * batch,
+                               r_beg + min(nrows, (q + 1) * batch)):
+                    walks[r] += 1
+                    acc = torch.zeros((32, rec), dtype=torch.float32)
+                    for s0 in range(0, kcap, 32):
+                        s = s0 + lanes
+                        inside = s < kcap
+                        c = torch.full((32,), n, dtype=torch.int64)
+                        c[inside] = i64[r, s[inside]]
+                        live = (c >= 0) & (c < n)
+                        first = int((~live).nonzero()[0]) if not bool(
+                            live.all()) else 32
+                        on = lanes < first
+                        v = torch.zeros(32, dtype=torch.float64)
+                        v[inside] = vf[r, s[inside]].to(torch.float64)
+                        prod = v[on, None] * xf[:, c[on]].T  # exact in f64
+                        acc[on] = (acc[on].to(torch.float64) + prod).to(
+                            torch.float32)
+                        visits[r, s[on]] += 1
+                        if first < 32:
+                            break
+                    while acc.shape[0] > 1:
+                        h = acc.shape[0] // 2
+                        acc = acc[:h] + acc[h:]
+                    y[:, r] = acc[0]
+    return y[:M].to(x.device), visits.to(x.device), walks.to(x.device)
 
 
 def qdq_gemm_ref(x: torch.Tensor, levels: torch.Tensor,

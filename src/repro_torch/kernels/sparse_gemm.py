@@ -6,9 +6,12 @@ A CUDA tensor launches the kernel on the current stream; a CPU tensor
 runs the kernel's plain version (``ref.sparse_gemm_ref`` /
 ``ref.qdq_gemm_ref``).  There is no other route: a failed build or
 launch raises.  Both count one launch per call in ``LAUNCHES``.
-``sparse_gemm`` runs one of two kernels, picked inside the launch
-(decode widths: a warp per output row; prefill widths: activation tiles
-staged in shared memory, ``tile_geometry`` and ``tiled_route``);
+``sparse_gemm`` runs one of three kernels, picked inside the launch
+(``sparse_route`` mirrors the choice): decode batches (M <= 8) stage x in
+shared memory once a block and walk batches of output rows
+(``decode_geometry``, ``decode_grid``); prefill widths stage activation
+tiles (``tile_geometry``, ``tiled_route``); other batches take a warp per
+output row;
 ``qdq_gemm`` runs bfloat16 activations at M >= 2 on the tensor cores
 and the rest on FMAs, one pass over the levels for every 8 rows.
 """
@@ -24,9 +27,9 @@ from repro_torch.kernels import _build, ref
 from repro_torch.kernels.launch_stats import LAUNCHES
 
 _X_DTYPES = (torch.float32, torch.bfloat16)
-#: ``sparse_gemm_route``'s kernels: the one M picks, a warp per output
-#: row, the tiled one
-ROUTES = {"auto": -1, "rows": 0, "tiled": 1}
+#: ``sparse_gemm_route``'s kernels: the one the shapes pick, a warp per
+#: output row, the tiled one, the decode one
+ROUTES = {"auto": -1, "rows": 0, "tiled": 1, "decode": 2}
 #: the longest row ``qdq_gemm`` takes: one row of x, as float32, beside
 #: the warps' 64 KB of level stages in a block's 227 KB of shared memory
 QDQ_MAX_ROW = (232448 - 65536) // 4
@@ -66,6 +69,63 @@ def tiled_route(M: int, R: int, sms: int, geo: TileGeometry) -> bool:
     return 3 * blocks >= sms
 
 
+class DecodeGeometry(NamedTuple):
+    """The decode ``sparse_gemm`` kernel's geometry."""
+    max_m: int   # activation rows it takes at most
+    smem: int    # bytes of staged x it takes at most
+    warps: int   # warps a block
+
+
+def decode_geometry() -> DecodeGeometry:
+    """The decode kernel's geometry, as the library reports it
+    (``qs_sparse_gemm_decode_geometry``)."""
+    geo = (ctypes.c_int * 3)()
+    _build.check(_build.load().qs_sparse_gemm_decode_geometry(geo))
+    return DecodeGeometry(*geo)
+
+
+def decode_rows(M: int) -> int:
+    """Activation rows a staged record holds: M rounded up to 1, 2, 4 or
+    8."""
+    return 1 if M <= 1 else 2 if M <= 2 else 4 if M <= 4 else 8
+
+
+def decode_batch(M: int) -> int:
+    """Output rows a warp of the decode kernel walks at once: 16 sums a
+    lane from 4 activation rows a record up (2 rows at 8, 4 at 4), else
+    4."""
+    rec = decode_rows(M)
+    return 16 // rec if rec >= 4 else 4
+
+
+def decode_stage_bytes(M: int, n: int, x_bytes: int) -> int:
+    """Shared memory the decode kernel stages x in: a record of
+    ``decode_rows(M)`` values for each column, the columns rounded up to
+    whole 16-byte loads of a row."""
+    vc = 16 // x_bytes
+    return -(-n // vc) * vc * decode_rows(M) * x_bytes
+
+
+def decode_grid(M: int, R: int, sms: int, geo: DecodeGeometry) -> tuple:
+    """(blocks, output rows a block) of the decode kernel: one block a SM,
+    but no more blocks than give each warp a batch of rows (each block
+    stages all of x); block b owns rows [b * rows, (b + 1) * rows)."""
+    blocks = max(1, min(sms, -(-R // (geo.warps * decode_batch(M)))))
+    return blocks, -(-R // blocks)
+
+
+def sparse_route(M: int, R: int, n: int, x_bytes: int, sms: int,
+                 geo: TileGeometry, dgeo: DecodeGeometry) -> str:
+    """The kernel ``sparse_gemm`` takes for [M, n] x [R, kcap] with x of
+    ``x_bytes`` an element on a card of ``sms`` SMs: "decode" where M <=
+    ``dgeo.max_m`` and x fits its staging, else "tiled" where
+    ``tiled_route`` says so, else "rows".  The launch decides in the
+    library; this mirrors it for the tests."""
+    if M <= dgeo.max_m and decode_stage_bytes(M, n, x_bytes) <= dgeo.smem:
+        return "decode"
+    return "tiled" if tiled_route(M, R, sms, geo) else "rows"
+
+
 def sparse_gemm(x: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
                 row_len: int) -> torch.Tensor:
     """``y[m, r] = sum_s val[r, s] * x[m, idx[r, s]]``.
@@ -82,7 +142,8 @@ def sparse_gemm(x: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
 def sparse_gemm_route(x: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
                       row_len: int, route: str) -> torch.Tensor:
     """``sparse_gemm`` on the kernel ``route`` names (``ROUTES``): the
-    card tests and the crossover bench run both kernels at one M."""
+    card tests and the crossover bench run every kernel at one M (the
+    decode one refuses M > 8 and x past its staging)."""
     if route not in ROUTES:
         raise ValueError(f"route must be one of {sorted(ROUTES)}, got "
                          f"{route!r}")

@@ -8,9 +8,11 @@ its two emission modes:
     ``(idx, val)`` survivor slots, the wire form of the sparse
     all-gather sync.
 
-Both share one threshold (``csrc/common.cuh``).  ``topk_compress``
-takes rows longer than ``SMEM_ROW`` floats through a cluster of blocks
-per row (``cluster_geometry``).
+Both keep the serial bisection's threshold bit for bit
+(``csrc/common.cuh``).  ``topk_compress`` takes rows of up to
+``SHORT_ROW`` floats in registers (a warp, or a block of warps, a row:
+exact order statistics, then the bisection replayed) and longer rows
+through a cluster of blocks per row (``cluster_geometry``).
 """
 
 from __future__ import annotations
@@ -23,9 +25,9 @@ import torch
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.launch_stats import LAUNCHES
 
-#: longest row ``topk_compress`` stages in one block's shared memory
-#: (``csrc/topk_compress.cu`` kSmemMaxElems); longer rows take a cluster
-SMEM_ROW = 12288
+#: longest row ``topk_compress`` holds in one warp's or block's registers
+#: (``csrc/topk_compress.cu`` kShortMaxElems); longer rows take a cluster
+SHORT_ROW = 12288
 #: the cluster sizes the long-row kernel takes: 8 (portable) or 16
 CLUSTER_SIZES = (8, 16)
 
@@ -120,7 +122,7 @@ def topk_compress(acc: torch.Tensor, k: int, *, iters: int = 24,
     args = (rows, n, int(k), int(iters), int(bool(sign)))
     with torch.cuda.device(acc.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if n <= SMEM_ROW:
+        if n <= SHORT_ROW:
             _build.check(lib.qs_topk_compress_f32(*ptrs, *args, stream))
         else:
             index = acc.device.index

@@ -1,6 +1,6 @@
 """The long-row ``topk_compress``'s arithmetic and geometry, on the CPU.
 
-Rows longer than ``SMEM_ROW`` floats run on the card as a cluster of
+Rows longer than ``SHORT_ROW`` floats run on the card as a cluster of
 blocks per row that takes several bisection levels a pass.  Here
 ``ref.topk_threshold_levels_ref``, a plain PyTorch model of that search
 (per-chunk integer counts summed, then the levels walked, elements in
@@ -22,7 +22,7 @@ from hypothesis import HealthCheck, given, settings, strategies as st
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.topk_compress import (
-    CLUSTER_SIZES, SMEM_ROW, cluster_geometry)
+    CLUSTER_SIZES, SHORT_ROW, cluster_geometry)
 
 LEVELS = (1, 3, 4, 5)
 CLUSTERS = (1, 8, 16)
@@ -185,7 +185,7 @@ def test_cluster_geometry_fewest_waves_times_chunk():
 @pytest.mark.parametrize("caps", [(30, 14), (62, 28), (15, 0), (1, 1),
                                   (1000, 1000)])
 @pytest.mark.parametrize("rows", [1, 8, 9, 16, 56, 1000])
-@pytest.mark.parametrize("n", [SMEM_ROW + 1, 12416, 13001, 65536, 100000,
+@pytest.mark.parametrize("n", [SHORT_ROW + 1, 12416, 13001, 65536, 100000,
                                262144, 262148, 524288, 1 << 21])
 def test_cluster_geometry_covers_every_element_once(n, rows, caps):
     cs, chunk = cluster_geometry(rows, n, *caps)

@@ -4,7 +4,7 @@ GPU, for the checkout this file sits in or for another one.
 
     python3 tools/bench_flash_kernels.py [--tree DIR]
         [--kernels attention|topk_paged|gemm]
-        [--serve [gemma3-1b|yi-6b]] [--plain-gemm]
+        [--serve [gemma3-1b|yi-6b] [--plain-gemm] [--shapes]] [--lm]
 
 Imports ``chip_smoke.py`` and ``src/`` from DIR (default: this
 checkout), builds that tree's kernels into its own build directory, and
@@ -16,19 +16,24 @@ global, a ragged 1100) and Yi-6B's heads, and ``check_flash_decode`` at
 Yi-6B's decode shape and gemma3-1b's two rings.  ``--kernels
 topk_paged``: ``check_topk`` at the ResNet-50 shapes (RowSignTopK's
 [49312, 4096], the global TopK's [16, 524288], [8, 524288], [56, 65536]
-and [8, 65536]) and gemma3-1b's [179712, 1152], and
+and [8, 65536]) and gemma3-1b's dense-wire rows ([179712, 1152] with and
+without sign, wq / wo's [26624, 1152], wk / wv's [6656, 1152]), and
 ``check_paged_decode`` at Yi-6B's decode shape over bf16 and int8 pages,
 with ``torch.topk`` and SDPA as the library calls.  ``--kernels gemm``:
-``check_sparse_gemm`` at gemma3-1b's w1 / w2 at a 2048-token prefill and
-at decode (batch 4), Yi-6B's w1 at a 128-token prefill and w1 / w2 at
-decode (batch 8), and ``check_qdq_gemm`` on Yi-6B's head (M = 1, 8) and
-gemma3-1b's tied head (M = 4, 1), with ``torch.matmul`` against the
-dense weight as the library call; these checks are this checkout's,
-run against DIR's kernels (an older tree's checks took other
-arguments).  Where DIR's wrapper has ``sparse_gemm_route``, both
-``sparse_gemm`` kernels are also timed at M = 8 .. 256 on those shapes
-(``route`` lines: the crossover).  Prints the card's name and power
-limit, then one JSON line per row tagged with DIR.
+``check_sparse_gemm`` at gemma3-1b's w1 / w2 at a 2048-token prefill,
+Yi-6B's w1 at a 128-token prefill, and every Top_k matrix of a decode
+step (``DECODE_STEP``: Yi-6B at batch 8, gemma3-1b at batch 4), with a
+``step`` line per model summing launches a step times ms, and
+``check_qdq_gemm`` on Yi-6B's head (M = 1, 8) and gemma3-1b's tied head
+(M = 4, 1), with ``torch.matmul`` against the dense weight as the
+library call; these checks are this checkout's, run against DIR's
+kernels (an older tree's checks took other arguments).  Where DIR's
+wrapper has ``sparse_gemm_route``, each ``sparse_gemm`` kernel is also
+timed at M = 1 .. 256 on the w1 / w2 shapes (``route`` lines: the
+crossover; the decode kernel up to M = 8 where DIR has it).  Prints the
+card's name and power limit, then one JSON line per row tagged with
+DIR.  ``--lm`` runs the tree's LM phase instead (gemma3-1b through the
+launcher on both wires; its ``lm`` lines have the wire bits).
 
 ``--serve`` runs that tree's serve phase instead: ``gemma3-1b`` (the
 default) the unscanned gemma3-1b run (``chip_smoke.phase_serve_flash``),
@@ -36,7 +41,8 @@ default) the unscanned gemma3-1b run (``chip_smoke.phase_serve_flash``),
 (``chip_smoke.phase_serve``); their ``serve`` lines have the decode
 ms/step, TTFT and tok/s, and a ``tokens`` line per run gives a digest of
 every request's greedy tokens (``--tokens-out FILE`` keeps them, a JSON
-line a run); ``--plain-gemm`` runs the two GEMM
+line a run; ``--shapes`` prints each ``sparse_gemm`` shape the run called,
+with its call count); ``--plain-gemm`` runs the two GEMM
 wrappers through their plain versions on the card (launches still
 counted), for the tokens of the plain path.  To compare two commits,
 unpack the parent (``git archive``) into a git-ignored directory and run
@@ -95,8 +101,22 @@ def plain_gemms() -> None:
     sg.sparse_gemm, sg.qdq_gemm = sparse, qdq
 
 
+#: (M, R, n, k, launches a decode step): every Top_k matrix of a decode
+#: step at the shapes ServeEngine gives it (``--serve ... --shapes`` logs
+#: them): Yi-6B's 32 layers at batch 8 (w1 / w3, w2, wq / wo, wk / wv),
+#: gemma3-1b's 26 at batch 4 (w1 / w3, w2, wq, wo, wk / wv)
+DECODE_STEP = {
+    "yi-6b": ((8, 11008, 4096, 41, 64), (8, 4096, 11008, 110, 32),
+              (8, 4096, 4096, 41, 64), (8, 512, 4096, 41, 64)),
+    "gemma3-1b": ((4, 6912, 1152, 12, 52), (4, 1152, 6912, 69, 26),
+                  (4, 1024, 1152, 12, 26), (4, 1152, 1024, 10, 26),
+                  (4, 256, 1152, 12, 52)),
+}
+
+
 def gemm_rows(dev) -> list:
-    """The GEMM rows, timed by this checkout's checks."""
+    """The GEMM rows, timed by this checkout's checks, and each decode
+    step's sparse_gemm device time summed over its matrices."""
     import importlib.util
     spec = importlib.util.spec_from_file_location(
         "bench_gemm_checks", os.path.join(HERE, "chip_smoke.py"))
@@ -105,11 +125,17 @@ def gemm_rows(dev) -> list:
     rows = [("sparse_gemm", ck.check_sparse_gemm(dev, *shape))
             for shape in ((2048, 6912, 1152, 12, 5),
                           (2048, 1152, 6912, 69, 5),
-                          (128, 11008, 4096, 41, 5),
-                          (8, 11008, 4096, 41, 20),
-                          (8, 4096, 11008, 110, 20),
-                          (4, 6912, 1152, 12, 20),
-                          (4, 1152, 6912, 69, 20))]
+                          (128, 11008, 4096, 41, 5))]
+    for model, shapes in DECODE_STEP.items():
+        step = {"model": model, "ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+                "launches": 0}
+        for M, R, n, k, per_step in shapes:
+            row = ck.check_sparse_gemm(dev, M, R, n, k, 20)
+            rows.append(("sparse_gemm", row))
+            for key in ("ms", "bound_ms", "library_ms"):
+                step[key] += per_step * row[key]
+            step["launches"] += per_step
+        print("step", json.dumps(step), flush=True)
     rows += [("qdq_gemm", ck.check_qdq_gemm(dev, *shape))
              for shape in ((1, 64000, 4096, 10), (8, 64000, 4096, 10),
                            (4, 262144, 1152, 10), (1, 262144, 1152, 10))]
@@ -120,17 +146,39 @@ def gemm_rows(dev) -> list:
                         (11008, 4096, 41), (4096, 11008, 110)):
             g = torch.Generator(device=dev).manual_seed(R + n)
             idx, val = ck.compact_buffers(g, R, n, k, 128, dev)
-            for M in (8, 16, 32, 40, 48, 56, 64, 96, 128, 256):
+            for M in (1, 2, 4, 8, 16, 32, 40, 48, 56, 64, 96, 128, 256):
                 x = torch.randn((M, n), generator=g, device=dev).to(
                     torch.bfloat16)
+                routes = [r for r in ("rows", "tiled", "decode", "auto")
+                          if r in sg.ROUTES and (r != "decode" or M <= 8)]
                 ms = {route: ck.time_ms(
                     lambda route=route: sg.sparse_gemm_route(
                         x, idx, val, n, route), 20)
-                    for route in ("rows", "tiled", "auto")}
+                    for route in routes}
                 print("route", json.dumps({"shape": [M, n, R], "k_row": k,
                                            **ms}), flush=True)
     print("gemm", ck.TIMING, flush=True)
     return rows
+
+
+def record_shapes() -> dict:
+    """Count ``sparse_gemm`` calls by shape (M, row length, output rows,
+    kcap, the most live slots of a row, x dtype) for the serve run; the
+    caller prints the tally."""
+    from repro_torch.kernels import sparse_gemm as sg
+    tally, live = {}, {}
+    call = sg.sparse_gemm
+
+    def counted(x, idx, val, row_len):
+        key = (x.shape[0], row_len, idx.shape[0], idx.shape[1],
+               str(x.dtype).removeprefix("torch."))
+        if key not in live:
+            live[key] = int((idx < row_len).sum(dim=1).max())
+        tally[key] = tally.get(key, 0) + 1
+        return call(x, idx, val, row_len)
+
+    sg.sparse_gemm = counted
+    return {"tally": tally, "live": live}
 
 
 def main() -> int:
@@ -141,6 +189,11 @@ def main() -> int:
     ap.add_argument("--serve", nargs="?", const="gemma3-1b",
                     choices=("gemma3-1b", "yi-6b"))
     ap.add_argument("--plain-gemm", action="store_true")
+    ap.add_argument("--shapes", action="store_true",
+                    help="with --serve: log sparse_gemm's calls by shape")
+    ap.add_argument("--lm", action="store_true",
+                    help="run the tree's gemma3-1b LM phase (both wires) "
+                    "and print its ledgers")
     ap.add_argument("--tokens-out", help="append each serve run's tokens "
                     "to this file (one JSON line a run)")
     args = ap.parse_args()
@@ -166,10 +219,22 @@ def main() -> int:
         record_tokens(args.tokens_out)
         if args.plain_gemm:
             plain_gemms()
+        log = record_shapes() if args.shapes else None
         if args.serve == "yi-6b":
             cs.phase_serve(dev)
         else:
             cs.phase_serve_flash(dev)
+        if log:
+            for key, calls in sorted(log["tally"].items()):
+                M, n, R, kcap, dtype = key
+                print("shape", json.dumps({
+                    "M": M, "n": n, "R": R, "kcap": kcap, "dtype": dtype,
+                    "live_max": log["live"][key], "calls": calls}),
+                    flush=True)
+        return 0
+    if args.lm:
+        print("bench lm", tree, flush=True)
+        cs.phase_lm(dev)
         return 0
     if args.kernels == "gemm":
         rows = gemm_rows(dev)
@@ -189,7 +254,10 @@ def main() -> int:
                                      (8, 524288, 5243, False, 5),
                                      (56, 65536, 655, False, 10),
                                      (8, 65536, 655, False, 10),
-                                     (179712, 1152, 12, False, 10))]
+                                     (179712, 1152, 12, False, 10),
+                                     (179712, 1152, 12, True, 10),
+                                     (26624, 1152, 12, False, 10),
+                                     (6656, 1152, 12, False, 10))]
         rows += [("paged_decode", cs.check_paged_decode(dev, quant, 20))
                  for quant in (False, True)]
     else:
