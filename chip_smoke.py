@@ -50,7 +50,7 @@ Phases, each of which exits non-zero on failure:
    (logits within 1e-4, same tokens);
 7. the distributed LM training path: ``topk_compact`` and
    ``topk_compress`` against their plain versions at gemma3-1b's shapes
-   (``topk_compress`` at each stack's rows: 179,712, 26,624 and 6,656)
+   (each at every stack's rows: 179,712, 26,624 and 6,656)
    (step 3's checks and times), then the port's launcher
    ``repro_torch.launch.train`` on gemma3-1b at full width and depth
    (999,812,736 parameters, random weights from a seed) under its
@@ -122,19 +122,21 @@ def card() -> str:
 
 
 #: how the kernels were timed in this run: "profiler" until profiler
-#: sessions record no device activity PROFILE_TRIES times in a row, then
+#: sessions miss device activity PROFILE_TRIES times in a row, then
 #: "events" for the rest of it
 TIMING = {"clock": "profiler"}
 #: a profiler (CUPTI) session now and then records no device activity at
-#: all, even on a card where the sessions around it do: so many sessions
-#: are tried before the run gives the profiler up
+#: all, and later in a run some sessions record only some of the kernels
+#: launched (6 or 8 of 10 once the training and serving phases have run):
+#: so many sessions are tried before the run gives the profiler up
 PROFILE_TRIES = 3
 
 
 def _device_events(fn, reps: int) -> list:
     """The device activity (kernels, copies, memsets) of ``reps`` calls of
     ``fn`` in one torch.profiler (CUPTI) session, retried while a session
-    records none; empty where every try recorded none."""
+    records no kernel or fewer kernels than the host launched (runtime
+    calls named ``*Launch*``); empty where every try did."""
     import torch
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -145,7 +147,11 @@ def _device_events(fn, reps: int) -> list:
                 fn()
             torch.cuda.synchronize()
         events = [e for e in prof.events() if e.device_type == cuda]
-        if events:
+        kernels = sum(not e.name.startswith(("Memcpy", "Memset"))
+                      for e in events)
+        launched = sum(e.device_type != cuda and "Launch" in e.name
+                       for e in prof.events())
+        if events and kernels >= launched:
             return events
     return []
 
@@ -171,9 +177,9 @@ def time_ms(fn, reps: int) -> float:
     a torch.profiler (CUPTI) trace, because CUDA events around
     back-to-back calls also count the gaps that the host's launch
     overhead leaves between kernels of a few microseconds.  Where
-    PROFILE_TRIES sessions in a row record no device activity, this and
-    every later timing of the run falls back to CUDA events, and
-    ``TIMING`` says so."""
+    PROFILE_TRIES sessions in a row miss device activity, this and every
+    later timing of the run falls back to CUDA events, and ``TIMING``
+    says so."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -183,8 +189,9 @@ def time_ms(fn, reps: int) -> float:
             return sum(e.time_range.elapsed_us() for e in events) / 1e3 / reps
         TIMING["clock"] = "events"
         print(f"timing: {PROFILE_TRIES} profiler sessions in a row recorded "
-              "no device activity; CUDA events time this and every later "
-              "kernel of the run", flush=True)
+              "no device activity or fewer kernels than were launched; "
+              "CUDA events time this and every later kernel of the run",
+              flush=True)
     ms = _event_ms(fn, reps)
     if ms <= 0:
         raise AssertionError("CUDA events measured no time")
@@ -243,7 +250,8 @@ def check_qsgd(dev, rows: int, n: int, s: int, reps: int):
     (norm/s) apart where u lies within rounding of the fraction."""
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.qsgd import qsgd_quantize
+    from repro_torch.kernels.qsgd import (qsgd_geometry, qsgd_quantize,
+                                          resident_blocks)
     g = torch.Generator(device=dev).manual_seed(rows + n)
     x = torch.randn((rows, n), generator=g, device=dev)
     u = torch.rand((rows, n), generator=g, device=dev)
@@ -262,9 +270,12 @@ def check_qsgd(dev, rows: int, n: int, s: int, reps: int):
     ms = time_ms(lambda: qsgd_quantize(x, u, s), reps)
     plain_ms = time_ms(lambda: ref.qsgd_bucketed_ref(x, u, s), reps)
     bms, by = bound_ms(12.0 * rows * n, 12.0 * rows * n)
+    geo = qsgd_geometry(rows, n,
+                        resident_blocks(torch.cuda.current_device()))
     return {"shape": [rows, n], "s": s, "max_abs_err": err,
             "mismatched_levels": n_far, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": None, "bound_ms": bms, "bound_by": by}
+            "library_ms": None, "bound_ms": bms, "bound_by": by,
+            "geometry": list(geo)}
 
 
 def phase_kernels(dev):
@@ -1219,13 +1230,16 @@ def check_compact(dev, rows: int, n: int, k: int, kcap: int, sign: bool,
 def phase_lm_kernels(dev):
     """The compression kernels at the LM path's shapes (gemma3-1b under
     lm_hetero compresses each stack along its 1152-wide axis, k 12, kcap
-    128): topk_compact (the sparse wire) at w1 / w2 / w3's 179,712 rows,
-    sign and not, at the 26,624 rows of wq / wo, and on a heavy-tie block
-    that overflows kcap; topk_compress (the dense wire) at w1 / w2 /
-    w3's rows, sign and not, wq / wo's 26,624 and wk / wv's 6,656."""
+    128): topk_compact (the sparse wire) at w1 / w2 / w3's 179,712 rows
+    and wq / wo's 26,624, sign and not, at wk / wv's 6,656, and on a
+    heavy-tie block that overflows kcap; topk_compress (the dense wire)
+    at w1 / w2 / w3's rows, sign and not, wq / wo's 26,624 and wk / wv's
+    6,656."""
     rows = [check_compact(dev, 179712, 1152, 12, 128, False, 10),
             check_compact(dev, 179712, 1152, 12, 128, True, 10),
             check_compact(dev, 26624, 1152, 12, 128, False, 10),
+            check_compact(dev, 26624, 1152, 12, 128, True, 10),
+            check_compact(dev, 6656, 1152, 12, 128, False, 10),
             check_compact(dev, 4096, 1152, 12, 128, False, 0, ties=True),
             check_compact(dev, 4096, 1152, 12, 128, True, 0, ties=True)]
     for row in rows:
@@ -1451,7 +1465,11 @@ def main() -> int:
              k: head_qsgd[k] for k in ("max_abs_err", "ms", "plain_ms",
                                        "bound_ms", "bound_by",
                                        "library_ms")},
-         "shape": head_qsgd["shape"]},
+         "shape": head_qsgd["shape"], "geometry": head_qsgd["geometry"],
+         "rows": [{k: r[k] for k in ("shape", "geometry", "max_abs_err",
+                                     "ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")}
+                  for r in qsgd[1:]]},
     ]
     for name, src, replaces in (
             ("sparse_gemm", "sparse_gemm.cu", "sparse_gemm.py:90"),
@@ -1505,7 +1523,11 @@ def main() -> int:
         "launches": lm_totals["topk_compact"], **{
             k: head[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                  "bound_by", "library_ms")},
-        "shape": head["shape"]})
+        "shape": head["shape"],
+        "rows": [{"sign": r["sign"], **{
+            k: r[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
+                              "bound_ms", "bound_by", "library_ms")}}
+            for r in compact[1:] if "ms" in r]})
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} never launched on the path")

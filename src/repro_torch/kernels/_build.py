@@ -46,11 +46,13 @@ SIGNATURES = {
                                      _I32, _I32, _I64, _P],
     # cs, chunk
     "qs_topk_cluster_capacity": [_I32, _I64],
-    # acc, idx, val, mem, cnt, rows, n, k, kcap, iters, sign, stream
+    # acc, idx, val, mem, cnt, rows, n, k, kcap, iters, sign, group,
+    # stream
     "qs_topk_compact_f32": [_P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32,
-                            _I32, _P],
-    # x, u, out, rows, n, s, stream
-    "qs_qsgd_quantize_f32": [_P, _P, _P, _I64, _I64, _I32, _P],
+                            _I32, _I32, _P],
+    # x, u, out, rows, n, s, cs, chunk, stream
+    "qs_qsgd_quantize_f32": [_P, _P, _P, _I64, _I64, _I32, _I32, _I64, _P],
+    "qs_qsgd_resident_blocks": [],
     # x, idx, val, out, M, R, n, kcap, x_bf16, stream
     "qs_sparse_gemm": [_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _P],
     # x, idx, val, out, M, R, n, kcap, x_bf16, route, stream

@@ -1,5 +1,6 @@
 // Block-wide reductions, the block-wide prefix scan, the bisection
-// threshold and the short-row select-and-replay threshold shared by the
+// threshold and the short-row select-and-replay threshold (with the
+// prologue that loads a short row and takes it) shared by the
 // compression kernels, and the float32 <->
 // storage-type conversions and lane-group helpers shared by the serving
 // kernels.
@@ -229,6 +230,29 @@ struct RowGroup {
       return t;
     }
   }
+  // an exclusive scan of one warp-uniform int a warp over the group's
+  // warps in order: the sum of the warps before this one (0 for a lone
+  // warp); `total` gets the group's sum
+  __device__ __forceinline__ int warp_scan(int v, int& total) {
+    if constexpr (RW == 1) {
+      total = v;
+      return 0;
+    } else {
+      const int me = static_cast<int>(threadIdx.x >> 5);
+      if ((threadIdx.x & 31) == 0) iscr[buf][me] = v;
+      __syncthreads();
+      int before = 0, t = 0;
+#pragma unroll
+      for (int w = 0; w < RW; ++w) {
+        const int s = iscr[buf][w];
+        before += w < me ? s : 0;
+        t += s;
+      }
+      buf ^= 1;
+      total = t;
+      return before;
+    }
+  }
   // a float sum in a fixed order (a warp's butterfly, then the warps in
   // order): deterministic for a fixed RW
   __device__ __forceinline__ float fsum(float v) {
@@ -383,6 +407,47 @@ __device__ __forceinline__ float select_threshold(Each each, unsigned a1,
     }
   }
   return ak != kAbsent && __uint_as_float(ak) >= hi ? hi : lo;
+}
+
+// component q of a float4
+__device__ __forceinline__ float comp(const float4& v, int q) {
+  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
+}
+
+// f(x) on each of a thread's V4 x 4 elements, slot (j, q) by slot
+template <int V4, typename F>
+__device__ __forceinline__ void each4(const float4 (&v)[V4], F f) {
+#pragma unroll
+  for (int j = 0; j < V4; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) f(comp(v[j], q));
+}
+
+// The short-row kernels' prologue (topk_compress's topk_rows_kernel and
+// topk_compact's topk_compact_rows_kernel): the thread's share of the row
+// into registers, v[j] = load(j) (NaN in slots past the row), the row's
+// a(1), then select_threshold.  `hist` holds the group's three 256-bin
+// histograms; the first two are cleared here, the third by
+// select_threshold.  Returns bisect_threshold's threshold bit for bit.
+template <int RW, int V4, typename Load>
+__device__ __forceinline__ float row_threshold(Load load, float4 (&v)[V4],
+                                               int k, int iters,
+                                               int (*hist)[256],
+                                               RowGroup<RW>& g) {
+  constexpr int T = RW * 32;
+  const int t = threadIdx.x % T;
+#pragma unroll
+  for (int j = 0; j < V4; ++j) v[j] = load(j);
+  for (int i = t; i < 2 * 256; i += T) hist[i >> 8][i & 255] = 0;
+  unsigned m = 0;
+  each4(v, [&](float x) {
+    const unsigned u = abs_key(x);
+    if (u != kAbsent) m = max(m, u);
+  });
+  const unsigned a1 = g.template extreme<true>(m);
+  if constexpr (RW == 1) __syncwarp();  // the cleared histograms
+  return select_threshold<RW>([&](auto f) { each4(v, f); }, a1, k, iters,
+                              hist, g);
 }
 
 // The decode kernels' (flash_decode, paged_decode) lane-group helpers:

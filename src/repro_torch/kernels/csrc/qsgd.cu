@@ -14,53 +14,224 @@
 // What bounds it on an H100: memory.  It must read x and u and write out:
 // 12 bytes per element, for about ten float32 operations per element.
 // Dispatch sends a whole leaf as one row, so a row can hold 512Ki
-// elements (2 MiB), more than one SM's shared memory; the norm is a
-// reduction across the whole row.  Design: one block of 1024 threads
-// per row, looping over the row twice (sum of squares, then quantize);
-// the second read of x mostly hits L2.  A row per block leaves most SMs
-// idle when a launch holds few rows; splitting long rows over several
-// blocks (a partial-sum pass, then the quantize pass) is a later change.
+// elements (2 MiB), more than one SM holds; the norm is a reduction
+// across the whole row, and the quantization cannot start before it.
+// Design: a thread-block cluster of cs = 1-16 blocks of 512 threads a
+// row (the wrapper picks, kernels/qsgd.py:qsgd_geometry: the most blocks
+// a row that keep every row's blocks on the card at once), block r
+// owning the contiguous chunk [r chunk, (r + 1) chunk).  Each block
+// streams its chunk with 16-byte loads (four in flight a thread), sums
+// its squares (each thread in its order, a warp's butterfly, the warps
+// in order) and publishes the sum in its shared memory; after a cluster
+// barrier every block reads all the ranks' sums through distributed
+// shared memory and adds them in rank order, so every block has the
+// same float norm: deterministic, no atomics, no second launch.  The
+// quantization streams the chunk again, x (mostly from L2) and u, and
+// writes out once, all 16-byte accesses.  A block arrives at a second
+// cluster barrier after its reads of the others' sums and waits on it
+// only at its end, so that no block leaves while another still reads its
+// sum.  Holding the chunk in registers instead (x read once) caps a
+// block at 32,768 floats (512 threads x 64 registers): ResNet-50's
+// [16, 524288] then needs 256 blocks at one an SM, three waves of the 7
+// clusters of 16 the card holds, and took 0.086 ms against this design's
+// 0.063 (PERF.md §6).
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "common.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 1024;
+constexpr int kThreads = 512;
+constexpr int kUnroll = 4;  // loads in flight a thread
 
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" : : : "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" : : : "memory");
+}
+
+// f(i, load(i)) for each i in [0, count) of this thread's share (i =
+// threadIdx.x + a multiple of kThreads), kUnroll loads issued before
+// their f's run.
+template <typename T, typename Load, typename F>
+__device__ __forceinline__ void stream(long long count, Load load, F f) {
+  for (long long i0 = threadIdx.x; i0 < count;
+       i0 += static_cast<long long>(kThreads) * kUnroll) {
+    T e[kUnroll];
+#pragma unroll
+    for (int a = 0; a < kUnroll; ++a) {
+      const long long i = i0 + static_cast<long long>(a) * kThreads;
+      if (i < count) e[a] = load(i);
+    }
+#pragma unroll
+    for (int a = 0; a < kUnroll; ++a) {
+      const long long i = i0 + static_cast<long long>(a) * kThreads;
+      if (i < count) f(i, e[a]);
+    }
+  }
+}
+
+template <typename T>
+struct Pair {
+  T x, u;
+};
+
+// `vec`: the chunk in float4s (16-byte accesses), else in floats.
 __global__ void __launch_bounds__(kThreads)
-qsgd_quantize_kernel(const float* __restrict__ x, const float* __restrict__ u,
-                     float* __restrict__ out, long long n, float s) {
-  __shared__ float scratch[32];
-  const long long base = static_cast<long long>(blockIdx.x) * n;
-  const float* __restrict__ xr = x + base;
+qsgd_cluster_kernel(const float* __restrict__ x, const float* __restrict__ u,
+                    float* __restrict__ out, long long n, long long chunk,
+                    float s, int vec) {
+  constexpr int kWarps = kThreads / 32;
+  __shared__ float warp_sq[kWarps];
+  __shared__ float part;   // this block's sum of squares, read by the cluster
+  __shared__ float norm_sh;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const long long row = blockIdx.x / cs;
+  const long long beg = min(n, rank * chunk);
+  const long long len = min(n, beg + chunk) - beg;
+  const long long base = row * n + beg;
+  const float* __restrict__ xc = x + base;
+  const float* __restrict__ uc = u + base;
+  float* __restrict__ oc = out + base;
+  const float4* __restrict__ x4 = reinterpret_cast<const float4*>(xc);
+  const float4* __restrict__ u4 = reinterpret_cast<const float4*>(uc);
+  float4* __restrict__ o4 = reinterpret_cast<float4*>(oc);
   const int tid = threadIdx.x;
 
   float sq = 0.0f;
-  for (long long i = tid; i < n; i += kThreads) {
-    const float v = xr[i];
-    sq += v * v;
+  if (vec) {
+    stream<float4>(len / 4, [&](long long i) { return __ldg(x4 + i); },
+                   [&](long long, const float4& e) {
+                     sq += e.x * e.x;
+                     sq += e.y * e.y;
+                     sq += e.z * e.z;
+                     sq += e.w * e.w;
+                   });
+  } else {
+    stream<float>(len, [&](long long i) { return __ldg(xc + i); },
+                  [&](long long, float e) { sq += e * e; });
   }
-  const float norm = sqrtf(qs::block_sum<kThreads>(sq, scratch));
+  sq = qs::warp_sum(sq);
+  if ((tid & 31) == 0) warp_sq[tid >> 5] = sq;
+  __syncthreads();
+  if (tid == 0) {
+    float b = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) b += warp_sq[w];
+    part = b;
+  }
+  cluster.sync();
+  if (tid == 0) {
+    float tot = 0.0f;  // the ranks in order: the same float in every block
+    for (int r = 0; r < cs; ++r) tot += *cluster.map_shared_rank(&part, r);
+    norm_sh = sqrtf(tot);
+  }
+  __syncthreads();
+  cluster_arrive();  // this block's reads of the other blocks are done
+  const float norm = norm_sh;
   const float safe = norm > 0.0f ? norm : 1.0f;
-  for (long long i = tid; i < n; i += kThreads) {
-    const float v = xr[i];
-    const float level = fabsf(v) / safe * s;
+  auto quant = [&](float e, float ue) {
+    const float level = fabsf(e) / safe * s;
     const float low = floorf(level);
-    const float xi = low + (u[base + i] < level - low ? 1.0f : 0.0f);
-    const float q = norm * qs::sign_of(v) * xi / s;
-    out[base + i] = norm > 0.0f ? q : 0.0f;
+    const float xi = low + (ue < level - low ? 1.0f : 0.0f);
+    const float q = norm * qs::sign_of(e) * xi / s;
+    return norm > 0.0f ? q : 0.0f;
+  };
+  // x and u both loaded before any level is computed
+  if (vec) {
+    stream<Pair<float4>>(
+        len / 4,
+        [&](long long i) {
+          return Pair<float4>{__ldg(x4 + i), __ldg(u4 + i)};
+        },
+        [&](long long i, const Pair<float4>& e) {
+          o4[i] = make_float4(quant(e.x.x, e.u.x), quant(e.x.y, e.u.y),
+                              quant(e.x.z, e.u.z), quant(e.x.w, e.u.w));
+        });
+  } else {
+    stream<Pair<float>>(
+        len,
+        [&](long long i) {
+          return Pair<float>{__ldg(xc + i), __ldg(uc + i)};
+        },
+        [&](long long i, const Pair<float>& e) { oc[i] = quant(e.x, e.u); });
   }
+  cluster_wait();  // no block leaves while another may read its sum
+}
+
+struct QsgdLaunch {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+};
+
+int qsgd_launch(QsgdLaunch& l, long long rows, int cs, cudaStream_t st) {
+  l = {};
+  cudaError_t err = cudaSuccess;
+  if (cs > 8)
+    err = cudaFuncSetAttribute(qsgd_cluster_kernel,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
+  l.cfg.gridDim = dim3(static_cast<unsigned>(rows * cs));
+  l.cfg.blockDim = dim3(kThreads);
+  l.cfg.stream = st;
+  l.attr.id = cudaLaunchAttributeClusterDimension;
+  l.attr.val.clusterDim.x = static_cast<unsigned>(cs);
+  l.attr.val.clusterDim.y = 1;
+  l.attr.val.clusterDim.z = 1;
+  l.cfg.attrs = &l.attr;
+  l.cfg.numAttrs = 1;
+  return static_cast<int>(err);
 }
 
 }  // namespace
 
+// A cluster of cs (1, 2, 4, 8 or 16) blocks a row, block r owning
+// elements [r * chunk, (r + 1) * chunk) (chunk a multiple of 4, cs *
+// chunk >= n, no block empty).
 extern "C" int qs_qsgd_quantize_f32(const float* x, const float* u,
                                     float* out, long long rows, long long n,
-                                    int s, void* stream) {
+                                    int s, int cs, long long chunk,
+                                    void* stream) {
   if (rows <= 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  qsgd_quantize_kernel<<<static_cast<unsigned>(rows), kThreads, 0, st>>>(
-      x, u, out, n, static_cast<float>(s));
+  if ((cs != 1 && cs != 2 && cs != 4 && cs != 8 && cs != 16) || chunk <= 0 ||
+      chunk % 4 || static_cast<long long>(cs) * chunk < n ||
+      (cs > 1 && (cs - 1) * chunk >= n))
+    return static_cast<int>(cudaErrorInvalidValue);
+  QsgdLaunch l;
+  const int err = qsgd_launch(l, rows, cs, static_cast<cudaStream_t>(stream));
+  if (err) return err;
+  // 16-byte accesses where every chunk starts on a 16-byte boundary of
+  // all three rows
+  int vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+            reinterpret_cast<uintptr_t>(u) % 16 == 0 &&
+            reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  float sf = static_cast<float>(s);
+  void* args[] = {&x, &u, &out, &n, &chunk, &sf, &vec};
+  const cudaError_t e = cudaLaunchKernelExC(
+      &l.cfg, reinterpret_cast<const void*>(qsgd_cluster_kernel), args);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
+}
+
+// How many of the kernel's blocks the current card holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor times its SMs), or minus
+// a cudaError_t.
+extern "C" int qs_qsgd_resident_blocks() {
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, qsgd_cluster_kernel, kThreads, 0);
+  return e == cudaSuccess ? sms * per_sm : -static_cast<int>(e);
 }

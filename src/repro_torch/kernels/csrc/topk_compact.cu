@@ -6,7 +6,7 @@
 //
 // Replaces the TPU kernel src/repro/kernels/topk_compress.py
 // (topk_compact -> _compact_kernel).  Per row of acc [rows, n] float32:
-//   thr as topk_compress (common.cuh bisect_threshold, shared);
+//   thr as topk_compress (common.cuh: bisect_threshold bit for bit);
 //   mask = |acc| >= thr && |acc| > 0;  pos = survivors before it;
 //   emit = mask && pos < kcap;  cnt = sum(emit)
 //   sel = emit ? acc : 0, or with sign: emit ? sign(acc)*||sel||_2/max(cnt,1) : 0
@@ -19,35 +19,223 @@
 //
 // What bounds it on an H100: memory.  The function reads the row once
 // and writes the memory once (8 bytes per element) plus the 8-byte
-// slots; the bisection's 26 counting passes are integer compares on a
-// row staged in shared memory.  Design: one block per row, the row
-// staged once in shared memory (rows up to 12,288 floats; the main
-// path's rows are 1,152, 4.6 KB, with 128 threads so that many rows are
-// in flight per SM), the threshold, then a tiled block-wide exclusive
-// scan of the survivor mask in index order with a running carry that
-// gives every survivor its slot and lets each thread store its own
-// survivors directly.  The TPU kernel's chunked one-hot matmul scatter
-// exists because the TPU has no vector scatter; it has no counterpart
-// here.  SignTop_k needs the emitted survivors' norm before any value is
-// written, so its values and memories are written in a second pass over
-// the emitted slots.  Rows longer than 12,288 floats re-read the row from
-// device memory on every pass, as topk_compress's global path does.
+// slots.  Two designs, by row length (kernels/topk_compress.py
+// compact_geometry mirrors the choice; the wrapper passes the rows a
+// block):
+//
+// - Rows of up to 12,288 floats (the sparse wire's are gemma3-1b's
+//   1152): topk_compress's short-row design.  A warp a row up to 2048
+//   floats (eight rows a block, fewer where their slots would not fit
+//   half an SM's shared memory; no block barrier), else a block of 4, 8
+//   or 12 warps a row.  The row is loaded once into registers with
+//   16-byte loads (9 float4s a lane at 1152) and the threshold is
+//   common.cuh's row_threshold, the same code as topk_compress's, so the
+//   threshold is its float.  Element (j, lane, q) is index 4 (32 j +
+//   lane) + q (with RW warps: 4 (32 RW j + 32 w + lane) + q), so
+//   ascending index order is j, warp, lane, q: for each j, four ballots
+//   (one per q) give each lane the survivors of the lower lanes, the
+//   warps' totals cross through shared memory (RW > 1), and a running
+//   carry counts the j's before.  Emitted slots are written into shared
+//   memory, pre-filled with the sentinel and reusing the row's three
+//   histograms' space; the SignTop_k norm is a sum over the emitted
+//   values in registers; the memory goes out from registers as 16-byte
+//   stores, and the kcap slots as coalesced 16-byte stores.
+// - Longer rows: one block of 1024 threads a row, the row re-read from
+//   device memory on each of bisect_threshold's 26 counting passes, and
+//   a tiled block-wide exclusive scan of the survivor mask in index
+//   order; SignTop_k writes its values in a second pass over the
+//   emitted slots.
+// The TPU kernel's chunked one-hot matmul scatter exists because the TPU
+// has no vector scatter; it has no counterpart here.
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr long long kSmemMaxElems = 12288;  // 48 KB of float32
-constexpr long long kSmallRow = 2048;       // rows served by 128 threads
+constexpr long long kShortMaxElems = 12288;  // longer rows: the scan kernel
+constexpr long long kWarpMaxElems = 2048;    // rows a warp holds
+constexpr int kSmemMax = 232448;             // a block's shared memory
+constexpr int kDefaultSmem = 48 * 1024;      // without the opt-in
 
-template <int THREADS, bool SMEM>
+// ints of a row's shared-memory area: its three 256-bin histograms, and
+// after the threshold its kcap slots (idx, then val) in the same space
+__host__ __device__ constexpr long long row_area(int kcap) {
+  return 2LL * ((kcap + 3) / 4 * 4) > 3 * 256 ? 2LL * ((kcap + 3) / 4 * 4)
+                                              : 3 * 256;
+}
+
+// Rows of up to kShortMaxElems floats: RW warps a row (RW = 1: `group`
+// rows a block, a warp each), the row in registers, V4 float4s a thread,
+// slots past n NaN (no count sees them).  `vec`: 16-byte loads and
+// stores of acc and mem; `svec`: of idx and val.
+template <int RW, int V4>
+__global__ void __launch_bounds__(RW == 1 ? 256 : RW * 32)
+topk_compact_rows_kernel(const float* __restrict__ acc, int* __restrict__ idx,
+                         float* __restrict__ val, float* __restrict__ mem,
+                         int* __restrict__ cnt_out, long long rows,
+                         long long n, int k, int kcap, int iters, int sign,
+                         int vec, int svec, int group) {
+  static_assert(V4 * 4 <= 64, "emitted bits");
+  constexpr int T = RW * 32;  // threads a row
+  extern __shared__ __align__(16) int areas[];
+  __shared__ int iscr[2][RW];
+  __shared__ unsigned uscr[2][RW];
+  __shared__ float fscr[2][RW];
+  const int grp = RW == 1 ? static_cast<int>(threadIdx.x >> 5) : 0;
+  const int t = static_cast<int>(threadIdx.x) % T;
+  const int lane = t & 31;
+  const long long row = static_cast<long long>(blockIdx.x) * group + grp;
+  if (row >= rows) return;  // uniform across the row's group
+  int* const area = areas + grp * row_area(kcap);
+  const float* __restrict__ src = acc + row * n;
+  auto index = [&](int j) -> long long { return 4LL * (j * T + t); };
+  const float nan = __uint_as_float(0x7fc00000u);
+  auto load = [&](int j) -> float4 {
+    const long long i = index(j);
+    if (vec)
+      return i < n ? __ldg(reinterpret_cast<const float4*>(src + i))
+                   : make_float4(nan, nan, nan, nan);
+    float e[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) e[q] = i + q < n ? __ldg(src + i + q) : nan;
+    return make_float4(e[0], e[1], e[2], e[3]);
+  };
+  qs::RowGroup<RW> g{iscr, uscr, fscr, 0};
+  float4 v[V4];
+  const float thr = qs::row_threshold<RW>(
+      load, v, k, iters, reinterpret_cast<int (*)[256]>(area), g);
+
+  // the histograms' last reads are done: their space takes the slots,
+  // each holding the sentinel until a survivor lands in it
+  g.sync();
+  int* const sidx = area;
+  float* const sval = reinterpret_cast<float*>(area + (kcap + 3) / 4 * 4);
+  for (int s = t; s < kcap; s += T) {
+    sidx[s] = static_cast<int>(n);
+    sval[s] = 0.0f;
+  }
+  g.sync();
+
+  auto kept = [&](float x) {
+    const float a = fabsf(x);
+    return a >= thr && a > 0.0f;
+  };
+  const unsigned lower = (1u << lane) - 1u;
+  int carry = 0;                   // survivors of the j's before
+  float sq = 0.0f;                 // emitted values' squares, index order
+  unsigned long long emitted = 0;  // bit 4 j + q: element (j, q) emitted
+#pragma unroll
+  for (int j = 0; j < V4; ++j) {
+    const bool s[4] = {kept(v[j].x), kept(v[j].y), kept(v[j].z),
+                       kept(v[j].w)};
+    int below = 0, mine = 0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const unsigned b = __ballot_sync(qs::FULL, s[q]);
+      below += __popc(b & lower);
+      mine += __popc(b);
+    }
+    int total;
+    int pos = carry + g.warp_scan(mine, total) + below;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (s[q]) {
+        if (pos < kcap) {
+          const float x = qs::comp(v[j], q);
+          sidx[pos] = static_cast<int>(index(j) + q);
+          sval[pos] = x;
+          sq = __fadd_rn(sq, __fmul_rn(x, x));  // not contracted: the model's
+          emitted |= 1ull << (4 * j + q);
+        }
+        ++pos;
+      }
+    }
+    carry += total;
+  }
+  const int cnt = carry < kcap ? carry : kcap;
+  // the norm: each thread's squares in index order, the warp's
+  // butterfly, the warps in order (ref.topk_compact_rows_ref, bit for
+  // bit).  repro computes sign(acc) * norm / denom; sign * norm is
+  // exact, so (sign * norm) / denom == sign * (norm / denom) bit for bit
+  const float norm = sqrtf(g.fsum(sq));
+  const float scale = norm / fmaxf(static_cast<float>(cnt), 1.0f);
+  auto sel_of = [&](float x, int bit) {
+    return (emitted >> bit) & 1ull ? (sign ? qs::sign_of(x) * scale : x)
+                                   : 0.0f;
+  };
+
+  float* __restrict__ mrow = mem + row * n;
+#pragma unroll
+  for (int j = 0; j < V4; ++j) {
+    const long long i = index(j);
+    const float4 x = v[j];
+    const float4 m = make_float4(x.x - sel_of(x.x, 4 * j),
+                                 x.y - sel_of(x.y, 4 * j + 1),
+                                 x.z - sel_of(x.z, 4 * j + 2),
+                                 x.w - sel_of(x.w, 4 * j + 3));
+    if (vec) {
+      if (i < n) *reinterpret_cast<float4*>(mrow + i) = m;
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (i + q < n) mrow[i + q] = qs::comp(m, q);
+    }
+  }
+
+  g.sync();  // every thread's slots are in shared memory
+  int* __restrict__ irow = idx + row * kcap;
+  float* __restrict__ vrow = val + row * kcap;
+  auto out_val = [&](int s, float x) {
+    return sign && s < cnt ? qs::sign_of(x) * scale : x;
+  };
+  if (svec) {
+    for (int s4 = t; s4 < kcap / 4; s4 += T) {
+      const int4 a = reinterpret_cast<const int4*>(sidx)[s4];
+      const float4 b = reinterpret_cast<const float4*>(sval)[s4];
+      reinterpret_cast<int4*>(irow)[s4] = a;
+      reinterpret_cast<float4*>(vrow)[s4] =
+          make_float4(out_val(4 * s4, b.x), out_val(4 * s4 + 1, b.y),
+                      out_val(4 * s4 + 2, b.z), out_val(4 * s4 + 3, b.w));
+    }
+  } else {
+    for (int s = t; s < kcap; s += T) {
+      irow[s] = sidx[s];
+      vrow[s] = out_val(s, sval[s]);
+    }
+  }
+  if (t == 0) cnt_out[row] = cnt;
+}
+
+template <int RW, int V4>
+int launch_rows(const float* acc, int* idx, float* val, float* mem, int* cnt,
+                long long rows, long long n, int k, int kcap, int iters,
+                int sign, int vec, int svec, int group, cudaStream_t st) {
+  const int smem = static_cast<int>(group * row_area(kcap) * sizeof(int));
+  if (smem > kDefaultSmem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        topk_compact_rows_kernel<RW, V4>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const unsigned blocks = static_cast<unsigned>((rows + group - 1) / group);
+  topk_compact_rows_kernel<RW, V4>
+      <<<blocks, RW == 1 ? 32 * group : 32 * RW, smem, st>>>(
+          acc, idx, val, mem, cnt, rows, n, k, kcap, iters, sign, vec, svec,
+          group);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Longer rows: one block a row, the row read from device memory on every
+// counting pass, slots by a block-wide scan in tiles of THREADS elements.
+template <int THREADS>
 __global__ void __launch_bounds__(THREADS)
-topk_compact_kernel(const float* __restrict__ acc, int* __restrict__ idx,
-                    float* __restrict__ val, float* __restrict__ mem,
-                    int* __restrict__ cnt_out, long long n, int k, int kcap,
-                    int iters, int sign) {
-  extern __shared__ float row_smem[];
+topk_compact_scan_kernel(const float* __restrict__ acc, int* __restrict__ idx,
+                         float* __restrict__ val, float* __restrict__ mem,
+                         int* __restrict__ cnt_out, long long n, int k,
+                         int kcap, int iters, int sign) {
   __shared__ int iscratch[2][32];
   __shared__ float fscratch[2][32];
 
@@ -57,14 +245,7 @@ topk_compact_kernel(const float* __restrict__ acc, int* __restrict__ idx,
   int* __restrict__ irow = idx + row * kcap;
   float* __restrict__ vrow = val + row * kcap;
   const int tid = threadIdx.x;
-
-  if (SMEM) {
-    for (long long i = tid; i < n; i += THREADS) row_smem[i] = src[i];
-    __syncthreads();
-  }
-  auto value = [&](long long i) -> float {
-    return SMEM ? row_smem[i] : __ldg(src + i);
-  };
+  auto value = [&](long long i) -> float { return __ldg(src + i); };
 
   int buf = 0;
   const float thr = qs::bisect_threshold<THREADS>(value, n, k, iters,
@@ -100,10 +281,7 @@ topk_compact_kernel(const float* __restrict__ acc, int* __restrict__ idx,
   const int cnt = carry < kcap ? carry : kcap;
   if (sign) {
     const float norm = sqrtf(qs::block_sum<THREADS>(sq, fscratch[1]));
-    const float denom = fmaxf(static_cast<float>(cnt), 1.0f);
-    // repro computes sign(acc) * norm / denom; sign * norm is exact, so
-    // (sign * norm) / denom == sign * (norm / denom) bit for bit
-    const float scale = norm / denom;
+    const float scale = norm / fmaxf(static_cast<float>(cnt), 1.0f);
     // the block_sum's barrier orders the idx stores above before these
     // reads (global memory is coherent within a block at a barrier)
     for (int s = tid; s < cnt; s += THREADS) {
@@ -121,39 +299,49 @@ topk_compact_kernel(const float* __restrict__ acc, int* __restrict__ idx,
   if (tid == 0) cnt_out[row] = cnt;
 }
 
-template <int THREADS>
-int launch_smem(const float* acc, int* idx, float* val, float* mem, int* cnt,
-                long long rows, long long n, int k, int kcap, int iters,
-                int sign, cudaStream_t st) {
-  const size_t smem = static_cast<size_t>(n) * sizeof(float);
-  // a 48 KB row plus the kernel's own scratch passes the default 48 KB
-  // per block: opt in to the row's size
-  const cudaError_t err = cudaFuncSetAttribute(
-      topk_compact_kernel<THREADS, true>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  topk_compact_kernel<THREADS, true>
-      <<<dim3(static_cast<unsigned>(rows)), THREADS, smem, st>>>(
-          acc, idx, val, mem, cnt, n, k, kcap, iters, sign);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
+// `group`: rows a block of the warp-a-row kernel (rows up to 2048
+// floats: 1, 2, 4 or 8, their slots within a block's shared memory);
+// 1 for longer rows.
 extern "C" int qs_topk_compact_f32(const float* acc, int* idx, float* val,
                                    float* mem, int* cnt, long long rows,
                                    long long n, int k, int kcap, int iters,
-                                   int sign, void* stream) {
+                                   int sign, int group, void* stream) {
   if (rows <= 0) return 0;
+  if (kcap < 1 || kcap > n) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n <= kSmallRow)
-    return launch_smem<128>(acc, idx, val, mem, cnt, rows, n, k, kcap,
-                            iters, sign, st);
-  if (n <= kSmemMaxElems)
-    return launch_smem<256>(acc, idx, val, mem, cnt, rows, n, k, kcap,
-                            iters, sign, st);
-  topk_compact_kernel<1024, false>
-      <<<dim3(static_cast<unsigned>(rows)), 1024, 0, st>>>(
-          acc, idx, val, mem, cnt, n, k, kcap, iters, sign);
-  return static_cast<int>(cudaGetLastError());
+  if (n > kShortMaxElems) {
+    if (group != 1) return static_cast<int>(cudaErrorInvalidValue);
+    topk_compact_scan_kernel<1024>
+        <<<static_cast<unsigned>(rows), 1024, 0, st>>>(
+            acc, idx, val, mem, cnt, n, k, kcap, iters, sign);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(acc) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(mem) % 16 == 0;
+  const int svec = kcap % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(idx) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(val) % 16 == 0;
+  const bool warp = n <= kWarpMaxElems;
+  if ((group != 1 && group != 2 && group != 4 && group != 8) ||
+      (!warp && group != 1) ||
+      group * row_area(kcap) * static_cast<long long>(sizeof(int)) > kSmemMax)
+    return static_cast<int>(cudaErrorInvalidValue);
+#define QS_ROWS(RW, V4)                                                     \
+  launch_rows<RW, V4>(acc, idx, val, mem, cnt, rows, n, k, kcap, iters,   \
+                      sign, vec, svec, group, st)
+  if (n > 8192) return QS_ROWS(12, 8);
+  if (n > 4096) return QS_ROWS(8, 8);
+  if (n > 2048) return QS_ROWS(4, 8);
+  // a warp a row: ceil(n / 128) float4s a lane, rounded up to one of these
+  const long long v4 = (n + 127) / 128;
+  if (v4 <= 1) return QS_ROWS(1, 1);
+  if (v4 <= 2) return QS_ROWS(1, 2);
+  if (v4 <= 4) return QS_ROWS(1, 4);
+  if (v4 <= 6) return QS_ROWS(1, 6);
+  if (v4 <= 9) return QS_ROWS(1, 9);  // gemma3-1b's 1152 floats: 9 exactly
+  if (v4 <= 12) return QS_ROWS(1, 12);
+  return QS_ROWS(1, 16);
+#undef QS_ROWS
 }

@@ -78,13 +78,10 @@ namespace {
 
 constexpr long long kShortMaxElems = 12288;  // longer rows take a cluster
 
-__device__ __forceinline__ float comp(const float4& v, int q) {
-  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
-}
-
 // Rows of up to kShortMaxElems floats: RW warps a row (RW = 1: eight rows
 // a block, no block barrier), the row in registers, V4 float4s a thread;
-// the threshold is common.cuh's select_threshold.  Slot (j, q) of thread
+// the load and the threshold are common.cuh's row_threshold (a(1), then
+// select_threshold), shared with topk_compact.  Slot (j, q) of thread
 // t holds element 4 (j T + t) + q (`vec`: 16-byte loads) or (4 j + q) T +
 // t, T = 32 RW; slots past n hold NaN, which no count sees.
 template <int RW, int V4>
@@ -108,40 +105,23 @@ topk_rows_kernel(const float* __restrict__ acc, float* __restrict__ sel,
     return vec ? 4LL * (j * T + t) + q : (4LL * j + q) * T + t;
   };
   const float nan = __uint_as_float(0x7fc00000u);
-  float4 v[V4];
-#pragma unroll
-  for (int j = 0; j < V4; ++j) {
+  auto load = [&](int j) -> float4 {
     if (vec) {
       const long long i = index(j, 0);
-      v[j] = i < n ? __ldg(reinterpret_cast<const float4*>(src + i))
+      return i < n ? __ldg(reinterpret_cast<const float4*>(src + i))
                    : make_float4(nan, nan, nan, nan);
-    } else {
-      float e[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const long long i = index(j, q);
-        e[q] = i < n ? __ldg(src + i) : nan;
-      }
-      v[j] = make_float4(e[0], e[1], e[2], e[3]);
     }
-  }
-  auto each = [&](auto f) {
+    float e[4];
 #pragma unroll
-    for (int j = 0; j < V4; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) f(comp(v[j], q));
+    for (int q = 0; q < 4; ++q) {
+      const long long i = index(j, q);
+      e[q] = i < n ? __ldg(src + i) : nan;
+    }
+    return make_float4(e[0], e[1], e[2], e[3]);
   };
-  for (int i = t; i < 2 * 256; i += T) hist[grp][i >> 8][i & 255] = 0;
   qs::RowGroup<RW> g{iscr, uscr, fscr, 0};
-  unsigned m = 0;
-  each([&](float x) {
-    const unsigned u = qs::abs_key(x);
-    if (u != qs::kAbsent) m = max(m, u);
-  });
-  const unsigned a1 = g.template extreme<true>(m);
-  if constexpr (RW == 1) __syncwarp();  // the cleared histograms
-  const float thr =
-      qs::select_threshold<RW>(each, a1, k, iters, hist[grp], g);
+  float4 v[V4];
+  const float thr = qs::row_threshold<RW>(load, v, k, iters, hist[grp], g);
 
   auto kept = [&](float x) {
     const float a = fabsf(x);
@@ -169,7 +149,7 @@ topk_rows_kernel(const float* __restrict__ acc, float* __restrict__ sel,
         for (int q = 0; q < 4; ++q) {
           const long long i = index(j, q);
           if (i < n) {
-            const float x = comp(v[j], q);
+            const float x = qs::comp(v[j], q);
             const float s = out(x);
             sel_r[i] = s;
             mem_r[i] = x - s;
@@ -180,7 +160,7 @@ topk_rows_kernel(const float* __restrict__ acc, float* __restrict__ sel,
   };
   int c = 0;
   float sq = 0.0f;
-  each([&](float x) {
+  qs::each4(v, [&](float x) {
     if (kept(x)) {
       c += 1;
       sq += x * x;

@@ -282,12 +282,94 @@ def topk_compact_ref(acc: torch.Tensor, k: int, kcap: int, *,
     return idx, val, accf - sel, cnt
 
 
-def qsgd_bucketed_ref(x: torch.Tensor, u: torch.Tensor, s: int):
-    """x: [buckets, n]; u: uniforms [buckets, n] in [0, 1).  Per-bucket
-    l2 norm; levels stochastically rounded against ``u``.  Returns the
-    dequantized [buckets, n] float32 (zero buckets give 0)."""
-    xf = x.to(torch.float32)
-    norm = torch.sqrt((xf * xf).sum(dim=1, keepdim=True))
+def compact_warps(n: int) -> int:
+    """Warps a row of ``topk_compact``'s (and ``topk_compress``'s)
+    short-row kernel: one up to 2048 floats, then 4, 8 or 12."""
+    return 1 if n <= 2048 else 4 if n <= 4096 else 8 if n <= 8192 else 12
+
+
+def topk_compact_rows_ref(acc: torch.Tensor, k: int, kcap: int, *,
+                          iters: int = 24, sign: bool = False,
+                          warps: int = 0):
+    """The arithmetic of ``topk_compact``'s short-row kernel, in plain
+    PyTorch, for the tests only (nothing on a training path calls it).
+    Same arguments and results as :func:`topk_compact_ref`; ``warps``
+    (0: the kernel's choice, :func:`compact_warps`) warps a row.
+
+    The threshold is :func:`topk_threshold_select_ref`'s (the kernel's
+    ``row_threshold``; NaN left out).  With T = 32 ``warps`` threads a
+    row and V4 float4s a thread, element (j, t, q) is index 4 (j T + t) +
+    q (slots past n hold NaN).  For each j, lane l of warp w takes four
+    ballots of the survivor mask (one per q): the survivors of the
+    lower lanes, over all four; the warps' totals give the survivors of
+    the lower warps; a carry counts the j's before; its own lower q
+    complete its slot.  A survivor is emitted where its slot is below
+    ``kcap``.  The SignTop_k norm is the kernel's float sum: each
+    thread's emitted squares in index order (each product rounded, then
+    added), a butterfly over the warp's lanes (xor 16, 8, 4, 2, 1), the
+    warps' sums from 0 in order.
+
+    Returns (idx [rows, kcap] int32, val [rows, kcap] float32,
+    new_memory [rows, n] float32, count_per_row int32)."""
+    accf = acc.to(torch.float32)
+    rows, n = accf.shape
+    dev = accf.device
+    rw = warps or compact_warps(n)
+    T = 32 * rw
+    v4 = max(1, -(-n // (4 * T)))
+    thr = topk_threshold_select_ref(accf, k, iters=iters)[3]
+    x = torch.full((rows, 4 * T * v4), float("nan"), dtype=torch.float32,
+                   device=dev)
+    x[:, :n] = accf
+    a = x.abs()
+    kept = (a >= thr[:, None]) & (a > 0.0)
+    k4 = kept.view(rows, v4, rw, 32, 4).to(torch.int64)
+    lane_n = k4.sum(dim=4)                                 # a lane's, all q
+    below = torch.cumsum(lane_n, dim=3) - lane_n           # lower lanes
+    mine = lane_n.sum(dim=3, keepdim=True)                 # the warp's
+    before = torch.cumsum(mine, dim=2) - mine              # lower warps
+    total = mine.sum(dim=2, keepdim=True)                  # the j's
+    carry = torch.cumsum(total, dim=1) - total             # the j's before
+    own = torch.cumsum(k4, dim=4) - k4                     # lower q
+    pos = (carry[..., None] + before[..., None] + below[..., None]
+           + own).view(rows, -1)
+    emit = kept & (pos < kcap)
+    cnt = torch.clamp(total.view(rows, v4).sum(dim=1), max=kcap).to(
+        torch.int32)
+    # the norm: a thread's squares in (j, q) order, lanes, warps
+    xe = torch.where(emit, x, torch.zeros((), device=dev)).view(
+        rows, v4, T, 4)
+    sq = torch.zeros((rows, T), dtype=torch.float32, device=dev)
+    for j in range(v4):
+        for q in range(4):
+            e = xe[:, j, :, q]
+            sq = sq + e * e
+    sq = sq.view(rows, rw, 32)
+    lanes = torch.arange(32, device=dev)
+    for off in (16, 8, 4, 2, 1):
+        sq = sq + sq[:, :, lanes ^ off]
+    norm_sq = sq[:, 0, 0]
+    if rw > 1:
+        norm_sq = torch.zeros(rows, dtype=torch.float32, device=dev)
+        for w in range(rw):
+            norm_sq = norm_sq + sq[:, w, 0]
+    scale = torch.sqrt(norm_sq) / torch.clamp(cnt.to(torch.float32), min=1.0)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    sel = torch.where(emit, torch.sign(x) * scale[:, None] if sign else x,
+                      zero)
+    mem = (x - sel)[:, :n]
+    r, c = emit.nonzero(as_tuple=True)
+    idx = torch.full((rows, kcap), n, dtype=torch.int32, device=dev)
+    val = torch.zeros((rows, kcap), dtype=torch.float32, device=dev)
+    idx[r, pos[r, c]] = c.to(torch.int32)
+    val[r, pos[r, c]] = sel[r, c]
+    return idx, val, mem, cnt
+
+
+def _qsgd_levels(xf: torch.Tensor, u: torch.Tensor, s: int,
+                 norm: torch.Tensor) -> torch.Tensor:
+    """QSGD's levels against the uniforms ``u``, dequantized, given each
+    bucket's norm [buckets, 1]."""
     one = torch.ones((), dtype=torch.float32, device=xf.device)
     safe = torch.where(norm > 0, norm, one)
     sf = torch.tensor(float(s), dtype=torch.float32, device=xf.device)
@@ -296,6 +378,33 @@ def qsgd_bucketed_ref(x: torch.Tensor, u: torch.Tensor, s: int):
     xi = low + (u.to(torch.float32) < (level - low)).to(torch.float32)
     q = norm * torch.sign(xf) * xi / sf
     return torch.where(norm > 0, q, torch.zeros_like(xf))
+
+
+def qsgd_bucketed_ref(x: torch.Tensor, u: torch.Tensor, s: int):
+    """x: [buckets, n]; u: uniforms [buckets, n] in [0, 1).  Per-bucket
+    l2 norm; levels stochastically rounded against ``u``.  Returns the
+    dequantized [buckets, n] float32 (zero buckets give 0)."""
+    xf = x.to(torch.float32)
+    norm = torch.sqrt((xf * xf).sum(dim=1, keepdim=True))
+    return _qsgd_levels(xf, u, s, norm)
+
+
+def qsgd_cluster_ref(x: torch.Tensor, u: torch.Tensor, s: int, cs: int,
+                     chunk: int):
+    """The arithmetic of ``qsgd_quantize``'s cluster kernel, in plain
+    PyTorch, for the tests only: block r of a row's cluster of ``cs``
+    owns elements [r * chunk, (r + 1) * chunk) and sums their squares;
+    the blocks' sums are added from 0 in rank order (every block of the
+    cluster does the same, so all share one float norm); then the levels
+    as :func:`qsgd_bucketed_ref` takes them.  Only the order of the sum
+    differs from that plain version."""
+    xf = x.to(torch.float32)
+    tot = torch.zeros((xf.shape[0], 1), dtype=torch.float32,
+                      device=xf.device)
+    for r in range(cs):
+        part = xf[:, r * chunk:(r + 1) * chunk]
+        tot = tot + (part * part).sum(dim=1, keepdim=True)
+    return _qsgd_levels(xf, u, s, torch.sqrt(tot))
 
 
 # ---------------------------------------------------------------------------

@@ -9,10 +9,11 @@ its two emission modes:
     all-gather sync.
 
 Both keep the serial bisection's threshold bit for bit
-(``csrc/common.cuh``).  ``topk_compress`` takes rows of up to
-``SHORT_ROW`` floats in registers (a warp, or a block of warps, a row:
-exact order statistics, then the bisection replayed) and longer rows
-through a cluster of blocks per row (``cluster_geometry``).
+(``csrc/common.cuh``) and take rows of up to ``SHORT_ROW`` floats in
+registers (a warp, or a block of warps, a row: exact order statistics,
+then the bisection replayed).  Longer rows take a cluster of blocks per
+row in ``topk_compress`` (``cluster_geometry``) and a block per row in
+``topk_compact`` (``compact_geometry``).
 """
 
 from __future__ import annotations
@@ -30,6 +31,12 @@ from repro_torch.kernels.launch_stats import LAUNCHES
 SHORT_ROW = 12288
 #: the cluster sizes the long-row kernel takes: 8 (portable) or 16
 CLUSTER_SIZES = (8, 16)
+#: longest row a warp holds (``csrc/topk_compact.cu`` kWarpMaxElems)
+WARP_ROW = 2048
+#: shared memory the warp-a-row ``topk_compact`` kernel gives a block's
+#: rows at most: half of an H100 SM's 227 KB, so that two blocks of eight
+#: warps share an SM
+COMPACT_STAGE = 232448 // 2
 
 
 class ClusterGeometry(NamedTuple):
@@ -76,6 +83,38 @@ def cluster_capacity(index: int, cs: int, chunk: int) -> int:
     if got < 0:
         _build.check(-got)
     return got
+
+
+class CompactGeometry(NamedTuple):
+    """How ``topk_compact`` runs rows of ``n`` floats with ``kcap`` slots."""
+    kernel: str    # "warp" (a warp a row), "block" (4-12 warps a row) or
+                   # "scan" (rows past SHORT_ROW: a block, a scan a tile)
+    rows: int      # rows a block
+    smem: int      # dynamic shared memory of a block, bytes
+
+
+def compact_area(kcap: int) -> int:
+    """Bytes of shared memory a row of the short-row kernel takes: its
+    three 256-bin histograms, whose space then holds its ``kcap`` slots
+    (idx and val, each rounded up to 16 bytes)."""
+    return 4 * max(3 * 256, 2 * (-(-kcap // 4) * 4))
+
+
+def compact_geometry(n: int, kcap: int) -> CompactGeometry:
+    """The kernel and block ``topk_compact`` takes, chosen from the shape
+    before the launch: rows of up to ``WARP_ROW`` floats a warp each,
+    eight a block where their slots fit ``COMPACT_STAGE`` (else 4, 2 or
+    1); up to ``SHORT_ROW`` a block of warps a row; longer ones the scan
+    kernel (no staged slots)."""
+    if n > SHORT_ROW:
+        return CompactGeometry("scan", 1, 0)
+    area = compact_area(kcap)
+    if n > WARP_ROW:
+        return CompactGeometry("block", 1, area)
+    rows = 8
+    while rows > 1 and rows * area > COMPACT_STAGE:
+        rows //= 2
+    return CompactGeometry("warp", rows, rows * area)
 
 
 def _check_rows(name: str, t: torch.Tensor) -> None:
@@ -142,9 +181,10 @@ def topk_compact(acc: torch.Tensor, k: int, kcap: int, *, iters: int = 24,
     first ``kcap`` of them emitted (later ones stay in the memory), the
     sentinel ``(n, 0)`` in the empty slots.
 
-    A CUDA tensor launches the kernel on the current stream; a CPU
-    tensor runs the plain version (``ref.topk_compact_ref``).  A failed
-    build or launch raises.
+    A CUDA tensor launches the kernel on the current stream, on the route
+    ``compact_geometry`` picks from the shape; a CPU tensor runs the
+    plain version (``ref.topk_compact_ref``).  A failed build or launch
+    raises.
     """
     _check_rows("acc", acc)
     rows, n = acc.shape
@@ -161,10 +201,11 @@ def topk_compact(acc: torch.Tensor, k: int, kcap: int, *, iters: int = 24,
     val = torch.empty((rows, kcap), dtype=torch.float32, device=acc.device)
     mem = torch.empty_like(acc)
     cnt = torch.empty((rows,), dtype=torch.int32, device=acc.device)
+    geo = compact_geometry(n, kcap)
     with torch.cuda.device(acc.device):
         stream = torch.cuda.current_stream().cuda_stream
         _build.check(lib.qs_topk_compact_f32(
             acc.data_ptr(), idx.data_ptr(), val.data_ptr(), mem.data_ptr(),
             cnt.data_ptr(), rows, n, int(k), int(kcap), int(iters),
-            int(bool(sign)), stream))
+            int(bool(sign)), geo.rows, stream))
     return idx, val, mem, cnt

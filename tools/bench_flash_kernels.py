@@ -3,7 +3,7 @@
 GPU, for the checkout this file sits in or for another one.
 
     python3 tools/bench_flash_kernels.py [--tree DIR]
-        [--kernels attention|topk_paged|gemm]
+        [--kernels attention|topk_paged|gemm|compress]
         [--serve [gemma3-1b|yi-6b] [--plain-gemm] [--shapes]] [--lm]
 
 Imports ``chip_smoke.py`` and ``src/`` from DIR (default: this
@@ -30,10 +30,19 @@ library call; these checks are this checkout's, run against DIR's
 kernels (an older tree's checks took other arguments).  Where DIR's
 wrapper has ``sparse_gemm_route``, each ``sparse_gemm`` kernel is also
 timed at M = 1 .. 256 on the w1 / w2 shapes (``route`` lines: the
-crossover; the decode kernel up to M = 8 where DIR has it).  Prints the
-card's name and power limit, then one JSON line per row tagged with
-DIR.  ``--lm`` runs the tree's LM phase instead (gemma3-1b through the
-launcher on both wires; its ``lm`` lines have the wire bits).
+crossover; the decode kernel up to M = 8 where DIR has it).  ``--kernels
+compress``: DIR's ``check_compact`` at gemma3-1b's sparse-wire rows
+([179712, 1152] and [26624, 1152] with and without sign, [6656, 1152])
+and on the heavy-tie block, both signs; ``check_qsgd`` at ResNet-50's
+four bucket shapes ([16, 524288], [56, 65536], [1, 524288], [7,
+65536]); ``check_topk`` at [179712, 1152] and [49312, 4096], with and
+without sign (the short-row prologue it shares with ``topk_compact``);
+where DIR has ``qsgd_geometry``, every cluster size's time at each
+QSGD shape beside the blocks the card holds at once (``geometry``
+lines).  Prints the card's name and power limit, then one JSON line per
+row tagged with DIR.  ``--lm`` runs the tree's LM phase instead
+(gemma3-1b through the launcher on both wires; its ``lm`` lines have the
+wire bits).
 
 ``--serve`` runs that tree's serve phase instead: ``gemma3-1b`` (the
 default) the unscanned gemma3-1b run (``chip_smoke.phase_serve_flash``),
@@ -161,6 +170,29 @@ def gemm_rows(dev) -> list:
     return rows
 
 
+def qsgd_geometry_rows(ck, dev) -> None:
+    """Each cluster size's time at ResNet-50's QSGD shapes, beside the
+    blocks the card holds at once and the size the wrapper picks."""
+    import torch
+    from repro_torch.kernels import qsgd as qs
+    from repro_torch.kernels.topk_compress import _chunk
+    slots = qs.resident_blocks(torch.cuda.current_device())
+    for rows, n in ((16, 524288), (56, 65536), (1, 524288), (7, 65536)):
+        g = torch.Generator(device=dev).manual_seed(rows + n)
+        x = torch.randn((rows, n), generator=g, device=dev)
+        u = torch.rand((rows, n), generator=g, device=dev)
+        picked = qs.qsgd_geometry(rows, n, slots)
+        for c in qs.QSGD_CLUSTERS:
+            geo = qs.QsgdGeometry(c, max(4, _chunk(n, c)))
+            if c > 1 and (c - 1) * geo.chunk >= n:
+                continue
+            ms = ck.time_ms(lambda geo=geo: qs._launch(x, u, 15, geo), 20)
+            print("geometry", json.dumps({
+                "shape": [rows, n], "cs": c, "chunk": geo.chunk,
+                "resident_blocks": slots, "picked": geo == picked,
+                "ms": ms}), flush=True)
+
+
 def record_shapes() -> dict:
     """Count ``sparse_gemm`` calls by shape (M, row length, output rows,
     kcap, the most live slots of a row, x dtype) for the serve run; the
@@ -184,7 +216,8 @@ def record_shapes() -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=HERE)
-    ap.add_argument("--kernels", choices=("attention", "topk_paged", "gemm"),
+    ap.add_argument("--kernels", choices=("attention", "topk_paged", "gemm",
+                                          "compress"),
                     default="attention")
     ap.add_argument("--serve", nargs="?", const="gemma3-1b",
                     choices=("gemma3-1b", "yi-6b"))
@@ -238,6 +271,26 @@ def main() -> int:
         return 0
     if args.kernels == "gemm":
         rows = gemm_rows(dev)
+    elif args.kernels == "compress":
+        rows = [("topk_compact", cs.check_compact(dev, *shape))
+                for shape in ((179712, 1152, 12, 128, False, 10),
+                              (179712, 1152, 12, 128, True, 10),
+                              (26624, 1152, 12, 128, False, 10),
+                              (26624, 1152, 12, 128, True, 10),
+                              (6656, 1152, 12, 128, False, 10),
+                              (4096, 1152, 12, 128, False, 10, True),
+                              (4096, 1152, 12, 128, True, 10, True))]
+        rows += [("qsgd_quantize", cs.check_qsgd(dev, *shape, 15, 10))
+                 for shape in ((16, 524288), (56, 65536), (1, 524288),
+                               (7, 65536))]
+        rows += [("topk_compress", cs.check_topk(dev, *shape, 10))
+                 for shape in ((179712, 1152, 12, False),
+                               (179712, 1152, 12, True),
+                               (49312, 4096, 41, False),
+                               (49312, 4096, 41, True))]
+        from repro_torch.kernels import qsgd as qs
+        if hasattr(qs, "qsgd_geometry"):
+            qsgd_geometry_rows(cs, dev)
     elif args.kernels == "topk_paged":
         from repro_torch.kernels import topk_compress as tk
         if hasattr(tk, "cluster_capacity"):
@@ -275,7 +328,8 @@ def main() -> int:
         keep = {k: row[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
                                     "library_ms", "bound_ms", "bound_by")}
         for extra in ("window", "cache", "route", "split_tiles", "k", "sign",
-                      "quant", "max_row_rel_err", "bound_f32_ms", "k_row"):
+                      "quant", "max_row_rel_err", "bound_f32_ms", "k_row",
+                      "kcap", "ties", "geometry", "mismatched_levels"):
             if extra in row:
                 keep[extra] = row[extra]
         print("bench", json.dumps({"tree": tree, "kernel": name, **keep}),
