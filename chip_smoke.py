@@ -21,7 +21,20 @@ Phases, each of which exits non-zero on failure:
    parameters), R=8 workers, per-worker batch 8, 224x224 images, T=8,
    H=4, under RowSignTopK, TopK and QSGD, with the launch counts per
    sync; then a small ResNet on the card with dispatch "kernel" against
-   dispatch "reference" (same losses, same wire bits);
+   dispatch "reference" (same losses, same wire bits); then the paper's
+   two algorithm wrappers on ResNet-50 at the same width (T=4, H=2):
+   RowSignTopK through ``qsparse.run`` with the per-group ledger and
+   QSGD through ``async_qsparse.run`` on an ``async_schedule`` mask, each
+   equal to ``engine.run`` on the same inputs in every state tensor and
+   both ledgers, the group ledgers adding up to the totals, 1 and 5
+   launches per sync; then the paper's convex problem (Section 5.2,
+   softmax regression, d = 7850): ``topk_compress`` and
+   ``qsgd_quantize`` against their plain versions at the shapes its
+   dispatcher builds (15 rows of 7,840 and 10 floats zero-padded to 7936
+   and 128 columns, k = 40 and 1, s = 15), then the quickstart's two
+   methods (R=8, T=300) and bench_convex's TopK-SGD, EF-QSGD and QTop_k
+   (R=15, T=400), each under dispatch "auto" and "kernel", with bits,
+   rounds, bits to the target loss and ms per step;
 5. the serving path: the four serving kernels against their plain
    versions at Yi-6B's shapes (step 3's checks and times), then Yi-6B at
    full width and depth (random weights from a seed) compressed at load
@@ -60,7 +73,19 @@ Phases, each of which exits non-zero on failure:
    ``topk_compress`` launches per sync; then the gemma3-1b smoke model at
    R = 2 ranks sharing the card over gloo, spawned from here: dispatch
    "kernel" against "reference" (same losses, equal wire bits) and the
-   sparse wire against the dense one (masters within 1e-5).
+   sparse wire against the dense one (masters within 1e-5);
+8. checkpoints from trainer to server, gemma3-1b at full width: step
+   6's compressed unscanned tree, saved as a compact-v1 checkpoint as
+   soon as step 6 has served it and then dropped, loaded by
+   ``load_compact`` and served by a ServeEngine (step 6's greedy tokens,
+   resident bytes equal, no densify, prefill through
+   ``flash_attention``); then through ``launch/serve.py``'s ``main
+   --checkpoint`` (layers stacked, as the arch config says): step 7's
+   dense-wire master (the launcher's ``--ckpt``) served with
+   ``--compressed`` (tokens equal to compressing the restored master
+   in-process), and that compressed tree saved as compact-v1 and served
+   (tokens equal to an in-process engine on the same tree), with bytes
+   on disk and seconds to save and to load.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX
@@ -71,8 +96,10 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -103,6 +130,50 @@ LM = {"arch": "gemma3-1b", "batch": 2, "seq": 2048, "steps": 8, "H": 4,
 #: the multi-rank agreement run: the gemma3-1b smoke model, ranks sharing
 #: the one card over gloo
 LM_RANKS = {"ranks": 2, "steps": 8, "H": 2}
+#: the wrapper run: ResNet-50 as in the training run, a few steps at H = 2
+WRAP = {"T": 4, "H": 2, "seed": 0}
+#: float32 additions into a ResNet-50 ledger a sync, bounded above:
+#: 161 leaves x 8 workers; the group and total ledgers may part by at
+#: most this many roundings of 2^-24 each (about 1e-4 of the total)
+WRAP_ADDS = 1700
+#: the paper's convex runs (Section 5.2: softmax regression on mnist_like,
+#: d = 7850 in two leaves of 7,840 and 10 floats, lr = 60 / (100 + t)):
+#: the quickstart's two methods and bench_convex's methods that meet a
+#: kernel rule (TopK-SGD, EF-QSGD) or draw as one does (QTop_k)
+K_CONVEX = 40 / 7850.0
+CONVEX = {
+    "n": 4000, "b": 8, "target": 1.0, "leaves": (7840, 10),
+    "methods": [
+        {"name": "quickstart vanilla SGD", "op": "identity", "kw": {},
+         "R": 8, "T": 300, "H": 1, "log_every": 50, "batch_seed": 1},
+        {"name": "quickstart Qsparse-local SignTopK", "op": "signtopk",
+         "kw": {"k": 0.01, "m": 1}, "R": 8, "T": 300, "H": 4,
+         "log_every": 50, "batch_seed": 1},
+        {"name": "topk_sgd", "op": "topk", "kw": {"k": K_CONVEX}, "R": 15,
+         "T": 400, "H": 1, "log_every": 25, "batch_seed": 0,
+         "kernel": "topk_compress", "per_sync": 2},
+        {"name": "ef_qsgd_4bit", "op": "qsgd", "kw": {"s": 15}, "R": 15,
+         "T": 400, "H": 1, "log_every": 25, "batch_seed": 0,
+         "kernel": "qsgd", "per_sync": 2},
+        {"name": "qtopk_4bit", "op": "qtopk", "kw": {"k": K_CONVEX, "s": 15},
+         "R": 15, "T": 400, "H": 1, "log_every": 25, "batch_seed": 0},
+    ]}
+#: how far "kernel" may sit from "auto" where their arithmetic differs
+#: (largest relative gap over the log points, bits and smoothed loss);
+#: each limit lies within 2-20x of the gaps measured on the H100
+#: (TopK-SGD 5.1e-5 / 5.1e-3, EF-QSGD 5.4e-6 / 5.3e-7), which repeat
+#: exactly from run to run
+CONVEX_TOL = {"qsgd": {"bits": 1e-4, "loss": 1e-5},
+              "topk": {"bits": 1e-4, "loss": 1e-2}}
+#: serving gemma3-1b from checkpoints through launch/serve.py (layers
+#: stacked): the LM run's dense master at short prompts, then its
+#: compressed tree as compact-v1 at the unscanned run's prompt lengths
+CKPT_SERVE = {"arch": "gemma3-1b", "smoke": False,
+              "compact": {"max_batch": 4, "max_len": 2304,
+                          "prompt_len": 2048, "new_tokens": 32,
+                          "requests": 8},
+              "dense": {"max_batch": 4, "max_len": 256, "prompt_len": 128,
+                        "new_tokens": 16, "requests": 8}}
 #: the kernel each operator must launch, and how often per sync round
 WANT_PER_SYNC = {"RowSignTopK": ("topk_compress", 1),
                  "TopK": ("topk_compress", 5), "QSGD": ("qsgd", 5)}
@@ -205,15 +276,18 @@ def bound_ms(nbytes: float, ops: float,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_topk(dev, rows: int, n: int, k: int, sign: bool, reps: int):
+def check_topk(dev, rows: int, n: int, k: int, sign: bool, reps: int,
+               live: int = None):
     """topk_compress against its plain version: counts and survivor masks
     exactly, plain Top_k values and memory bit for bit, SignTop_k values
-    within rtol 1e-6 (its norm is a float sum in another order)."""
+    within rtol 1e-6 (its norm is a float sum in another order).
+    ``live``: columns past it are zero, as the dispatcher pads a leaf."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.topk_compress import topk_compress
     g = torch.Generator(device=dev).manual_seed(rows + n + k)
     x = torch.randn((rows, n), generator=g, device=dev)
+    x[:, n if live is None else live:] = 0.0
     sel, mem, cnt = topk_compress(x, k, sign=sign)
     sel_r, mem_r, cnt_r = ref.topk_compress_ref(x, k, sign=sign)
     torch.cuda.synchronize()
@@ -239,15 +313,17 @@ def check_topk(dev, rows: int, n: int, k: int, sign: bool, reps: int):
     elems = rows * n
     bms, by = bound_ms(12.0 * elems + 4.0 * rows,
                        3.0 * (iters + 4) * elems)
-    return {"shape": [rows, n], "k": k, "sign": sign, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+    return {"shape": [rows, n], "k": k, "sign": sign, "live": live or n,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bms, "bound_by": by}
 
 
-def check_qsgd(dev, rows: int, n: int, s: int, reps: int):
+def check_qsgd(dev, rows: int, n: int, s: int, reps: int, live: int = None):
     """qsgd_quantize against its plain version on shared uniforms: within
     rtol 1e-6 except at most 16 elements, which may sit one level
-    (norm/s) apart where u lies within rounding of the fraction."""
+    (norm/s) apart where u lies within rounding of the fraction.
+    ``live``: columns past it are zero in x and u, as the dispatcher pads
+    a leaf."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.qsgd import (qsgd_geometry, qsgd_quantize,
@@ -255,6 +331,8 @@ def check_qsgd(dev, rows: int, n: int, s: int, reps: int):
     g = torch.Generator(device=dev).manual_seed(rows + n)
     x = torch.randn((rows, n), generator=g, device=dev)
     u = torch.rand((rows, n), generator=g, device=dev)
+    x[:, n if live is None else live:] = 0.0
+    u[:, n if live is None else live:] = 0.0
     out = qsgd_quantize(x, u, s)
     out_r = ref.qsgd_bucketed_ref(x, u, s)
     torch.cuda.synchronize()
@@ -272,7 +350,7 @@ def check_qsgd(dev, rows: int, n: int, s: int, reps: int):
     bms, by = bound_ms(12.0 * rows * n, 12.0 * rows * n)
     geo = qsgd_geometry(rows, n,
                         resident_blocks(torch.cuda.current_device()))
-    return {"shape": [rows, n], "s": s, "max_abs_err": err,
+    return {"shape": [rows, n], "s": s, "live": live or n, "max_abs_err": err,
             "mismatched_levels": n_far, "ms": ms, "plain_ms": plain_ms,
             "library_ms": None, "bound_ms": bms, "bound_by": by,
             "geometry": list(geo)}
@@ -430,6 +508,287 @@ def phase_small_agreement(dev):
         np.testing.assert_allclose(k.loss, r.loss, rtol=1e-4)
         print(f"small agreement {type(op).__name__}: bits {k.bits} "
               f"losses {k.loss}", flush=True)
+
+# ---------------------------------------------------------------------------
+# the paper's two algorithm wrappers, and the convex methods
+# ---------------------------------------------------------------------------
+
+
+def _same_state(st, ref, what: str) -> None:
+    """A wrapper's state against the engine's after the same run: every
+    field the wrapper keeps (its exact-broadcast views are rebuilt, not
+    kept) equal, tensors bit for bit."""
+    import torch
+    from repro_torch.tree import tree_leaves
+    for f in st._fields:
+        a, b = getattr(st, f), getattr(ref, f)
+        if a is None:
+            continue
+        if isinstance(a, int):
+            same = a == b
+        else:
+            la, lb = tree_leaves(a), tree_leaves(b)
+            same = len(la) == len(lb) and all(
+                torch.equal(x, y) for x, y in zip(la, lb))
+        if not same:
+            raise AssertionError(f"{what}: the wrapper and the engine "
+                                 f"differ in {f}")
+
+
+def _group_ledger_total(leaf_bits, total, what: str) -> float:
+    """The per-group ledger adds up to the total ledger.  Both are float32
+    folds of the same per-leaf, per-worker terms in other orders (groups
+    first, or workers first), and above 2^24 bits each addition rounds by
+    at most 2^-24 of the running total: WRAP_ADDS additions bound the
+    relative gap by WRAP_ADDS * 2^-24 (1e-4)."""
+    gap = abs(float(leaf_bits.double().sum()) - float(total))
+    rel = gap / max(float(total), 1.0)
+    if rel > WRAP_ADDS * 2.0 ** -24:
+        raise AssertionError(f"{what}: groups sum to "
+                             f"{float(leaf_bits.double().sum())}, total "
+                             f"{float(total)}")
+    return rel
+
+
+def phase_wrappers(dev):
+    """ResNet-50 at full width through the paper's two algorithm wrappers
+    (R = 8, batch 8 a worker, 224x224, T = WRAP["T"] steps at H = 2):
+    RowSignTopK through ``qsparse.run`` with the per-group ledger, QSGD
+    through ``async_qsparse.run`` on an ``async_schedule`` mask, each
+    held to ``engine.run`` on the same inputs and generator state (same
+    code: every state tensor and both ledgers equal, cuDNN pinned to its
+    deterministic algorithms for the phase).  Returns the launches of
+    the wrapper runs."""
+    import numpy as np
+    import torch
+    from repro_torch.core import async_qsparse, engine, qsparse
+    from repro_torch.core.operators import QSGDQuantizer, RowSignTopK
+    from repro_torch.core.schedule import async_schedule, fixed_schedule
+    from repro_torch.data import make_image_data, worker_batches
+    from repro_torch.kernels.dispatch import DispatchConfig
+    from repro_torch.kernels.launch_stats import LAUNCHES, reset_launches
+    from repro_torch.models import resnet
+    from repro_torch.optim import momentum_sgd, piecewise_decay
+    from repro_torch.tree import value_and_grad
+
+    T, Hw = WRAP["T"], WRAP["H"]
+    cfg = model_config()
+    params = resnet.init_params(torch.Generator().manual_seed(0), cfg,
+                                device=dev)
+    x, y = make_image_data(**IMAGES)
+    grad_fn = value_and_grad(lambda p, b: resnet.loss_fn(p, b, cfg)[0])
+    inner, lr = momentum_sgd(0.9), piecewise_decay(0.05, [100, 130])
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    totals = {k: 0 for k in LAUNCHES}
+    cases = (
+        ("RowSignTopK", "qsparse", RowSignTopK(k=0.01, row_len=4096, m=2),
+         fixed_schedule(T, Hw)),
+        ("QSGD", "async_qsparse", QSGDQuantizer(s=15),
+         async_schedule(T, R, Hw, seed=WRAP["seed"])),
+    )
+    try:
+        for name, wrapper, op, mask in cases:
+            runs = {}
+            for driver in (wrapper, "engine"):
+                sync = wrapper == "qsparse"
+                if driver == "qsparse":
+                    mod, kw = qsparse, {}
+                elif driver == "async_qsparse":
+                    mod, kw = async_qsparse, {}
+                else:
+                    mod, kw = engine, {"global_rounds": sync}
+                state = mod.init(params, inner, R, leaf_ledger=True,
+                                 device=dev)
+                step = mod.make_step(grad_fn, inner, op, lr, R,
+                                     dispatch=DispatchConfig(mode=DISPATCH),
+                                     leaf_ledger=True, **kw)
+                clock = StepClock(worker_batches(x, y, R, B, T, seed=1,
+                                                 feature_key="images"))
+                gen = torch.Generator(device=dev).manual_seed(WRAP["seed"])
+                torch.cuda.synchronize()
+                reset_launches()
+                state, losses = mod.run(state, step, clock, mask, gen)
+                torch.cuda.synchronize()
+                runs[driver] = (state, losses, dict(LAUNCHES),
+                                clock.step_ms())
+            (st, losses, launches, step_ms) = runs[wrapper]
+            ref_st, ref_losses, _, _ = runs["engine"]
+            _same_state(st, ref_st, name)
+            if losses != ref_losses:
+                raise AssertionError(f"{name}: losses differ")
+            up_gap = _group_ledger_total(st.leaf_bits, st.bits, name)
+            down_gap = _group_ledger_total(st.leaf_bits_down, st.bits_down,
+                                           name)
+            any_sync = mask.reshape(T, -1).any(axis=1)
+            n_syncs = int(any_sync.sum())
+            kern, per_sync = WANT_PER_SYNC[name]
+            if launches[kern] != per_sync * n_syncs or sum(
+                    launches.values()) != launches[kern]:
+                raise AssertionError(f"{name} via {wrapper}: launches "
+                                     f"{launches} in {n_syncs} syncs")
+            if not all(np.isfinite(losses)):
+                raise AssertionError(f"{name}: loss not finite: {losses}")
+            for k, v in launches.items():
+                totals[k] += v
+            local = [ms for ms, s in zip(step_ms, any_sync) if not s]
+            sync = [ms for ms, s in zip(step_ms, any_sync) if s]
+            # an async mask may sync some worker at every step
+            local_ms = float(np.mean(local[1:] or local)) if local else None
+            row = {"operator": name, "wrapper": wrapper, "loss": losses,
+                   "rounds": st.rounds, "bits_up": float(st.bits),
+                   "bits_down": float(st.bits_down),
+                   "leaf_groups": list(engine.leaf_group_names(st.master)),
+                   "leaf_bits": st.leaf_bits.tolist(),
+                   "leaf_bits_down": st.leaf_bits_down.tolist(),
+                   "groups_vs_total_rel_gap": [up_gap, down_gap],
+                   "launches_per_sync": launches[kern] / n_syncs,
+                   "ms_per_step": step_ms,
+                   "ms_per_local_step": local_ms,
+                   "ms_per_sync_step": float(np.mean(sync))}
+            print("wrappers", json.dumps(row), flush=True)
+            del runs, st, ref_st
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return totals
+
+
+def convex_run(dev, method: dict, dispatch: str, rng=None):
+    """One of the paper's convex runs (softmax regression on mnist_like,
+    d = 7850) through ``train``: its History, launches and step times."""
+    import numpy as np
+    import torch
+    from repro_torch.core.operators import make_operator
+    from repro_torch.data import mnist_like, worker_batches
+    from repro_torch.kernels.launch_stats import LAUNCHES, reset_launches
+    from repro_torch.models import softmax
+    from repro_torch.optim import inverse_time, sgd
+    from repro_torch.train import RunConfig, train
+    from repro_torch.tree import value_and_grad
+    x, y = mnist_like(CONVEX["n"], seed=0)
+    cfg = softmax.SoftmaxConfig(l2=1.0 / len(x))
+    grad_fn = value_and_grad(lambda p, b: softmax.loss_fn(p, b, cfg)[0])
+    R_, T_ = method["R"], method["T"]
+    run = RunConfig(total_steps=T_, R=R_, H=method["H"],
+                    log_every=method["log_every"], seed=0,
+                    target_loss=CONVEX["target"], dispatch=dispatch)
+    clock = StepClock(worker_batches(x, y, R_, CONVEX["b"], T_,
+                                     seed=method["batch_seed"]))
+    torch.cuda.synchronize()
+    reset_launches()
+    _, hist = train(grad_fn, softmax.init_params(cfg, device=dev), sgd(),
+                    make_operator(method["op"], **method["kw"]),
+                    inverse_time(60.0, 100.0), clock, run, device=dev,
+                    rng=rng)
+    torch.cuda.synchronize()
+    return hist, dict(LAUNCHES), float(np.mean(clock.step_ms()[1:]))
+
+
+def qsgd_uniforms(dev, method: dict, dispatch: str):
+    """One draw of the run's uniforms for EF-QSGD, handed out in the order
+    each dispatch mode consumes them (leaf by leaf; "auto" a worker at a
+    time, "kernel" a leaf's workers as one [R, d] draw), so that both
+    modes quantize with the same randomness."""
+    import torch
+    from repro_torch.core.operators import Uniforms
+    g = torch.Generator(device=dev).manual_seed(7)
+    R_ = method["R"]
+    feed = []
+    for _ in range(method["T"]):                 # H = 1: a sync a step
+        for d in CONVEX["leaves"]:
+            u = torch.rand((R_, d), generator=g, device=dev)
+            feed += [u] if dispatch == "kernel" else list(u.unbind(0))
+    return Uniforms(feed)
+
+
+def phase_convex(dev):
+    """The paper's Section 5.2 problem on the card: the quickstart's two
+    methods (R = 8, T = 300) and bench_convex's methods that reach a
+    kernel rule or share its draws (R = 15, T = 400), each once under
+    dispatch "auto" (these leaves, 7,840 and 10 floats, are below the
+    kernels' min_size: the reference operators) and once under
+    "kernel".  Where no kernel rule applies the two runs are one
+    computation and must agree exactly; EF-QSGD gets the same uniforms in
+    both modes and is held within CONVEX_TOL (the kernel's norm sums in
+    another order, so a level can round the other way); Top_k's kernel
+    keeps every coordinate tied with its threshold (``repro``'s rule)
+    where the reference keeps exactly k, so its bits may only grow.
+    Before the runs, both kernels are held to their plain versions at
+    the shapes the dispatcher builds here: a leaf's R rows zero-padded
+    to 128 columns, Top_k's k resolved per leaf.  Returns the launches
+    under "kernel" and those checks."""
+    import numpy as np
+    from repro_torch.core.operators import resolve_k
+    from repro_torch.kernels.dispatch import LANES
+    checks = {"topk": [], "qsgd": []}
+    for method in CONVEX["methods"]:
+        kern = method.get("kernel")
+        for d in CONVEX["leaves"] if kern else ():
+            n = -(-d // LANES) * LANES
+            if kern == "topk_compress":
+                row = check_topk(dev, method["R"], n,
+                                 resolve_k(method["kw"]["k"], d), False, 20,
+                                 live=d)
+            else:
+                row = check_qsgd(dev, method["R"], n, method["kw"]["s"], 20,
+                                 live=d)
+            checks["topk" if kern == "topk_compress" else "qsgd"].append(row)
+            print("kernel check", kern, json.dumps(row), flush=True)
+    totals = {}
+    for method in CONVEX["methods"]:
+        name = method["name"]
+        out = {}
+        for dispatch in ("auto", "kernel"):
+            rng = (qsgd_uniforms(dev, method, dispatch)
+                   if method["op"] == "qsgd" else None)
+            out[dispatch] = convex_run(dev, method, dispatch, rng)
+            if rng is not None and rng.remaining():
+                raise AssertionError(f"{name}: {rng.remaining()} uniforms "
+                                     "left over")
+        (ha, la, msa), (hk, lk, msk) = out["auto"], out["kernel"]
+        if any(la.values()):
+            raise AssertionError(f"{name}: auto launched {la}")
+        kern = method.get("kernel")
+        n_syncs = hk.rounds[-1]
+        want = {kern: method["per_sync"] * n_syncs} if kern else {}
+        if {k: v for k, v in lk.items() if v} != want:
+            raise AssertionError(f"{name}: kernel launches {lk}, want "
+                                 f"{want}")
+        if ha.rounds != hk.rounds or ha.steps != hk.steps:
+            raise AssertionError(f"{name}: rounds differ")
+        bits_rel = max(abs(a - b) / a for a, b in zip(ha.bits, hk.bits))
+        loss_rel = max(abs(a - b) / abs(a) for a, b in zip(ha.loss, hk.loss))
+        tol = CONVEX_TOL.get(method["op"])
+        if tol is None:
+            if ha.bits != hk.bits or ha.loss != hk.loss or \
+                    ha.bits_to_target != hk.bits_to_target:
+                raise AssertionError(f"{name}: auto and kernel differ "
+                                     f"({ha.bits[-1]} / {hk.bits[-1]} bits)")
+        else:
+            if bits_rel > tol["bits"] or loss_rel > tol["loss"]:
+                raise AssertionError(f"{name}: bits within {bits_rel}, "
+                                     f"losses within {loss_rel}")
+            if method["op"] == "topk" and any(
+                    b < a for a, b in zip(ha.bits, hk.bits)):
+                raise AssertionError(f"{name}: the kernel counted fewer "
+                                     "survivors than k")
+        if not all(np.isfinite(ha.loss + hk.loss)):
+            raise AssertionError(f"{name}: loss not finite")
+        row = {"method": name, "R": method["R"], "T": method["T"],
+               "H": method["H"], "rounds": hk.rounds[-1],
+               "bits": [ha.bits[-1], hk.bits[-1]],
+               "bits_to_target": [ha.bits_to_target, hk.bits_to_target],
+               "steps_to_target": [ha.steps_to_target, hk.steps_to_target],
+               "final_loss": [ha.loss[-1], hk.loss[-1]],
+               "bits_rel_gap": bits_rel, "loss_rel_gap": loss_rel,
+               "ms_per_step": [msa, msk],
+               "kernel_launches_per_sync": (lk[kern] / n_syncs if kern
+                                            else 0)}
+        print("convex", json.dumps(row), flush=True)
+        for k, v in lk.items():
+            totals[k] = totals.get(k, 0) + v
+    return totals, checks
 
 # ---------------------------------------------------------------------------
 # the serving path
@@ -929,7 +1288,8 @@ def serve_run(params, cfg, name: str, layout: dict, dev, spec: dict,
     on the host clock (a step ends in a device-to-host copy of the next
     tokens, so it is synchronous); steps that admitted a request also ran
     its prefill.  ``want_fn(eng)`` gives the launches each kernel must
-    have made; every logit must be finite."""
+    have made; every logit must be finite.  Returns the launches and the
+    greedy tokens."""
     import numpy as np
     import torch
     from repro_torch.kernels.dispatch import DispatchConfig
@@ -995,7 +1355,7 @@ def serve_run(params, cfg, name: str, layout: dict, dev, spec: dict,
                    n_pages=pool["n_pages"], preemptions=pool["preemptions"],
                    admission_stalls=pool["admission_stalls"])
     print("serve", json.dumps(row), flush=True)
-    return launches
+    return launches, outs
 
 
 def phase_serve(dev):
@@ -1039,26 +1399,29 @@ def phase_serve(dev):
                     attn: YI_LAYERS * eng.steps}
 
         for k, v in serve_run(params, cfg, name, layout, dev, SERVE,
-                              want).items():
+                              want)[0].items():
             totals[k] = totals.get(k, 0) + v
     del params
     torch.cuda.empty_cache()
     return totals
 
 
-def phase_serve_flash(dev):
+def phase_serve_flash(dev, tmp: str):
     """gemma3-1b at full width and depth (999,812,736 parameters),
     unscanned (a list of 26 per-layer dicts) so that prefill runs
     the flash-attention kernel, random bf16 weights from a seeded
     generator, compressed at load under lm_hetero, served contiguous by
     the continuous scheduler: 8 prompts of 1100-2048 tokens (past the
-    1024 window) padded to 2048, 32 new tokens each.  Returns the
-    launches."""
+    1024 window) padded to 2048, 32 new tokens each.  The compressed tree
+    is then saved as a compact-v1 checkpoint under ``tmp`` and dropped.
+    Returns the launches, and what the checkpoint phase holds the saved
+    tree to: its path, config, bytes, greedy tokens and seconds to save."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config, get_policy_preset
     from repro_torch.models import transformer as tf
     from repro_torch.serve import compressed as sc
+    from repro_torch.train import checkpoint
     from repro_torch.tree import tree_leaves
     cfg = dataclasses.replace(get_config(FLASH_SERVE["arch"]),
                               scan_layers=False, use_pallas=True)
@@ -1071,8 +1434,8 @@ def phase_serve_flash(dev):
     if n_params != cfg.param_count() or len(params["layers"]) != L:
         raise AssertionError(f"{cfg.name}: {n_params} parameters in "
                              f"{len(params['layers'])} layers")
-    params = sc.compress_tree(params, get_policy_preset("arch",
-                                                        FLASH_SERVE["arch"]))
+    policy = get_policy_preset("arch", FLASH_SERVE["arch"])
+    params = sc.compress_tree(params, policy)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     sizes = sc.tree_bytes(params)
@@ -1086,11 +1449,17 @@ def phase_serve_flash(dev):
                 "flash_decode": L * eng.steps,
                 "sparse_gemm": 7 * L * calls, "qdq_gemm": calls}
 
-    launches = serve_run(params, cfg, f"{cfg.name} unscanned contiguous", {},
-                         dev, FLASH_SERVE, want)
+    launches, outs = serve_run(params, cfg, f"{cfg.name} unscanned "
+                               "contiguous", {}, dev, FLASH_SERVE, want)
+    saved = {"path": os.path.join(tmp, "compact_unscanned"), "cfg": cfg,
+             "sizes": sizes, "outputs": outs, "want": want}
+    t0 = time.perf_counter()
+    checkpoint.save_compact(saved["path"], params, step=0,
+                            policy=policy.to_dict())
+    saved["save_s"] = time.perf_counter() - t0
     del params
     torch.cuda.empty_cache()
-    return launches
+    return launches, saved
 
 
 def phase_serve_agreement(dev, arch: str = "yi-6b", unscanned: bool = False):
@@ -1253,9 +1622,10 @@ def phase_lm_kernels(dev):
     return rows, dense
 
 
-def lm_run(wire: str, dev):
+def lm_run(wire: str, dev, ckpt=None):
     """The launcher on gemma3-1b at full size, R = 1: returns its record
-    and the launches it made (counted from 0 at its start)."""
+    and the launches it made (counted from 0 at its start).  ``ckpt``: a
+    directory for the launcher's ``--ckpt`` (the master at the end)."""
     import numpy as np
     import torch
     from repro_torch.kernels.launch_stats import LAUNCHES, reset_launches
@@ -1264,6 +1634,8 @@ def lm_run(wire: str, dev):
             "--batch", str(LM["batch"]), "--seq", str(LM["seq"]),
             "--steps", str(LM["steps"]), "--H", str(LM["H"]),
             "--wire", wire, "--dispatch", DISPATCH]
+    if ckpt:
+        argv += ["--ckpt", ckpt]
     torch.cuda.synchronize()
     reset_launches()
     rec = lt.main(argv)
@@ -1294,6 +1666,7 @@ def lm_run(wire: str, dev):
            "ms_per_sync_step": float(np.mean(sync)),
            "bits_up_per_sync": ups, "bits_down": rec["bits_down"][-1],
            "peak_device_bytes": rec["peak_device_bytes"],
+           "ckpt_s": rec.get("ckpt_s"),
            "launches_per_sync": {k: v / n_syncs for k, v in launches.items()
                                  if v},
            "launches": {k: v for k, v in launches.items() if v}}
@@ -1301,12 +1674,14 @@ def lm_run(wire: str, dev):
     return row, launches
 
 
-def phase_lm(dev):
+def phase_lm(dev, ckpt: str = None):
     """gemma3-1b through the launcher on both wires; the uplink bits of
     each sync agree between them to the float rounding of the counted
-    survivors (the same survivors, one ledger in another layout)."""
+    survivors (the same survivors, one ledger in another layout).  The
+    dense-wire run writes its master to ``ckpt`` (``--ckpt``) where one
+    is given."""
     sparse, launches = lm_run("sparse_allgather", dev)
-    dense, dense_launches = lm_run("dense_psum", dev)
+    dense, dense_launches = lm_run("dense_psum", dev, ckpt)
     for a, b in zip(sparse["bits_up_per_sync"], dense["bits_up_per_sync"]):
         # one float32 rounding of a ledger near 4e8 bits is 32 bits
         if abs(a - b) > 2.0 ** -23 * max(abs(a), abs(b)):
@@ -1396,6 +1771,176 @@ def phase_lm_ranks(dev):
 
 
 
+# ---------------------------------------------------------------------------
+# checkpoints from trainer to server
+# ---------------------------------------------------------------------------
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def launcher_serve(dev, path: str, spec: dict, extra: list):
+    """``launch/serve.py``'s ``main`` on a checkpoint: its result and the
+    launches it made."""
+    import torch
+    from repro_torch.kernels.launch_stats import LAUNCHES, reset_launches
+    from repro_torch.launch import serve as launch
+    argv = ["--arch", CKPT_SERVE["arch"], "--checkpoint", path, "--flash",
+            "--max-batch", str(spec["max_batch"]),
+            "--max-len", str(spec["max_len"]),
+            "--prompt-len", str(spec["prompt_len"]),
+            "--new-tokens", str(spec["new_tokens"]),
+            "--requests", str(spec["requests"]), "--dispatch", DISPATCH,
+            "--device", dev.type] + (["--smoke"] if CKPT_SERVE["smoke"]
+                                     else [])
+    torch.cuda.synchronize()
+    reset_launches()
+    res = launch.main(argv + extra)
+    torch.cuda.synchronize()
+    return res, dict(LAUNCHES)
+
+
+def in_process_tokens(params, cfg, spec: dict, dev) -> dict:
+    """The launcher's requests through a ServeEngine built here."""
+    from repro_torch.kernels.dispatch import DispatchConfig
+    from repro_torch.launch import serve as launch
+    from repro_torch.serve.engine import ServeEngine
+    eng = ServeEngine(params, cfg, max_batch=spec["max_batch"],
+                      max_len=spec["max_len"], prompt_pad=spec["prompt_len"],
+                      dispatch=DispatchConfig(mode=DISPATCH))
+    for p in launch.synthetic_requests(0, spec["requests"],
+                                       spec["prompt_len"], cfg.vocab):
+        eng.submit(p, max_new_tokens=spec["new_tokens"])
+    return eng.run()["outputs"]
+
+
+def phase_checkpoint_serve(dev, saved: dict, dense_path: str, tmp: str):
+    """gemma3-1b at full width served from checkpoints.  Unscanned
+    compact-v1: the unscanned serving run's tree (``saved``), loaded by
+    ``load_compact`` and served by a ServeEngine on the unscanned config
+    (prefill through ``flash_attention``): the run's greedy tokens,
+    resident bytes equal, no densify.  Through ``launch/serve.py``'s
+    ``main --checkpoint`` (the layers stacked, as the arch config says):
+    the LM run's master (the launcher's ``--ckpt``) with ``--compressed``,
+    tokens equal to compressing the restored master in-process; then that
+    compressed tree (``lm_hetero``, the manifest's policy)
+    ``save_compact``-ed and served, tokens equal to an in-process engine
+    on the same in-memory tree.  Returns the launches."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import compressed as sc
+    from repro_torch.train import checkpoint
+    totals = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+
+    # the unscanned compact-v1 checkpoint, in-process
+    cfg = saved["cfg"]
+    sc.reset_stats()
+    t0 = time.perf_counter()
+    comp = checkpoint.load_compact(saved["path"], device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    if sc.STATS["densify"] or sc.tree_bytes(comp) != saved["sizes"]:
+        raise AssertionError(f"unscanned compact: densify {sc.STATS}, "
+                             f"resident {sc.tree_bytes(comp)}, saved "
+                             f"{saved['sizes']}")
+    launches, outs = serve_run(comp, cfg, f"{cfg.name} unscanned from "
+                               "compact-v1", {}, dev, FLASH_SERVE,
+                               saved["want"])
+    if outs != saved["outputs"]:
+        raise AssertionError("unscanned compact: tokens differ from the "
+                             "tree's before it was saved")
+    add(launches)
+    row = {"checkpoint": "compact-v1", "layers": "unscanned",
+           "served_by": "load_compact + ServeEngine",
+           "bytes_on_disk": dir_bytes(saved["path"]),
+           "save_s": saved["save_s"], "load_s": load_s,
+           "resident_bytes": saved["sizes"], "tokens_equal": True,
+           "launches": {k: v for k, v in launches.items() if v}}
+    print("checkpoint serve", json.dumps(row), flush=True)
+    del comp
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(get_config(CKPT_SERVE["arch"],
+                                         smoke=CKPT_SERVE["smoke"]),
+                              use_pallas=True)
+    L = cfg.n_layers
+
+    def check(res, launches, what, source):
+        calls = res["steps"] + res["admissions"]
+        want = {"flash_decode": L * res["steps"], "sparse_gemm": 7 * L * calls,
+                "qdq_gemm": calls}
+        got = {k: v for k, v in launches.items() if v}
+        if got != want:
+            raise AssertionError(f"{what}: launches {got}, want {want}")
+        if res["stats"]["densify"]:
+            raise AssertionError(f"{what}: densified")
+        if res["source"] != source:
+            raise AssertionError(f"{what}: served from {res['source']}")
+        add(launches)
+
+    # dense, compressed once at load with the manifest's policy
+    spec = CKPT_SERVE["dense"]
+    res, launches = launcher_serve(dev, dense_path, spec, ["--compressed"])
+    check(res, launches, "dense", "dense checkpoint -> compressed at load")
+    t0 = time.perf_counter()
+    master = checkpoint.restore(dense_path, tf.init_params(None, cfg,
+                                                           device="meta"),
+                                device=dev)
+    policy = checkpoint.load_policy(dense_path)
+    params = sc.compress_tree(master, policy)
+    del master
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if res["sizes"] != sc.tree_bytes(params):
+        raise AssertionError("dense: resident bytes differ")
+    if res["outputs"] != in_process_tokens(params, cfg, spec, dev):
+        raise AssertionError("dense: the launcher's tokens differ from "
+                             "compressing the restored master in-process")
+    row = {"checkpoint": "dense", "layers": "scanned",
+           "served_by": "launch/serve.py --compressed",
+           "bytes_on_disk": dir_bytes(dense_path),
+           "load_and_compress_s": res["load_s"],
+           "in_process_restore_and_compress_s": restore_s,
+           "resident_bytes": res["sizes"], "steps": res["steps"],
+           "prefills": res["admissions"], "tokens_equal": True,
+           "launches": {k: v for k, v in launches.items() if v}}
+    print("checkpoint serve", json.dumps(row), flush=True)
+
+    # that compressed tree as compact-v1, through the launcher
+    path = os.path.join(tmp, "compact")
+    spec = CKPT_SERVE["compact"]
+    t0 = time.perf_counter()
+    checkpoint.save_compact(path, params, step=0, policy=policy.to_dict())
+    save_s = time.perf_counter() - t0
+    res, launches = launcher_serve(dev, path, spec, [])
+    check(res, launches, "compact", "compact checkpoint")
+    if res["sizes"] != sc.tree_bytes(params):
+        raise AssertionError(f"compact: resident {res['sizes']}, the tree "
+                             f"{sc.tree_bytes(params)}")
+    if res["outputs"] != in_process_tokens(params, cfg, spec, dev):
+        raise AssertionError("compact: the launcher's tokens differ from "
+                             "the in-process engine's")
+    row = {"checkpoint": "compact-v1", "layers": "scanned",
+           "served_by": "launch/serve.py", "bytes_on_disk": dir_bytes(path),
+           "save_s": save_s, "load_s": res["load_s"],
+           "resident_bytes": res["sizes"], "steps": res["steps"],
+           "prefills": res["admissions"],
+           "tokens_per_s": res["tokens_per_s"], "tokens_equal": True,
+           "launches": {k: v for k, v in launches.items() if v}}
+    print("checkpoint serve", json.dumps(row), flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return totals
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1431,15 +1976,28 @@ def main() -> int:
     flash_checks, gemma_decode, gemma_gemm = phase_flash_kernels(dev)
     runs, totals = phase_train(dev)
     phase_small_agreement(dev)
+    wrapper_totals = phase_wrappers(dev)
+    convex_totals, convex_checks = phase_convex(dev)
+    for more in (wrapper_totals, convex_totals):
+        for k, v in more.items():
+            totals[k] = totals.get(k, 0) + v
     serve_totals = phase_serve(dev)
     phase_serve_agreement(dev)
-    flash_totals = phase_serve_flash(dev)
-    for k, v in flash_totals.items():
-        serve_totals[k] = serve_totals.get(k, 0) + v
-    for arch in ("gemma3-1b", "yi-6b"):
-        phase_serve_agreement(dev, arch, unscanned=True)
-    compact, lm_topk = phase_lm_kernels(dev)
-    lm_totals = phase_lm(dev)
+    tmp = tempfile.mkdtemp(dir=os.path.join(SRC, "repro_torch", "kernels",
+                                            "build"))
+    try:
+        flash_totals, saved = phase_serve_flash(dev, tmp)
+        for arch in ("gemma3-1b", "yi-6b"):
+            phase_serve_agreement(dev, arch, unscanned=True)
+        compact, lm_topk = phase_lm_kernels(dev)
+        dense_ckpt = os.path.join(tmp, "dense")
+        lm_totals = phase_lm(dev, dense_ckpt)
+        ckpt_totals = phase_checkpoint_serve(dev, saved, dense_ckpt, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for more in (flash_totals, ckpt_totals):
+        for k, v in more.items():
+            serve_totals[k] = serve_totals.get(k, 0) + v
     phase_lm_ranks(dev)
 
     head_topk, head_qsgd = topk[1], qsgd[0]
@@ -1455,9 +2013,11 @@ def main() -> int:
          "shape": head_topk["shape"],
          # the other shapes: the long rows' cluster kernel among them
          "rows": [{"k": r["k"], "sign": r["sign"], **{
-             k: r[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
-                               "bound_ms", "bound_by", "library_ms")}}
-             for r in topk + lm_topk if r is not head_topk]},
+             k: r[k] for k in ("shape", "live", "max_abs_err", "ms",
+                               "plain_ms", "bound_ms", "bound_by",
+                               "library_ms")}}
+             for r in topk + lm_topk + convex_checks["topk"]
+             if r is not head_topk]},
         {"name": "qsgd_quantize", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/qsgd.cu",
          "replaces": "src/repro/kernels/qsgd.py:36",
@@ -1466,10 +2026,11 @@ def main() -> int:
                                        "bound_ms", "bound_by",
                                        "library_ms")},
          "shape": head_qsgd["shape"], "geometry": head_qsgd["geometry"],
-         "rows": [{k: r[k] for k in ("shape", "geometry", "max_abs_err",
+         "rows": [{k: r[k] for k in ("shape", "live", "geometry",
+                                     "max_abs_err",
                                      "ms", "plain_ms", "bound_ms",
                                      "bound_by", "library_ms")}
-                  for r in qsgd[1:]]},
+                  for r in qsgd[1:] + convex_checks["qsgd"]]},
     ]
     for name, src, replaces in (
             ("sparse_gemm", "sparse_gemm.cu", "sparse_gemm.py:90"),
@@ -1507,7 +2068,7 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:75",
-        "launches": flash_totals["flash_attention"], **{
+        "launches": serve_totals["flash_attention"], **{
             k: head[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                  "bound_by", "library_ms")},
         "shape": head["shape"], "window": head["window"],

@@ -78,18 +78,22 @@ class Channel:
         return tree_map(lambda x: torch.zeros(
             x.shape, dtype=torch.float32, device=x.device), tree)
 
-    def apply(self, rng, acc, *, batched: bool = False):
+    def apply(self, rng, acc, *, per_leaf: bool = False,
+              batched: bool = False):
         """Error-compensated compression of the accumulator ``acc``
         (the caller adds the memory in: acc = memory + payload).
 
         Returns ``(q, new_memory, bits)`` with ``new_memory == acc − q``
-        and counted wire bits.  ``batched``: ``acc``'s leaves lead with a
-        worker axis and the bits are per worker (see
-        ``channel_compress_tree``).
+        and counted wire bits.  With ``per_leaf`` a fourth element
+        carries the per-leaf bits (flatten order) for the per-leaf-group
+        ledger.  ``batched``: ``acc``'s leaves lead with a worker axis and
+        the bits, per-leaf bits included, are per worker ([B] vectors;
+        see ``channel_compress_tree``).
         """
         from repro_torch.kernels import dispatch as dsp
         return dsp.channel_compress_tree(
-            self.operator, rng, acc, self.dispatch, batched=batched)
+            self.operator, rng, acc, self.dispatch,
+            want_leaf_bits=per_leaf, batched=batched)
 
     def dense_bits(self, tree, value_bits: int = 32) -> float:
         """Exact-transmission wire cost of one broadcast of ``tree``."""

@@ -35,8 +35,13 @@ How the port differs from ``repro`` in form, not in math:
 * ``step`` and ``rounds`` are Python ints; ``bits`` / ``bits_down`` are
   float32 scalar tensors on the state's device.
 
-The per-leaf-group ledger (``leaf_ledger``) needs ``core/policy.py``
-and comes with its slice.
+The per-leaf-group ledger (``leaf_ledger``) charges each top-level
+parameter group (``leaf_group_names``) its own [G] float32 vector per
+direction, folded as ``repro`` folds it: per syncing worker the group's
+leaves in flatten order, then the workers in order.  The Algorithm 1 /
+2 wrappers (``core/qsparse.py``, ``core/async_qsparse.py``) drive this
+engine; the round, fault and overlap runtimes are still to be ported
+(ROADMAP queue 1 items 9-10).
 """
 
 from __future__ import annotations
@@ -47,11 +52,12 @@ import numpy as np
 import torch
 
 from repro_torch.core import bits as bitlib, channel as chn
+from repro_torch.core import policy as pol
 from repro_torch.core.operators import CompressionOp
 from repro_torch.device import as_tensor, resolve_device
 from repro_torch.kernels import dispatch as dsp
 from repro_torch.optim.transforms import GradientTransform, apply_updates
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 AGGREGATES = ("mean_R", "mean_S", "support_weighted")
 
@@ -69,6 +75,11 @@ class EngineState(NamedTuple):
     # unless a compressed downlink is configured (init(..., downlink=op))
     down_memory: Any = None
     bits_down: Optional[torch.Tensor] = None  # cumulative DOWNLINK bits
+    # per-leaf-group ledgers: cumulative wire bits per top-level
+    # parameter group, float32 [G] per direction (group names from
+    # ``leaf_group_names``) — None unless built with leaf_ledger=True
+    leaf_bits: Optional[torch.Tensor] = None
+    leaf_bits_down: Optional[torch.Tensor] = None
 
 
 def replicate(tree, R: int):
@@ -76,16 +87,25 @@ def replicate(tree, R: int):
     return tree_map(lambda x: x[None].repeat((R,) + (1,) * x.dim()), tree)
 
 
+def leaf_group_names(params) -> tuple:
+    """Top-level parameter-group names of the per-leaf ledger, in the
+    order ``state.leaf_bits`` / ``leaf_bits_down`` index them."""
+    return pol.leaf_groups(params)[0]
+
+
 def init(params, inner_opt: GradientTransform, R: int, downlink=None,
-         device=None) -> EngineState:
+         leaf_ledger: bool = False, device=None) -> EngineState:
     """Engine state for ``params`` (tensors or numpy arrays) on
     ``device`` (default cuda).  ``downlink``: the server→worker operator
     (or Channel) the state will be stepped with — needed here only to
-    allocate the server-side memory; None/Identity allocates nothing."""
+    allocate the server-side memory; None/Identity allocates nothing.
+    ``leaf_ledger``: allocate the per-group ledgers (pass the same flag
+    to :func:`make_step`)."""
     dev = resolve_device(device)
     master = tree_map(lambda x: as_tensor(x, dev).clone(), params)
     local = replicate(master, R)
     down = chn.as_channel(downlink, "downlink")
+    G = len(leaf_group_names(master)) if leaf_ledger else 0
     return EngineState(
         master=master,
         master_view=tree_map(torch.clone, local),
@@ -98,7 +118,21 @@ def init(params, inner_opt: GradientTransform, R: int, downlink=None,
         rounds=0,
         down_memory=None if down.is_identity() else down.init_memory(local),
         bits_down=torch.zeros((), dtype=torch.float32, device=dev),
+        leaf_bits=(torch.zeros((G,), dtype=torch.float32, device=dev)
+                   if leaf_ledger else None),
+        leaf_bits_down=(torch.zeros((G,), dtype=torch.float32, device=dev)
+                        if leaf_ledger else None),
     )
+
+
+def _group_bits(per_leaf: list, gidx: tuple, G: int) -> torch.Tensor:
+    """[G] ledger increment from per-leaf [S] bits of the S syncing
+    workers: each worker's group folds its leaves in flatten order, then
+    the workers fold in order (``repro``'s segment sum, then its sum
+    over workers; non-syncing workers add nothing there either)."""
+    per_group = [bitlib.ledger_sum([b for b, i in zip(per_leaf, gidx)
+                                    if i == g]) for g in range(G)]
+    return bitlib.ledger_sum(torch.stack(per_group).unbind(1))
 
 
 def _make_local_phase(grad_fn: Callable, inner_opt: GradientTransform,
@@ -149,6 +183,7 @@ def make_step(
     dispatch: Optional[dsp.DispatchConfig] = None,
     global_rounds: bool = False,
     downlink=None,
+    leaf_ledger: bool = False,
     aggregate: str = "mean_R",
 ):
     """Build the unified step ``(state, batch, sync_mask, rng) ->
@@ -172,6 +207,10 @@ def make_step(
     with a server-side memory (pass the same ``downlink`` to
     :func:`init`).  None/Identity keeps the exact dense broadcast and
     charges its dense cost to ``state.bits_down``.
+
+    leaf_ledger: also accumulate ``state.leaf_bits`` / ``leaf_bits_down``,
+    the wire bits per top-level parameter group (``leaf_group_names``).
+    Pure accounting: the trajectory is unchanged.
     """
     if aggregate not in AGGREGATES:
         raise ValueError(f"aggregate must be one of {AGGREGATES}, "
@@ -192,7 +231,15 @@ def make_step(
                        - h.to(torch.float32),
                        _take(state.memory, idx), _take(state.master_view, idx),
                        _take(half, idx))
-        g, m_out, bits = up_ch.apply(rng, acc, batched=True)
+        if leaf_ledger:
+            gnames, gidx = pol.leaf_groups(state.master)
+            G = len(gnames)
+            g, m_out, bits, lb = up_ch.apply(rng, acc, batched=True,
+                                             per_leaf=True)
+            new_leaf_bits = state.leaf_bits + _group_bits(lb, gidx, G)
+        else:
+            g, m_out, bits = up_ch.apply(rng, acc, batched=True)
+            new_leaf_bits = state.leaf_bits
         new_mem = _put(state.memory, idx, m_out)
         if aggregate == "mean_R":
             g_sum = tree_map(lambda gg: gg.sum(dim=0) / R, g)
@@ -212,7 +259,14 @@ def make_step(
                             - v.to(torch.float32),
                             _take(state.down_memory, idx), view_s,
                             new_master)
-            q, dm_out, dbits = down_ch.apply(rng, dacc, batched=True)
+            if leaf_ledger:
+                q, dm_out, dbits, dlb = down_ch.apply(rng, dacc, batched=True,
+                                                      per_leaf=True)
+                new_leaf_down = state.leaf_bits_down + _group_bits(
+                    dlb, gidx, G)
+            else:
+                q, dm_out, dbits = down_ch.apply(rng, dacc, batched=True)
+                new_leaf_down = state.leaf_bits_down
             new_view_s = tree_map(
                 lambda v, qq: (v.to(torch.float32) + qq).to(v.dtype),
                 view_s, q)
@@ -229,6 +283,15 @@ def make_step(
                 torch.tensor(float(n_sync), dtype=torch.float32)
                 * torch.tensor(down_ch.dense_bits(state.master),
                                dtype=torch.float32)).to(dev)
+            new_leaf_down = state.leaf_bits_down
+            if leaf_ledger:
+                # the per-receiver dense cost of each group, added leaf
+                # by leaf in flatten order
+                dense_vec = np.zeros((G,), np.float32)
+                for leaf, i in zip(tree_leaves(state.master), gidx):
+                    dense_vec[i] += np.float32(32.0 * leaf.numel())
+                new_leaf_down = new_leaf_down + torch.from_numpy(
+                    np.float32(n_sync) * dense_vec).to(dev)
         # (on an all-sync exact broadcast both are views of new_master;
         # the engine never writes a state tensor in place)
         new_view = _put(state.master_view, idx, new_view_s)
@@ -245,6 +308,8 @@ def make_step(
             rounds=state.rounds + inc,
             down_memory=new_down_mem,
             bits_down=down_bits,
+            leaf_bits=new_leaf_bits,
+            leaf_bits_down=new_leaf_down,
         )
 
     def step_fn(state: EngineState, batch, sync_mask, rng=None):
@@ -257,6 +322,10 @@ def make_step(
                 "state carries downlink error memory but this step was "
                 "built without downlink=: pass the same downlink to "
                 "make_step and init (or re-init without one)")
+        if leaf_ledger and state.leaf_bits is None:
+            raise ValueError(
+                "per-leaf ledger needs state fields: initialize with "
+                "engine.init(..., leaf_ledger=True)")
         mask = _mask_of(sync_mask, R)
         half, inner, losses = local_phase(state, batch)
         if mask.any():
@@ -282,3 +351,29 @@ def run(state: EngineState, step_fn, batches, sync_mask, rng=None
         losses.append(loss)
     return state, [float(l) for l in losses]
 
+
+# ---------------------------------------------------------------------------
+# diagnostics (Lemma 4/5/7/8 empirical quantities)
+# ---------------------------------------------------------------------------
+
+
+def memory_sq_norms(state) -> torch.Tensor:
+    """||m_t^{(r)}||_2^2 per worker (flattened over the whole tree)."""
+    leaves = tree_leaves(state.memory)
+    total = None
+    for l in leaves:
+        sq = (l.to(torch.float32) ** 2).reshape(l.shape[0], -1).sum(dim=1)
+        total = sq if total is None else total + sq
+    return total
+
+
+def local_deviation_sq(state) -> torch.Tensor:
+    """(1/R) Σ_r ||x̄ - x̂^{(r)}||^2 (Lemma 7/8 quantity), x̄ the mean
+    of the local iterates."""
+    leaves = tree_leaves(state.local)
+    total = None
+    for l in leaves:
+        x = l.to(torch.float32)
+        d = ((x - x.mean(dim=0, keepdim=True)) ** 2).sum()
+        total = d if total is None else total + d
+    return total / leaves[0].shape[0]

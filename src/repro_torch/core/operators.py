@@ -86,13 +86,23 @@ def _f32(v: float, ref: torch.Tensor) -> torch.Tensor:
     return torch.tensor(v, dtype=torch.float32, device=ref.device)
 
 
+def top_k_indices(a: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the k largest entries along the last axis in
+    ``jax.lax.top_k``'s order: value descending, ties to the lower index
+    first.  ``torch.topk`` breaks ties in no stated order, and Top_k of a
+    gradient meets exact ties (equal features across classes), so the
+    choice among tied coordinates is part of the result."""
+    return torch.sort(a, dim=-1, descending=True, stable=True).indices[
+        ..., :k]
+
+
 def _rand_subset(rng: Rng, d: int, k: int, device) -> torch.Tensor:
     """Uniform k-subset of [0, d): the indices of the k smallest of d
     uniforms (``repro``'s threshold selection)."""
     if k >= d:
         return torch.arange(d, device=device)
     u = uniform(rng, (d,), device)
-    return torch.topk(-u, k).indices
+    return top_k_indices(-u, k)
 
 
 def _scatter(d: int, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
@@ -164,7 +174,7 @@ class TopK(CompressionOp):
         d = x.numel()
         k = resolve_k(self.k, d)
         xf = x.to(torch.float32)
-        idx = torch.topk(xf.abs(), k).indices
+        idx = top_k_indices(xf.abs(), k)
         out = _scatter(d, idx, xf[idx])
         return out, _f32(bitlib.bits_topk(d, k, self.value_bits), x)
 
@@ -216,7 +226,7 @@ class RowTopK(CompressionOp):
         row = min(self.row_len, d)
         k = resolve_k(self.k, row)
         xf = _as_rows(x, row)
-        idx = torch.topk(xf.abs(), k, dim=1).indices
+        idx = top_k_indices(xf.abs(), k)
         out = _row_scatter(xf.shape, idx, torch.gather(xf, 1, idx))
         nrows = xf.shape[0]
         bits = nrows * bitlib.bits_topk(row, k, self.value_bits)
@@ -348,7 +358,7 @@ class QuantizedSparsifier(CompressionOp):
         k = resolve_k(self.k, d)
         xf = x.to(torch.float32)
         if self.sparsifier == "top":
-            idx = torch.topk(xf.abs(), k).indices
+            idx = top_k_indices(xf.abs(), k)
         else:
             idx = _rand_subset(rng, d, k, x.device)
         sel = xf[idx]  # compact k-vector: quantize it as a k-dim vector
@@ -407,7 +417,7 @@ class SignSparsifier(CompressionOp):
         k = resolve_k(self.k, d)
         xf = x.to(torch.float32)
         if self.sparsifier == "top":
-            idx = torch.topk(xf.abs(), k).indices
+            idx = top_k_indices(xf.abs(), k)
         else:
             idx = _rand_subset(rng, d, k, x.device)
         sel = xf[idx]
@@ -435,7 +445,7 @@ class RowSignTopK(CompressionOp):
         row = min(self.row_len, d)
         k = resolve_k(self.k, row)
         xf = _as_rows(x, row)
-        idx = torch.topk(xf.abs(), k, dim=1).indices
+        idx = top_k_indices(xf.abs(), k)
         sel = torch.gather(xf, 1, idx)
         norm = _norm_m(sel, self.m, dim=1)
         out = _row_scatter(xf.shape, idx, norm / _f32(k, x) * _pm_one(sel))

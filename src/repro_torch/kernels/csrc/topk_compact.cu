@@ -159,8 +159,9 @@ topk_compact_rows_kernel(const float* __restrict__ acc, int* __restrict__ idx,
   // the norm: each thread's squares in index order, the warp's
   // butterfly, the warps in order (ref.topk_compact_rows_ref, bit for
   // bit).  repro computes sign(acc) * norm / denom; sign * norm is
-  // exact, so (sign * norm) / denom == sign * (norm / denom) bit for bit
-  const float norm = sqrtf(g.fsum(sq));
+  // exact, so (sign * norm) / denom == sign * (norm / denom) bit for
+  // bit.  A row of one float: its magnitude, exactly (ref.sign_norm)
+  const float norm = n == 1 ? fabsf(__ldg(src)) : sqrtf(g.fsum(sq));
   const float scale = norm / fmaxf(static_cast<float>(cnt), 1.0f);
   auto sel_of = [&](float x, int bit) {
     return (emitted >> bit) & 1ull ? (sign ? qs::sign_of(x) * scale : x)

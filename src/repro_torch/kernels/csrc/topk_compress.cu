@@ -168,7 +168,9 @@ topk_rows_kernel(const float* __restrict__ acc, float* __restrict__ sel,
   });
   if (!sign) write(0.0f);
   const int cnt = g.sum(c);
-  const float norm = sqrtf(g.fsum(sq));
+  // a row of one float: its magnitude, exactly (ref.sign_norm); x * x
+  // would overflow past 1.8e19.  n is uniform, so the group's sum is too
+  const float norm = n == 1 ? fabsf(__ldg(src)) : sqrtf(g.fsum(sq));
   // repro computes sign(acc) * norm / denom; sign * norm is exact, so
   // (sign * norm) / denom == sign * (norm / denom) bit for bit
   if (sign) write(norm / fmaxf(static_cast<float>(cnt), 1.0f));

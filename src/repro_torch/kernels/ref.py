@@ -12,6 +12,16 @@ import numpy as np
 import torch
 
 
+def sign_norm(sel: torch.Tensor) -> torch.Tensor:
+    """SignTop_k's norm, [rows, 1]: ||sel||_2 of each row of survivors.
+    A row of one float's norm is that float's magnitude, exactly, as in
+    ``repro`` compiled (XLA folds the one-term sum of squares to |x|);
+    summing the square would overflow past |x| = 1.8e19."""
+    if sel.shape[1] == 1:
+        return sel.abs()
+    return torch.sqrt((sel * sel).sum(dim=1, keepdim=True))
+
+
 def topk_compress_ref(acc: torch.Tensor, k: int, *, iters: int = 24,
                       sign: bool = False):
     """acc: [rows, n] error-compensated accumulator (m + x - x̂).
@@ -46,7 +56,7 @@ def topk_compress_ref(acc: torch.Tensor, k: int, *, iters: int = 24,
     zero = torch.zeros((), dtype=torch.float32, device=a.device)
     sel = torch.where(mask, accf, zero)
     if sign:
-        norm = torch.sqrt((sel * sel).sum(dim=1, keepdim=True))
+        norm = sign_norm(sel)
         denom = torch.clamp(cnt[:, None].to(torch.float32), min=1.0)
         sel = torch.where(mask, torch.sign(accf) * norm / denom, zero)
     return sel, accf - sel, cnt
@@ -227,7 +237,7 @@ def topk_threshold_select_ref(acc: torch.Tensor, k: int, *, iters: int = 24,
     zero = torch.zeros((), dtype=torch.float32, device=a.device)
     sel = torch.where(mask, accf, zero)
     if sign:
-        norm = torch.sqrt((sel * sel).sum(dim=1, keepdim=True))
+        norm = sign_norm(sel)
         denom = torch.clamp(cnt[:, None].to(torch.float32), min=1.0)
         sel = torch.where(mask, torch.sign(accf) * norm / denom, zero)
     return sel, accf - sel, cnt, t[:, 0]
@@ -270,7 +280,7 @@ def topk_compact_ref(acc: torch.Tensor, k: int, kcap: int, *,
     zero = torch.zeros((), dtype=torch.float32, device=a.device)
     sel = torch.where(emit, accf, zero)
     if sign:
-        norm = torch.sqrt((sel * sel).sum(dim=1, keepdim=True))
+        norm = sign_norm(sel)
         denom = torch.clamp(cnt[:, None].to(torch.float32), min=1.0)
         sel = torch.where(emit, torch.sign(accf) * norm / denom, zero)
     r, c = emit.nonzero(as_tuple=True)
@@ -307,7 +317,8 @@ def topk_compact_rows_ref(acc: torch.Tensor, k: int, kcap: int, *,
     ``kcap``.  The SignTop_k norm is the kernel's float sum: each
     thread's emitted squares in index order (each product rounded, then
     added), a butterfly over the warp's lanes (xor 16, 8, 4, 2, 1), the
-    warps' sums from 0 in order.
+    warps' sums from 0 in order; a row of one float's is its magnitude
+    (:func:`sign_norm`).
 
     Returns (idx [rows, kcap] int32, val [rows, kcap] float32,
     new_memory [rows, n] float32, count_per_row int32)."""
@@ -353,7 +364,9 @@ def topk_compact_rows_ref(acc: torch.Tensor, k: int, kcap: int, *,
         norm_sq = torch.zeros(rows, dtype=torch.float32, device=dev)
         for w in range(rw):
             norm_sq = norm_sq + sq[:, w, 0]
-    scale = torch.sqrt(norm_sq) / torch.clamp(cnt.to(torch.float32), min=1.0)
+    norm = (xe[:, 0, 0, 0].abs() if n == 1 else    # as sign_norm
+            torch.sqrt(norm_sq))
+    scale = norm / torch.clamp(cnt.to(torch.float32), min=1.0)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     sel = torch.where(emit, torch.sign(x) * scale[:, None] if sign else x,
                       zero)

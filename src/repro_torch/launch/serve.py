@@ -1,14 +1,21 @@
-"""Serving launcher: a (compressed) dense transformer through the
+"""Serving launcher: checkpoints (or a random init) through the
 continuous-batching engine, on the card (a port of
 ``repro.launch.serve``, with the same flags).
 
-Without ``--checkpoint`` it serves a random init from ``--seed``, as
-``repro``'s does; under ``--compressed`` the weights are compressed once
-at load with ``--policy`` (default: the arch's preset).  Loading a
-checkpoint waits for the checkpoint module (ROADMAP queue 1 items 7 and
-14).  ``--flash`` routes decode attention through the flash-decode
-kernel (with ``--paged``: the paged-decode kernel).
+A compact serving checkpoint (``checkpoint.save_compact``) is served as
+it is, in compressed form.  A dense training checkpoint is restored into
+the model's structure and, under ``--compressed``, compressed once at
+load with ``--policy``, else the policy in its manifest, else the arch
+preset.  Without ``--checkpoint`` it serves a random init from
+``--seed``.  ``--flash`` routes decode attention through the
+flash-decode kernel (with ``--paged``: the paged-decode kernel).
 
+  # train, then serve the smoke model compressed:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b --smoke \\
+      --mesh 1x1 --steps 4 --ckpt ck
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --smoke \\
+      --checkpoint ck --compressed
+  # Yi-6B at full size from a random init:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b \\
       --compressed --paged --kv-quant --flash --max-batch 8 --max-len 512 \\
       --prompt-len 128 --new-tokens 64 --requests 16
@@ -19,7 +26,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-import os
+import time
 
 import numpy as np
 import torch
@@ -32,45 +39,53 @@ from repro_torch.kernels.dispatch import DispatchConfig
 from repro_torch.models import get_model
 from repro_torch.serve import compressed as sc
 from repro_torch.serve.engine import ServeEngine
-
-#: ``repro.train.checkpoint.COMPACT_FORMAT``: a manifest naming it holds a
-#: compact serving checkpoint
-COMPACT_FORMAT = "compact-v1"
+from repro_torch.train import checkpoint
 
 
-def resolve_policy(arg, arch):
+def resolve_policy(arg, checkpoint_path, arch):
     """Policy used for --compressed: an explicit --policy (DSL string,
-    @file.json, or preset:<name> | preset:arch), else the arch preset."""
+    @file.json, or preset:<name> | preset:arch) wins; else the spec in
+    the checkpoint's manifest; else the arch preset."""
     if arg:
         if arg.startswith("preset:"):
             return get_policy_preset(arg[len("preset:"):], arch)
         return pol.load(arg)
+    if checkpoint_path:
+        spec = checkpoint.load_policy(checkpoint_path)
+        if spec is not None:
+            return spec
     return get_policy_preset("arch", arch)
 
 
-def _refuse_checkpoint(path: str):
-    compact = False
-    mpath = os.path.join(path, "manifest.json")
-    if os.path.exists(mpath):
-        with open(mpath) as f:
-            compact = json.load(f).get("format") == COMPACT_FORMAT
-    item = ("14 (compact-v1 checkpoints, train/checkpoint.py load_compact)"
-            if compact else "7 (train/checkpoint.py restore)")
-    raise NotImplementedError(
-        f"loading checkpoints is not ported to repro_torch yet: ROADMAP "
-        f"queue 1 item {item}")
+def synthetic_requests(seed: int, n: int, prompt_len: int, vocab: int):
+    """The launcher's ``n`` synthetic prompts: lengths drawn from
+    [max(2, prompt_len // 2), prompt_len], tokens uniform, from ``seed``."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        plen = int(rng.randint(max(2, prompt_len // 2), prompt_len + 1))
+        out.append(rng.randint(0, vocab, plen).tolist())
+    return out
 
 
 def load_params(args, cfg, model, device):
-    """(params, source): a random init from --seed (checkpoints are not
-    ported yet), compressed at load under --compressed."""
+    """(params, source): a compact checkpoint stays compressed; a dense
+    one is restored into the model's structure (built on the ``meta``
+    device: shapes and dtypes without storage, so no second copy of the
+    weights is ever allocated) and compressed once under --compressed."""
+    if args.checkpoint and checkpoint.is_compact(args.checkpoint):
+        return (checkpoint.load_compact(args.checkpoint, device=device),
+                "compact checkpoint")
     if args.checkpoint:
-        _refuse_checkpoint(args.checkpoint)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = model.init_params(gen, cfg, device=device)
-    src = "random init (no --checkpoint)"
+        like = model.init_params(None, cfg, device="meta")
+        params = checkpoint.restore(args.checkpoint, like, device=device)
+        src = "dense checkpoint"
+    else:
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        params = model.init_params(gen, cfg, device=device)
+        src = "random init (no --checkpoint)"
     if args.compressed:
-        policy = resolve_policy(args.policy, args.arch)
+        policy = resolve_policy(args.policy, args.checkpoint, args.arch)
         params = sc.compress_tree(params, policy)
         src += " -> compressed at load"
     return params, src
@@ -82,15 +97,16 @@ def main(argv=None):
     ap.add_argument("--arch", choices=sorted(ARCHS), required=True)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--checkpoint", default=None,
-                    help="dense or compact checkpoint directory (not "
-                         "ported yet: raises)")
+                    help="dense (train --ckpt) or compact "
+                         "(save_compact) checkpoint directory")
     ap.add_argument("--compressed", action="store_true",
                     help="serve from compressed weights (policy-guided "
-                         "one-shot compression at load)")
+                         "one-shot compression of a dense checkpoint or "
+                         "random init at load)")
     ap.add_argument("--policy", default=None,
                     help="compression policy: DSL string, @file.json, "
                          "preset:<name> or preset:arch (default: the "
-                         "arch preset)")
+                         "checkpoint's own spec, else the arch preset)")
     ap.add_argument("--scheduler", choices=("continuous", "static"),
                     default="continuous")
     ap.add_argument("--max-batch", type=int, default=4,
@@ -140,10 +156,16 @@ def main(argv=None):
     model = get_model(cfg)
     dispatch = DispatchConfig(mode=args.dispatch)
 
+    t0 = time.perf_counter()
     params, source = load_params(args, cfg, model, device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    load_s = time.perf_counter() - t0
     sc.reset_stats()
     sizes = sc.tree_bytes(params)
-    print(f"arch={args.arch} device={device} source: {source}")
+    print(f"arch={args.arch} device={device} source: {source} "
+          f"({'scanned' if cfg.scan_layers else 'unscanned'} layers, "
+          f"loaded in {load_s:.2f}s)")
     print(f"resident params: {sizes['compressed'] / 1e6:.2f} MB "
           f"(dense equivalent {sizes['dense'] / 1e6:.2f} MB, "
           f"{sizes['leaves']} leaves)")
@@ -153,12 +175,9 @@ def main(argv=None):
                       scheduler=args.scheduler, paged=args.paged,
                       page_size=args.page_size, kv_quant=args.kv_quant,
                       kv_pool_pages=args.kv_pool_pages, dispatch=dispatch)
-    rng = np.random.RandomState(args.seed)
-    for _ in range(args.requests):
-        plen = int(rng.randint(max(2, args.prompt_len // 2),
-                               args.prompt_len + 1))
-        eng.submit(rng.randint(0, cfg.vocab, plen).tolist(),
-                   max_new_tokens=args.new_tokens)
+    for prompt in synthetic_requests(args.seed, args.requests,
+                                     args.prompt_len, cfg.vocab):
+        eng.submit(prompt, max_new_tokens=args.new_tokens)
     res = eng.run()
 
     mets = sorted(res["metrics"].values(), key=lambda m: m.rid)
@@ -198,6 +217,8 @@ def main(argv=None):
                 payload["pool"] = res["pool"]
             json.dump(payload, f, indent=2)
     print("sample:", res["outputs"].get(0, [])[:10])
+    return {**res, "source": source, "load_s": load_s, "sizes": sizes,
+            "stats": dict(sc.STATS), "admissions": eng.admissions}
 
 
 if __name__ == "__main__":

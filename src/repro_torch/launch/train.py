@@ -294,8 +294,10 @@ def _run(args, channel_spec, mesh) -> dict:
     if args.ckpt and mesh.rank == 0:
         # the policy rides along so a resume reproduces the per-leaf
         # operators (and so the bits)
+        t_save = time.perf_counter()
         checkpoint.save(args.ckpt, state.master, step=args.steps,
                         policy=channel_spec.to_dict())
+        rec["ckpt_s"] = time.perf_counter() - t_save
         say("checkpoint saved to", args.ckpt, flush=True)
     rec.update(R=R, rounds=state.rounds, wall_s=dt,
                n_params=sum(p.numel() for p in tree_leaves(state.master)))

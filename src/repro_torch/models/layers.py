@@ -36,7 +36,11 @@ NEG_INF = ref.NEG_INF
 def dense_init(gen: torch.Generator, shape, dtype=torch.float32,
                scale: Optional[float] = None, device=None) -> torch.Tensor:
     """N(0, 1) * scale (default fan_in ** -0.5), drawn from ``gen`` on
-    the generator's device and moved to ``device``."""
+    the generator's device and moved to ``device``.  On the ``meta``
+    device nothing is drawn (``gen`` may be None): the tensor has the
+    shape and dtype and no storage, a structure to restore into."""
+    if torch.device(device if device is not None else "cpu").type == "meta":
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     s = scale if scale is not None else fan_in ** -0.5
     w = torch.randn(tuple(shape), generator=gen, device=gen.device,

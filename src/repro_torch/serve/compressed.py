@@ -34,6 +34,7 @@ from repro_torch.core.operators import (
     TopK,
     ops_for_leaves,
     resolve_k,
+    top_k_indices,
 )
 from repro_torch.kernels import dispatch as dsp
 from repro_torch.tree import tree_leaves, tree_unflatten
@@ -45,6 +46,8 @@ STATS = {"densify": 0, "sparse_matmul": 0, "quant_matmul": 0,
 
 #: QSGD serving levels are stored as int8 sign * xi
 _MAX_LEVELS = 127
+#: elements of one block of rows sorted at once by the Top_k selection
+_SORT_ELEMS = 1 << 24
 
 
 def reset_stats() -> None:
@@ -212,7 +215,12 @@ def _sparse_rows(m: torch.Tensor, k_row: int, kcap: int, sign_m: int):
     sentinel ``(n, 0)`` after them.  ``sign_m`` > 0 codes the values as
     SignComp_k does: sign times ||sel||_m / k."""
     R, n = m.shape
-    _, idx = torch.topk(m.abs(), k_row, dim=1)
+    # top_k_indices sorts whole rows: a block of rows at a time bounds
+    # the sort's index buffer at _SORT_ELEMS int64s
+    step = max(1, _SORT_ELEMS // max(n, 1))
+    idx = torch.cat([top_k_indices(m[i:i + step].abs(), k_row)
+                     for i in range(0, R, step)]) if R else \
+        torch.zeros((0, k_row), dtype=torch.int64, device=m.device)
     idx, _ = torch.sort(idx, dim=1)
     vals = torch.gather(m, 1, idx)
     if sign_m in (1, 2):

@@ -1,14 +1,20 @@
-"""Dense checkpoints: a flat ``arrays.npz`` plus a ``manifest.json`` of
-the tree's key paths (a port of ``repro.train.checkpoint``'s ``save``,
-``restore`` and ``load_policy``).
+"""Checkpoints: a flat ``arrays.npz`` plus a ``manifest.json`` of the
+tree's key paths (a port of ``repro.train.checkpoint``'s dense ``save``
+/ ``restore`` / ``load_policy``, the compact serving format
+``compact-v1`` and the ``latest_step`` / ``latest_full`` helpers).
 
-The format is ``repro``'s, byte for byte in meaning, so a checkpoint
+The formats are ``repro``'s, byte for byte in meaning, so a checkpoint
 written by either package loads in the other: leaves are named ``a<i>``
 in flatten order (dict keys sorted, as ``jax.tree_util`` walks them),
 each manifest entry holds the leaf's '/'-joined path and dtype name, and
 numpy's missing types travel as views (bfloat16 as uint16, the float8
-types as uint8).  The compact serving format (``compact-v1``) is ROADMAP
-queue 1 item 14.
+types as uint8).  A compact checkpoint (``save_compact``) keeps each
+compressed serving leaf's ``(idx, val)`` / ``(levels, scale)`` buffers
+as ``a<i>_a`` / ``a<i>_b`` with its layout in the manifest, and
+``load_compact`` rebuilds the serving tree from the manifest alone,
+never forming a dense weight.  The full train-state snapshots
+(``save_train_state`` / ``restore_train_state``) are ROADMAP queue 1
+item 10.
 """
 
 from __future__ import annotations
@@ -20,8 +26,12 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.tree import tree_flatten, tree_flatten_with_path, \
     tree_unflatten
+
+#: the manifest ``format`` of a compact serving checkpoint
+COMPACT_FORMAT = "compact-v1"
 
 #: dtype name -> (torch dtype, the integer type of its width, the numpy
 #: type it is stored as)
@@ -76,10 +86,12 @@ def save(path: str, tree: Any, step: Optional[int] = None,
         json.dump(manifest, f, indent=2)
 
 
-def restore(path: str, like: Any) -> Any:
+def restore(path: str, like: Any, device=None) -> Any:
     """The checkpoint at ``path`` in the structure of ``like`` (e.g.
-    freshly initialized parameters), each leaf cast to its ``like``
-    leaf's dtype and put on its device."""
+    freshly initialized parameters, or their shapes on the ``meta``
+    device), each leaf cast to its ``like`` leaf's dtype and put on
+    ``device`` (default: the ``like`` leaf's device).  Leaves are read
+    one at a time, so the host holds one array at a time."""
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     leaves_like, spec = tree_flatten(like)
@@ -91,7 +103,12 @@ def restore(path: str, like: Any) -> Any:
     with np.load(os.path.join(path, "arrays.npz")) as data:
         for e, ref in zip(manifest["keys"], leaves_like):
             t = _from_numpy(data[e["name"]], e["dtype"])
-            out.append(t.to(device=ref.device, dtype=ref.dtype))
+            if tuple(t.shape) != tuple(ref.shape):
+                raise ValueError(
+                    f"checkpoint leaf {e['path']} has shape "
+                    f"{tuple(t.shape)}, target {tuple(ref.shape)}")
+            out.append(t.to(device=ref.device if device is None
+                            else device, dtype=ref.dtype))
     return tree_unflatten(spec, out)
 
 
@@ -105,3 +122,125 @@ def load_policy(path: str):
         return None
     from repro_torch.core import policy as pol
     return pol.from_dict(d)
+
+
+def _path_key(key: tuple) -> str:
+    return "/".join(str(k) for k in key)
+
+
+def _nest_paths(items):
+    """A nested tree from ('/'-joined path, value) pairs: all-numeric key
+    levels become lists (list indices are numeric path components)."""
+    if len(items) == 1 and items[0][0] == "":
+        return items[0][1]
+    root: dict = {}
+    for key, v in items:
+        parts = key.split("/")
+        d = root
+        for p in parts[:-1]:
+            d = d.setdefault(p, {})
+        d[parts[-1]] = v
+
+    def conv(d):
+        if not isinstance(d, dict):
+            return d
+        if d and all(k.isdigit() for k in d):
+            return [conv(d[k]) for k in sorted(d, key=int)]
+        return {k: conv(v) for k, v in d.items()}
+
+    return conv(root)
+
+
+def is_compact(path: str) -> bool:
+    """True when ``path`` holds a compact-format serving checkpoint."""
+    mpath = os.path.join(path, "manifest.json")
+    if not os.path.exists(mpath):
+        return False
+    with open(mpath) as f:
+        return json.load(f).get("format") == COMPACT_FORMAT
+
+
+def save_compact(path: str, tree: Any, step: Optional[int] = None,
+                 policy: Optional[dict] = None) -> None:
+    """Write a serving tree (``serve.compressed.compress_tree`` output)
+    in compact form: compressed leaves keep their two buffers plus their
+    layout (kind, row_len, shape, out_axis, dtype, op); dense leaves are
+    saved as they are."""
+    from repro_torch.serve.compressed import CompressedTensor
+    os.makedirs(path, exist_ok=True)
+    items, _ = tree_flatten_with_path(
+        tree, is_leaf=lambda x: isinstance(x, CompressedTensor))
+    arrays = {}
+    manifest = {"format": COMPACT_FORMAT, "keys": [], "step": step}
+    if policy is not None:
+        manifest["policy"] = policy
+    for i, (key, leaf) in enumerate(items):
+        name = f"a{i}"
+        if isinstance(leaf, CompressedTensor):
+            arrays[name + "_a"] = leaf.a.detach().cpu().contiguous().numpy()
+            arrays[name + "_b"] = leaf.b.detach().cpu().contiguous().numpy()
+            manifest["keys"].append({
+                "name": name, "path": _path_key(key), "kind": leaf.kind,
+                "row_len": leaf.row_len, "shape": list(leaf.shape),
+                "out_axis": leaf.out_axis, "dtype": leaf.dtype,
+                "op": leaf.op,
+            })
+        else:
+            arrays[name], dtype = _to_numpy(leaf)
+            manifest["keys"].append({"name": name, "path": _path_key(key),
+                                     "kind": "dense", "dtype": dtype})
+    np.savez(os.path.join(path, "arrays.npz"), **arrays)
+    with open(os.path.join(path, "manifest.json"), "w") as f:
+        json.dump(manifest, f, indent=2)
+
+
+def load_compact(path: str, device=None) -> Any:
+    """The serving tree of a compact checkpoint on ``device`` (default
+    cuda).  Compressed leaves come back as ``CompressedTensor`` holding
+    exactly the stored buffers: no dense weight is formed (the
+    ``densify`` counter does not move)."""
+    from repro_torch.serve.compressed import CompressedTensor
+    dev = resolve_device(device)
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    if manifest.get("format") != COMPACT_FORMAT:
+        raise ValueError(f"{path} is not a {COMPACT_FORMAT} checkpoint")
+    items = []
+    with np.load(os.path.join(path, "arrays.npz")) as data:
+        for e in manifest["keys"]:
+            if e["kind"] == "dense":
+                items.append((e["path"], _from_numpy(
+                    data[e["name"]], e["dtype"]).to(dev)))
+                continue
+            a, b = (torch.from_numpy(np.array(data[e["name"] + sfx]))
+                    .to(dev) for sfx in ("_a", "_b"))
+            items.append((e["path"], CompressedTensor(
+                e["kind"], a, b, e["row_len"], tuple(e["shape"]),
+                e["out_axis"], e["dtype"], e.get("op", ""))))
+    return _nest_paths(items)
+
+
+def _latest(root: str, prefix: str, number) -> Optional[int]:
+    if not os.path.isdir(root):
+        return None
+    steps = []
+    for d in os.listdir(root):
+        if d.startswith(prefix):
+            try:
+                steps.append(int(number(d)))
+            except ValueError:
+                pass
+    return max(steps) if steps else None
+
+
+def latest_step(root: str) -> Optional[int]:
+    """Latest ``step_<N>`` master checkpoint under ``root`` (None if
+    there is none)."""
+    return _latest(root, "step_", lambda d: d.split("_")[1])
+
+
+def latest_full(root: str) -> Optional[int]:
+    """Latest ``full_step_<N>`` train-state snapshot under ``root``
+    (None if there is none; ``repro`` writes them, the port does not
+    yet: ROADMAP queue 1 item 10)."""
+    return _latest(root, "full_step_", lambda d: d.rsplit("_", 1)[1])

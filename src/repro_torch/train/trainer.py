@@ -11,13 +11,15 @@ launch per bucket per sync round.
 Compression comes from ``RunConfig.policy`` (a ``core.policy`` spec
 resolved per leaf against the parameters, uplink and optional downlink)
 or from the ``operator`` argument plus ``RunConfig.downlink_op``, as in
-``repro``.
+``repro``.  ``leaf_ledger`` keeps the per-group ledgers in ``History``;
+``ckpt_dir`` writes the master as ``step_<N>`` at every ``ckpt_every``
+steps and as ``final`` at the end, with the policy in the manifest.
 
 ``RunConfig`` keeps the ``repro`` fields that switch a module on.  Those
 whose modules have not been ported yet raise ``NotImplementedError``
 naming their ROADMAP item; the fields that only tune such a module
-(``ckpt_every``, ``overlap_window``, ``retune``, ``fault_seed``,
-``staleness_weight``) arrive with it.  ``runtime`` defaults to
+(``overlap_window``, ``retune``, ``fault_seed``, ``staleness_weight``)
+arrive with it.  ``runtime`` defaults to
 ``"step"``, the only runtime so far
 (``repro`` pins its round runtime to the step runtime, so ``History`` is
 the same either way).
@@ -37,6 +39,7 @@ from repro_torch.core.operators import CompressionOp
 from repro_torch.device import as_tensor, resolve_device
 from repro_torch.kernels.dispatch import DispatchConfig
 from repro_torch.optim.transforms import GradientTransform
+from repro_torch.train import checkpoint
 from repro_torch.tree import tree_map
 
 
@@ -50,6 +53,7 @@ class RunConfig:
     log_every: int = 50
     eval_every: int = 0
     ckpt_dir: Optional[str] = None
+    ckpt_every: int = 0
     target_loss: Optional[float] = None
     dispatch: str = "auto"  # "auto" | "kernel" | "reference"
     pack: bool = True       # megabuffer-pack same-bucket leaves per round
@@ -75,12 +79,10 @@ class RunConfig:
 _NOT_YET = (
     ("runtime", "step", "queue 1 item 9 (round runtime)"),
     ("overlap", False, "queue 1 item 9 (round runtime, overlap)"),
-    ("leaf_ledger", False, "queue 1 item 5 (engine leaf_ledger)"),
     ("scenario", None, "queue 1 item 10 (scenarios)"),
     ("faults", None, "queue 1 item 10 (faults)"),
     ("tune", False, "queue 1 item 11 (kernels/autotune.py)"),
-    ("ckpt_dir", None, "queue 1 item 7 (train/checkpoint.py)"),
-    ("resume", False, "queue 1 item 7 (train/checkpoint.py)"),
+    ("resume", False, "queue 1 item 10 (checkpoint.restore_train_state)"),
 )
 
 
@@ -96,10 +98,12 @@ def _check_ported(run: RunConfig) -> None:
 
 
 def resolve_run_channels(operator, run: RunConfig, params):
-    """(uplink_tree, downlink_tree | None) from ``run.policy``, or from
-    the ``operator`` argument and ``run.downlink_op`` (an operator or a
-    registry-validated spec string), as ``repro``'s trainer resolves
-    them."""
+    """(uplink_tree, downlink_tree | None, channel_spec | None) from
+    ``run.policy``, or from the ``operator`` argument and
+    ``run.downlink_op`` (an operator or a registry-validated spec
+    string), as ``repro``'s trainer resolves them.  ``channel_spec`` is
+    the serializable spec kept in checkpoints when the policy surface
+    was used."""
     if run.policy is not None:
         if operator is not None:
             raise ValueError(
@@ -109,7 +113,9 @@ def resolve_run_channels(operator, run: RunConfig, params):
             raise ValueError(
                 "RunConfig.downlink_op conflicts with RunConfig.policy; "
                 "put the downlink in the policy ('uplink >> downlink')")
-        return pol.as_channel_spec(run.policy).resolve(params)
+        spec = pol.as_channel_spec(run.policy)
+        up, down = spec.resolve(params)
+        return up, down, spec
     if operator is None:
         raise ValueError("no compression configured: set RunConfig.policy "
                          "or pass an operator")
@@ -118,7 +124,7 @@ def resolve_run_channels(operator, run: RunConfig, params):
         downlink = pol.resolve(downlink, params)
     if isinstance(operator, (str, pol.OpSpec, pol.PolicySpec)):
         operator = pol.resolve(operator, params)
-    return operator, downlink
+    return operator, downlink, None
 
 
 @dataclasses.dataclass
@@ -133,9 +139,14 @@ class History:
     bits_to_target: Optional[float] = None
     steps_to_target: Optional[int] = None
     wall_time: float = 0.0
+    # per-leaf-group ledger (RunConfig.leaf_ledger): group names plus,
+    # per log point, the cumulative [G] bits per direction
+    leaf_groups: list = dataclasses.field(default_factory=list)
+    leaf_bits: list = dataclasses.field(default_factory=list)
+    leaf_bits_down: list = dataclasses.field(default_factory=list)
 
     def summary(self) -> dict:
-        return {
+        out = {
             "final_loss": self.loss[-1] if self.loss else None,
             "total_bits": self.bits[-1] if self.bits else 0.0,
             "total_bits_down": self.bits_down[-1] if self.bits_down else 0.0,
@@ -144,6 +155,12 @@ class History:
             "steps_to_target": self.steps_to_target,
             "wall_time": self.wall_time,
         }
+        if self.leaf_groups and self.leaf_bits:
+            out["leaf_bits"] = dict(zip(self.leaf_groups,
+                                        self.leaf_bits[-1]))
+            out["leaf_bits_down"] = dict(zip(self.leaf_groups,
+                                             self.leaf_bits_down[-1]))
+        return out
 
 
 def make_mask(run: RunConfig) -> np.ndarray:
@@ -170,32 +187,42 @@ def train(
     eval_fn: Optional[Callable] = None,      # (master_params) -> metrics dict
     smooth: int = 20,
     device=None,
+    rng=None,
 ) -> tuple[engine.EngineState, History]:
     """Runs Algorithm 1 (or Algorithm 2 when ``run.asynchronous``)
     through the engine, one step at a time, on ``device`` (default
     cuda; raises when no GPU is present).  ``batches`` yields trees
-    whose leaves lead with the worker axis (numpy or tensors)."""
+    whose leaves lead with the worker axis (numpy or tensors).  ``rng``:
+    what the stochastic operators draw from, a ``torch.Generator`` or a
+    ``core.operators.Uniforms`` feed (default: a generator on ``device``
+    seeded with ``run.seed``)."""
     _check_ported(run)
-    operator, downlink = resolve_run_channels(operator, run, params)
+    operator, downlink, channel_spec = resolve_run_channels(operator, run,
+                                                            params)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(run.seed)
+    if rng is None:
+        rng = torch.Generator(device=dev).manual_seed(run.seed)
     hist = History()
     t0 = time.time()
     dispatch = DispatchConfig(mode=run.dispatch, pack=run.pack)
     state = engine.init(params, inner_opt, run.R, downlink=downlink,
-                        device=dev)
+                        leaf_ledger=run.leaf_ledger, device=dev)
     mask = make_mask(run)
     step_fn = engine.make_step(
         grad_fn, inner_opt, operator, lr_schedule, run.R,
         dispatch=dispatch, global_rounds=not run.asynchronous,
-        downlink=downlink, aggregate=run.aggregate)
+        downlink=downlink, leaf_ledger=run.leaf_ledger,
+        aggregate=run.aggregate)
+    ckpt_policy = None if channel_spec is None else channel_spec.to_dict()
+    if run.leaf_ledger:
+        hist.leaf_groups = list(engine.leaf_group_names(state.master))
 
     recent = []
     for t, batch in enumerate(batches):
         if t >= run.total_steps:
             break
         batch = tree_map(lambda b: as_tensor(b, dev), batch)
-        state, loss = step_fn(state, batch, mask[t], gen)
+        state, loss = step_fn(state, batch, mask[t], rng)
         lossf = float(loss)
         recent.append(lossf)
         if len(recent) > smooth:
@@ -208,6 +235,9 @@ def train(
             hist.bits.append(bits)
             hist.bits_down.append(float(state.bits_down))
             hist.rounds.append(int(state.rounds))
+            if run.leaf_ledger:
+                hist.leaf_bits.append(state.leaf_bits.tolist())
+                hist.leaf_bits_down.append(state.leaf_bits_down.tolist())
         if (run.target_loss is not None and hist.bits_to_target is None
                 and sm <= run.target_loss and len(recent) == smooth):
             hist.bits_to_target = bits
@@ -216,5 +246,11 @@ def train(
             hist.eval_steps.append(t + 1)
             hist.eval_metrics.append(
                 {k: float(v) for k, v in eval_fn(state.master).items()})
+        if run.ckpt_dir and run.ckpt_every and (t + 1) % run.ckpt_every == 0:
+            checkpoint.save(f"{run.ckpt_dir}/step_{t + 1}", state.master,
+                            step=t + 1, policy=ckpt_policy)
     hist.wall_time = time.time() - t0
+    if run.ckpt_dir:
+        checkpoint.save(f"{run.ckpt_dir}/final", state.master,
+                        step=run.total_steps, policy=ckpt_policy)
     return state, hist

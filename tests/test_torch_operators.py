@@ -208,3 +208,53 @@ def test_bits_helpers_match_repro():
             assert getattr(tbits, f)(d, 5) == getattr(jbits, f)(d, 5)
         assert tbits.bits_sign(d) == jbits.bits_sign(d)
         assert tbits.bits_klevel(d, 15) == jbits.bits_klevel(d, 15)
+
+
+def tied(seed, shape):
+    """Few distinct magnitudes: Top_k must choose among exact ties."""
+    rng = np.random.default_rng(seed)
+    return (rng.integers(-3, 4, shape) * 0.25).astype(np.float32)
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("topk", {"k": 0.05}), ("row_topk", {"k": 0.1, "row_len": 60}),
+    ("qtopk", {"k": 0.1, "s": 15}), ("signtopk", {"k": 0.05, "m": 1}),
+    ("row_signtopk", {"k": 0.1, "row_len": 60, "m": 2}),
+])
+def test_top_k_breaks_ties_like_repro(name, kw):
+    """``jax.lax.top_k`` keeps the lower index among equal magnitudes;
+    ``torch.topk`` follows no stated order (it picked other coordinates
+    here), which changed trajectories wherever a gradient has exact
+    ties.  The port's Top_k family keeps ``repro``'s choice."""
+    x = tied(3, (12, 60))
+    d = x.size
+    op_j = jops.make_operator(name, **kw)
+    op_t = tops.make_operator(name, **kw)
+    key = jax.random.PRNGKey(5)
+    out_j, bits_j = op_j(key, jnp.asarray(x))
+    out_t, bits_t = op_t(tops.Uniforms(draws(name, op_j, key, d)),
+                         torch.from_numpy(x))
+    np.testing.assert_array_equal(out_t.numpy() != 0, np.asarray(out_j) != 0)
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), rtol=1e-6)
+    assert float(bits_t) == float(bits_j)
+    idx = tops.top_k_indices(torch.from_numpy(np.abs(x)), 9)
+    np.testing.assert_array_equal(
+        idx.numpy(), np.asarray(jax.lax.top_k(jnp.abs(jnp.asarray(x)), 9)[1]))
+
+
+@pytest.mark.parametrize("shape,k", [((12, 60), 9), ((60,), 1), ((5, 33), 33),
+                                     ((7, 128), 1), ((2, 3, 50), 17)])
+@pytest.mark.parametrize("ties", [True, False])
+def test_top_k_indices_matches_lax_top_k(shape, k, ties):
+    """``top_k_indices`` against ``jax.lax.top_k``'s indices, in order, on
+    magnitudes (the Top_k family) and on negated magnitudes
+    (``_rand_subset`` ranks negated uniforms): rows with many entries
+    tied at the k-th value, zeros among them, tie-free rows, k = 1 and
+    k = n, and a leading batch of two axes."""
+    x = np.abs(tied(k, shape) if ties else
+               np.random.default_rng(k).standard_normal(shape)
+               .astype(np.float32))
+    for v in (x, -x):
+        idx = tops.top_k_indices(torch.from_numpy(v), k)
+        np.testing.assert_array_equal(
+            idx.numpy(), np.asarray(jax.lax.top_k(jnp.asarray(v), k)[1]))

@@ -256,3 +256,21 @@ def test_topk_short_rows_round_counts_on_card(cuda, iters):
             [a.cpu().numpy() for a in topk_compress(x, k, iters=iters)],
             [a.cpu().numpy() for a in ref.topk_compress_ref(
                 x, k, iters=iters)], False)
+
+
+@pytest.mark.parametrize("value", [1.5, -3e19, 9.313394e37, -3.4028235e38])
+def test_one_float_row_sign_norm_is_its_magnitude(jx, value):
+    """SignTop_k of a row of one float keeps that float exactly, as
+    ``repro``'s compiled kernel does (the square would overflow past
+    1.8e19), in every plain version the kernels are held to."""
+    jnp, jtopk = jx
+    x = np.array([[value]], np.float32)
+    want = np.asarray(jtopk.topk_compress(jnp.asarray(x), 1, sign=True,
+                                          interpret=True)[0])
+    np.testing.assert_array_equal(want, x)
+    acc = torch.from_numpy(x)
+    for sel in (ref.topk_compress_ref(acc, 1, sign=True)[0],
+                ref.topk_threshold_select_ref(acc, 1, sign=True)[0],
+                ref.topk_compact_ref(acc, 1, 1, sign=True)[1],
+                ref.topk_compact_rows_ref(acc, 1, 1, sign=True)[1]):
+        np.testing.assert_array_equal(sel.numpy(), x)

@@ -134,8 +134,8 @@ def _tiny_run(**kw):
 
 @pytest.mark.parametrize("kw", [
     {"runtime": "round"}, {"overlap": True},
-    {"leaf_ledger": True}, {"scenario": "preset:stragglers"},
-    {"faults": "preset:none"}, {"tune": True}, {"ckpt_dir": "ckpt"},
+    {"scenario": "preset:stragglers"},
+    {"faults": "preset:none"}, {"tune": True},
     {"resume": True},
 ])
 def test_unported_options_raise(kw):
@@ -144,7 +144,7 @@ def test_unported_options_raise(kw):
 
 
 @pytest.mark.parametrize("kw", [
-    {"ckpt_every": 2}, {"overlap_window": 4}, {"retune": True},
+    {"overlap_window": 4}, {"retune": True},
     {"fault_seed": 3}, {"staleness_weight": "inverse"},
 ])
 def test_unported_tuning_fields_are_refused(kw):

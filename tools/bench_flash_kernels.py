@@ -5,6 +5,7 @@ GPU, for the checkout this file sits in or for another one.
     python3 tools/bench_flash_kernels.py [--tree DIR]
         [--kernels attention|topk_paged|gemm|compress]
         [--serve [gemma3-1b|yi-6b] [--plain-gemm] [--shapes]] [--lm]
+        [--compress-at-load]
 
 Imports ``chip_smoke.py`` and ``src/`` from DIR (default: this
 checkout), builds that tree's kernels into its own build directory, and
@@ -42,7 +43,12 @@ QSGD shape beside the blocks the card holds at once (``geometry``
 lines).  Prints the card's name and power limit, then one JSON line per
 row tagged with DIR.  ``--lm`` runs the tree's LM phase instead
 (gemma3-1b through the launcher on both wires; its ``lm`` lines have the
-wire bits).
+wire bits).  ``--compress-at-load`` times DIR's
+``serve.compressed.compress_tree`` instead, on the random bf16 inits the
+serving phases compress at load (gemma3-1b unscanned, Yi-6B stacked,
+each under its arch preset), three calls each on the host clock with
+the card synchronized around each call (``compress`` lines); no kernel
+is built or called.
 
 ``--serve`` runs that tree's serve phase instead: ``gemma3-1b`` (the
 default) the unscanned gemma3-1b run (``chip_smoke.phase_serve_flash``),
@@ -61,9 +67,11 @@ parent, change, change, parent in one call on one card.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import sys
+import tempfile
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -213,6 +221,39 @@ def record_shapes() -> dict:
     return {"tally": tally, "live": live}
 
 
+def compress_rows(dev) -> None:
+    """Seconds of ``compress_tree`` per call on the serving phases'
+    random inits, three calls a model; one ``compress`` line each."""
+    import dataclasses
+    import time
+    import torch
+    from repro_torch.configs import get_config, get_policy_preset
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import compressed as sc
+    for arch, scan in (("gemma3-1b", False), ("yi-6b", True)):
+        cfg = dataclasses.replace(get_config(arch), scan_layers=scan)
+        params = tf.init_params(torch.Generator(device=dev).manual_seed(0),
+                                cfg, device=dev)
+        policy = get_policy_preset("arch", arch)
+        secs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            comp = sc.compress_tree(params, policy)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            sizes = sc.tree_bytes(comp)
+            del comp
+        print("compress", json.dumps({
+            "arch": arch, "layers": "scanned" if scan else "unscanned",
+            "compress_s": secs, "resident_bytes": sizes["compressed"],
+            "peak_device_bytes": torch.cuda.max_memory_allocated()}),
+            flush=True)
+        del params
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=HERE)
@@ -229,6 +270,9 @@ def main() -> int:
                     "and print its ledgers")
     ap.add_argument("--tokens-out", help="append each serve run's tokens "
                     "to this file (one JSON line a run)")
+    ap.add_argument("--compress-at-load", action="store_true",
+                    help="time the tree's compress_tree on the serving "
+                    "phases' random inits")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path[:0] = [os.path.join(tree, "src"), tree]
@@ -244,8 +288,12 @@ def main() -> int:
                              f"not from {tree}")
     torch.backends.cuda.matmul.allow_tf32 = False
     print(cs.card(), flush=True)
-    _build.build()
     dev = torch.device("cuda")
+    if args.compress_at_load:
+        print("bench compress", tree, flush=True)
+        compress_rows(dev)
+        return 0
+    _build.build()
     if args.serve:
         print("bench serve", tree, args.serve,
               "plain GEMMs" if args.plain_gemm else "kernels", flush=True)
@@ -255,6 +303,11 @@ def main() -> int:
         log = record_shapes() if args.shapes else None
         if args.serve == "yi-6b":
             cs.phase_serve(dev)
+        elif "tmp" in inspect.signature(cs.phase_serve_flash).parameters:
+            # a tree whose serve phase also saves its tree as compact-v1
+            with tempfile.TemporaryDirectory(dir=os.path.join(
+                    tree, "src", "repro_torch", "kernels", "build")) as tmp:
+                cs.phase_serve_flash(dev, tmp)
         else:
             cs.phase_serve_flash(dev)
         if log:
