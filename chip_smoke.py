@@ -42,8 +42,14 @@ Phases, each of which exits non-zero on failure:
    times -- paged with a bf16 pool, paged with int8 pages, contiguous --
    all through the decode-attention kernels, 16 requests of 64-128
    prompt tokens and 64 new tokens each, with the launch counts per
-   step and the serving metrics; then the yi-6b smoke model in float32
-   served with dispatch "kernel" against "reference" (same tokens);
+   step and the serving metrics.  Every serving run here and in steps 6
+   and 8 runs the engine's decode step and admission as CUDA graphs (its
+   default on the card) and then again eagerly (``cuda_graphs=False``)
+   in this process: the same greedy tokens, launch counts and serving
+   counters, one capture of each graph, both runs' step times and TTFTs
+   printed.  Then the yi-6b smoke model in float32 served with dispatch
+   "kernel" (graphed) against "reference" (eager; a graphed engine under
+   it raises): the same tokens;
 6. the unscanned serving path, whose prefill runs the flash-attention
    kernel: ``flash_attention`` against its plain version at gemma3-1b's
    prefill shapes (2048 tokens under the 1024 window and global, a
@@ -1254,42 +1260,36 @@ def serve_requests(eng, vocab: int, spec: dict) -> None:
 
 
 class FiniteLogits:
-    """For the span of one engine run, wraps the model's ``prefill`` and
-    ``decode_step`` (the engine calls them through the module) and keeps
-    one device flag: every logit they returned was finite."""
+    """For one engine run, one device flag: every decode step's logits
+    were finite.  Read from the engine's static ``logits`` buffer after
+    each step that decoded, so a graphed run (whose model calls run only
+    at its capture) is read as an eager one is."""
 
-    def __enter__(self):
-        from repro_torch.models import transformer as tf
-        self.tf, self.orig = tf, (tf.prefill, tf.decode_step)
-        self.flag = None
+    def __init__(self, eng):
+        self.eng, self.steps, self.flag = eng, eng.steps, None
 
-        def wrap(fn):
-            def inner(*args, **kwargs):
-                out = fn(*args, **kwargs)
-                ok = out[0].isfinite().all()
-                self.flag = ok if self.flag is None else self.flag & ok
-                return out
-            return inner
-
-        tf.prefill, tf.decode_step = map(wrap, self.orig)
-        return self
-
-    def __exit__(self, *exc):
-        self.tf.prefill, self.tf.decode_step = self.orig
+    def after_step(self) -> None:
+        if self.eng.steps == self.steps:
+            return
+        self.steps = self.eng.steps
+        ok = self.eng.logits.isfinite().all()
+        self.flag = ok if self.flag is None else self.flag & ok
 
     @property
     def ok(self) -> bool:
         return self.flag is not None and bool(self.flag)
 
 
-def serve_run(params, cfg, name: str, layout: dict, dev, spec: dict,
-              want_fn):
-    """One ServeEngine run over the compressed weights: every step timed
-    on the host clock (a step ends in a device-to-host copy of the next
-    tokens, so it is synchronous); steps that admitted a request also ran
-    its prefill.  ``want_fn(eng)`` gives the launches each kernel must
-    have made; every logit must be finite.  Returns the launches and the
-    greedy tokens."""
+def engine_run(params, cfg, layout: dict, spec: dict, graphs: bool) -> dict:
+    """One ServeEngine run of ``spec``'s requests, graphed or eager
+    (``cuda_graphs``): every step timed on the host clock (a step ends in
+    a device-to-host copy of the next tokens, so it is synchronous);
+    steps that admitted requests also ran their prefills, each step's
+    admissions timed by CUDA events around them (ms a prefill: the
+    median over the admitting steps after the first, and the first,
+    which ran the warm-ups and the admission's capture).  Returns the
+    tokens, the counters, the captures and the times."""
+    import gc
     import numpy as np
     import torch
     from repro_torch.kernels.dispatch import DispatchConfig
@@ -1299,63 +1299,128 @@ def serve_run(params, cfg, name: str, layout: dict, dev, spec: dict,
     eng = ServeEngine(params, cfg, max_batch=spec["max_batch"],
                       max_len=spec["max_len"],
                       prompt_pad=spec["prompt_pad"],
-                      dispatch=DispatchConfig(mode=DISPATCH), **layout)
+                      dispatch=DispatchConfig(mode=DISPATCH),
+                      cuda_graphs=graphs, **layout)
     serve_requests(eng, cfg.vocab, spec)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     sc.reset_stats()
     reset_launches()
-    decode_ms, admit_ms = [], []
-    with FiniteLogits() as finite:
-        t0 = time.perf_counter()
-        while eng.pending:
-            before = eng.admissions
-            t = time.perf_counter()
-            eng.step()
-            (admit_ms if eng.admissions > before else decode_ms).append(
-                (time.perf_counter() - t) * 1e3)
-        wall = time.perf_counter() - t0
-    launches = dict(LAUNCHES)
+    decode_ms, admit_ms, admits = [], [], []
+    admit = eng._admit
+
+    def timed_admit():
+        # CUDA events around the step's admissions: the stream's time
+        # from their start to their end (the host waits on the previous
+        # step's tokens, so the stream is idle when the first is recorded)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        n = admit()
+        ev[1].record()
+        if n:
+            admits.append((ev, n))
+        return n
+
+    eng._admit = timed_admit
+    finite = FiniteLogits(eng)
+    t0 = time.perf_counter()
+    while eng.pending:
+        before = eng.admissions
+        t = time.perf_counter()
+        eng.step()
+        ms = (time.perf_counter() - t) * 1e3
+        finite.after_step()
+        (admit_ms if eng.admissions > before else decode_ms).append(ms)
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    # ms a prefill: the first admitting step ran each graph's warm-up and
+    # capture, so it stands apart
+    per_prefill = [ev[0].elapsed_time(ev[1]) / n for ev, n in admits]
+    out = {"launches": dict(LAUNCHES), "stats": dict(sc.STATS),
+           "finite": finite.ok, "captures": eng.captures,
+           "peak_device_bytes": torch.cuda.max_memory_allocated()}
     res = eng.run()                  # nothing pending: collects the results
-    outs, mets = res["outputs"], list(res["metrics"].values())
-    want = want_fn(eng)
-    for k, v in launches.items():
-        if v != want.get(k, 0):
-            raise AssertionError(f"{name}: {v} {k} launches, want "
-                                 f"{want.get(k, 0)} ({eng.steps} decode "
-                                 f"steps, {eng.admissions} prefills)")
-    if sc.STATS["densify"]:
-        raise AssertionError(f"{name}: densified {sc.STATS['densify']}")
-    if not finite.ok:
-        raise AssertionError(f"{name}: non-finite logits")
-    if sorted(outs) != list(range(spec["requests"])) or any(
-            len(t) != spec["new_tokens"] or min(t) < 0 or max(t) >= cfg.vocab
-            for t in outs.values()):
-        raise AssertionError(f"{name}: bad outputs")
-    ttft = [m.ttft_s * 1e3 for m in mets]
+    step = float(np.median(decode_ms))
+    ttft = [m.ttft_s * 1e3 for m in res["metrics"].values()]
+    out.update(
+        outputs=res["outputs"], steps=eng.steps, prefills=eng.admissions,
+        pool=res.get("pool"),
+        decode_ms_per_step=step, decode_ms_mean=float(np.mean(decode_ms)),
+        admit_step_ms_mean=float(np.mean(admit_ms)),
+        admit_ms_per_prefill=float(np.median(per_prefill[1:])),
+        admit_ms_first_step=per_prefill[0],
+        ttft_ms_min=min(ttft), ttft_ms_p50=float(np.median(ttft)),
+        ttft_ms_max=max(ttft),
+        tokens_per_s=sum(len(t) for t in res["outputs"].values()) / wall,
+        wall_s=wall)
+    del eng, res
+    gc.collect()                     # the graphs hold the engine's bodies
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_run(params, cfg, name: str, layout: dict, dev, spec: dict,
+              want_fn):
+    """``spec``'s requests served graphed (the engine's default on the
+    card, the main path) and then eager (``cuda_graphs=False``) in this
+    process: the same greedy tokens, ``LAUNCHES`` and ``STATS``, one
+    decode and one admission capture in the graphed run and none in the
+    eager one.  ``want_fn(steps, prefills)`` gives the launches each
+    kernel must have made; every logit must be finite.  Prints both
+    runs' times and returns the graphed run's launches and tokens."""
+    runs = {"graphed": engine_run(params, cfg, layout, spec, True),
+            "eager": engine_run(params, cfg, layout, spec, False)}
+    g, e = runs["graphed"], runs["eager"]
+    for mode, r in runs.items():
+        want = want_fn(r["steps"], r["prefills"])
+        for k, v in r["launches"].items():
+            if v != want.get(k, 0):
+                raise AssertionError(
+                    f"{name} {mode}: {v} {k} launches, want "
+                    f"{want.get(k, 0)} ({r['steps']} decode steps, "
+                    f"{r['prefills']} prefills)")
+        if r["stats"]["densify"]:
+            raise AssertionError(f"{name} {mode}: densified "
+                                 f"{r['stats']['densify']}")
+        if not r["finite"]:
+            raise AssertionError(f"{name} {mode}: non-finite logits")
+        outs = r["outputs"]
+        if sorted(outs) != list(range(spec["requests"])) or any(
+                len(t) != spec["new_tokens"] or min(t) < 0
+                or max(t) >= cfg.vocab for t in outs.values()):
+            raise AssertionError(f"{name} {mode}: bad outputs")
+    if g["captures"] != {"decode": 1, "admit": 1} or \
+            e["captures"] != {"decode": 0, "admit": 0}:
+        raise AssertionError(f"{name}: captures graphed {g['captures']}, "
+                             f"eager {e['captures']}")
+    for key in ("outputs", "launches", "stats", "steps", "prefills"):
+        if g[key] != e[key]:
+            raise AssertionError(f"{name}: graphed and eager {key} differ")
     # launches per decode step (decode attention), per prefill (prefill
     # attention) or per step or prefill (the GEMMs)
-    per = {"flash_decode": eng.steps, "paged_decode": eng.steps,
-           "flash_attention": eng.admissions}
-    calls = eng.steps + eng.admissions
-    row = {"run": name, "steps": eng.steps, "prefills": eng.admissions,
-           "decode_ms_per_step": float(np.median(decode_ms)),
-           "decode_ms_mean": float(np.mean(decode_ms)),
-           "admit_step_ms_mean": float(np.mean(admit_ms)),
-           "ttft_ms_min": min(ttft), "ttft_ms_p50": float(np.median(ttft)),
-           "ttft_ms_max": max(ttft),
-           "tokens_per_s": sum(len(t) for t in outs.values()) / wall,
-           "wall_s": wall, "peak_device_bytes": torch.cuda.max_memory_allocated(),
+    per = {"flash_decode": g["steps"], "paged_decode": g["steps"],
+           "flash_attention": g["prefills"]}
+    calls = g["steps"] + g["prefills"]
+    timed = ("decode_ms_per_step", "decode_ms_mean", "admit_step_ms_mean",
+             "admit_ms_per_prefill", "admit_ms_first_step", "ttft_ms_min",
+             "ttft_ms_p50",
+             "ttft_ms_max", "tokens_per_s", "wall_s", "peak_device_bytes")
+    row = {"run": name, "steps": g["steps"], "prefills": g["prefills"],
+           **{k: g[k] for k in timed},
+           "eager": {k: e[k] for k in timed},
+           "speedup": {k: e[k] / g[k] for k in (
+               "decode_ms_per_step", "admit_ms_per_prefill", "ttft_ms_p50")},
+           "tokens_equal": True, "captures": g["captures"],
            "launches_per_call": {k: v / per.get(k, calls)
-                                 for k, v in launches.items() if v},
-           "launches": {k: v for k, v in launches.items() if v}}
+                                 for k, v in g["launches"].items() if v},
+           "launches": {k: v for k, v in g["launches"].items() if v}}
     if layout.get("paged"):
-        pool = res["pool"]
+        pool = g["pool"]
         row.update(peak_pool_pages=pool["peak_pages_used"],
                    n_pages=pool["n_pages"], preemptions=pool["preemptions"],
                    admission_stalls=pool["admission_stalls"])
     print("serve", json.dumps(row), flush=True)
-    return launches, outs
+    return g["launches"], g["outputs"]
 
 
 def phase_serve(dev):
@@ -1393,10 +1458,10 @@ def phase_serve(dev):
             ("contiguous", {})):
         attn = "paged_decode" if layout.get("paged") else "flash_decode"
 
-        def want(eng, attn=attn):
-            calls = eng.steps + eng.admissions
+        def want(steps, prefills, attn=attn):
+            calls = steps + prefills
             return {"sparse_gemm": 7 * YI_LAYERS * calls, "qdq_gemm": calls,
-                    attn: YI_LAYERS * eng.steps}
+                    attn: YI_LAYERS * steps}
 
         for k, v in serve_run(params, cfg, name, layout, dev, SERVE,
                               want)[0].items():
@@ -1443,10 +1508,9 @@ def phase_serve_flash(dev, tmp: str):
           f"{sizes['compressed']} bytes compressed (dense {sizes['dense']}), "
           f"init + compress {time.perf_counter() - t0:.1f}s", flush=True)
 
-    def want(eng):
-        calls = eng.steps + eng.admissions
-        return {"flash_attention": L * eng.admissions,
-                "flash_decode": L * eng.steps,
+    def want(steps, prefills):
+        calls = steps + prefills
+        return {"flash_attention": L * prefills, "flash_decode": L * steps,
                 "sparse_gemm": 7 * L * calls, "qdq_gemm": calls}
 
     launches, outs = serve_run(params, cfg, f"{cfg.name} unscanned "
@@ -1518,16 +1582,35 @@ def phase_serve_agreement(dev, arch: str = "yi-6b", unscanned: bool = False):
     for layout in layouts:
         outs = {}
         for m, dcfg in modes.items():
-            eng = ServeEngine(params, cfg, dispatch=dcfg, **kw, **layout)
+            # the kernels graphed (the engine's default on the card), the
+            # plain versions eager: a graphed reference engine raises
+            eng = ServeEngine(params, cfg, dispatch=dcfg, **kw, **layout,
+                              cuda_graphs="auto" if m == "kernel" else False)
             for p, n in reqs:
                 eng.submit(p, n)
             outs[m] = eng.run()["outputs"]
+            want = {"decode": 1, "admit": 1} if m == "kernel" else {
+                "decode": 0, "admit": 0}
+            if eng.captures != want:
+                raise AssertionError(f"serve agreement {layout} {m}: "
+                                     f"captures {eng.captures}")
         if outs["kernel"] != outs["reference"]:
             raise AssertionError(f"serve agreement {layout}: tokens differ")
+    try:
+        ServeEngine(params, cfg, dispatch=modes["reference"], **kw,
+                    **layouts[-1])
+    except ValueError as exc:
+        refused = str(exc)
+    else:
+        raise AssertionError("a graphed engine under reference dispatch "
+                             "did not raise")
     where = ("contiguous" if unscanned
              else "paged / paged-int8 / contiguous")
     print(f"serve agreement {arch}{' unscanned' if unscanned else ''}: "
-          f"logits within {err:.3g}, tokens equal on {where}", flush=True)
+          f"logits within {err:.3g}, tokens equal on {where} (kernels "
+          f"graphed, plain versions eager)", flush=True)
+    print(f"serve agreement: a graphed reference engine raises: {refused}",
+          flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1884,6 +1967,8 @@ def phase_checkpoint_serve(dev, saved: dict, dense_path: str, tmp: str):
             raise AssertionError(f"{what}: densified")
         if res["source"] != source:
             raise AssertionError(f"{what}: served from {res['source']}")
+        if res["captures"] != {"decode": 1, "admit": 1}:
+            raise AssertionError(f"{what}: captures {res['captures']}")
         add(launches)
 
     # dense, compressed once at load with the manifest's policy

@@ -14,7 +14,11 @@
 
 A CUDA tensor launches a kernel on the current stream; a CPU tensor runs
 the plain version (``ref.flash_attention_ref``, ``ref.flash_decode_ref``).
-There is no other route: a failed build or launch raises.
+There is no other route: a failed build or launch raises.  A launch
+makes no host call that a CUDA-graph capture forbids: its scratch (the
+split partials) is a ``torch.empty`` of the call, which under a capture
+comes from the graph's memory pool and lives as long as the graph; its
+ticket buffer is made before the capture (``_tickets``).
 """
 
 from __future__ import annotations
@@ -195,7 +199,8 @@ def flash_attention_fwd(q, k, v, *, window: int = -1):
 #: the kernels' ticket counters (flash_decode's and paged_decode's
 #: splits, flash_attention's split tiles), one zeroed int32 buffer per
 #: (device, stream); the block that merges resets its counter to 0, so
-#: the buffer is zero between launches
+#: the buffer is zero between launches, and so at the start of every
+#: replay of a CUDA graph that captured launches using it
 _TICKETS: dict = {}
 
 
@@ -203,6 +208,15 @@ def _tickets(dev, n: int):
     key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
     buf = _TICKETS.get(key)
     if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            # a buffer made here would be zeroed by the graph's memset
+            # at every replay, in memory of the graph's pool: made
+            # outside the capture instead (graphs.CudaGraph's warm-up
+            # runs the body on the capture stream first)
+            raise RuntimeError(
+                "flash kernels: no ticket buffer for the capturing "
+                "stream; run the body once on that stream before "
+                "capturing it")
         buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
         _TICKETS[key] = buf
     return buf

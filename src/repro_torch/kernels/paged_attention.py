@@ -6,7 +6,9 @@ merged by the last of them.
 
 A CUDA tensor launches the kernel on the current stream; a CPU tensor
 runs the plain version (``ref.paged_decode_ref``).  There is no other
-route: a failed build or launch raises.
+route: a failed build or launch raises.  Under a CUDA-graph capture the
+split partials come from the graph's pool and the ticket buffer from
+before the capture, as ``flash_attention``'s do.
 """
 
 from __future__ import annotations

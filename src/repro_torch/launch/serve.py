@@ -8,7 +8,10 @@ the model's structure and, under ``--compressed``, compressed once at
 load with ``--policy``, else the policy in its manifest, else the arch
 preset.  Without ``--checkpoint`` it serves a random init from
 ``--seed``.  ``--flash`` routes decode attention through the
-flash-decode kernel (with ``--paged``: the paged-decode kernel).
+flash-decode kernel (with ``--paged``: the paged-decode kernel).  On
+the card the engine runs its decode step and its admission as CUDA
+graphs; ``--eager`` runs them eagerly (``--dispatch reference`` on the
+card needs it).
 
   # train, then serve the smoke model compressed:
   PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b --smoke \\
@@ -135,6 +138,10 @@ def main(argv=None):
                     default="auto",
                     help="kernel dispatch mode (auto: the CUDA kernels on "
                          "the card)")
+    ap.add_argument("--eager", action="store_true",
+                    help="run the decode step and the admission eagerly "
+                         "instead of as CUDA graphs (needed on the card "
+                         "with --dispatch reference)")
     ap.add_argument("--device", default="cuda",
                     help="where to serve (default cuda; 'cpu' runs the "
                          "kernels' plain versions)")
@@ -174,7 +181,8 @@ def main(argv=None):
                       max_len=args.max_len, prompt_pad=args.prompt_len,
                       scheduler=args.scheduler, paged=args.paged,
                       page_size=args.page_size, kv_quant=args.kv_quant,
-                      kv_pool_pages=args.kv_pool_pages, dispatch=dispatch)
+                      kv_pool_pages=args.kv_pool_pages, dispatch=dispatch,
+                      cuda_graphs=False if args.eager else "auto")
     for prompt in synthetic_requests(args.seed, args.requests,
                                      args.prompt_len, cfg.vocab):
         eng.submit(prompt, max_new_tokens=args.new_tokens)
@@ -202,6 +210,8 @@ def main(argv=None):
               f"admission_stalls={pool['admission_stalls']} "
               f"fragmentation={pool['fragmentation']:.4f}")
     print(f"serve stats: {sc.STATS}")
+    if eng.cuda_graphs:
+        print(f"cuda graph captures: {eng.captures}")
     if args.compressed and sc.STATS["densify"]:
         raise SystemExit("zero-densify violated: the serving path "
                          f"densified {sc.STATS['densify']} leaves")
@@ -218,7 +228,8 @@ def main(argv=None):
             json.dump(payload, f, indent=2)
     print("sample:", res["outputs"].get(0, [])[:10])
     return {**res, "source": source, "load_s": load_s, "sizes": sizes,
-            "stats": dict(sc.STATS), "admissions": eng.admissions}
+            "stats": dict(sc.STATS), "admissions": eng.admissions,
+            "captures": eng.captures}
 
 
 if __name__ == "__main__":

@@ -40,6 +40,19 @@ advances the positions there, and admission / finish *events* patch
 single entries.  The block tables are uploaded only when they change.
 Every call of the model goes through ``models.transformer``; a
 compressed parameter tree (``serve.compressed``) drops in unchanged.
+
+The decode step and the admission are each one body of no arguments
+over static device buffers (``_decode_body``, ``_admit_body``): the
+step reads ``_toks`` / ``_poss`` / ``_active`` (and, paged, the block
+tables ``_tables``), writes the logits into ``logits``, the next tokens
+into ``_toks`` and advances ``_poss`` in place; an admission reads its
+prompt from ``_adm_toks`` and its destination from ``_adm_page_ids``
+(paged) or ``_adm_slot`` / ``_adm_len`` (contiguous), which the host
+refreshes in place before the call.  On a CUDA device each body runs as
+a CUDA graph (``graphs.CudaGraph``, ``cuda_graphs``): one capture each
+over a whole run, as ``repro`` compiles ``_step_jit`` / ``_admit_jit``
+once.  On the CPU, and with ``cuda_graphs=False``, the same bodies run
+eagerly.
 """
 
 from __future__ import annotations
@@ -53,10 +66,13 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.launch_stats import PAGE_POOL
+from repro_torch.graphs import CudaGraph
+from repro_torch.kernels.dispatch import DispatchConfig
+from repro_torch.kernels.launch_stats import LAUNCHES, PAGE_POOL
 from repro_torch.models import layers as mlayers
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import KVCache
+from repro_torch.serve.compressed import STATS
 from repro_torch.serve.paging import PagePool
 from repro_torch.tree import tree_leaves
 
@@ -112,6 +128,37 @@ def _params_device(params) -> torch.device:
     return (leaf if isinstance(leaf, torch.Tensor) else leaf.a).device
 
 
+def _upload(dst: torch.Tensor, src: np.ndarray) -> None:
+    """Copy a host array into a static device buffer in place, without
+    waiting on the device (a pinned staging copy, kept by PyTorch's host
+    allocator until the copy has run)."""
+    host = torch.from_numpy(src)
+    if dst.is_cuda:
+        host = host.pin_memory()
+    dst.copy_(host, non_blocking=dst.is_cuda)
+
+
+def _use_graphs(cuda_graphs, device: torch.device, dispatch) -> bool:
+    """Resolve ``cuda_graphs``: "auto" is graphs on a CUDA device and the
+    eager bodies on the CPU (``DispatchConfig``'s "auto" rule)."""
+    if cuda_graphs not in ("auto", True, False):
+        raise ValueError(f"cuda_graphs must be 'auto', True or False, got "
+                         f"{cuda_graphs!r}")
+    if cuda_graphs is False or (cuda_graphs == "auto"
+                                and device.type != "cuda"):
+        return False
+    if device.type != "cuda":
+        raise ValueError(f"cuda_graphs=True needs the parameters on a CUDA "
+                         f"device; they are on {device}")
+    if dispatch is not None and dispatch.mode == "reference":
+        raise ValueError(
+            "a graphed engine captures the CUDA kernels' path; "
+            "DispatchConfig(mode='reference') runs the kernels' plain "
+            "versions, the eager reference the graphs are held against: "
+            "pass cuda_graphs=False")
+    return True
+
+
 class ServeEngine:
     """Continuous-batching serving runtime over a (possibly compressed)
     parameter tree, on the device the parameters live on.
@@ -124,7 +171,12 @@ class ServeEngine:
     contiguous layout's memory); ``kv_quant=True`` stores pages as int8
     levels + per-slot f32 scales.  ``dispatch`` (a
     ``kernels.dispatch.DispatchConfig``) routes the compressed matmuls
-    and, under ``cfg.use_pallas``, decode attention.
+    and, under ``cfg.use_pallas``, decode attention.  ``cuda_graphs``:
+    "auto" (CUDA graphs for the decode step and the admission where the
+    parameters are on a CUDA device, the eager bodies on the CPU), True
+    (graphs; raises on the CPU and under reference dispatch) or False
+    (the eager bodies on any device).  ``captures`` counts each graph's
+    captures; ``logits`` holds the last decode step's logits.
     """
 
     def __init__(self, params, cfg: ModelConfig, *, max_batch: int = 8,
@@ -134,7 +186,8 @@ class ServeEngine:
                  paged: bool = False, page_size: int = 16,
                  kv_quant: bool = False,
                  kv_pool_pages: Optional[int] = None,
-                 dispatch=None):
+                 dispatch: Optional[DispatchConfig] = None,
+                 cuda_graphs="auto"):
         if scheduler not in ("continuous", "static"):
             raise ValueError(f"unknown scheduler {scheduler!r}")
         if prompt_pad >= max_len:
@@ -147,6 +200,7 @@ class ServeEngine:
         self.cfg = cfg
         self.dispatch = dispatch
         self.device = _params_device(params)
+        self.cuda_graphs = _use_graphs(cuda_graphs, self.device, dispatch)
         self.max_batch = int(max_batch)
         self.max_len = int(max_len)
         self.prompt_pad = int(prompt_pad)
@@ -177,6 +231,12 @@ class ServeEngine:
                                  device=dev)
         self._active = torch.zeros(self.max_batch, dtype=torch.bool,
                                    device=dev)
+        self.logits = torch.zeros(self.max_batch, cfg.vocab,
+                                  dtype=torch.float32, device=dev)
+        self._adm_toks = torch.zeros(1, self.prompt_pad, dtype=torch.int64,
+                                     device=dev)
+        static = [self._toks, self._poss, self._active, self.logits,
+                  self._adm_toks]
 
         if self.paged:
             wins = cfg.layer_windows()
@@ -206,9 +266,27 @@ class ServeEngine:
                 (self.max_batch, self.max_pages_per_req), -1, np.int32)
             self._tables = torch.from_numpy(self._tables_np.copy()).to(dev)
             self._tables_dirty = False
+            # the admission's page destinations, the n_pages sentinel
+            # (the pool's write sink) for unallocated tail pages
+            self._adm_page_ids = torch.full((self._adm_pages,), self.n_pages,
+                                            dtype=torch.int64, device=dev)
+            static += [self._tables, self._adm_page_ids]
         else:
             self._caches = tf.init_cache(cfg, self.max_batch, self.max_len,
                                          device=dev)
+            # the admission's slot (an index of one) and true length
+            self._adm_slot = torch.zeros(1, dtype=torch.int64, device=dev)
+            self._adm_len = torch.zeros((), dtype=torch.int32, device=dev)
+            static += [self._adm_slot, self._adm_len]
+        self._decode_call = self._decode_body
+        self._admit_call = self._admit_body
+        if self.cuda_graphs:
+            pool = torch.cuda.graph_pool_handle()
+            counters = (LAUNCHES, STATS)
+            self._decode_call = CudaGraph(self._decode_body, static,
+                                          pool=pool, counters=counters)
+            self._admit_call = CudaGraph(self._admit_body, static,
+                                         pool=pool, counters=counters)
 
     # -- request intake ----------------------------------------------------
     def submit(self, prompt: Sequence[int], max_new_tokens: int = 16) -> int:
@@ -235,51 +313,75 @@ class ServeEngine:
         self._poss[slot] = pos
         self._active[slot] = active
 
-    # -- model calls -------------------------------------------------------
-    def _prefill_into_pages(self, toks: np.ndarray, pages: List[int]) -> None:
-        page_ids = np.full(self._adm_pages, self.n_pages, np.int64)
-        page_ids[:len(pages)] = pages
-        _, cache, _ = tf.prefill(
-            self.params, {"tokens": torch.from_numpy(toks)[None].to(
-                self.device)}, self.cfg, self.dispatch,
-            max_len=self._adm_pages * self.page_size)
-        mlayers.paged_prefill_insert(self._pool, cache.k[:, 0],
-                                     cache.v[:, 0],
-                                     torch.from_numpy(page_ids))
-
-    def _prefill_into_slot(self, toks: np.ndarray, true_len: int,
-                           slot: int) -> None:
-        _, cache, _ = tf.prefill(
-            self.params, {"tokens": torch.from_numpy(toks)[None].to(
-                self.device)}, self.cfg, self.dispatch, max_len=self.max_len)
-        caches = ([self._caches] if isinstance(self._caches, KVCache)
-                  else self._caches)
-        smalls = [cache] if isinstance(cache, KVCache) else cache
-        for big, small in zip(caches, smalls):
-            # the slot is the cache's batch axis (after [L] when stacked)
-            at = (slice(None), slot) if big.k.dim() == 5 else (slot,)
-            sub = (slice(None), 0) if small.k.dim() == 5 else (0,)
-            pos = small.pos[sub]
-            big.k[at] = small.k[sub]
-            big.v[at] = small.v[sub]
-            big.pos[at] = torch.where((pos >= 0) & (pos < true_len), pos,
-                                      torch.full_like(pos, -1))
-
-    def _decode(self) -> torch.Tensor:
+    # -- model calls: the bodies the graphs capture ------------------------
+    @torch.no_grad()
+    def _admit_body(self) -> None:
+        """Prefill ``_adm_toks`` and write its KV: into the pages
+        ``_adm_page_ids`` names (paged), or into slot ``_adm_slot`` with
+        the positions from ``_adm_len`` on invalidated (contiguous)."""
+        batch = {"tokens": self._adm_toks}
         if self.paged:
-            if self._tables_dirty:
-                self._tables = torch.from_numpy(
-                    self._tables_np.copy()).to(self.device)
-                self._tables_dirty = False
+            _, cache, _ = tf.prefill(
+                self.params, batch, self.cfg, self.dispatch,
+                max_len=self._adm_pages * self.page_size)
+            mlayers.paged_prefill_insert(self._pool, cache.k[:, 0],
+                                         cache.v[:, 0], self._adm_page_ids)
+            return
+        _, cache, _ = tf.prefill(self.params, batch, self.cfg,
+                                 self.dispatch, max_len=self.max_len)
+        bigs = ([self._caches] if isinstance(self._caches, KVCache)
+                else self._caches)
+        smalls = [cache] if isinstance(cache, KVCache) else cache
+        for big, small in zip(bigs, smalls):
+            # the slot is the cache's batch axis (after [L] when stacked)
+            axis = big.k.dim() - 4
+            pos = torch.where((small.pos >= 0) & (small.pos < self._adm_len),
+                              small.pos, torch.full_like(small.pos, -1))
+            big.k.index_copy_(axis, self._adm_slot, small.k)
+            big.v.index_copy_(axis, self._adm_slot, small.v)
+            big.pos.index_copy_(axis, self._adm_slot, pos)
+
+    @torch.no_grad()
+    def _decode_body(self) -> None:
+        """One decode step over every slot: logits into ``logits``, the
+        greedy tokens into ``_toks``, positions advanced in place."""
+        if self.paged:
             logits, _ = tf.decode_step_paged(
                 self.params, self._pool, self._tables, self._toks,
                 self._poss, self._active, self.cfg, self.dispatch)
         else:
             logits, _ = tf.decode_step(self.params, self._caches, self._toks,
                                        self._poss, self.cfg, self.dispatch)
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
-        self._poss = self._poss + 1
-        return nxt
+        self.logits.copy_(logits)
+        self._toks.copy_(torch.argmax(logits, dim=-1))
+        self._poss.add_(1)
+
+    def _prefill_into_pages(self, toks: np.ndarray, pages: List[int]) -> None:
+        page_ids = np.full(self._adm_pages, self.n_pages, np.int64)
+        page_ids[:len(pages)] = pages
+        _upload(self._adm_toks[0], toks)
+        _upload(self._adm_page_ids, page_ids)
+        self._admit_call()
+
+    def _prefill_into_slot(self, toks: np.ndarray, true_len: int,
+                           slot: int) -> None:
+        _upload(self._adm_toks[0], toks)
+        self._adm_slot.fill_(slot)
+        self._adm_len.fill_(true_len)
+        self._admit_call()
+
+    def _decode(self) -> None:
+        if self.paged and self._tables_dirty:
+            _upload(self._tables, self._tables_np)
+            self._tables_dirty = False
+        self._decode_call()
+
+    @property
+    def captures(self) -> dict:
+        """CUDA-graph captures of the decode step and the admission (0
+        each when the bodies run eagerly)."""
+        return {name: getattr(call, "captures", 0) for name, call in
+                (("decode", self._decode_call), ("admit", self._admit_call))}
 
     # -- scheduling --------------------------------------------------------
     def _free_slots(self) -> List[int]:
@@ -408,9 +510,8 @@ class ServeEngine:
                 self._refresh_gauges()
             return 0
         self.occupancy.append(len(active))
-        nxt_dev = self._decode()
-        self._toks = nxt_dev
-        nxt = nxt_dev.cpu().numpy()
+        self._decode()
+        nxt = self._toks.cpu().numpy()
         now = time.perf_counter()
         done = 0
         for i in active:

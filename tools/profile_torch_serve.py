@@ -3,19 +3,23 @@
 GPU.
 
     python3 tools/profile_torch_serve.py [--config yi-6b|gemma3-1b-unscanned]
-        [--layout paged|paged-int8|contiguous] [--prefill]
+        [--layout paged|paged-int8|contiguous] [--prefill] [--eager]
 
 Builds one of ``chip_smoke.py``'s serving configurations at full width
 and depth (random bf16 weights, compressed at load under ``lm_hetero``,
 the kernels on): Yi-6B at batch 8 (``--layout`` picks the KV layout), or
 gemma3-1b unscanned at batch 4, contiguous, whose prefill runs the
 flash-attention kernel.  Admits the first batch and takes a few warm-up
-steps, then profiles ``--steps`` decode steps that admit nothing under
-``torch.profiler``; with ``--prefill`` it profiles ``--steps`` prefills
-of one ``prompt_pad``-token prompt instead (what an admission runs).
-Prints each profiled call's host time, the device time of the kernels
-that ran in it and the device's busy share, then the operators that
-take the most device and host time.  Needs a CUDA device.
+steps (the engine's CUDA graphs are captured there), then profiles
+``--steps`` decode steps that admit nothing under ``torch.profiler``;
+with ``--prefill`` it profiles ``--steps`` admissions of one
+``prompt_pad``-token prompt instead (the engine's admission, into the
+slot or pages of its last one; the engine is not stepped after).  The
+engine runs graphed (its default on the card); ``--eager`` runs the same
+calls eagerly (``cuda_graphs=False``).  Prints each profiled call's host
+time, the device time of the kernels that ran in it and the device's
+busy share, then the operators that take the most device and host time.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ def main() -> int:
                     choices=["yi-6b", "gemma3-1b-unscanned"])
     ap.add_argument("--layout", default="paged", choices=sorted(LAYOUTS))
     ap.add_argument("--prefill", action="store_true")
+    ap.add_argument("--eager", action="store_true")
     ap.add_argument("--steps", type=int, default=5)
     args = ap.parse_args()
 
@@ -76,17 +81,17 @@ def main() -> int:
     eng = ServeEngine(params, cfg, max_batch=spec["max_batch"],
                       max_len=spec["max_len"],
                       prompt_pad=spec["prompt_pad"], dispatch=dispatch,
-                      **layout)
+                      cuda_graphs=not args.eager, **layout)
     cs.serve_requests(eng, cfg.vocab, spec)
     for _ in range(3):               # admits the first batch, warms up
         eng.step()
-    prompt = {"tokens": torch.randint(
+    eng._adm_toks.copy_(torch.randint(
         0, cfg.vocab, (1, spec["prompt_pad"]), device=dev,
-        generator=torch.Generator(device=dev).manual_seed(1))}
+        generator=torch.Generator(device=dev).manual_seed(1)))
 
     def call():
         if args.prefill:
-            tf.prefill(params, prompt, cfg, dispatch, max_len=eng.max_len)
+            eng._admit_call()        # the engine's admission, as it runs
             torch.cuda.synchronize()
         else:
             eng.step()               # ends in a copy of the next tokens
@@ -108,10 +113,11 @@ def main() -> int:
              and e.device_type != cuda]
     kernels = [e for e in evs if e.device_type == cuda
                and not e.name.startswith("step ")]
-    what = (f"prefill of {spec['prompt_pad']} tokens" if args.prefill
+    what = (f"admission of {spec['prompt_pad']} tokens" if args.prefill
             else "decode step")
-    print(f"{args.config}, layout {args.layout}: per {what}, host ms and "
-          f"the device time of the kernels that ran in it")
+    mode = "eager" if args.eager else f"graphed, captures {eng.captures}"
+    print(f"{args.config}, layout {args.layout}, {mode}: per {what}, host "
+          f"ms and the device time of the kernels that ran in it")
     for st in sorted(steps, key=lambda e: e.time_range.start):
         mine = [k for k in kernels
                 if st.time_range.start <= k.time_range.start
