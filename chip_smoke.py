@@ -18,23 +18,37 @@ Phases, each of which exits non-zero on failure:
    TFLOP/s float32, 989 TFLOP/s for the bf16 tensor-core attention; the
    H100 SXM's published peaks);
 4. the training path: ``train`` on ResNet-50 at full width (25,541,672
-   parameters), R=8 workers, per-worker batch 8, 224x224 images, T=8,
-   H=4, under RowSignTopK, TopK and QSGD, with the launch counts per
-   sync; then a small ResNet on the card with dispatch "kernel" against
-   dispatch "reference" (same losses, same wire bits); then the paper's
-   two algorithm wrappers on ResNet-50 at the same width (T=4, H=2):
+   parameters), R=8 workers, per-worker batch 8, 224x224 images, T=12,
+   H=4, under RowSignTopK, TopK and QSGD, each twice under cuDNN's
+   deterministic algorithms: the round runtime (the default; each round
+   one CUDA graph captured at round 2, round 3 a pure replay) and
+   ``runtime="step"`` (eager), with the same History, launches and
+   master, ms a round and a step and peak memory for both; RowSignTopK
+   also under cuDNN's default algorithms for the times, T=20 (the median
+   over rounds 3-5); then a small
+   ResNet on the card with dispatch "kernel" against dispatch
+   "reference" (same losses, same wire bits); then the paper's two
+   algorithm wrappers on ResNet-50 at the same width (T=4, H=2):
    RowSignTopK through ``qsparse.run`` with the per-group ledger and
    QSGD through ``async_qsparse.run`` on an ``async_schedule`` mask, each
    equal to ``engine.run`` on the same inputs in every state tensor and
-   both ledgers, the group ledgers adding up to the totals, 1 and 5
+   both ledgers, and each wrapper's ``run_rounds`` (graphed) equal to its
+   ``run``, the group ledgers adding up to the totals, 1 and 5
    launches per sync; then the paper's convex problem (Section 5.2,
    softmax regression, d = 7850): ``topk_compress`` and
    ``qsgd_quantize`` against their plain versions at the shapes its
    dispatcher builds (15 rows of 7,840 and 10 floats zero-padded to 7936
    and 128 columns, k = 40 and 1, s = 15), then the quickstart's two
    methods (R=8, T=300) and bench_convex's TopK-SGD, EF-QSGD and QTop_k
-   (R=15, T=400), each under dispatch "auto" and "kernel", with bits,
-   rounds, bits to the target loss and ms per step;
+   (R=15, T=400), each under dispatch "auto" and "kernel" (EF-QSGD's
+   shared uniforms on the per-step runtime), and under "kernel" graphed
+   against ``runtime="step"`` (the same History, one capture), TopK-SGD
+   also overlapped (windows of 8 rounds), with bits, rounds, bits to
+   the target loss and ms a round and a step; then Algorithm 2 at
+   bench_async's sizes (TopK, R=15, T=400, H=4), the round runtime
+   against ``runtime="step"`` (the same History and launches; captures
+   the tail masks that repeat, at most ``engine.MAX_PROGRAMS``), with
+   the schedule's distinct and repeated round shapes at H = 4 and 8;
 5. the serving path: the four serving kernels against their plain
    versions at Yi-6B's shapes (step 3's checks and times), then Yi-6B at
    full width and depth (random weights from a seed) compressed at load
@@ -74,12 +88,16 @@ Phases, each of which exits non-zero on failure:
    ``repro_torch.launch.train`` on gemma3-1b at full width and depth
    (999,812,736 parameters, random weights from a seed) under its
    ``lm_hetero`` policy, R = 1 (``--mesh 1x1``, NCCL), batch 2 of 2048
-   tokens, 8 steps at H = 4, once on the ``sparse_allgather`` wire and
-   once on ``dense_psum``, asserting 7 ``topk_compact`` /
-   ``topk_compress`` launches per sync; then the gemma3-1b smoke model at
-   R = 2 ranks sharing the card over gloo, spawned from here: dispatch
-   "kernel" against "reference" (same losses, equal wire bits) and the
-   sparse wire against the dense one (masters within 1e-5);
+   tokens, 12 steps at H = 4, on the ``sparse_allgather`` wire and on
+   ``dense_psum``, each under ``--runtime round`` (the default: fused,
+   one capture holding the wire's NCCL collectives) and ``--runtime
+   step`` with the same record step by
+   step, asserting 7 ``topk_compact`` / ``topk_compress`` launches per
+   sync; then the gemma3-1b smoke model at R = 2 ranks sharing the card
+   over gloo, spawned from here: dispatch "kernel" against "reference"
+   (same losses, equal wire bits), the sparse wire against the dense
+   one (masters within 1e-5), and the round runtime (per-step fallback
+   under gloo) against ``--runtime step`` (equal);
 8. checkpoints from trainer to server, gemma3-1b at full width: step
    6's compressed unscanned tree, saved as a compact-v1 checkpoint as
    soon as step 6 has served it and then dropped, loaded by
@@ -114,7 +132,8 @@ SRC = os.path.join(HERE, "src")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
-R, B, T, H = 8, 8, 8, 4       # workers, per-worker batch, steps, local steps
+R, B, T, H = 8, 8, 12, 4      # workers, per-worker batch, steps, local steps
+T_TIME = 20                   # steps of the ResNet-50 timing pair
 IMAGES = {"n": 512, "hw": 224, "classes": 1000, "seed": 0}
 N_PARAMS = 25_541_672         # ResNet-50 at full width, 1000 classes
 DISPATCH = "auto"
@@ -131,7 +150,7 @@ FLASH_SERVE = {"arch": "gemma3-1b", "max_batch": 4, "max_len": 2304,
 #: attention per layer
 YI_LAYERS = 32
 #: the LM training run: gemma3-1b at full size through the launcher
-LM = {"arch": "gemma3-1b", "batch": 2, "seq": 2048, "steps": 8, "H": 4,
+LM = {"arch": "gemma3-1b", "batch": 2, "seq": 2048, "steps": 12, "H": 4,
       "n_params": 999_812_736, "topk_stacks": 7}
 #: the multi-rank agreement run: the gemma3-1b smoke model, ranks sharing
 #: the one card over gloo
@@ -157,13 +176,16 @@ CONVEX = {
          "log_every": 50, "batch_seed": 1},
         {"name": "topk_sgd", "op": "topk", "kw": {"k": K_CONVEX}, "R": 15,
          "T": 400, "H": 1, "log_every": 25, "batch_seed": 0,
-         "kernel": "topk_compress", "per_sync": 2},
+         "kernel": "topk_compress", "per_sync": 2, "overlap": True},
         {"name": "ef_qsgd_4bit", "op": "qsgd", "kw": {"s": 15}, "R": 15,
          "T": 400, "H": 1, "log_every": 25, "batch_seed": 0,
          "kernel": "qsgd", "per_sync": 2},
         {"name": "qtopk_4bit", "op": "qtopk", "kw": {"k": K_CONVEX, "s": 15},
          "R": 15, "T": 400, "H": 1, "log_every": 25, "batch_seed": 0},
     ]}
+#: Algorithm 2 on the convex problem at bench_async.py's sizes (TopK,
+#: sync gaps U[1, H]); the round shapes are also counted at H = 8
+ASYNC_CONVEX = {"R": 15, "T": 400, "H": 4, "shapes_at_H": (4, 8)}
 #: how far "kernel" may sit from "auto" where their arithmetic differs
 #: (largest relative gap over the log points, bits and smoothed loss);
 #: each limit lies within 2-20x of the gaps measured on the H100
@@ -405,9 +427,47 @@ class StepClock:
         return [(b - a) * 1e3 for a, b in zip(self.marks, self.marks[1:])]
 
 
+def round_times(marks: list, t_end: float, plans) -> list:
+    """ms per round from a StepClock's marks (one at each batch request)
+    and the time the run ended: a round runs from its first batch
+    request to the next round's (the last to ``t_end``).  The same
+    measure for both runtimes: the per-step loop asks for each batch
+    after the step before ended, the round loop for a round's batches
+    after the round before ended."""
+    starts = [p.start for p in plans]
+    ends = [marks[s] for s in starts[1:]] + [t_end]
+    return [(e - marks[s]) * 1e3 for s, e in zip(starts, ends)]
+
+
+def runtime_timing(round_ms: list, plans) -> dict:
+    """ms a round and ms a step, the median over the rounds past the
+    second (a graph's first two calls run eagerly and capture)."""
+    import numpy as np
+    late = [(ms, p.length) for ms, p in zip(round_ms, plans)][2:] or [
+        (round_ms[-1], plans[-1].length)]
+    return {"ms_per_round": round_ms,
+            "ms_per_step_median": float(np.median([ms / L
+                                                   for ms, L in late]))}
+
+
+def _free_graphs() -> None:
+    """A dropped round runtime's graphs sit in reference cycles: collect
+    them, then hand their pools back."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def phase_train(dev):
+    """ResNet-50 at full width through ``train`` under each operator,
+    twice: the round runtime (the default; each round a CUDA graph) and
+    ``runtime="step"`` (eager), under cuDNN's deterministic algorithms
+    (its training kernels are otherwise not deterministic run to run):
+    History, launches and the final master equal, one capture."""
     import numpy as np
     import torch
+    from repro_torch.core import rounds
     from repro_torch.core.operators import QSGDQuantizer, RowSignTopK, TopK
     from repro_torch.core.schedule import fixed_schedule
     from repro_torch.data import make_image_data, worker_batches
@@ -430,51 +490,111 @@ def phase_train(dev):
     print(f"data {x.shape} made in {time.perf_counter() - t0:.1f}s",
           flush=True)
     grad_fn = value_and_grad(lambda p, b: resnet.loss_fn(p, b, cfg)[0])
-    n_syncs = int(fixed_schedule(T, H).sum())
+    mask = fixed_schedule(T, H)
+    plans = rounds.compile_rounds(mask)
+    n_syncs = int(mask.sum())
     totals = {k: 0 for k in LAUNCHES}
     runs = []
-    for name, op in (("RowSignTopK", RowSignTopK(k=0.01, row_len=4096, m=2)),
-                     ("TopK", TopK(k=0.01)),
-                     ("QSGD", QSGDQuantizer(s=15))):
-        run = RunConfig(total_steps=T, R=R, H=H, runtime="step",
-                        dispatch=DISPATCH, log_every=1, seed=0)
-        clock = StepClock(worker_batches(x, y, R, B, T, seed=1,
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, op in (
+                ("RowSignTopK", RowSignTopK(k=0.01, row_len=4096, m=2)),
+                ("TopK", TopK(k=0.01)), ("QSGD", QSGDQuantizer(s=15))):
+            out = {}
+            for runtime in ("round", "step"):
+                run = RunConfig(total_steps=T, R=R, H=H, runtime=runtime,
+                                dispatch=DISPATCH, log_every=1, seed=0)
+                clock = StepClock(worker_batches(x, y, R, B, T, seed=1,
+                                                 feature_key="images"))
+                _free_graphs()
+                torch.cuda.reset_peak_memory_stats(dev)
+                reset_launches()
+                state, hist = train(grad_fn, params, momentum_sgd(0.9), op,
+                                    piecewise_decay(0.05, [100, 130]), clock,
+                                    run, smooth=1, device=dev)
+                torch.cuda.synchronize()
+                t_end = time.perf_counter()
+                launches = dict(LAUNCHES)
+                for k, v in launches.items():
+                    totals[k] += v
+                timing = {**runtime_timing(round_times(clock.marks, t_end,
+                                                       plans), plans),
+                          "peak_device_bytes":
+                              torch.cuda.max_memory_allocated(dev),
+                          "captures": hist.captures}
+                for leaf in tree_leaves((state.master, state.local,
+                                         state.memory, state.master_view,
+                                         state.inner)):
+                    if leaf.device.type != dev.type:
+                        raise AssertionError(f"{name}: state tensor on "
+                                             f"{leaf.device}")
+                # the graphed state aliases the round program's buffers
+                master = [t.clone() for t in tree_leaves(state.master)]
+                out[runtime] = (hist, launches, timing, master)
+                del state
+            (hist, launches, timing, master), (ref, ref_launches, ref_timing,
+                                               ref_master) = (
+                out["round"], out["step"])
+            for f in ("steps", "loss", "bits", "bits_down", "rounds"):
+                if getattr(hist, f) != getattr(ref, f):
+                    raise AssertionError(f"{name}: History.{f} differs "
+                                         "between the runtimes")
+            if launches != ref_launches or not all(
+                    torch.equal(a, b) for a, b in zip(master, ref_master)):
+                raise AssertionError(f"{name}: launches or masters differ "
+                                     "between the runtimes")
+            if timing["captures"] != 1 or ref_timing["captures"] != 0:
+                raise AssertionError(f"{name}: captures {timing['captures']}")
+            row = {"operator": name, "loss": hist.loss, "bits_up": hist.bits,
+                   "bits_down": hist.bits_down, "rounds": hist.rounds[-1],
+                   "graphed": timing, "eager": ref_timing,
+                   "launches": {k: v for k, v in launches.items() if v}}
+            print("train", json.dumps(row), flush=True)
+            if not all(np.isfinite(hist.loss)):
+                raise AssertionError(f"{name}: loss not finite: {hist.loss}")
+            kern, per_sync = WANT_PER_SYNC[name]
+            if launches[kern] != per_sync * n_syncs:
+                raise AssertionError(
+                    f"{name}: {launches[kern]} {kern} launches in {n_syncs} "
+                    f"syncs, want {per_sync} per sync")
+            if hist.bits[-1] <= 0 or hist.rounds[-1] != n_syncs:
+                raise AssertionError(f"{name}: ledger {hist.bits[-1]} bits, "
+                                     f"{hist.rounds[-1]} rounds")
+            runs.append(row)
+            del out, master, ref_master
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    # the times users see: cuDNN's default algorithms (not deterministic
+    # run to run, so no equality is asserted), RowSignTopK, both runtimes,
+    # T_TIME steps (the median over three rounds past the second)
+    timing = {}
+    plans = rounds.compile_rounds(fixed_schedule(T_TIME, H))
+    for runtime in ("round", "step"):
+        clock = StepClock(worker_batches(x, y, R, B, T_TIME, seed=1,
                                          feature_key="images"))
+        _free_graphs()
+        torch.cuda.reset_peak_memory_stats(dev)
         reset_launches()
-        state, hist = train(grad_fn, params, momentum_sgd(0.9), op,
-                            piecewise_decay(0.05, [100, 130]), clock, run,
-                            smooth=1, device=dev)
+        _, hist = train(grad_fn, params, momentum_sgd(0.9),
+                        RowSignTopK(k=0.01, row_len=4096, m=2),
+                        piecewise_decay(0.05, [100, 130]), clock,
+                        RunConfig(total_steps=T_TIME, R=R, H=H,
+                                  runtime=runtime, dispatch=DISPATCH,
+                                  log_every=1, seed=0),
+                        smooth=1, device=dev)
         torch.cuda.synchronize()
-        launches = dict(LAUNCHES)
-        for k, v in launches.items():
+        t_end = time.perf_counter()
+        for k, v in LAUNCHES.items():
             totals[k] += v
-        mask = fixed_schedule(T, H)
-        step_ms = clock.step_ms()
-        local = [ms for ms, s in zip(step_ms, mask) if not s]
-        sync = [ms for ms, s in zip(step_ms, mask) if s]
-        row = {"operator": name, "loss": hist.loss, "bits_up": hist.bits,
-               "bits_down": hist.bits_down, "rounds": hist.rounds[-1],
-               "ms_per_step": step_ms,
-               "ms_per_local_step": float(np.mean(local[1:] or local)),
-               "ms_per_sync_step": float(np.mean(sync)),
-               "launches": {k: v for k, v in launches.items() if v}}
-        print("train", json.dumps(row), flush=True)
-        if not all(np.isfinite(hist.loss)):
-            raise AssertionError(f"{name}: loss not finite: {hist.loss}")
-        kern, per_sync = WANT_PER_SYNC[name]
-        if launches[kern] != per_sync * n_syncs:
-            raise AssertionError(
-                f"{name}: {launches[kern]} {kern} launches in {n_syncs} "
-                f"syncs, want {per_sync} per sync")
-        for leaf in tree_leaves((state.master, state.local, state.memory,
-                                 state.master_view, state.inner)):
-            if leaf.device.type != dev.type:
-                raise AssertionError(f"{name}: state tensor on {leaf.device}")
-        if hist.bits[-1] <= 0 or hist.rounds[-1] != n_syncs:
-            raise AssertionError(f"{name}: ledger {hist.bits[-1]} bits, "
-                                 f"{hist.rounds[-1]} rounds")
-        runs.append(row)
-        del state
+        timing[runtime] = {
+            **runtime_timing(round_times(clock.marks, t_end, plans), plans),
+            "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
+            "captures": hist.captures}
+    print("train timing (cuDNN's default algorithms) RowSignTopK",
+          json.dumps({"graphed": timing["round"], "eager": timing["step"]}),
+          flush=True)
+    _free_graphs()
     return runs, totals
 
 
@@ -567,7 +687,7 @@ def phase_wrappers(dev):
     the wrapper runs."""
     import numpy as np
     import torch
-    from repro_torch.core import async_qsparse, engine, qsparse
+    from repro_torch.core import async_qsparse, engine, qsparse, rounds
     from repro_torch.core.operators import QSGDQuantizer, RowSignTopK
     from repro_torch.core.schedule import async_schedule, fixed_schedule
     from repro_torch.data import make_image_data, worker_batches
@@ -596,30 +716,57 @@ def phase_wrappers(dev):
     try:
         for name, wrapper, op, mask in cases:
             runs = {}
-            for driver in (wrapper, "engine"):
+            for driver in (wrapper, "engine", "rounds"):
                 sync = wrapper == "qsparse"
-                if driver == "qsparse":
-                    mod, kw = qsparse, {}
-                elif driver == "async_qsparse":
-                    mod, kw = async_qsparse, {}
+                mod = {"qsparse": qsparse, "async_qsparse": async_qsparse,
+                       "engine": engine}.get(driver)
+                kw = {"global_rounds": sync} if driver == "engine" else {}
+                if driver == "rounds":
+                    # the wrapper's round runtime, graphed
+                    mod = qsparse if sync else async_qsparse
+                    make, drive = mod.make_superstep, mod.run_rounds
                 else:
-                    mod, kw = engine, {"global_rounds": sync}
+                    make, drive = mod.make_step, mod.run
                 state = mod.init(params, inner, R, leaf_ledger=True,
                                  device=dev)
-                step = mod.make_step(grad_fn, inner, op, lr, R,
-                                     dispatch=DispatchConfig(mode=DISPATCH),
-                                     leaf_ledger=True, **kw)
+                step = make(grad_fn, inner, op, lr, R,
+                            dispatch=DispatchConfig(mode=DISPATCH),
+                            leaf_ledger=True, **kw)
                 clock = StepClock(worker_batches(x, y, R, B, T, seed=1,
                                                  feature_key="images"))
                 gen = torch.Generator(device=dev).manual_seed(WRAP["seed"])
-                torch.cuda.synchronize()
+                _free_graphs()
+                torch.cuda.reset_peak_memory_stats(dev)
                 reset_launches()
-                state, losses = mod.run(state, step, clock, mask, gen)
+                state, losses = drive(state, step, clock, mask, gen)
                 torch.cuda.synchronize()
+                plans = rounds.compile_rounds(mask)
+                timing = {**runtime_timing(round_times(
+                    clock.marks, time.perf_counter(), plans), plans),
+                    "peak_device_bytes": torch.cuda.max_memory_allocated(dev)}
                 runs[driver] = (state, losses, dict(LAUNCHES),
-                                clock.step_ms())
-            (st, losses, launches, step_ms) = runs[wrapper]
-            ref_st, ref_losses, _, _ = runs["engine"]
+                                clock.step_ms(),
+                                step, timing)
+            rst, rlosses, rlaunches, _, sup, rtiming = runs.pop("rounds")
+            _same_state(rst, runs[wrapper][0], f"{name} rounds")
+            plans = rounds.compile_rounds(mask)
+            shapes = {(p.length, np.asarray(p.mask).tobytes()) for p in plans}
+            repeated = sum(
+                sum((p.length, np.asarray(p.mask).tobytes()) == k
+                    for p in plans) > 1 for k in shapes)
+            if (rlosses != runs[wrapper][1] or rlaunches != runs[wrapper][2]
+                    or sup.captures != repeated):
+                raise AssertionError(
+                    f"{name}: {wrapper}.run_rounds differs from run "
+                    f"(captures {sup.captures}, want {repeated})")
+            print(f"wrappers {name}: {wrapper}.run_rounds equals {wrapper}"
+                  f".run; {len(plans)} rounds of {len(shapes)} shapes, "
+                  f"{sup.captures} captured; graphed "
+                  f"{json.dumps(rtiming)}, eager "
+                  f"{json.dumps(runs[wrapper][5])}", flush=True)
+            del rst, sup
+            (st, losses, launches, step_ms, _, _) = runs[wrapper]
+            ref_st, ref_losses = runs["engine"][:2]
             _same_state(st, ref_st, name)
             if losses != ref_losses:
                 raise AssertionError(f"{name}: losses differ")
@@ -660,17 +807,20 @@ def phase_wrappers(dev):
     return totals
 
 
-def convex_run(dev, method: dict, dispatch: str, rng=None):
+def convex_run(dev, method: dict, dispatch: str, rng=None,
+               runtime: str = "round", overlap: bool = False):
     """One of the paper's convex runs (softmax regression on mnist_like,
-    d = 7850) through ``train``: its History, launches and step times."""
-    import numpy as np
+    d = 7850) through ``train``: its History, launches and timing (ms a
+    round and a step, graphed or eager)."""
     import torch
+    from repro_torch.core import rounds
     from repro_torch.core.operators import make_operator
     from repro_torch.data import mnist_like, worker_batches
     from repro_torch.kernels.launch_stats import LAUNCHES, reset_launches
     from repro_torch.models import softmax
     from repro_torch.optim import inverse_time, sgd
     from repro_torch.train import RunConfig, train
+    from repro_torch.train.trainer import make_mask
     from repro_torch.tree import value_and_grad
     x, y = mnist_like(CONVEX["n"], seed=0)
     cfg = softmax.SoftmaxConfig(l2=1.0 / len(x))
@@ -678,17 +828,33 @@ def convex_run(dev, method: dict, dispatch: str, rng=None):
     R_, T_ = method["R"], method["T"]
     run = RunConfig(total_steps=T_, R=R_, H=method["H"],
                     log_every=method["log_every"], seed=0,
-                    target_loss=CONVEX["target"], dispatch=dispatch)
+                    target_loss=CONVEX["target"], dispatch=dispatch,
+                    runtime=runtime, overlap=overlap,
+                    asynchronous=method.get("asynchronous", False))
     clock = StepClock(worker_batches(x, y, R_, CONVEX["b"], T_,
                                      seed=method["batch_seed"]))
-    torch.cuda.synchronize()
+    _free_graphs()
+    torch.cuda.reset_peak_memory_stats(dev)
     reset_launches()
     _, hist = train(grad_fn, softmax.init_params(cfg, device=dev), sgd(),
                     make_operator(method["op"], **method["kw"]),
                     inverse_time(60.0, 100.0), clock, run, device=dev,
                     rng=rng)
     torch.cuda.synchronize()
-    return hist, dict(LAUNCHES), float(np.mean(clock.step_ms()[1:]))
+    t_end = time.perf_counter()
+    plans = rounds.compile_rounds(make_mask(run))
+    timing = runtime_timing(round_times(clock.marks, t_end, plans), plans)
+    timing["ms_per_round"] = float(sum(timing["ms_per_round"][2:])
+                                   / max(len(plans) - 2, 1))
+    timing["peak_device_bytes"] = torch.cuda.max_memory_allocated(dev)
+    return hist, dict(LAUNCHES), timing
+
+
+def _same_history(a, b, what: str) -> None:
+    for f in ("steps", "loss", "bits", "bits_down", "rounds",
+              "bits_to_target", "steps_to_target"):
+        if getattr(a, f) != getattr(b, f):
+            raise AssertionError(f"{what}: History.{f} differs")
 
 
 def qsgd_uniforms(dev, method: dict, dispatch: str):
@@ -725,6 +891,7 @@ def phase_convex(dev):
     to 128 columns, Top_k's k resolved per leaf.  Returns the launches
     under "kernel" and those checks."""
     import numpy as np
+    import torch
     from repro_torch.core.operators import resolve_k
     from repro_torch.kernels.dispatch import LANES
     checks = {"topk": [], "qsgd": []}
@@ -745,14 +912,38 @@ def phase_convex(dev):
     for method in CONVEX["methods"]:
         name = method["name"]
         out = {}
+        qsgd = method["op"] == "qsgd"
         for dispatch in ("auto", "kernel"):
-            rng = (qsgd_uniforms(dev, method, dispatch)
-                   if method["op"] == "qsgd" else None)
-            out[dispatch] = convex_run(dev, method, dispatch, rng)
+            # EF-QSGD's two modes quantize with one feed of uniforms, which
+            # a CUDA graph cannot hold: the per-step runtime
+            rng = qsgd_uniforms(dev, method, dispatch) if qsgd else None
+            out[dispatch] = convex_run(dev, method, dispatch, rng,
+                                       runtime="step" if qsgd else "round")
             if rng is not None and rng.remaining():
                 raise AssertionError(f"{name}: {rng.remaining()} uniforms "
                                      "left over")
-        (ha, la, msa), (hk, lk, msk) = out["auto"], out["kernel"]
+        # the round runtime (graphed) against the per-step runtime (eager)
+        # under "kernel", one generator seed each: the same History
+        gen = (lambda: torch.Generator(device=dev).manual_seed(3)) \
+            if qsgd else (lambda: None)
+        graphed = (convex_run(dev, method, "kernel", gen()) if qsgd
+                   else out["kernel"])
+        eager = convex_run(dev, method, "kernel", gen(), runtime="step")
+        for h in (graphed, eager):
+            if any(v for k, v in h[1].items() if k != method.get("kernel")):
+                raise AssertionError(f"{name}: launches {h[1]}")
+        _same_history(graphed[0], eager[0], f"{name} round vs step")
+        if graphed[1] != eager[1] or graphed[0].captures != 1:
+            raise AssertionError(f"{name}: launches {graphed[1]} / "
+                                 f"{eager[1]}, captures "
+                                 f"{graphed[0].captures}")
+        if method.get("overlap"):
+            over = convex_run(dev, method, "kernel", overlap=True)
+            _same_history(over[0], graphed[0], f"{name} overlap vs round")
+            print(f"convex {name}: overlap (window 8) equals the serial "
+                  f"round runtime, {over[0].captures} capture(s), "
+                  f"{over[2]['ms_per_step_median']:.3f} ms a step", flush=True)
+        (ha, la, _), (hk, lk, _) = out["auto"], out["kernel"]
         if any(la.values()):
             raise AssertionError(f"{name}: auto launched {la}")
         kern = method.get("kernel")
@@ -788,13 +979,71 @@ def phase_convex(dev):
                "steps_to_target": [ha.steps_to_target, hk.steps_to_target],
                "final_loss": [ha.loss[-1], hk.loss[-1]],
                "bits_rel_gap": bits_rel, "loss_rel_gap": loss_rel,
-               "ms_per_step": [msa, msk],
+               "graphed": graphed[2], "eager": eager[2],
                "kernel_launches_per_sync": (lk[kern] / n_syncs if kern
                                             else 0)}
         print("convex", json.dumps(row), flush=True)
         for k, v in lk.items():
             totals[k] = totals.get(k, 0) + v
+    for k, v in convex_async(dev).items():
+        totals[k] = totals.get(k, 0) + v
     return totals, checks
+
+
+def round_shapes(mask) -> dict:
+    """A schedule's rounds, its distinct round shapes (length, tail mask)
+    and those that run more than once (the ones the round runtime
+    captures, at most ``engine.RoundRunner``'s ``max_programs``)."""
+    from repro_torch.core import rounds
+    import numpy as np
+    counts: dict = {}
+    plans = rounds.compile_rounds(mask)
+    for p in plans:
+        key = (p.length, np.asarray(p.mask).tobytes())
+        counts[key] = counts.get(key, 0) + 1
+    return {"rounds": len(plans), "distinct": len(counts),
+            "repeated": sum(n > 1 for n in counts.values())}
+
+
+def convex_async(dev) -> dict:
+    """Algorithm 2 through ``train`` at the paper's Section 5.2.3 sizes
+    (``benchmarks/bench_async.py``'s TopK rows: R = 15, T = 400, sync
+    gaps drawn U[1, H]): the round runtime (the default) against
+    ``runtime="step"``, one generator seed each.  Rounds close wherever
+    any worker syncs, so nearly every round is one step with its own
+    tail mask: History and launches equal, captures = the shapes that
+    repeat, at most ``max_programs``.  Returns the launches."""
+    import torch
+    from repro_torch.core import schedule
+    from repro_torch.core.engine import MAX_PROGRAMS
+    for H_ in ASYNC_CONVEX["shapes_at_H"]:
+        print(f"convex async shapes at R = {ASYNC_CONVEX['R']}, H = {H_}, "
+              f"T = {ASYNC_CONVEX['T']}: " + json.dumps(round_shapes(
+                  schedule.async_schedule(ASYNC_CONVEX["T"],
+                                          ASYNC_CONVEX["R"], H_, seed=0))),
+              flush=True)
+    method = {"name": "async_topk_H4", "op": "topk",
+              "kw": {"k": K_CONVEX}, "R": ASYNC_CONVEX["R"],
+              "T": ASYNC_CONVEX["T"], "H": ASYNC_CONVEX["H"],
+              "log_every": 25, "batch_seed": 0, "asynchronous": True}
+    gen = lambda: torch.Generator(device=dev).manual_seed(3)  # noqa: E731
+    graphed = convex_run(dev, method, "kernel", gen())
+    eager = convex_run(dev, method, "kernel", gen(), runtime="step")
+    _same_history(graphed[0], eager[0], "async TopK round vs step")
+    shapes = round_shapes(schedule.async_schedule(
+        method["T"], method["R"], method["H"], seed=0))
+    want = min(shapes["repeated"], MAX_PROGRAMS)
+    if graphed[1] != eager[1] or graphed[0].captures != want or \
+            not graphed[1].get("topk_compress"):
+        raise AssertionError(f"async TopK: launches {graphed[1]} / "
+                             f"{eager[1]}, captures {graphed[0].captures}, "
+                             f"want {want}")
+    print("convex async " + json.dumps(
+        {"method": method["name"], "R": method["R"], "T": method["T"],
+         "H": method["H"], **shapes, "captures": graphed[0].captures,
+         "rounds_synced": graphed[0].rounds[-1], "bits": graphed[0].bits[-1],
+         "graphed": graphed[2], "eager": eager[2]}), flush=True)
+    return graphed[1]
 
 # ---------------------------------------------------------------------------
 # the serving path
@@ -1705,7 +1954,7 @@ def phase_lm_kernels(dev):
     return rows, dense
 
 
-def lm_run(wire: str, dev, ckpt=None):
+def lm_run(wire: str, dev, ckpt=None, runtime: str = "round"):
     """The launcher on gemma3-1b at full size, R = 1: returns its record
     and the launches it made (counted from 0 at its start).  ``ckpt``: a
     directory for the launcher's ``--ckpt`` (the master at the end)."""
@@ -1716,15 +1965,16 @@ def lm_run(wire: str, dev, ckpt=None):
     argv = ["--arch", LM["arch"], "--mesh", "1x1", "--policy", "preset:arch",
             "--batch", str(LM["batch"]), "--seq", str(LM["seq"]),
             "--steps", str(LM["steps"]), "--H", str(LM["H"]),
-            "--wire", wire, "--dispatch", DISPATCH]
+            "--wire", wire, "--dispatch", DISPATCH, "--runtime", runtime]
     if ckpt:
         argv += ["--ckpt", ckpt]
+    _free_graphs()
     torch.cuda.synchronize()
     reset_launches()
     rec = lt.main(argv)
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
-    torch.cuda.empty_cache()
+    _free_graphs()
     kinds = rec["kind"]
     n_syncs = kinds.count("sync")
     kern = "topk_compact" if wire == "sparse_allgather" else "topk_compress"
@@ -1737,34 +1987,64 @@ def lm_run(wire: str, dev, ckpt=None):
         raise AssertionError(f"gemma3-1b has {rec['n_params']} parameters")
     if not all(np.isfinite(rec["loss"])):
         raise AssertionError(f"LM {wire}: loss not finite: {rec['loss']}")
+    if runtime == "round" and (rec["fused"] is not True
+                               or rec["captures"] != 1):
+        raise AssertionError(f"LM {wire}: fused {rec['fused']}, captures "
+                             f"{rec['captures']}")
     ups, prev = [], 0.0
     for kind, b in zip(kinds, rec["bits_up"]):
         if kind == "sync":
             ups.append(b - prev)
         prev = b
-    local = [ms for ms, kd in zip(rec["ms"], kinds) if kd == "local"]
-    sync = [ms for ms, kd in zip(rec["ms"], kinds) if kd == "sync"]
-    row = {"wire": wire, "loss": rec["loss"], "ms_per_step": rec["ms"],
-           "ms_per_local_step": float(np.mean(local[1:] or local)),
-           "ms_per_sync_step": float(np.mean(sync)),
+    # ms a round: the round runtime's own, the per-step runtime's summed
+    # over each round's steps
+    round_ms = rec.get("round_ms") or [
+        sum(rec["ms"][i:i + LM["H"]])
+        for i in range(0, LM["steps"], LM["H"])]
+    late = round_ms[2:] or round_ms[-1:]
+    row = {"wire": wire, "runtime": runtime, "loss": rec["loss"],
+           "ms_per_step": rec["ms"], "ms_per_round": round_ms,
+           "ms_per_step_median": float(np.median(late)) / LM["H"],
            "bits_up_per_sync": ups, "bits_down": rec["bits_down"][-1],
            "peak_device_bytes": rec["peak_device_bytes"],
-           "ckpt_s": rec.get("ckpt_s"),
+           "ckpt_s": rec.get("ckpt_s"), "captures": rec.get("captures", 0),
            "launches_per_sync": {k: v / n_syncs for k, v in launches.items()
                                  if v},
            "launches": {k: v for k, v in launches.items() if v}}
     print("lm", json.dumps(row), flush=True)
-    return row, launches
+    return row, launches, rec
 
 
 def phase_lm(dev, ckpt: str = None):
-    """gemma3-1b through the launcher on both wires; the uplink bits of
-    each sync agree between them to the float rounding of the counted
-    survivors (the same survivors, one ledger in another layout).  The
-    dense-wire run writes its master to ``ckpt`` (``--ckpt``) where one
-    is given."""
-    sparse, launches = lm_run("sparse_allgather", dev)
-    dense, dense_launches = lm_run("dense_psum", dev, ckpt)
+    """gemma3-1b through the launcher on both wires, each under the round
+    runtime (the default: each round a CUDA graph) and ``--runtime
+    step`` (eager): the same record step by step (losses, kinds, both
+    ledgers, launches per sync).  The uplink bits of each sync agree
+    between the wires to the float rounding of the counted survivors
+    (the same survivors, one ledger in another layout).  The dense-wire
+    round run writes its master to ``ckpt`` (``--ckpt``) where one is
+    given."""
+    runs, totals = {}, {}
+    for wire, path in (("sparse_allgather", None), ("dense_psum", ckpt)):
+        for runtime in ("round", "step"):
+            row, launches, rec = lm_run(wire, dev,
+                                        path if runtime == "round" else None,
+                                        runtime)
+            runs[wire, runtime] = (row, rec)
+            for k, v in launches.items():
+                totals[k] = totals.get(k, 0) + v
+        a, b = runs[wire, "round"][1], runs[wire, "step"][1]
+        for k in ("loss", "kind", "bits_up", "bits_down",
+                  "launches_per_sync", "rounds"):
+            if a[k] != b[k]:
+                raise AssertionError(f"LM {wire}: {k} differs between the "
+                                     f"runtimes: {a[k]} / {b[k]}")
+        print(f"lm {wire}: round runtime equals --runtime step; ms a step "
+              f"{runs[wire, 'round'][0]['ms_per_step_median']:.1f} graphed, "
+              f"{runs[wire, 'step'][0]['ms_per_step_median']:.1f} eager",
+              flush=True)
+    sparse, dense = (runs[w, "round"][0] for w in ("sparse_allgather",
+                                                    "dense_psum"))
     for a, b in zip(sparse["bits_up_per_sync"], dense["bits_up_per_sync"]):
         # one float32 rounding of a ledger near 4e8 bits is 32 bits
         if abs(a - b) > 2.0 ** -23 * max(abs(a), abs(b)):
@@ -1775,29 +2055,33 @@ def phase_lm(dev, ckpt: str = None):
     print(f"lm wires: uplink bits per sync differ by at most {diff} "
           f"(sparse {sparse['bits_up_per_sync']}, dense "
           f"{dense['bits_up_per_sync']})", flush=True)
-    return {k: launches[k] + dense_launches[k] for k in launches}
+    return totals
 
 
-def _rank_run(tmp: str, tag: str, wire: str, dispatch: str) -> dict:
-    """The launcher on the gemma3-1b smoke model at LM_RANKS ranks sharing
-    the card over gloo: rank 0's run record (--json) and the path of its
+def _rank_run(tmp: str, tag: str, wire: str, dispatch: str,
+              runtime: str = "round", backend: str = "gloo",
+              ranks: int = LM_RANKS["ranks"]) -> dict:
+    """The launcher on the gemma3-1b smoke model at ``ranks`` ranks (by
+    default LM_RANKS' ranks sharing the card over gloo; under NCCL one
+    rank a card): rank 0's run record (--json) and the path of its
     master (--ckpt)."""
     from repro_torch.launch.mesh import run_local_ranks
     ckpt, record = os.path.join(tmp, tag), os.path.join(tmp, tag + ".json")
     cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-           LM["arch"], "--smoke", "--mesh", f"{LM_RANKS['ranks']}x1",
+           LM["arch"], "--smoke", "--mesh", f"{ranks}x1",
            "--steps", str(LM_RANKS["steps"]), "--H", str(LM_RANKS["H"]),
-           "--policy", "preset:arch", "--backend", "gloo", "--wire", wire,
-           "--dispatch", dispatch, "--ckpt", ckpt, "--json", record]
+           "--policy", "preset:arch", "--backend", backend, "--wire", wire,
+           "--dispatch", dispatch, "--ckpt", ckpt, "--json", record,
+           "--runtime", runtime]
     env = dict(os.environ, PYTHONPATH=SRC)
-    ranks = run_local_ranks(cmd, LM_RANKS["ranks"], env=env, timeout=300)
-    for r, (rc, _out, err) in enumerate(ranks):
+    procs = run_local_ranks(cmd, ranks, env=env, timeout=300)
+    for r, (rc, _out, err) in enumerate(procs):
         if rc != 0:
             raise AssertionError(f"rank {r} of {tag} exited {rc}:\n"
                                  f"{err[-3000:]}")
     with open(record) as f:
         rec = json.load(f)
-    if len(rec["loss"]) != LM_RANKS["steps"] or rec["R"] != LM_RANKS["ranks"]:
+    if len(rec["loss"]) != LM_RANKS["steps"] or rec["R"] != ranks:
         raise AssertionError(f"{tag}: {len(rec['loss'])} steps, R={rec['R']}")
     rec["ckpt"] = ckpt
     return rec
@@ -1809,7 +2093,10 @@ def phase_lm_ranks(dev):
     (their plain versions) gives the same losses and equal wire bits on
     the sparse wire; the sparse wire against the dense one gives equal
     bits and masters within rtol 1e-5 / atol 1e-6 (the mean of R
-    payloads summed in another order)."""
+    payloads summed in another order).  Under gloo a collective on the
+    card is staged through the host, which no CUDA graph holds: the
+    round runtime (the default) is the per-step composition there
+    (``fused`` False), and equals ``--runtime step``."""
     import tempfile
     import numpy as np
     import torch
@@ -1820,11 +2107,23 @@ def phase_lm_ranks(dev):
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=os.path.join(
             SRC, "repro_torch", "kernels", "build")) as tmp:
-        runs = {tag: _rank_run(tmp, tag, wire, dispatch)
-                for tag, wire, dispatch in (
-                    ("sparse_kernel", "sparse_allgather", "kernel"),
-                    ("sparse_reference", "sparse_allgather", "reference"),
-                    ("dense_kernel", "dense_psum", "kernel"))}
+        runs = {tag: _rank_run(tmp, tag, wire, dispatch, runtime)
+                for tag, wire, dispatch, runtime in (
+                    ("sparse_kernel", "sparse_allgather", "kernel", "round"),
+                    ("sparse_reference", "sparse_allgather", "reference",
+                     "round"),
+                    ("dense_kernel", "dense_psum", "kernel", "round"),
+                    ("sparse_step", "sparse_allgather", "kernel", "step"))}
+        st = runs["sparse_step"]
+        for t in ("sparse_kernel", "sparse_reference", "dense_kernel"):
+            if runs[t]["fused"] is not False:
+                raise AssertionError(f"{t}: fused {runs[t]['fused']} over "
+                                     "gloo")
+        for key in ("loss", "kind", "bits_up", "bits_down",
+                    "launches_per_sync"):
+            if runs["sparse_kernel"][key] != st[key]:
+                raise AssertionError(f"multi-rank round runtime: {key} "
+                                     "differs from --runtime step")
         k, r, d = (runs[t] for t in ("sparse_kernel", "sparse_reference",
                                      "dense_kernel"))
         if k["bits_up"] != r["bits_up"] or k["bits_up"] != d["bits_up"]:
@@ -1842,7 +2141,11 @@ def phase_lm_ranks(dev):
                               get_config(LM["arch"], smoke=True),
                               device="cpu")
         masters = {t: tree_leaves(checkpoint.restore(runs[t]["ckpt"], like))
-                   for t in ("sparse_kernel", "dense_kernel")}
+                   for t in ("sparse_kernel", "dense_kernel", "sparse_step")}
+        if not all(torch.equal(a, b) for a, b in zip(
+                masters["sparse_kernel"], masters["sparse_step"])):
+            raise AssertionError("multi-rank round runtime: the master "
+                                 "differs from --runtime step")
         err = 0.0
         for a, b in zip(masters["sparse_kernel"], masters["dense_kernel"]):
             torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
@@ -1850,7 +2153,8 @@ def phase_lm_ranks(dev):
     print(f"lm ranks: R={LM_RANKS['ranks']} on one card over gloo, "
           f"kernel vs reference losses {k['loss']} / {r['loss']}, bits "
           f"equal ({k['bits_up'][-1]}), sparse vs dense masters within "
-          f"{err:.3g}, {time.perf_counter() - t0:.1f}s", flush=True)
+          f"{err:.3g}; round runtime (fused False) equals --runtime "
+          f"step, {time.perf_counter() - t0:.1f}s", flush=True)
 
 
 

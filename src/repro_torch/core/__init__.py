@@ -1,10 +1,11 @@
 """Qsparse-local-SGD core (a port of ``repro.core``): compression
 operators, error-feedback channels, the unified sync/async engine with
-its Algorithm-1/2 wrappers (``qsparse``, ``async_qsparse``), bit
-accounting, compression policies and the distributed engine."""
+its Algorithm-1/2 wrappers (``qsparse``, ``async_qsparse``) and its round
+plans (``rounds``), bit accounting, compression policies and the
+distributed engine."""
 
 from repro_torch.core import (async_qsparse, bits, channel, engine,
-                              operators, policy, qsparse, schedule)
+                              operators, policy, qsparse, rounds, schedule)
 from repro_torch.core.engine import EngineState
 from repro_torch.core.policy import ChannelSpec, OpSpec, PolicySpec
 from repro_torch.core.operators import (
@@ -33,6 +34,7 @@ __all__ = [
     "operators",
     "policy",
     "qsparse",
+    "rounds",
     "schedule",
     "ChannelSpec",
     "OpSpec",

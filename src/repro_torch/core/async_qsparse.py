@@ -18,9 +18,10 @@ Per step t (Algorithm 2 lines 4-20), with s_r = [t+1 in I_T^{(r)}]:
   master:      x̄_{t+1} = x̄_t - (1/R) sum_{r in S} g_t^{(r)}
   workers in S: x_{t+1}^{(r)} = x̂_{t+1}^{(r)} = x̄_{t+1}
 
-The round runtime (``make_superstep`` / ``run_rounds``) is ROADMAP queue
-1 item 9; the executed-staleness fault runtime (``make_fault_step`` /
-``run_faults``) is item 10.
+The round runtime (``make_superstep`` / ``run_rounds``) closes a round at
+every step where any worker syncs (``engine.make_superstep``); the
+executed-staleness fault runtime (``make_fault_step`` / ``run_faults``)
+is ROADMAP queue 1 item 10.
 """
 
 from __future__ import annotations
@@ -33,8 +34,6 @@ from repro_torch.core import engine
 from repro_torch.kernels import dispatch as dsp
 from repro_torch.optim.transforms import GradientTransform
 
-_ROUNDS = ("the round runtime is not ported to repro_torch yet: ROADMAP "
-           "queue 1 item 9 (make_superstep / run_rounds)")
 _FAULTS = ("the fault runtime is not ported to repro_torch yet: ROADMAP "
            "queue 1 item 10 (make_fault_step / run_faults)")
 
@@ -95,8 +94,31 @@ def make_step(
     return step_fn
 
 
-def make_superstep(*args, **kwargs):
-    raise NotImplementedError(_ROUNDS)
+def make_superstep(
+    grad_fn: Callable,
+    inner_opt: GradientTransform,
+    operator,
+    lr_schedule: Callable,
+    R: int,
+    *,
+    dispatch: Optional[dsp.DispatchConfig] = None,
+    downlink=None,
+    leaf_ledger: bool = False,
+    aggregate: str = "mean_R",
+):
+    """Round program for Algorithm 2: rounds close at every step where
+    any worker syncs, so the head steps are uncommunicated and the tail
+    carries the per-worker sync row.  ``(state, batch_block, tail_flags,
+    rng=None) -> (state, losses [L])``; bit for bit the per-step
+    trajectories.  Drive with :func:`run_rounds`."""
+    engine_super = engine.make_superstep(
+        grad_fn, inner_opt, operator, lr_schedule, R, dispatch=dispatch,
+        global_rounds=False, downlink=downlink, leaf_ledger=leaf_ledger,
+        aggregate=aggregate)
+    return engine.Superstep(
+        engine_super.runner, R, engine_super.check,
+        to_runner=lambda s: engine.EngineState(*s),
+        from_runner=lambda s: AsyncQsparseState(*s))
 
 
 def make_fault_step(*args, **kwargs):
@@ -109,8 +131,10 @@ def run(state, step_fn, batches, sync_mask, rng=None):
     return engine.run(state, step_fn, batches, sync_mask, rng)
 
 
-def run_rounds(*args, **kwargs):
-    raise NotImplementedError(_ROUNDS)
+def run_rounds(state, superstep, batches, sync_mask, rng=None):
+    """Drive the schedule (bool[T, R]) round by round: rounds close at
+    the steps where any worker syncs (``core/rounds.py``)."""
+    return engine.run_rounds(state, superstep, batches, sync_mask, rng)
 
 
 def run_faults(*args, **kwargs):

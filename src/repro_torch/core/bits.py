@@ -25,10 +25,12 @@ def _level_bits(s: int) -> int:
 
 
 def f32(x, device=None) -> torch.Tensor:
-    """A float32 tensor of ``x`` (a tensor keeps its device)."""
+    """A float32 tensor of ``x`` (a tensor keeps its device).  A Python
+    value is written by a fill kernel, not copied from the host, so a
+    CUDA graph can hold it."""
     if isinstance(x, torch.Tensor):
         return x.to(torch.float32)
-    return torch.tensor(x, dtype=torch.float32, device=device)
+    return torch.full((), x, dtype=torch.float32, device=device)
 
 
 def _dev(nnz):

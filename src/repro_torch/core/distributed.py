@@ -24,10 +24,15 @@ charged to ``bits_down``.
 Compression is per leaf along one axis: ``_pick_axis`` keeps Top_k off
 the ``model``-sharded axis of the leaf's spec (Corollary 1, piecewise
 compression), so the specs decide the rows and the wire bits even while
-the model axis is 1.  Not ported yet, and refused with
+the model axis is 1.
+
+The round runtime (``make_dist_round``, ``make_dist_multiround``) runs a
+sync round, or a window of them, as one program: a CUDA graph on the
+card in a world of one whose collectives are device work
+(:func:`round_fused`), else the per-step composition.  Not ported yet, and refused with
 ``NotImplementedError`` naming their ROADMAP item: ZeRO-1, partial
-participation (scenarios), a compressed downlink, the round / overlap /
-fault runtimes and a model axis above 1.
+participation (scenarios), a compressed downlink, the fault runtime and
+a model axis above 1.
 """
 
 from __future__ import annotations
@@ -35,10 +40,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, NamedTuple, Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.core import bits as bitlib
 from repro_torch.core import channel as chn
+from repro_torch.core.engine import _inner_update
+from repro_torch.device import as_tensor
 from repro_torch.core.operators import (
     CompressionOp,
     Identity,
@@ -407,7 +415,7 @@ def worker_count(mesh, data_axes: Sequence[str]) -> int:
     return out
 
 
-def make_dist_steps(
+def _make_dist_parts(
     grad_fn: Callable,                 # (params, batch) -> (loss, grads)
     inner_opt: GradientTransform,
     compressor: Optional[ShardCompressor],
@@ -421,7 +429,9 @@ def make_dist_steps(
     wire: str = "dense_psum",          # "dense_psum" | "sparse_allgather"
     partial: bool = False,
 ):
-    """Returns (init_fn, local_step, sync_step) for this rank's worker.
+    """(init_fn, local_at, sync_at): the two steps at a learning rate the
+    caller gives, ``step(state, batch, rng, lr, scalars=None) -> (state,
+    loss)``, shared by :func:`make_dist_steps` and the round runtime.
 
     ``batch`` is the rank's own batch (``repro``'s [R, ...] batch row of
     this worker).  ``rng`` (a ``torch.Generator`` seeded alike on every
@@ -474,15 +484,14 @@ def make_dist_steps(
             "a compressed downlink on the distributed engine is not ported "
             "yet: ROADMAP queue 1 item 12")
 
-    def _local(state: DistQsparseState, batch):
-        lr = lr_schedule(state.step)
+    def _local(state: DistQsparseState, batch, lr, scalars):
         loss, grads = grad_fn(state.local, batch)
-        updates, inner_new = inner_opt.update(grads, state.inner,
-                                              state.local, lr)
+        updates, inner_new = _inner_update(inner_opt, grads, state.inner,
+                                           state.local, lr, scalars)
         return apply_updates(state.local, updates), inner_new, loss
 
-    def local_step(state: DistQsparseState, batch, rng=None):
-        half, inner_new, loss = _local(state, batch)
+    def local_at(state: DistQsparseState, batch, rng, lr, scalars=None):
+        half, inner_new, loss = _local(state, batch, lr, scalars)
         return state._replace(local=half, inner=inner_new,
                               step=state.step + 1), mesh.mean(loss)
 
@@ -514,8 +523,9 @@ def make_dist_steps(
         return tree_map(lambda x, gg: (x.to(torch.float32) - gg).to(x.dtype),
                         master, means)
 
-    def sync_step_dense(state: DistQsparseState, batch, rng=None):
-        half, inner_new, loss = _local(state, batch)
+    def sync_dense_at(state: DistQsparseState, batch, rng, lr,
+                      scalars=None):
+        half, inner_new, loss = _local(state, batch, lr, scalars)
         delta = _delta(state, half)
         del half
         g, new_mem, wire_bits = up.apply(delta, param_specs, rng=rng)
@@ -546,8 +556,9 @@ def make_dist_steps(
             return dense / torch.clamp(cnt, min=1.0)
         return dense / W
 
-    def sync_step_sparse(state: DistQsparseState, batch, rng=None):
-        half, inner_new, loss = _local(state, batch)
+    def sync_sparse_at(state: DistQsparseState, batch, rng, lr,
+                       scalars=None):
+        half, inner_new, loss = _local(state, batch, lr, scalars)
         delta = _delta(state, half)
         del half
         payloads, _, wire_bits, new_mem = compressor.compact(
@@ -560,8 +571,8 @@ def make_dist_steps(
         return _finish(state, new_master, inner_new, new_mem, wire_bits,
                        loss)
 
-    sync_step = (sync_step_sparse if wire == "sparse_allgather"
-                 else sync_step_dense)
+    sync_at = (sync_sparse_at if wire == "sparse_allgather"
+               else sync_dense_at)
 
     def init_fn(params) -> DistQsparseState:
         """``params`` are the same on every rank (the replicated master)."""
@@ -576,4 +587,138 @@ def make_dist_steps(
             rounds=0,
             bits_down=torch.zeros((), dtype=torch.float32, device=dev))
 
+    return init_fn, local_at, sync_at
+
+
+def make_dist_steps(grad_fn: Callable, inner_opt: GradientTransform,
+                    compressor: Optional[ShardCompressor],
+                    lr_schedule: Callable, mesh, data_axes=("data",),
+                    param_specs=None, **kw):
+    """Returns (init_fn, local_step, sync_step) for this rank's worker,
+    ``step(state, batch, rng=None) -> (state, loss averaged over the
+    workers)``; the keywords (``zero1``, ``aggregate``, ``downlink``,
+    ``wire``, ``partial``) as in :func:`_make_dist_parts`."""
+    init_fn, local_at, sync_at = _make_dist_parts(
+        grad_fn, inner_opt, compressor, lr_schedule, mesh, data_axes,
+        param_specs, **kw)
+
+    def local_step(state: DistQsparseState, batch, rng=None):
+        return local_at(state, batch, rng, lr_schedule(state.step))
+
+    def sync_step(state: DistQsparseState, batch, rng=None):
+        return sync_at(state, batch, rng, lr_schedule(state.step))
+
     return init_fn, local_step, sync_step
+
+
+# ---------------------------------------------------------------------------
+# the round runtime
+# ---------------------------------------------------------------------------
+
+
+def round_fused(mesh) -> bool:
+    """Can a round run as one program (a CUDA graph on the card)?  On the
+    CPU, yes (no graph: the program runs eagerly, gloo collectives
+    included).  On the card, only in a world of one whose collectives
+    stay on the device (NCCL, or no process group): the graph then holds
+    the wire's NCCL calls.  Under gloo a CUDA tensor's collective is
+    staged through host memory, which no graph can hold; NCCL rounds
+    across several ranks are not enabled, as their one run on four
+    cards hung (PERF.md §6).  Both take the per-step composition.
+    Decided from the mesh, before anything runs."""
+    if mesh.device.type == "cpu":
+        return True
+    return mesh.world_size == 1 and mesh.backend != "gloo"
+
+
+class DistRounds:
+    """The distributed engine's round program: ``self(state, blocks,
+    rng=None) -> (state, losses [W, L], leds)`` runs W rounds of L steps
+    (``blocks`` leaves [W, L, ...]), L - 1 local steps and the sync step
+    at each round's tail; ``leds`` holds bits, bits_down and rounds after
+    each round.  :meth:`round` runs one round of an [L, ...] block.
+    ``fused``: one ``engine.RoundRunner`` program per (W, L), a CUDA
+    graph on the card.  Otherwise the per-step composition, each step at
+    the schedule's learning rate, as :func:`make_dist_steps` runs it."""
+
+    def __init__(self, local_at, sync_at, lr_schedule, inner_opt, mesh):
+        from repro_torch.core.engine import RoundRunner
+        self.local_at, self.sync_at = local_at, sync_at
+        self.lr_schedule = lr_schedule
+        self.fused = round_fused(mesh)
+        self.runner = (RoundRunner(self._step, lr_schedule, inner_opt)
+                       if self.fused else None)
+
+    def _step(self, state, batch, mask, rng, lr, scalars=None):
+        fn = self.local_at if mask is None else self.sync_at
+        return fn(state, batch, rng, lr, scalars)
+
+    @property
+    def captures(self) -> int:
+        return 0 if self.runner is None else self.runner.captures
+
+    def round(self, state: DistQsparseState, batch_block, rng=None):
+        state, losses, _ = self(
+            state, tree_map(lambda x: x[None], batch_block), rng)
+        return state, losses[0]
+
+    def __call__(self, state: DistQsparseState, blocks, rng=None):
+        lead = tree_leaves(blocks)[0]
+        W, L = int(lead.shape[0]), int(lead.shape[1])
+        if self.fused:
+            return self.runner.run(state, blocks, [np.ones((), bool)] * W,
+                                   rng)
+        dev = state.bits.device
+        losses, leds = [], {"bits": [], "bits_down": [], "rounds": []}
+        for w in range(W):
+            for i in range(L):
+                fn = self.sync_at if i == L - 1 else self.local_at
+                batch = tree_map(lambda b: as_tensor(b[w, i], dev), blocks)
+                state, loss = fn(state, batch, rng,
+                                 self.lr_schedule(state.step))
+                losses.append(loss)
+            leds["bits"].append(state.bits.clone())
+            leds["bits_down"].append(state.bits_down.clone())
+            leds["rounds"].append(state.rounds)
+        leds = {"bits": torch.stack(leds["bits"]),
+                "bits_down": torch.stack(leds["bits_down"]),
+                "rounds": torch.tensor(leds["rounds"])}
+        return state, torch.stack(losses).reshape(W, L), leds
+
+
+def make_dist_round(grad_fn: Callable, inner_opt: GradientTransform,
+                    compressor: Optional[ShardCompressor],
+                    lr_schedule: Callable, mesh, data_axes=("data",),
+                    param_specs=None, **kw):
+    """The round runtime of the distributed engine: ``(init_fn,
+    round_fn, fused)``.  ``round_fn(state, batch_block, rng=None) ->
+    (state, losses [L])`` runs one sync round: L - 1 local steps, then
+    the sync step at the tail (L the block's leading dim, [L, ...] leaves
+    of this rank's batches).  ``fused`` (:func:`round_fused`): the round
+    is one program, a CUDA graph per round length on the card (the
+    donation contract of ``engine.make_superstep``); else the per-step
+    composition, ``repro``'s ``fused=False`` shape.  Either way the
+    trajectory is :func:`make_dist_steps`'.  Keywords as there."""
+    init_fn, local_at, sync_at = _make_dist_parts(
+        grad_fn, inner_opt, compressor, lr_schedule, mesh, data_axes,
+        param_specs, **kw)
+    program = DistRounds(local_at, sync_at, lr_schedule, inner_opt, mesh)
+    return init_fn, program.round, program.fused
+
+
+def make_dist_multiround(grad_fn: Callable, inner_opt: GradientTransform,
+                         compressor: Optional[ShardCompressor],
+                         lr_schedule: Callable, mesh, data_axes=("data",),
+                         param_specs=None, **kw):
+    """Windows of equal-length rounds as one program each: ``(init_fn,
+    multiround_fn, fused)`` with ``multiround_fn`` a :class:`DistRounds`
+    (``(state, blocks, rng=None) -> (state, losses [W, L], leds)``,
+    ``blocks`` stacking W round blocks, ``leds`` the ledger after each
+    round; ``repro``'s multiround returns none, and its launcher logs a
+    window's interior steps with the totals before the window).  Bit for
+    bit W :func:`make_dist_round` calls."""
+    init_fn, local_at, sync_at = _make_dist_parts(
+        grad_fn, inner_opt, compressor, lr_schedule, mesh, data_axes,
+        param_specs, **kw)
+    program = DistRounds(local_at, sync_at, lr_schedule, inner_opt, mesh)
+    return init_fn, program, program.fused

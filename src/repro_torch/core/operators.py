@@ -83,7 +83,8 @@ def resolve_k(k: int | float, d: int) -> int:
 
 
 def _f32(v: float, ref: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(v, dtype=torch.float32, device=ref.device)
+    # a fill kernel, not a host copy: a CUDA graph can hold it
+    return torch.full((), v, dtype=torch.float32, device=ref.device)
 
 
 def top_k_indices(a: torch.Tensor, k: int) -> torch.Tensor:

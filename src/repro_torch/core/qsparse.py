@@ -29,8 +29,8 @@ the composed operators at any H.
 With the exact broadcast the state carries no master views
 (``master_view`` is None): each step rebuilds them as a broadcast of the
 master (an ``expand`` view, which the engine reads and never writes).
-The round runtime (``make_superstep`` / ``run_rounds``) is ROADMAP queue
-1 item 9.
+The round runtime (``make_superstep`` / ``run_rounds``) runs a sync round
+as one program, a CUDA graph on the card (``engine.make_superstep``).
 """
 
 from __future__ import annotations
@@ -45,10 +45,6 @@ from repro_torch.core.operators import CompressionOp
 from repro_torch.kernels import dispatch as dsp
 from repro_torch.optim.transforms import GradientTransform
 from repro_torch.tree import tree_map
-
-_ROUNDS = ("the round runtime is not ported to repro_torch yet: ROADMAP "
-           "queue 1 item 9 (make_superstep / run_rounds)")
-
 
 class QsparseState(NamedTuple):
     master: Any          # x_t
@@ -148,8 +144,32 @@ def make_step(
     return step_fn
 
 
-def make_superstep(*args, **kwargs):
-    raise NotImplementedError(_ROUNDS)
+def make_superstep(
+    grad_fn: Callable,
+    inner_opt: GradientTransform,
+    operator: CompressionOp | Any,
+    lr_schedule: Callable,
+    R: int,
+    *,
+    dispatch: Optional[dsp.DispatchConfig] = None,
+    downlink=None,
+    leaf_ledger: bool = False,
+    aggregate: str = "mean_R",
+):
+    """Round program for Algorithm 1: ``(state, batch_block, tail_sync,
+    rng=None) -> (state, losses [L])`` with ``tail_sync`` the host bool
+    "is t+1 in I_T" of the round's last step; bit for bit the per-step
+    trajectories (``engine.make_superstep``, whose donation contract it
+    keeps).  Drive with :func:`run_rounds`."""
+    engine_super = engine.make_superstep(
+        grad_fn, inner_opt, operator, lr_schedule, R, dispatch=dispatch,
+        global_rounds=True, downlink=downlink, leaf_ledger=leaf_ledger,
+        aggregate=aggregate)
+    keep_view = _keeps_view(downlink)
+    return engine.Superstep(
+        engine_super.runner, R, engine_super.check,
+        to_runner=lambda s: _to_engine(s, R),
+        from_runner=lambda s: _from_engine(s, keep_view))
 
 
 def run(state: QsparseState, step_fn, batches, sync_mask, rng=None
@@ -158,8 +178,11 @@ def run(state: QsparseState, step_fn, batches, sync_mask, rng=None
     return engine.run(state, step_fn, batches, sync_mask, rng)
 
 
-def run_rounds(*args, **kwargs):
-    raise NotImplementedError(_ROUNDS)
+def run_rounds(state: QsparseState, superstep, batches, sync_mask,
+               rng=None) -> tuple[QsparseState, list[float]]:
+    """Drive the schedule (bool[T]) round by round, one superstep call
+    a round (``engine.run_rounds``)."""
+    return engine.run_rounds(state, superstep, batches, sync_mask, rng)
 
 
 def memory_sq_norms(state: QsparseState) -> torch.Tensor:

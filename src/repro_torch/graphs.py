@@ -17,19 +17,30 @@ once as a ``torch.cuda.CUDAGraph`` and replays it with one launch:
   warm-up: cuBLAS handles, kernel attributes, the kernel library, the
   kernels' ticket buffers are all made here, before any capture); the
   second captures it and replays the capture; every later call replays.
+  An owner that has already run the same work eagerly on a stream of
+  its own passes that stream (``stream``, ``warmed=True``): the first
+  call then captures;
   The body runs exactly once a call, so a body that advances state
   (positions, a KV cache) gives what the eager calls give;
 - the graphs of one owner can share one memory pool (``pool``);
+- a body that draws random numbers from a ``torch.Generator`` names it
+  (``generators``): the graph registers its state, so each replay
+  advances the generator as the eager body does and draws what the eager
+  body would draw next;
 - the host counters (``kernels.launch_stats.LAUNCHES``,
   ``serve.compressed.STATS``) count a wrapper call where it launches.  A
   capture launches nothing, so what the capture added is taken back off
   and added again at each replay (:func:`record`, :func:`add_counts`):
   a graphed run counts what the eager run counts;
+- the garbage collector is run before a capture and held off during it:
+  a dead reference cycle freed mid-capture (an old graph, its pool) would
+  make CUDA calls that invalidate the capture;
 - a failed capture raises; nothing falls back to the eager body.
 """
 
 from __future__ import annotations
 
+import gc
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -69,11 +80,18 @@ class CudaGraph:
     graphs (a new one by default).  ``counters``: the host counters whose
     increments a replay repeats.  ``captures`` counts captures (1 after
     the second call, whatever the calls after), ``calls`` the calls.
+    ``generators``: the CUDA generators the body draws from.
+    ``stream``: the stream to warm up and capture on (a new one by
+    default); ``warmed``: the body's work has already run eagerly on
+    ``stream``, so the first call captures.
     """
 
     def __init__(self, body: Callable[[], None],
                  static: Sequence[torch.Tensor], *, pool=None,
-                 counters: Counters = (LAUNCHES,)):
+                 counters: Counters = (LAUNCHES,),
+                 generators: Sequence[torch.Generator] = (),
+                 stream: Optional[torch.cuda.Stream] = None,
+                 warmed: bool = False):
         static = tuple(static)
         if not static:
             raise ValueError("CudaGraph needs the body's static tensors")
@@ -91,16 +109,25 @@ class CudaGraph:
         self.static = static
         self.pool = torch.cuda.graph_pool_handle() if pool is None else pool
         self.counters = tuple(counters)
+        self.generators = tuple(generators)
+        for g in self.generators:
+            if g.device.type != "cuda" or g.device.index not in (
+                    None, self.device.index):
+                raise ValueError(f"generator on {g.device}, graph on "
+                                 f"{self.device}")
+        if warmed and stream is None:
+            raise ValueError("warmed=True names the stream it was warmed on")
         self.calls = 0
         self.captures = 0
-        self._stream: Optional[torch.cuda.Stream] = None
+        self._stream: Optional[torch.cuda.Stream] = stream
+        self._warm = warmed
         self._graph: Optional[torch.cuda.CUDAGraph] = None
         self._increments: list = []
 
     def __call__(self) -> None:
         if self._graph is not None:
             self._replay()
-        elif self._stream is None:
+        elif not self._warm:
             self._warm_up()
         else:
             self._capture()
@@ -110,7 +137,9 @@ class CudaGraph:
     def _warm_up(self) -> None:
         """The first call: the body, eagerly, on the stream the capture
         will use (the kernels key their ticket buffers by stream)."""
-        self._stream = torch.cuda.Stream(self.device)
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        self._warm = True
         cur = torch.cuda.current_stream(self.device)
         self._stream.wait_stream(cur)
         with torch.cuda.stream(self._stream):
@@ -119,13 +148,22 @@ class CudaGraph:
 
     def _capture(self) -> None:
         graph = torch.cuda.CUDAGraph()
+        for g in self.generators:
+            graph.register_generator_state(g)
 
         def capture():
             with torch.cuda.graph(graph, pool=self.pool,
                                   stream=self._stream):
                 self.body()
 
-        self._increments = record(capture, self.counters)
+        gc.collect()
+        enabled = gc.isenabled()
+        gc.disable()
+        try:
+            self._increments = record(capture, self.counters)
+        finally:
+            if enabled:
+                gc.enable()
         self._graph = graph
         self.captures += 1
 

@@ -42,7 +42,7 @@ def topk_compress_ref(acc: torch.Tensor, k: int, *, iters: int = 24,
     a = accf.abs()
     hi = a.amax(dim=1, keepdim=True)
     lo = torch.zeros_like(hi)
-    half = torch.tensor(0.5, dtype=torch.float32, device=a.device)
+    half = torch.full((), 0.5, dtype=torch.float32, device=a.device)
     for _ in range(iters):
         mid = half * (lo + hi)
         cnt = (a >= mid).sum(dim=1, keepdim=True)
@@ -95,7 +95,7 @@ def topk_threshold_levels_ref(acc: torch.Tensor, k: int, *, iters: int = 24,
     chunk = -(-per // 4) * 4
     parts = [a[:, c0:c0 + chunk] for c0 in range(0, clusters * chunk, chunk)]
     zero = torch.zeros((), dtype=torch.float32, device=dev)
-    half = torch.tensor(0.5, dtype=torch.float32, device=dev)
+    half = torch.full((), 0.5, dtype=torch.float32, device=dev)
     # pass 0: every chunk's max (0 for an empty one) and its count
     pm = torch.stack([p.amax(dim=1) if p.shape[1] else
                       torch.zeros(rows, device=dev) for p in parts])
@@ -254,8 +254,9 @@ def topk_compact_ref(acc: torch.Tensor, k: int, kcap: int, *,
     hold the out-of-row sentinel ``(idx = n, val = 0)``.
 
     ``repro`` scatters the slots with a one-hot contraction because TPUs
-    have no scatter; here a cumsum gives the slots and an index_put
-    writes them.
+    have no scatter; here a cumsum gives the slots and a scatter writes
+    them (every element not emitted goes to a spare slot that is cut
+    off), with no data-dependent shape, so a CUDA graph can hold it.
 
     Returns (idx [rows, kcap] int32, val [rows, kcap] float32,
     new_memory [rows, n] float32, count_per_row int32).
@@ -265,7 +266,7 @@ def topk_compact_ref(acc: torch.Tensor, k: int, kcap: int, *,
     a = accf.abs()
     hi = a.amax(dim=1, keepdim=True)
     lo = torch.zeros_like(hi)
-    half = torch.tensor(0.5, dtype=torch.float32, device=a.device)
+    half = torch.full((), 0.5, dtype=torch.float32, device=a.device)
     for _ in range(iters):
         mid = half * (lo + hi)
         more = (a >= mid).sum(dim=1, keepdim=True) > k
@@ -283,13 +284,14 @@ def topk_compact_ref(acc: torch.Tensor, k: int, kcap: int, *,
         norm = sign_norm(sel)
         denom = torch.clamp(cnt[:, None].to(torch.float32), min=1.0)
         sel = torch.where(emit, torch.sign(accf) * norm / denom, zero)
-    r, c = emit.nonzero(as_tuple=True)
-    slot = pos[r, c].to(torch.int64)
-    idx = torch.full((rows, kcap), n, dtype=torch.int32, device=a.device)
-    val = torch.zeros((rows, kcap), dtype=torch.float32, device=a.device)
-    idx[r, slot] = c.to(torch.int32)
-    val[r, slot] = sel[r, c]
-    return idx, val, accf - sel, cnt
+    slot = torch.where(emit, pos, kcap).to(torch.int64)
+    cols = torch.arange(n, dtype=torch.int32, device=a.device)
+    idx = torch.full((rows, kcap + 1), n, dtype=torch.int32, device=a.device)
+    val = torch.zeros((rows, kcap + 1), dtype=torch.float32,
+                      device=a.device)
+    idx.scatter_(1, slot, cols.expand(rows, n))
+    val.scatter_(1, slot, sel)
+    return idx[:, :kcap], val[:, :kcap], accf - sel, cnt
 
 
 def compact_warps(n: int) -> int:
@@ -385,7 +387,7 @@ def _qsgd_levels(xf: torch.Tensor, u: torch.Tensor, s: int,
     bucket's norm [buckets, 1]."""
     one = torch.ones((), dtype=torch.float32, device=xf.device)
     safe = torch.where(norm > 0, norm, one)
-    sf = torch.tensor(float(s), dtype=torch.float32, device=xf.device)
+    sf = torch.full((), float(s), dtype=torch.float32, device=xf.device)
     level = xf.abs() / safe * sf
     low = torch.floor(level)
     xi = low + (u.to(torch.float32) < (level - low)).to(torch.float32)

@@ -24,6 +24,8 @@ import dataclasses
 import os
 import socket
 import subprocess
+import tempfile
+import time
 from typing import Optional
 
 import torch
@@ -181,27 +183,46 @@ def run_local_ranks(cmd: list, world_size: int, env: Optional[dict] = None,
     """Start ``world_size`` copies of ``cmd`` on this host as the ranks of
     one process group (``torchrun``'s variables, a free port) and wait
     for all of them.  Returns [(returncode, stdout, stderr)] in rank
-    order; every process is stopped before it returns, also on a
-    timeout."""
+    order.  Each rank writes to files of its own, so a rank that writes
+    much never blocks on a full pipe while the others wait for it in a
+    collective.  Every process is stopped before it returns; ranks still
+    running after ``timeout`` seconds raise ``TimeoutError`` with the end
+    of each rank's stderr."""
     port = free_port()
-    procs = []
+    procs, files = [], []
     try:
         for r in range(world_size):
             e = dict(os.environ if env is None else env)
             e.update(RANK=str(r), WORLD_SIZE=str(world_size),
                      LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(world_size),
                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+            files.append((tempfile.TemporaryFile("w+"),
+                          tempfile.TemporaryFile("w+")))
             procs.append(subprocess.Popen(
-                cmd, env=e, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                cmd, env=e, stdout=files[-1][0], stderr=files[-1][1],
                 text=True))
-        return [_wait(p, timeout) for p in procs]
+        deadline = time.monotonic() + timeout
+        late = []
+        for r, p in enumerate(procs):
+            try:
+                p.wait(timeout=max(deadline - time.monotonic(), 0.0))
+            except subprocess.TimeoutExpired:
+                late.append(r)
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-
-
-def _wait(proc, timeout: float) -> tuple:
-    out, err = proc.communicate(timeout=timeout)
-    return proc.returncode, out, err
+    outs = []
+    for (out, err), p in zip(files, procs):
+        out.seek(0)
+        err.seek(0)
+        outs.append((p.returncode, out.read(), err.read()))
+        out.close()
+        err.close()
+    if late:
+        tails = "\n".join(f"rank {r} stderr: ...{e[-2000:]}"
+                          for r, (_, _, e) in enumerate(outs))
+        raise TimeoutError(f"ranks {late} of {cmd} still ran after "
+                           f"{timeout} s\n{tails}")
+    return outs

@@ -13,18 +13,23 @@ for an architecture of the dense family, one process per worker:
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b \\
       --smoke --mesh 1x1 --device cpu --steps 4 --H 2
 
-``repro``'s flag names, defaults and log lines (``policy: ...``, one
-``step N [sync |local] loss ... bits up ... down ...`` line per step with
-the sync's kernel launches, the summary), except that ``--runtime``
-defaults to ``step``, the only runtime ported.  Added: ``--device``
-(default cuda), ``--seed`` (weights and the stochastic operators' draws),
-``--backend`` (``gloo`` for several ranks sharing one GPU) and ``--json``
-(the run's record, exact ledgers included).  Every
-flag of a feature not ported yet raises ``NotImplementedError`` naming
-its ROADMAP item.  Batches come from ``data.LMTokenStream`` (a numpy copy
-of ``repro``'s), so a seed gives both packages the same tokens; each
-rank takes its own worker's row.  Only rank 0 prints and writes
-``--ckpt``.
+``repro``'s flag names, defaults and log lines (``policy: ...``,
+``runtime: ...``, one ``step N [sync |local] loss ... bits up ... down
+...`` line per step with the sync's kernel launches, the summary).
+``--runtime round`` (the default) runs each sync round as one program,
+a CUDA graph on the card where the mesh allows it (a window of one
+round of ``core.distributed.make_dist_multiround``; ``--overlap``:
+windows of up to ``--overlap-window`` rounds); ``--runtime
+step`` runs the steps eagerly.  The log and the ledgers are the same
+either way: a mid-round step reports the bits of the round before.
+Added: ``--device`` (default cuda), ``--seed`` (weights and the
+stochastic operators' draws), ``--backend`` (``gloo`` for several ranks
+sharing one GPU) and ``--json`` (the run's record, exact ledgers
+included).  Every flag of a feature not ported yet raises
+``NotImplementedError`` naming its ROADMAP item.  Batches come from
+``data.LMTokenStream`` (a numpy copy of ``repro``'s), so a seed gives
+both packages the same tokens; each rank takes its own worker's row.
+Only rank 0 prints and writes ``--ckpt``.
 """
 
 from __future__ import annotations
@@ -40,7 +45,10 @@ import torch
 
 from repro_torch.configs import ARCHS, get_config, get_policy_preset
 from repro_torch.core import policy as pol
-from repro_torch.core.distributed import ShardCompressor, make_dist_steps
+from repro_torch.core.distributed import (ShardCompressor,
+                                          make_dist_multiround,
+                                          make_dist_steps)
+from repro_torch.core.engine import round_calls
 from repro_torch.data import LMTokenStream
 from repro_torch.kernels.launch_stats import LAUNCHES
 from repro_torch.launch.mesh import data_axes, make_mesh, worker_count
@@ -53,10 +61,6 @@ from repro_torch.tree import tree_leaves, value_and_grad
 #: flags of features the port has not reached: (flag, test on the parsed
 #: args, ROADMAP item)
 UNPORTED = (
-    ("--runtime round", lambda a: a.runtime == "round",
-     "queue 1 item 9 (round runtime)"),
-    ("--overlap", lambda a: a.overlap or a.overlap_window != 8,
-     "queue 1 item 9 (overlapped rounds)"),
     ("--scenario", lambda a: a.scenario is not None,
      "queue 1 item 10 (scenarios)"),
     ("--faults", lambda a: (a.faults is not None or a.fault_seed is not None
@@ -142,11 +146,16 @@ def parser() -> argparse.ArgumentParser:
                     help="sync transport: dense all-reduce, or compact "
                          "(idx, val) all-gather")
     ap.add_argument("--scenario", default=None, help="not ported")
-    ap.add_argument("--runtime", default="step", choices=["round", "step"],
-                    help="execution runtime; only 'step' is ported")
-    ap.add_argument("--overlap", action="store_true", help="not ported")
+    ap.add_argument("--runtime", default="round", choices=["round", "step"],
+                    help="execution runtime: 'round' runs each sync round "
+                         "(H local steps + sync) as one program, a CUDA "
+                         "graph on the card; 'step' runs the steps "
+                         "eagerly.  The same trajectories")
+    ap.add_argument("--overlap", action="store_true",
+                    help="windows of consecutive equal-length rounds as "
+                         "one program each; requires --runtime round")
     ap.add_argument("--overlap-window", type=int, default=8,
-                    help="not ported")
+                    help="most rounds a window (power-of-2 chunks)")
     ap.add_argument("--tune", action="store_true", help="not ported")
     ap.add_argument("--retune", action="store_true", help="not ported")
     ap.add_argument("--faults", default=None, help="not ported")
@@ -195,6 +204,8 @@ def main(argv: Optional[list] = None) -> dict:
     and times, ledgers, launches per sync, peak device memory)."""
     args = parser().parse_args(argv)
     refuse_unported(args)
+    if args.overlap and args.runtime != "round":
+        raise SystemExit("--overlap requires --runtime round")
     channel_spec = resolve_policy_arg(args)
     if channel_spec.downlink is not None:
         raise NotImplementedError(
@@ -208,8 +219,9 @@ def main(argv: Optional[list] = None) -> dict:
 
 
 def setup(args, channel_spec, mesh) -> types.SimpleNamespace:
-    """The run's pieces: config, initial state, the two steps, the batch
-    stream (this rank's rows), the shared generator and printer."""
+    """The run's pieces: config, initial state, the two steps (``--runtime
+    step``) or the round program, the batch stream (this rank's rows),
+    the shared generator and printer."""
     dev = mesh.device
     cfg = get_config(args.arch, smoke=args.smoke)
     model = get_model(cfg)
@@ -220,33 +232,58 @@ def setup(args, channel_spec, mesh) -> types.SimpleNamespace:
     say("policy:", channel_spec.to_string(), flush=True)
     uplink = ShardCompressor.from_spec(channel_spec.uplink, params,
                                        dispatch=args.dispatch)
-    init_fn, local_step, sync_step = make_dist_steps(
+    engine_args = (
         grad_fn, momentum_sgd(0.9),
         uplink if uplink is not None
         else ShardCompressor("none", dispatch=args.dispatch),
         warmup_piecewise(args.lr, 5, [int(args.steps * 0.8)]),
-        mesh, data_axes(mesh), param_specs(cfg), aggregate=args.aggregate,
-        wire=args.wire)
+        mesh, data_axes(mesh), param_specs(cfg))
+    engine_kw = dict(aggregate=args.aggregate, wire=args.wire)
+    local_step = sync_step = round_fn = fused = None
+    if args.runtime == "step":
+        init_fn, local_step, sync_step = make_dist_steps(*engine_args,
+                                                         **engine_kw)
+    else:
+        # one window of rounds a call; without --overlap a window is a
+        # round, bit for bit a make_dist_round call
+        init_fn, round_fn, fused = make_dist_multiround(*engine_args,
+                                                        **engine_kw)
+        if args.overlap:
+            say(f"runtime: round overlap "
+                f"({'fused' if fused else 'per-round fallback'}), "
+                f"window {args.overlap_window}", flush=True)
+        else:
+            say(f"runtime: round "
+                f"({'fused' if fused else 'per-step fallback'})", flush=True)
     R = worker_count(mesh)
     stream = LMTokenStream(vocab=cfg.vocab, R=R, order=64, seed=0)
+    # the prefix embeddings of a multimodal config draw from their own
+    # generator, so the two runtimes (which build a round's batches
+    # before running it) draw the operators' randomness alike
+    data_rng = torch.Generator(device=dev).manual_seed(args.seed + 2)
 
-    def batches():
+    def host_batches():
+        """This rank's batches, tokens on the host."""
         for batch in stream.batches(args.batch, args.seq, args.steps,
                                     seed=1):
-            b = {"tokens": torch.from_numpy(
-                batch["tokens"][mesh.rank]).to(dev)}
+            b = {"tokens": batch["tokens"][mesh.rank]}
             if cfg.modality:
                 b["prefix_embeds"] = 0.02 * torch.randn(
                     (args.batch, cfg.n_frontend_tokens, cfg.d_model),
-                    generator=rng, device=dev)
+                    generator=data_rng, device=dev)
             yield b
+
+    def batches():
+        for b in host_batches():
+            yield {**b, "tokens": torch.from_numpy(b["tokens"]).to(dev)}
 
     # every rank draws the stochastic leaves' randomness alike (repro's
     # key is replicated over the worker axes)
     rng = torch.Generator(device=dev).manual_seed(args.seed + 1)
     return types.SimpleNamespace(
         cfg=cfg, R=R, state=init_fn(params), local_step=local_step,
-        sync_step=sync_step, batches=batches, rng=rng, say=say)
+        sync_step=sync_step, round_fn=round_fn, fused=fused, batches=batches,
+        host_batches=host_batches, rng=rng, say=say)
 
 
 def _run(args, channel_spec, mesh) -> dict:
@@ -257,28 +294,36 @@ def _run(args, channel_spec, mesh) -> dict:
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     rec = {"loss": [], "kind": [], "ms": [], "bits_up": [], "bits_down": [],
-           "launches_per_sync": []}
-    t0 = time.time()
-    for t, b in enumerate(run.batches()):
-        sync = is_sync(t, args)
-        before = dict(LAUNCHES)
-        ts = time.perf_counter()
-        step = run.sync_step if sync else run.local_step
-        state, loss = step(state, b, run.rng)
-        loss, up = float(loss), float(state.bits)       # synchronizes
-        rec["ms"].append((time.perf_counter() - ts) * 1e3)
-        down = float(state.bits_down)
-        note = ""
-        if sync:
-            counts = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
-            rec["launches_per_sync"].append(counts)
-            note = f" launches/round [{_note(counts)}]"
+           "launches_per_sync": [], "runtime": args.runtime,
+           "fused": run.fused}
+
+    def log_step(t, sync, loss, up, down, counts=None):
         rec["loss"].append(loss)
         rec["kind"].append("sync" if sync else "local")
         rec["bits_up"].append(up)
         rec["bits_down"].append(down)
+        note = ""
+        if counts is not None:
+            rec["launches_per_sync"].append(counts)
+            note = f" launches/round [{_note(counts)}]"
         say(f"step {t + 1:4d} [{'sync ' if sync else 'local'}] loss "
             f"{loss:.4f} bits up {up:.3g} down {down:.3g}{note}", flush=True)
+
+    t0 = time.time()
+    if args.runtime == "step":
+        for t, b in enumerate(run.batches()):
+            sync = is_sync(t, args)
+            before = dict(LAUNCHES)
+            ts = time.perf_counter()
+            step = run.sync_step if sync else run.local_step
+            state, loss = step(state, b, run.rng)
+            loss, up = float(loss), float(state.bits)   # synchronizes
+            rec["ms"].append((time.perf_counter() - ts) * 1e3)
+            counts = ({k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+                      if sync else None)
+            log_step(t, sync, loss, up, float(state.bits_down), counts)
+    else:
+        state = _run_rounds(args, run, state, rec, log_step)
     dt = time.time() - t0
     total = float(state.bits) + float(state.bits_down)
     say(f"\n{args.steps} steps in {dt:.1f}s ({args.steps / dt:.2f} it/s); "
@@ -305,6 +350,40 @@ def _run(args, channel_spec, mesh) -> dict:
         with open(args.json, "w") as f:
             json.dump(rec, f, indent=1)
     return rec
+
+
+def _run_rounds(args, run, state, rec: dict, log_step):
+    """The round runtime's loop over ``engine.round_calls``: the fixed
+    schedule's rounds (every H-th step and the last one sync), one
+    program a round, or a window of rounds under ``--overlap``; each step
+    logged as ``--runtime step`` logs it, a mid-round step with the
+    ledger of the round before.  ``ms`` is a round's time over its
+    steps, ``round_ms`` the rounds' times."""
+    sync = np.array([is_sync(t, args) for t in range(args.steps)])
+    up, down = float(state.bits), float(state.bits_down)
+    rec["round_ms"] = []
+    for plans, block, _ in round_calls(
+            run.host_batches(), sync,
+            args.overlap_window if args.overlap else 1):
+        W, L = len(plans), plans[0].length
+        before = dict(LAUNCHES)
+        ts = time.perf_counter()
+        state, losses, leds = run.round_fn(state, block, run.rng)
+        losses = losses.tolist()                           # synchronizes
+        ms = (time.perf_counter() - ts) * 1e3
+        leds = {k: leds[k].tolist() for k in ("bits", "bits_down")}
+        counts = {k: (LAUNCHES[k] - before[k]) // W for k in LAUNCHES}
+        for wi, plan in enumerate(plans):
+            rec["round_ms"].append(ms / W)
+            for i in range(L):
+                tail = i == L - 1
+                if tail:
+                    up, down = leds["bits"][wi], leds["bits_down"][wi]
+                rec["ms"].append(ms / (W * L))
+                log_step(plan.start + i, tail, losses[wi][i], up, down,
+                         counts if tail else None)
+    rec["captures"] = run.round_fn.captures
+    return state
 
 
 if __name__ == "__main__":

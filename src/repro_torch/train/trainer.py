@@ -15,14 +15,27 @@ or from the ``operator`` argument plus ``RunConfig.downlink_op``, as in
 ``ckpt_dir`` writes the master as ``step_<N>`` at every ``ckpt_every``
 steps and as ``final`` at the end, with the policy in the manifest.
 
+Two runtimes drive the schedule (``RunConfig.runtime``), as in
+``repro``:
+
+* ``"round"`` (default): the schedule is segmented into round plans
+  (``core/rounds.py``) and each round (the local steps up to a sync, then
+  the sync) runs as one program, ``engine.make_superstep``: a CUDA graph
+  per round shape on the card, the same body eagerly on the CPU.  Losses
+  come back as one tensor per round and the ledger is read once per
+  round.  ``overlap`` runs windows of up to ``overlap_window``
+  equal-length rounds as one program each (``engine.make_multiround``);
+* ``"step"``: the per-step loop, eager.
+
+Trajectories and ``History`` are the same either way: a mid-round log
+point reads the ledger of the round before (bits and rounds change only
+at syncs), and a mid-round eval or checkpoint reads the master before
+the round runs (it too changes only at syncs).
+
 ``RunConfig`` keeps the ``repro`` fields that switch a module on.  Those
 whose modules have not been ported yet raise ``NotImplementedError``
 naming their ROADMAP item; the fields that only tune such a module
-(``overlap_window``, ``retune``, ``fault_seed``, ``staleness_weight``)
-arrive with it.  ``runtime`` defaults to
-``"step"``, the only runtime so far
-(``repro`` pins its round runtime to the step runtime, so ``History`` is
-the same either way).
+(``retune``, ``fault_seed``, ``staleness_weight``) arrive with it.
 """
 
 from __future__ import annotations
@@ -57,8 +70,12 @@ class RunConfig:
     target_loss: Optional[float] = None
     dispatch: str = "auto"  # "auto" | "kernel" | "reference"
     pack: bool = True       # megabuffer-pack same-bucket leaves per round
-    runtime: str = "step"   # "step"; "round" is ROADMAP queue 1 item 9
+    # "round": one program (a CUDA graph on the card) per sync round;
+    # "step": the eager per-step loop.  The same History either way.
+    runtime: str = "round"  # "round" | "step"
+    # windows of equal-length rounds as one program (round runtime only)
     overlap: bool = False
+    overlap_window: int = 8   # most rounds a window (power-of-2 chunks)
     tune: bool = False
     # ``core.policy`` spec: PolicySpec / ChannelSpec / OpSpec or a DSL
     # string; the ``operator`` argument and ``downlink_op`` then stay unset
@@ -77,8 +94,6 @@ class RunConfig:
 #: RunConfig options whose modules are still to be ported: (field, value
 #: meaning "unused", the ROADMAP item that brings it)
 _NOT_YET = (
-    ("runtime", "step", "queue 1 item 9 (round runtime)"),
-    ("overlap", False, "queue 1 item 9 (round runtime, overlap)"),
     ("scenario", None, "queue 1 item 10 (scenarios)"),
     ("faults", None, "queue 1 item 10 (faults)"),
     ("tune", False, "queue 1 item 11 (kernels/autotune.py)"),
@@ -90,6 +105,17 @@ def _check_ported(run: RunConfig) -> None:
     if run.runtime not in ("round", "step"):
         raise ValueError(f"RunConfig.runtime must be 'round' or 'step', "
                          f"got {run.runtime!r}")
+    if run.overlap:
+        if run.runtime != "round":
+            raise ValueError(
+                "RunConfig.overlap requires the round runtime "
+                "(runtime='round'); the per-step loop has no rounds "
+                "to window")
+        if run.faults is not None:
+            raise ValueError(
+                "RunConfig.overlap is unsupported with fault injection: "
+                "the fault runtime's arrival events segment rounds "
+                "dynamically (run with overlap=False)")
     for field, unused, item in _NOT_YET:
         if getattr(run, field) != unused:
             raise NotImplementedError(
@@ -144,6 +170,10 @@ class History:
     leaf_groups: list = dataclasses.field(default_factory=list)
     leaf_bits: list = dataclasses.field(default_factory=list)
     leaf_bits_down: list = dataclasses.field(default_factory=list)
+    # round runtime: one (start_step, length, n_synced) per round program
+    # run; the per-round losses flatten into ``loss`` / ``steps`` above
+    round_blocks: list = dataclasses.field(default_factory=list)
+    captures: int = 0   # the round runtime's CUDA graphs (0 on the CPU)
 
     def summary(self) -> dict:
         out = {
@@ -190,12 +220,14 @@ def train(
     rng=None,
 ) -> tuple[engine.EngineState, History]:
     """Runs Algorithm 1 (or Algorithm 2 when ``run.asynchronous``)
-    through the engine, one step at a time, on ``device`` (default
-    cuda; raises when no GPU is present).  ``batches`` yields trees
+    through the engine, round by round (``run.runtime == "round"``, the
+    default) or one step at a time, on ``device`` (default cuda; raises
+    when no GPU is present).  ``batches`` yields trees
     whose leaves lead with the worker axis (numpy or tensors).  ``rng``:
     what the stochastic operators draw from, a ``torch.Generator`` or a
     ``core.operators.Uniforms`` feed (default: a generator on ``device``
-    seeded with ``run.seed``)."""
+    seeded with ``run.seed``; a CUDA graph cannot take a feed, so on the
+    card a feed needs ``runtime="step"``)."""
     _check_ported(run)
     operator, downlink, channel_spec = resolve_run_channels(operator, run,
                                                             params)
@@ -208,49 +240,127 @@ def train(
     state = engine.init(params, inner_opt, run.R, downlink=downlink,
                         leaf_ledger=run.leaf_ledger, device=dev)
     mask = make_mask(run)
-    step_fn = engine.make_step(
-        grad_fn, inner_opt, operator, lr_schedule, run.R,
-        dispatch=dispatch, global_rounds=not run.asynchronous,
-        downlink=downlink, leaf_ledger=run.leaf_ledger,
-        aggregate=run.aggregate)
     ckpt_policy = None if channel_spec is None else channel_spec.to_dict()
     if run.leaf_ledger:
         hist.leaf_groups = list(engine.leaf_group_names(state.master))
 
+    # per-step bookkeeping, shared by both runtimes: ``led`` is the
+    # ledger the step's state holds (in the round runtime a mid-round
+    # step reads the round before's, which is the per-step value)
     recent = []
-    for t, batch in enumerate(batches):
-        if t >= run.total_steps:
-            break
-        batch = tree_map(lambda b: as_tensor(b, dev), batch)
-        state, loss = step_fn(state, batch, mask[t], rng)
-        lossf = float(loss)
+
+    def snapshot_ledger(st) -> dict:
+        led = {"bits": float(st.bits), "bits_down": float(st.bits_down),
+               "rounds": int(st.rounds)}
+        if run.leaf_ledger:
+            led["leaf_bits"] = st.leaf_bits.tolist()
+            led["leaf_bits_down"] = st.leaf_bits_down.tolist()
+        return led
+
+    def bookkeep_loss(t: int, lossf: float, led: dict) -> None:
         recent.append(lossf)
         if len(recent) > smooth:
             recent.pop(0)
         sm = float(np.mean(recent))
-        bits = float(state.bits)
         if (t + 1) % run.log_every == 0 or t == run.total_steps - 1:
             hist.steps.append(t + 1)
             hist.loss.append(sm)
-            hist.bits.append(bits)
-            hist.bits_down.append(float(state.bits_down))
-            hist.rounds.append(int(state.rounds))
+            hist.bits.append(led["bits"])
+            hist.bits_down.append(led["bits_down"])
+            hist.rounds.append(led["rounds"])
             if run.leaf_ledger:
-                hist.leaf_bits.append(state.leaf_bits.tolist())
-                hist.leaf_bits_down.append(state.leaf_bits_down.tolist())
+                hist.leaf_bits.append(list(led["leaf_bits"]))
+                hist.leaf_bits_down.append(list(led["leaf_bits_down"]))
         if (run.target_loss is not None and hist.bits_to_target is None
                 and sm <= run.target_loss and len(recent) == smooth):
-            hist.bits_to_target = bits
+            hist.bits_to_target = led["bits"]
             hist.steps_to_target = t + 1
+
+    def maybe_eval_ckpt(t: int, master) -> None:
+        """Eval / checkpoint of step t, on the master the per-step loop
+        holds after step t (mid-round: the master before the round)."""
         if eval_fn and run.eval_every and (t + 1) % run.eval_every == 0:
             hist.eval_steps.append(t + 1)
             hist.eval_metrics.append(
-                {k: float(v) for k, v in eval_fn(state.master).items()})
+                {k: float(v) for k, v in eval_fn(master).items()})
         if run.ckpt_dir and run.ckpt_every and (t + 1) % run.ckpt_every == 0:
-            checkpoint.save(f"{run.ckpt_dir}/step_{t + 1}", state.master,
+            checkpoint.save(f"{run.ckpt_dir}/step_{t + 1}", master,
                             step=t + 1, policy=ckpt_policy)
+
+    book = (snapshot_ledger, bookkeep_loss, maybe_eval_ckpt)
+    if run.runtime == "round":
+        superstep = engine.make_superstep(
+            grad_fn, inner_opt, operator, lr_schedule, run.R,
+            dispatch=dispatch, global_rounds=not run.asynchronous,
+            downlink=downlink, leaf_ledger=run.leaf_ledger,
+            aggregate=run.aggregate)
+        state = _drive_rounds(
+            state, superstep, batches, mask, rng, run, hist, *book,
+            window=run.overlap_window if run.overlap else 1)
+        hist.captures = superstep.captures
+    else:
+        step_fn = engine.make_step(
+            grad_fn, inner_opt, operator, lr_schedule, run.R,
+            dispatch=dispatch, global_rounds=not run.asynchronous,
+            downlink=downlink, leaf_ledger=run.leaf_ledger,
+            aggregate=run.aggregate)
+        for t, batch in enumerate(batches):
+            if t >= run.total_steps:
+                break
+            batch = tree_map(lambda b: as_tensor(b, dev), batch)
+            state, loss = step_fn(state, batch, mask[t], rng)
+            bookkeep_loss(t, float(loss), snapshot_ledger(state))
+            maybe_eval_ckpt(t, state.master)
     hist.wall_time = time.time() - t0
     if run.ckpt_dir:
         checkpoint.save(f"{run.ckpt_dir}/final", state.master,
                         step=run.total_steps, policy=ckpt_policy)
     return state, hist
+
+
+def _drive_rounds(state, superstep, batches, mask, rng, run: RunConfig,
+                  hist: History, snapshot_ledger, bookkeep_loss,
+                  maybe_eval_ckpt, window: int = 1):
+    """The round runtime's loop (``repro``'s ``_drive_rounds``, and with
+    ``window`` > 1 its ``_drive_rounds_overlap``) over
+    ``engine.round_calls``: one program a round, or a window of up to
+    ``window`` consecutive equal-length rounds; the [W, L] losses and the
+    per-round ledger snapshots read once a call, so every round
+    boundary's History entry is the serial rounds'.  A mid-round log
+    point reads the round before's ledger (the per-step value).
+
+    Donation: every read of a state (ledger, eval, checkpoint) happens
+    before the next call overwrites it.  Rounds holding an eval or
+    checkpoint step run alone: their mid-round points (whose per-step
+    semantics freeze the previous sync's master) are read before the
+    round, the tail's after it."""
+    T = run.total_steps
+    bounds = set()
+    if run.eval_every:
+        bounds.update(t for t in range(T) if (t + 1) % run.eval_every == 0)
+    if run.ckpt_dir and run.ckpt_every:
+        bounds.update(t for t in range(T) if (t + 1) % run.ckpt_every == 0)
+    keys = ["bits", "bits_down", "rounds"]
+    if run.leaf_ledger:
+        keys += ["leaf_bits", "leaf_bits_down"]
+    led = snapshot_ledger(state)
+    for plans, block, tails in engine.round_calls(batches, mask[:T], window,
+                                                  bounds):
+        alone = len(plans) == 1
+        if alone:
+            for i in range(plans[0].length - 1):
+                maybe_eval_ckpt(plans[0].start + i, state.master)
+        state, losses, leds = superstep.multiround(state, block, tails, rng)
+        losses = losses.tolist()
+        leds = {k: leds[k].tolist() for k in keys}
+        for wi, plan in enumerate(plans):
+            round_led = {k: leds[k][wi] for k in keys}
+            for i in range(plan.length):
+                bookkeep_loss(plan.start + i, losses[wi][i],
+                              round_led if i == plan.length - 1 else led)
+            hist.round_blocks.append(
+                (plan.start, plan.length, int(np.sum(np.asarray(plan.mask)))))
+            led = round_led
+        if alone:
+            maybe_eval_ckpt(plans[0].stop - 1, state.master)
+    return state

@@ -181,11 +181,58 @@ def test_run_matches_repro(name, kw, down, seed):
 
 
 def test_unported_runtimes_raise():
-    for fn in (async_qsparse.make_superstep, async_qsparse.run_rounds):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            fn()
+    # the round runtime is ported: it runs, bit for bit the step runtime
+    mask = schedule.async_schedule(T_PAR, RP, H_PAR, seed=2)
+    params, batches = parity_problem(2)
+    outs = []
+    for make, drive in ((async_qsparse.make_step, async_qsparse.run),
+                        (async_qsparse.make_superstep,
+                         async_qsparse.run_rounds)):
+        fn = make(grad_t, sgd(), ops.QSGDQuantizer(s=4), constant(0.05), RP,
+                  leaf_ledger=True)
+        outs.append(drive(
+            async_qsparse.init(tree_map(torch.from_numpy, params), sgd(), RP,
+                               leaf_ledger=True, device="cpu"),
+            fn, [tree_map(torch.from_numpy, b) for b in batches], mask,
+            torch.Generator().manual_seed(1)))
+    (a, la), (b, lb) = outs
+    assert type(b).__name__ == "AsyncQsparseState" and la == lb
+    assert a.rounds == b.rounds == int(mask.sum())
+    for x, y in zip(tree_leaves(tuple(a)), tree_leaves(tuple(b))):
+        assert torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
     for fn in (async_qsparse.make_fault_step, async_qsparse.run_faults):
         with pytest.raises(NotImplementedError, match="item 10"):
             fn()
     assert async_qsparse.AsyncQsparseState._fields == \
         teng.EngineState._fields
+
+
+def test_run_rounds_matches_repro():
+    """The round runtime against ``repro``'s ``run_rounds`` on an async
+    mask, to :func:`test_run_matches_repro`'s tolerances."""
+    mask = schedule.async_schedule(T_PAR, RP, H_PAR, seed=5)
+    params, batches = parity_problem(5)
+    sup_j = jaq.make_superstep(grad_j, jsgd(), jops.TopK(k=0.05),
+                               jconstant(0.05), RP, leaf_ledger=True)
+    st_j, losses_j = jaq.run_rounds(
+        jaq.init(jax.tree_util.tree_map(jnp.asarray, params), jsgd(), RP,
+                 leaf_ledger=True), sup_j,
+        [jax.tree_util.tree_map(jnp.asarray, b) for b in batches], mask,
+        jax.random.PRNGKey(0))
+    sup_t = async_qsparse.make_superstep(grad_t, sgd(), ops.TopK(k=0.05),
+                                         constant(0.05), RP,
+                                         leaf_ledger=True)
+    st_t, losses_t = async_qsparse.run_rounds(
+        async_qsparse.init(tree_map(torch.from_numpy, params), sgd(), RP,
+                           leaf_ledger=True, device="cpu"), sup_t,
+        [tree_map(torch.from_numpy, b) for b in batches], mask)
+    assert float(st_t.bits) == float(st_j.bits) > 0
+    assert float(st_t.bits_down) == float(st_j.bits_down) > 0
+    assert st_t.rounds == int(st_j.rounds) == int(mask.sum())
+    assert st_t.leaf_bits.tolist() == np.asarray(st_j.leaf_bits).tolist()
+    np.testing.assert_allclose(losses_t, losses_j, rtol=1e-5)
+    for f in ("master", "master_view", "local", "memory"):
+        for a, e in zip(tree_leaves(getattr(st_t, f)),
+                        jax.tree_util.tree_leaves(getattr(st_j, f))):
+            np.testing.assert_allclose(a.numpy(), np.asarray(e), rtol=1e-5,
+                                       atol=1e-6, err_msg=f)

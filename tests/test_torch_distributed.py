@@ -291,6 +291,74 @@ def test_engine_matches_reference_world_1(jx, wire):
     assert_matches_reference(port, repro_reference(jx, 1))
 
 
+def _run_rounds_port(mesh, wire: str, overlap: bool):
+    """The round runtime on the same regression: a round of H steps a
+    call (or windows of two rounds), losses, bits, master w."""
+    from repro_torch.core.engine import stack_block, stack_window
+    specs = {"w": (None, "model"), "b": ("model",)}
+    grad_fn = value_and_grad(
+        lambda p, b: ((b[0] @ p["w"] + p["b"] - b[1]) ** 2).mean())
+    make = D.make_dist_multiround if overlap else D.make_dist_round
+    init, fn, fused = make(
+        grad_fn, sgd(), D.ShardCompressor("topk", 0.25, dispatch="kernel"),
+        constant(0.1), mesh, ("data",), specs, wire=wire)
+    state = init({"w": torch.zeros(D_IN, D_OUT), "b": torch.zeros(D_OUT)})
+    steps = [(x[0], y[0]) for x, y in regression_data(1)]
+    losses = []
+    W = 2 if overlap else 1
+    for i in range(0, STEPS, W * H):
+        chunk = steps[i:i + W * H]
+        if overlap:
+            state, ls, leds = fn(state, stack_window(chunk, W, H))
+            assert leds["rounds"].tolist() == [state.rounds - 1,
+                                               state.rounds]
+        else:
+            state, ls = fn(state, stack_block(chunk))
+        losses += ls.reshape(-1).tolist()
+    return (np.array(losses), float(state.bits), state.master["w"].numpy(),
+            fused)
+
+
+@pytest.mark.parametrize("wire", ["dense_psum", "sparse_allgather"])
+@pytest.mark.parametrize("overlap", [False, True])
+@pytest.mark.parametrize("fused", [True, False])
+def test_round_runtime_matches_steps_world_1(wire, overlap, fused,
+                                            monkeypatch):
+    """make_dist_round / make_dist_multiround at R = 1 equal the steps
+    bit for bit: one program a round (fused), or the per-step
+    composition a gloo mesh of several ranks gets (host blocks moved to
+    the device step by step)."""
+    mesh = Mesh((1, 1), ("data", "model"))
+    want = run_port(mesh, wire, 1, 0)
+    if not fused:
+        monkeypatch.setattr(D, "round_fused", lambda m: False)
+    got = _run_rounds_port(mesh, wire, overlap)
+    assert got[3] is fused
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1] == want[1]
+    np.testing.assert_array_equal(got[2], want[2])
+
+
+def test_round_fused_follows_the_mesh():
+    """Fused on the CPU, and on the card in a world of one whose
+    collectives stay on the device (NCCL's captured with the round);
+    the per-step composition for gloo on the card (staged through the
+    host) and for several NCCL ranks."""
+    cuda = torch.device("cuda")
+    assert D.round_fused(Mesh((1, 1), ("data", "model")))
+    assert D.round_fused(Mesh((4, 1), ("data", "model"), world_size=4,
+                              backend="gloo"))
+    assert D.round_fused(Mesh((1, 1), ("data", "model"), device=cuda,
+                              backend="nccl"))
+    assert D.round_fused(Mesh((1, 1), ("data", "model"), device=cuda))
+    assert not D.round_fused(Mesh((1, 1), ("data", "model"), device=cuda,
+                                  backend="gloo"))
+    assert not D.round_fused(Mesh((4, 1), ("data", "model"), world_size=4,
+                                  device=cuda, backend="gloo"))
+    assert not D.round_fused(Mesh((4, 1), ("data", "model"), world_size=4,
+                                  device=cuda, backend="nccl"))
+
+
 RANK_SCRIPT = r"""
 import sys
 import numpy as np

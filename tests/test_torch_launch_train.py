@@ -4,10 +4,11 @@ checkpoints, on the CPU.
 ``repro``'s own launcher does not run on jax 0.9.0 (it fails inside
 ``shard_map``, ROADMAP queue 3), so its log is no oracle here:
 the launcher is held to ``repro``'s log format and to itself across the
-two wires (R = 1, the same selection, so the same losses and bits), its
-parts to ``repro`` in ``test_torch_distributed.py`` /
-``test_torch_lm.py``.  Checkpoints cross between the packages bit for
-bit in both directions.
+two wires (R = 1, the same selection, so the same losses and bits) and
+across the two runtimes (``--runtime round``, the default, against
+``--runtime step``: the same log lines and record), its parts to
+``repro`` in ``test_torch_distributed.py`` / ``test_torch_lm.py``.
+Checkpoints cross between the packages bit for bit in both directions.
 """
 
 import re
@@ -34,12 +35,15 @@ def runs(tmp_path_factory):
     import contextlib
     import io
     out = {}
-    for wire in ("dense_psum", "sparse_allgather"):
-        ckpt = tmp_path_factory.mktemp(wire)
+    for name, extra in (("dense_psum", []), ("sparse_allgather", []),
+                        ("step", ["--runtime", "step"])):
+        wire = "sparse_allgather" if name == "step" else name
+        ckpt = tmp_path_factory.mktemp(name)
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
-            rec = lt.main(SMOKE + ["--wire", wire, "--ckpt", str(ckpt)])
-        out[wire] = (rec, buf.getvalue(), ckpt)
+            rec = lt.main(SMOKE + ["--wire", wire, "--ckpt", str(ckpt)]
+                          + extra)
+        out[name] = (rec, buf.getvalue(), ckpt)
     return out
 
 
@@ -49,6 +53,8 @@ def test_log_lines(runs, wire):
     lines = text.strip().splitlines()
     assert lines[0] == ("policy: ln|norm|bias|scale|gate_bias->identity;"
                         "embed|head->qsgd:s=15;topk:k=0.01")
+    assert lines[1] == "runtime: round (fused)"
+    lines = lines[:1] + lines[2:]
     steps = [STEP.match(ln) for ln in lines[1:5]]
     assert all(steps), lines[1:5]
     assert [m.group(2) for m in steps] == ["local", "sync ", "local", "sync "]
@@ -66,6 +72,26 @@ def test_log_lines(runs, wire):
         "local", "sync", "local", "sync"]
     assert rec["launches_per_sync"] == [dict(
         {k: 0 for k in rec["launches_per_sync"][0]}, **{kernel: 7})] * 2
+
+
+def test_round_runtime_equals_step_runtime(runs):
+    """The default round runtime logs what ``--runtime step`` logs, step
+    by step: losses, kinds, both ledgers (a mid-round step reports the
+    round before's bits), launches per sync, the final checkpoint."""
+    rnd, rnd_text, rnd_ckpt = runs["sparse_allgather"]
+    stp, stp_text, stp_ckpt = runs["step"]
+    steps = [ln for ln in stp_text.splitlines() if STEP.match(ln)]
+    assert steps == [ln for ln in rnd_text.splitlines() if STEP.match(ln)]
+    assert len(steps) == 4 and "runtime:" not in stp_text
+    for k in ("loss", "kind", "bits_up", "bits_down", "launches_per_sync",
+              "rounds", "R", "n_params"):
+        assert rnd[k] == stp[k], k
+    assert rnd["runtime"] == "round" and stp["runtime"] == "step"
+    assert len(rnd["round_ms"]) == 2 and len(rnd["ms"]) == 4
+    assert rnd["captures"] == 0 and "round_ms" not in stp
+    for x, y in zip(_leaves(checkpoint.restore(str(rnd_ckpt), _like())),
+                    _leaves(checkpoint.restore(str(stp_ckpt), _like()))):
+        assert torch.equal(x, y)
 
 
 def test_wires_agree(runs):
@@ -162,8 +188,6 @@ def test_checkpoints_cross_bit_for_bit(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--runtime", "round"], "queue 1 item 9"),
-    (["--overlap"], "queue 1 item 9"),
     (["--scenario", "preset:flaky_fleet"], "queue 1 item 10"),
     (["--faults", "preset:chaos"], "queue 1 item 10"),
     (["--tune"], "queue 1 item 11"),

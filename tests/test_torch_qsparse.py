@@ -277,9 +277,28 @@ def test_state_checks_and_unported_runtimes():
                              RP, downlink=ops.TopK(k=0.1))
     with pytest.raises(ValueError, match="downlink"):
         down(st, _port_tree(batches[0]), True)
-    for fn in (qsparse.make_superstep, qsparse.run_rounds):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            fn()
+    # the round runtime (serial and overlapped) is the step runtime, bit
+    # for bit
+    kw = dict(leaf_ledger=True, downlink=ops.TopK(k=0.1))
+    mask = schedule.fixed_schedule(6, 2)
+    outs = []
+    for make, drive in (
+            (qsparse.make_step, qsparse.run),
+            (qsparse.make_superstep, qsparse.run_rounds),
+            (qsparse.make_superstep, lambda *a: teng.run_rounds_overlap(
+                *a, window=2))):
+        fn = make(grad_t, sgd(), ops.TopK(k=0.1), inverse_time(1.0, 5.0),
+                  RP, **kw)
+        outs.append(drive(qsparse.init(_port_tree(params), sgd(), RP,
+                                       device="cpu", **kw),
+                          fn, [_port_tree(b) for b in batches[:6]], mask))
+    (a, la) = outs[0]
+    for b, lb in outs[1:]:
+        assert type(b).__name__ == "QsparseState" and la == lb
+        assert a.step == b.step == 6 and a.rounds == b.rounds == 3
+        for x, y in zip(tree_leaves(tuple(a)), tree_leaves(tuple(b))):
+            assert (torch.equal(x, y) if isinstance(x, torch.Tensor)
+                    else x == y)
     # a local step leaves the master, the ledgers and the memory alone
     step = qsparse.make_step(grad_t, sgd(), ops.TopK(k=0.1), constant(0.05),
                              RP)
@@ -288,3 +307,40 @@ def test_state_checks_and_unported_runtimes():
     assert st2.master is st.master
     assert float(qsparse.memory_sq_norms(st2).sum()) == 0.0
     assert float(qsparse.local_deviation_sq(st2)) > 0.0
+
+
+@pytest.mark.parametrize("down", [False, True])
+def test_run_rounds_matches_repro(down):
+    """The round runtime against ``repro``'s ``run_rounds``, to the
+    tolerances of :func:`test_run_matches_repro` (ledgers exact)."""
+    op_j, op_t = jops.TopK(k=0.05), ops.TopK(k=0.05)
+    down_j, down_t = ((jops.TopK(k=0.02), ops.TopK(k=0.02)) if down
+                      else (None, None))
+    params, batches = parity_problem(3)
+    mask = schedule.fixed_schedule(T_PAR, H_PAR)
+    sup_j = jq.make_superstep(grad_j, jsgd(), op_j, jconstant(0.05), RP,
+                              downlink=down_j, leaf_ledger=True)
+    st_j, losses_j = jq.run_rounds(
+        jq.init(jax.tree_util.tree_map(jnp.asarray, params), jsgd(), RP,
+                downlink=down_j, leaf_ledger=True), sup_j,
+        [jax.tree_util.tree_map(jnp.asarray, b) for b in batches], mask,
+        jax.random.PRNGKey(0))
+    sup_t = qsparse.make_superstep(grad_t, sgd(), op_t, constant(0.05), RP,
+                                   downlink=down_t, leaf_ledger=True)
+    st_t, losses_t = qsparse.run_rounds(
+        qsparse.init(_port_tree(params), sgd(), RP, downlink=down_t,
+                     leaf_ledger=True, device="cpu"), sup_t,
+        [_port_tree(b) for b in batches], mask)
+    assert float(st_t.bits) == float(st_j.bits) > 0
+    assert float(st_t.bits_down) == float(st_j.bits_down) > 0
+    assert st_t.rounds == int(st_j.rounds) and st_t.step == int(st_j.step)
+    assert st_t.leaf_bits.tolist() == np.asarray(st_j.leaf_bits).tolist()
+    assert st_t.leaf_bits_down.tolist() == \
+        np.asarray(st_j.leaf_bits_down).tolist()
+    np.testing.assert_allclose(losses_t, losses_j, rtol=1e-5)
+    for f in ["master", "local", "memory"] + (["master_view", "down_memory"]
+                                              if down else []):
+        for a, e in zip(tree_leaves(getattr(st_t, f)),
+                        jax.tree_util.tree_leaves(getattr(st_j, f))):
+            np.testing.assert_allclose(a.numpy(), np.asarray(e), rtol=1e-5,
+                                       atol=1e-6, err_msg=f)

@@ -114,6 +114,39 @@ def test_quickstart_softmax_matches_repro():
         assert ht.bits_to_target == hj.bits_to_target
 
 
+@pytest.mark.parametrize("overlap", [False, True])
+def test_round_runtime_matches_repro(overlap):
+    """Both trainers on their default round runtime (``repro``'s scanned
+    round programs, the port's round bodies; windows of rounds under
+    ``overlap``): the quickstart's SignTop_k at H = 4, ledgers exact,
+    losses to test_quickstart_softmax_matches_repro's rtol."""
+    R, T, b = 8, 16, 8
+    x, y = mnist_like(400, seed=0)
+    cfg_j = jsoft.SoftmaxConfig(l2=1.0 / len(x))
+    cfg_t = tsoft.SoftmaxConfig(l2=1.0 / len(x))
+
+    def grad_j(p, batch):
+        return jax.value_and_grad(
+            lambda pp: jsoft.loss_fn(pp, batch, cfg_j)[0])(p)
+
+    grad_t = value_and_grad(lambda p, batch: tsoft.loss_fn(p, batch,
+                                                           cfg_t)[0])
+    run_kw = dict(total_steps=T, R=R, H=4, log_every=2, overlap=overlap,
+                  overlap_window=2)
+    _, hj = jtrain(grad_j, jsoft.init_params(jax.random.PRNGKey(0), cfg_j),
+                   j_sgd(), jops.SignSparsifier(k=0.01, m=1),
+                   j_inverse_time(60.0, 100.0),
+                   worker_batches(x, y, R, b, T, seed=1), JRun(**run_kw))
+    _, ht = train(grad_t, tsoft.init_params(cfg_t, device="cpu"), sgd(),
+                  tops.SignSparsifier(k=0.01, m=1), inverse_time(60.0, 100.0),
+                  worker_batches(x, y, R, b, T, seed=1), RunConfig(**run_kw),
+                  device="cpu")
+    assert ht.steps == hj.steps and ht.round_blocks == hj.round_blocks
+    assert ht.bits == hj.bits and ht.rounds == hj.rounds
+    assert ht.bits_down == hj.bits_down
+    np.testing.assert_allclose(ht.loss, hj.loss, rtol=1e-4)
+
+
 def test_make_mask_matches_repro():
     from repro.train.trainer import make_mask as j_make_mask
     for asyn in (False, True):
@@ -133,7 +166,6 @@ def _tiny_run(**kw):
 
 
 @pytest.mark.parametrize("kw", [
-    {"runtime": "round"}, {"overlap": True},
     {"scenario": "preset:stragglers"},
     {"faults": "preset:none"}, {"tune": True},
     {"resume": True},
@@ -144,7 +176,7 @@ def test_unported_options_raise(kw):
 
 
 @pytest.mark.parametrize("kw", [
-    {"overlap_window": 4}, {"retune": True},
+    {"retune": True},
     {"fault_seed": 3}, {"staleness_weight": "inverse"},
 ])
 def test_unported_tuning_fields_are_refused(kw):

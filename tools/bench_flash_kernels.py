@@ -38,6 +38,9 @@ and on the heavy-tie block, both signs; ``check_qsgd`` at ResNet-50's
 four bucket shapes ([16, 524288], [56, 65536], [1, 524288], [7,
 65536]); ``check_topk`` at [179712, 1152] and [49312, 4096], with and
 without sign (the short-row prologue it shares with ``topk_compact``);
+``check_topk`` and ``check_qsgd`` at the convex rows (15 workers' leaves
+of 7,840 and 10 floats padded to [15, 7936] and [15, 128], k = 40 and
+1, s = 15), with ``torch.topk`` as Top_k's library call;
 where DIR has ``qsgd_geometry``, every cluster size's time at each
 QSGD shape beside the blocks the card holds at once (``geometry``
 lines).  Prints the card's name and power limit, then one JSON line per
@@ -341,6 +344,13 @@ def main() -> int:
                                (179712, 1152, 12, True),
                                (49312, 4096, 41, False),
                                (49312, 4096, 41, True))]
+        # the convex rows: 15 workers' leaves of 7,840 and 10 floats,
+        # zero-padded to 7936 and 128 columns (k = 40 and 1, s = 15)
+        for n, live, k in ((7936, 7840, 40), (128, 10, 1)):
+            rows += [("topk_compress", cs.check_topk(dev, 15, n, k, False,
+                                                     20, live=live)),
+                     ("qsgd_quantize", cs.check_qsgd(dev, 15, n, 15, 20,
+                                                     live=live))]
         from repro_torch.kernels import qsgd as qs
         if hasattr(qs, "qsgd_geometry"):
             qsgd_geometry_rows(cs, dev)
@@ -382,7 +392,8 @@ def main() -> int:
                                     "library_ms", "bound_ms", "bound_by")}
         for extra in ("window", "cache", "route", "split_tiles", "k", "sign",
                       "quant", "max_row_rel_err", "bound_f32_ms", "k_row",
-                      "kcap", "ties", "geometry", "mismatched_levels"):
+                      "kcap", "ties", "geometry", "mismatched_levels",
+                      "live"):
             if extra in row:
                 keep[extra] = row[extra]
         print("bench", json.dumps({"tree": tree, "kernel": name, **keep}),

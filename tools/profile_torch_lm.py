@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
-"""Where a distributed LM training step's time goes in the PyTorch/CUDA
+"""Where a distributed LM training round's time goes in the PyTorch/CUDA
 port, on one GPU.
 
     python3 tools/profile_torch_lm.py [--wire sparse_allgather|dense_psum]
+        [--runtime round|step]
 
 Builds ``chip_smoke.py``'s LM training run through the launcher's own
 set-up (gemma3-1b at full width and depth, random bf16 weights,
-``lm_hetero``, R = 1, batch 2 of 2048 tokens, H = 4), takes one local
-and one sync step to warm up, then profiles the next local step and the
-sync step after it under ``torch.profiler``.  Prints each step's host
-time, the device time of the kernels that ran in it and the device's
-busy share, then the operators that take the most device time.  Needs a
-CUDA device.
+``lm_hetero``, R = 1, batch 2 of 2048 tokens, H = 4), runs two rounds
+(H - 1 local steps and a sync) to warm up, then profiles the next two
+rounds under ``torch.profiler``: ``--runtime round`` (the default) as
+the launcher's round program, each round one CUDA graph replay (its
+first call runs eagerly, its second captures); ``--runtime step`` step
+by step, eagerly, the loss read after each step as the launcher reads
+it.  Prints each round's host time, the device time of the kernels that
+ran in it and the device's busy share, then the operators that take the
+most device time.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--wire", default="sparse_allgather",
                     choices=["sparse_allgather", "dense_psum"])
+    ap.add_argument("--runtime", default="round", choices=["round", "step"])
     args = ap.parse_args()
 
     import chip_smoke as cs
@@ -41,43 +46,59 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     print(cs.card(), flush=True)
     LM = cs.LM
+    H = LM["H"]
     largs = lt.parser().parse_args(
         ["--arch", LM["arch"], "--mesh", "1x1", "--policy", "preset:arch",
          "--batch", str(LM["batch"]), "--seq", str(LM["seq"]),
-         "--steps", str(2 * LM["H"]), "--H", str(LM["H"]),
-         "--wire", args.wire])
+         "--steps", str(4 * H), "--H", str(H), "--wire", args.wire,
+         "--runtime", args.runtime])
     mesh = make_mesh(largs.mesh, device=largs.device)
     try:
         run = lt.setup(largs, lt.resolve_policy_arg(largs), mesh)
-        state, batches = run.state, list(run.batches())
+        state = run.state
         run.state = None
-        kinds = ["sync" if lt.is_sync(t, largs) else "local"
-                 for t in range(len(batches))]
-        first_local = kinds.index("local", kinds.index("sync") + 1)
-        last_sync = len(kinds) - 1
-        for t in range(first_local):               # warm-up: local, sync
-            step = run.sync_step if kinds[t] == "sync" else run.local_step
-            state, loss = step(state, batches[t], run.rng)
-        float(loss)
+        if args.runtime == "round":
+            from repro_torch.core.engine import stack_window
+            host = list(run.host_batches())
+            rounds = [stack_window(host[i:i + H], 1, H)
+                      for i in range(0, len(host), H)]
+
+            def one_round(state, r):
+                state, losses, _ = run.round_fn(state, rounds[r], run.rng)
+                losses.tolist()                       # synchronizes
+                return state
+        else:
+            batches = list(run.batches())
+
+            def one_round(state, r):
+                for t in range(r * H, (r + 1) * H):
+                    step = (run.sync_step if lt.is_sync(t, largs)
+                            else run.local_step)
+                    state, loss = step(state, batches[t], run.rng)
+                    float(loss)                       # synchronizes
+                return state
+        for r in range(2):                            # warm-up (capture)
+            state = one_round(state, r)
         torch.cuda.synchronize()
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
-            for t in (first_local, last_sync):
-                step = run.sync_step if kinds[t] == "sync" else run.local_step
-                with torch.profiler.record_function(f"step {kinds[t]}"):
-                    state, loss = step(state, batches[t], run.rng)
-                    float(loss)                       # synchronizes
+            for r in (2, 3):
+                with torch.profiler.record_function(f"round {r + 1}"):
+                    state = one_round(state, r)
+        captures = (run.round_fn.captures
+                    if args.runtime == "round" else 0)
     finally:
         mesh.close()
     evs = prof.events()
     cuda = torch.autograd.DeviceType.CUDA
-    steps = [e for e in evs if e.name.startswith("step ")
+    steps = [e for e in evs if e.name.startswith("round ")
              and e.device_type != cuda]
     kernels = [e for e in evs if e.device_type == cuda
-               and not e.name.startswith("step ")]
-    print(f"wire {args.wire}: host ms per step and the device time of the "
-          f"kernels that ran in it")
+               and not e.name.startswith("round ")]
+    print(f"wire {args.wire}, runtime {args.runtime} ({captures} "
+          f"captures): host ms per round of {H} steps and the device time "
+          f"of the kernels that ran in it")
     for st in sorted(steps, key=lambda e: e.time_range.start):
         mine = [k for k in kernels
                 if st.time_range.start <= k.time_range.start
