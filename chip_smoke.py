@@ -49,6 +49,20 @@ Phases, each of which exits non-zero on failure:
    against ``runtime="step"`` (the same History and launches; captures
    the tail masks that repeat, at most ``engine.MAX_PROGRAMS``), with
    the schedule's distinct and repeated round shapes at H = 4 and 8;
+   then fleet scenarios, the fault runtime and resume: ResNet-50 as
+   above (deterministic cuDNN) under ``faults="preset:none"`` (equal to
+   the fault-free RowSignTopK cell), ``preset:chaos`` with damped
+   staleness and ``scenario="preset:flaky_fleet"`` (mean_S, TopK), each
+   graphed and eager with the same History, ``round_blocks``, master,
+   per-worker state, queue and launches, printing the queue's bytes,
+   peak memory, captures and distinct fault-round shapes; a
+   ``preset:crashy`` QSGD run writing full snapshots and a fresh run
+   resumed from ``full_step_6`` (the whole run's History tail and final
+   state); bench_scenarios' convex row (QTop_k, support_weighted, R =
+   15, T = 150) at participation 1.0 (equal to the plain schedule) and
+   0.5; Algorithm 2 with executed staleness (TopK, ``preset:delayed``):
+   ``async_qsparse.run_faults`` = ``engine.run_faults`` =
+   ``engine.run_fault_rounds``;
 5. the serving path: the four serving kernels against their plain
    versions at Yi-6B's shapes (step 3's checks and times), then Yi-6B at
    full width and depth (random weights from a seed) compressed at load
@@ -93,11 +107,14 @@ Phases, each of which exits non-zero on failure:
    one capture holding the wire's NCCL collectives) and ``--runtime
    step`` with the same record step by
    step, asserting 7 ``topk_compact`` / ``topk_compress`` launches per
-   sync; then the gemma3-1b smoke model at R = 2 ranks sharing the card
-   over gloo, spawned from here: dispatch "kernel" against "reference"
-   (same losses, equal wire bits), the sparse wire against the dense
-   one (masters within 1e-5), and the round runtime (per-step fallback
-   under gloo) against ``--runtime step`` (equal);
+   sync; gemma3-1b again under ``--scenario preset:dropout --aggregate
+   mean_S`` (partial participation on the mesh), graphed against
+   ``--runtime step``; then the gemma3-1b smoke model at R = 2 ranks
+   sharing the card over gloo, spawned from here: dispatch "kernel"
+   against "reference" (same losses, equal wire bits), the sparse wire
+   against the dense one (masters within 1e-5), the round runtime
+   (per-step fallback under gloo) against ``--runtime step`` (equal),
+   and both wires under the same scenario (equal kinds and bits);
 8. checkpoints from trainer to server, gemma3-1b at full width: step
    6's compressed unscanned tree, saved as a compact-v1 checkpoint as
    soon as step 6 has served it and then dropped, loaded by
@@ -495,6 +512,7 @@ def phase_train(dev):
     n_syncs = int(mask.sum())
     totals = {k: 0 for k in LAUNCHES}
     runs = []
+    fault_free = None
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
@@ -562,6 +580,9 @@ def phase_train(dev):
                 raise AssertionError(f"{name}: ledger {hist.bits[-1]} bits, "
                                      f"{hist.rounds[-1]} rounds")
             runs.append(row)
+            if name == "RowSignTopK":
+                # the reference of the fault runtime's preset:none cell
+                fault_free = (hist, master)
             del out, master, ref_master
     finally:
         torch.backends.cudnn.deterministic = deterministic
@@ -595,7 +616,7 @@ def phase_train(dev):
           json.dumps({"graphed": timing["round"], "eager": timing["step"]}),
           flush=True)
     _free_graphs()
-    return runs, totals
+    return runs, totals, fault_free
 
 
 def phase_small_agreement(dev):
@@ -1044,6 +1065,362 @@ def convex_async(dev) -> dict:
          "rounds_synced": graphed[0].rounds[-1], "bits": graphed[0].bits[-1],
          "graphed": graphed[2], "eager": eager[2]}), flush=True)
     return graphed[1]
+
+# ---------------------------------------------------------------------------
+# fleet scenarios, the fault runtime and resume
+# ---------------------------------------------------------------------------
+
+#: the fault and scenario cells on ResNet-50 (the training run's R, B, T,
+#: H): (tag, operator, RunConfig fields)
+FAULT_CELLS = (
+    ("none", "RowSignTopK", {"faults": "preset:none"}),
+    ("chaos", "RowSignTopK", {"faults": "preset:chaos",
+                              "staleness_weight": "damped"}),
+    ("flaky_fleet", "TopK", {"scenario": "preset:flaky_fleet",
+                             "aggregate": "mean_S"}),
+)
+#: the resume cell: a whole run writing full snapshots, then a fresh run
+#: resumed from the first one
+RESUME = {"faults": "preset:crashy", "ckpt_every": 6, "from": 6}
+#: bench_scenarios.py's convergence row (softmax regression, QTop_k,
+#: support_weighted) at two participations; T cut from its 300 to 150
+#: (the run's time: the p = 0.5 masks run at the eager speed)
+SCENARIO_CONVEX = {"R": 15, "T": 150, "H": 4, "b": 8, "k": K_CONVEX,
+                   "s": 15, "participation": (1.0, 0.5), "seed": 1}
+#: Algorithm 2 with executed staleness on the convex problem (T as above)
+ASYNC_FAULTS = {"R": 15, "T": 150, "H": 4, "faults": "preset:delayed"}
+
+
+def _digest(tree):
+    """A bit-level digest of a state tree: each leaf's float32 bit
+    patterns summed as int64 (any flipped bit moves it)."""
+    import torch
+    from repro_torch.tree import tree_leaves
+    return [int(t.contiguous().view(torch.int32).sum(dtype=torch.int64))
+            if t.dtype == torch.float32 else int(t.sum())
+            for t in tree_leaves(tree)]
+
+
+def resnet_fault_run(dev, setup, op_name: str, runtime: str, **kw) -> dict:
+    """ResNet-50 through ``train`` under a fault spec or a scenario: its
+    History, launches, the master (cloned), digests of the per-worker
+    state and the queue, the queue's tags and bytes, captures and
+    distinct round shapes, peak memory and seconds."""
+    import torch
+    from repro_torch.core.operators import QSGDQuantizer, RowSignTopK, TopK
+    from repro_torch.data import worker_batches
+    from repro_torch.kernels.launch_stats import LAUNCHES, reset_launches
+    from repro_torch.optim import momentum_sgd, piecewise_decay
+    from repro_torch.train import RunConfig, train
+    from repro_torch.tree import tree_leaves
+    params, grad_fn, x, y = setup
+    op = {"RowSignTopK": RowSignTopK(k=0.01, row_len=4096, m=2),
+          "TopK": TopK(k=0.01), "QSGD": QSGDQuantizer(s=15)}[op_name]
+    run = RunConfig(total_steps=T, R=R, H=H, runtime=runtime,
+                    dispatch=DISPATCH, log_every=1, seed=0, **kw)
+    _free_graphs()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    state, hist = train(grad_fn, params, momentum_sgd(0.9), op,
+                        piecewise_decay(0.05, [100, 130]),
+                        worker_batches(x, y, R, B, T, seed=1,
+                                       feature_key="images"),
+                        run, smooth=1, device=dev)
+    torch.cuda.synchronize()
+    out = {"hist": hist, "launches": dict(LAUNCHES),
+           "seconds": time.perf_counter() - t0,
+           "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
+           "master": [t.clone() for t in tree_leaves(state.master)],
+           "digest": _digest((state.master_view, state.local, state.memory,
+                              state.inner, state.inflight)),
+           "arrive_at": (None if state.arrive_at is None
+                         else state.arrive_at.tolist()),
+           "queue_bytes": sum(t.numel() * t.element_size()
+                              for t in tree_leaves(state.inflight))}
+    del state
+    _free_graphs()
+    return out
+
+
+def _same_run(a: dict, b: dict, what: str, hist_only: bool = False) -> None:
+    import torch
+    for f in ("steps", "loss", "bits", "bits_down", "rounds"):
+        if getattr(a["hist"], f) != getattr(b["hist"], f):
+            raise AssertionError(f"{what}: History.{f} differs")
+    if not all(torch.equal(p, q) for p, q in zip(a["master"], b["master"])):
+        raise AssertionError(f"{what}: masters differ")
+    if hist_only:
+        return
+    if a["hist"].round_blocks and b["hist"].round_blocks and \
+            a["hist"].round_blocks != b["hist"].round_blocks:
+        raise AssertionError(f"{what}: round_blocks differ")
+    for k in ("launches", "digest", "arrive_at"):
+        if a[k] != b[k]:
+            raise AssertionError(f"{what}: {k} differs")
+
+
+def phase_faults(dev, fault_free) -> dict:
+    """ResNet-50 at full width under the fault runtime and a fleet
+    scenario, each graphed (``runtime="round"``) and eager
+    (``runtime="step"``) with the same History, ``round_blocks``,
+    master, ledgers, per-worker state and queue, and launches, under
+    cuDNN's deterministic algorithms: ``preset:none`` (also equal to the
+    fault-free RowSignTopK cell of the training phase), ``preset:chaos``
+    with damped staleness (the queue's bytes, captures and distinct
+    fault-round shapes printed), ``flaky_fleet`` under mean_S; then
+    resume: ``preset:crashy`` with QSGD writing full snapshots, and a
+    fresh run resumed from the first, which ends in the whole run's
+    state with its History tail.  Returns the launches."""
+    import numpy as np
+    import torch
+    from repro_torch.data import make_image_data
+    from repro_torch.models import resnet
+    from repro_torch.train import checkpoint
+    from repro_torch.tree import value_and_grad
+    cfg = model_config()
+    setup = (resnet.init_params(torch.Generator().manual_seed(0), cfg,
+                                device=dev),
+             value_and_grad(lambda p, b: resnet.loss_fn(p, b, cfg)[0]),
+             *make_image_data(**IMAGES))
+    totals: dict = {}
+    name_power = card()
+
+    def count(run):
+        for k, v in run["launches"].items():
+            totals[k] = totals.get(k, 0) + v
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    build = os.path.join(SRC, "repro_torch", "kernels", "build")
+    os.makedirs(build, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=build)
+    try:
+        for tag, op_name, kw in FAULT_CELLS:
+            g = resnet_fault_run(dev, setup, op_name, "round", **kw)
+            e = resnet_fault_run(dev, setup, op_name, "step", **kw)
+            _same_run(g, e, f"faults {tag} round vs step")
+            count(g)
+            count(e)
+            if tag == "none":
+                ref_hist, ref_master = fault_free
+                _same_run(g, {"hist": ref_hist, "master": ref_master},
+                          "preset:none vs the fault-free cell",
+                          hist_only=True)
+            h = g["hist"]
+            if not all(np.isfinite(h.loss)) or h.bits[-1] <= 0:
+                raise AssertionError(f"faults {tag}: loss {h.loss}, bits "
+                                     f"{h.bits[-1]}")
+            print("faults " + json.dumps({
+                "card": name_power, "cell": tag, "operator": op_name, **kw,
+                "loss": h.loss,
+                "bits_up": h.bits[-1], "bits_down": h.bits_down[-1],
+                "rounds": h.rounds[-1], "round_blocks": h.round_blocks,
+                "queue_bytes": g["queue_bytes"], "captures": h.captures,
+                "round_shapes": h.round_shapes,
+                "peak_device_bytes": {"graphed": g["peak_device_bytes"],
+                                      "eager": e["peak_device_bytes"]},
+                "seconds": {"graphed": g["seconds"],
+                            "eager": e["seconds"]},
+                "launches": {k: v for k, v in g["launches"].items() if v}}),
+                flush=True)
+            del g, e
+        # resume: the whole run writes full_step_6 and full_step_12
+        ck = os.path.join(tmp, "resume")
+        kw = {"faults": RESUME["faults"], "ckpt_dir": ck,
+              "ckpt_every": RESUME["ckpt_every"]}
+        whole = resnet_fault_run(dev, setup, "QSGD", "round", **kw)
+        eager = resnet_fault_run(dev, setup, "QSGD", "step",
+                                 faults=RESUME["faults"])
+        _same_run(whole, eager, "resume cell: whole round vs step")
+        fulls = sorted(int(n.rsplit("_", 1)[1]) for n in os.listdir(ck)
+                       if n.startswith("full_step_"))
+        snap_bytes = dir_bytes(os.path.join(ck, f"full_step_{fulls[0]}"))
+        for n in fulls:
+            if n != RESUME["from"]:
+                shutil.rmtree(os.path.join(ck, f"full_step_{n}"))
+        t0 = time.perf_counter()
+        resumed = resnet_fault_run(dev, setup, "QSGD", "round",
+                                   faults=RESUME["faults"], ckpt_dir=ck,
+                                   resume=True)
+        a, b = whole["hist"], resumed["hist"]
+        k = a.steps.index(RESUME["from"] + 1)
+        for f in ("steps", "loss", "bits", "bits_down", "rounds"):
+            if getattr(a, f)[k:] != getattr(b, f):
+                raise AssertionError(f"resume: History.{f} tail differs")
+        for key in ("digest", "arrive_at"):
+            if whole[key] != resumed[key]:
+                raise AssertionError(f"resume: final {key} differs")
+        if not all(torch.equal(p, q) for p, q in zip(whole["master"],
+                                                      resumed["master"])):
+            raise AssertionError("resume: final master differs")
+        for run in (whole, eager, resumed):
+            count(run)
+        print("faults resume " + json.dumps({
+            "card": name_power, **RESUME, "operator": "QSGD",
+            "snapshots": fulls,
+            "snapshot_bytes": snap_bytes, "queue_bytes": whole["queue_bytes"],
+            "loss": a.loss, "bits_up": a.bits[-1], "rounds": a.rounds[-1],
+            "captures": a.captures, "round_shapes": a.round_shapes,
+            "resumed_seconds": time.perf_counter() - t0,
+            "seconds": {"graphed": whole["seconds"],
+                        "eager": eager["seconds"]}}), flush=True)
+        del whole, eager, resumed
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(tmp, ignore_errors=True)
+    _free_graphs()
+    return totals
+
+
+def scenario_convex_run(dev, participation, runtime: str):
+    """bench_scenarios.py's convergence row through ``train``: softmax
+    regression, QTop_k (k = 40 of 7850, s = 15), support_weighted, under
+    ``Scenario(participation=p)`` (None: the plain schedule)."""
+    import torch
+    from repro_torch.core import scenarios as scn
+    from repro_torch.core.operators import QuantizedSparsifier
+    from repro_torch.data import mnist_like, worker_batches
+    from repro_torch.kernels.launch_stats import LAUNCHES, reset_launches
+    from repro_torch.models import softmax
+    from repro_torch.optim import inverse_time, sgd
+    from repro_torch.train import RunConfig, train
+    from repro_torch.tree import tree_leaves, value_and_grad
+    c = SCENARIO_CONVEX
+    x, y = mnist_like(CONVEX["n"], seed=0)
+    cfg = softmax.SoftmaxConfig(l2=1.0 / len(x))
+    grad_fn = value_and_grad(lambda p, b: softmax.loss_fn(p, b, cfg)[0])
+    run = RunConfig(
+        total_steps=c["T"], R=c["R"], H=c["H"], log_every=25, seed=0,
+        runtime=runtime, aggregate="support_weighted",
+        scenario=(None if participation is None else scn.Scenario(
+            participation=participation, seed=c["seed"])))
+    _free_graphs()
+    reset_launches()
+    t0 = time.perf_counter()
+    state, hist = train(grad_fn, softmax.init_params(cfg, device=dev), sgd(),
+                        QuantizedSparsifier(k=c["k"], s=c["s"]),
+                        inverse_time(60.0, 100.0),
+                        worker_batches(x, y, c["R"], c["b"], c["T"], seed=0),
+                        run, device=dev)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / c["T"]
+    master = [t.clone() for t in tree_leaves(state.master)]
+    return hist, master, dict(LAUNCHES), ms
+
+
+def phase_scenarios_convex(dev) -> dict:
+    """The convex problem under fleet scenarios and executed staleness:
+    bench_scenarios' convergence row at participation 1.0 (equal to the
+    plain schedule bit for bit) and 0.5, each graphed and eager with the
+    same History and master; then Algorithm 2 with executed staleness
+    (TopK, R = 15, ``preset:delayed``): ``async_qsparse.run_faults``
+    equal to ``engine.run_faults``, and ``engine.run_fault_rounds``
+    (graphed) equal to both.  Returns the launches."""
+    import numpy as np
+    import torch
+    from repro_torch.core import async_qsparse, engine, scenarios as scn
+    from repro_torch.core import schedule
+    from repro_torch.core.operators import TopK
+    from repro_torch.data import mnist_like, worker_batches
+    from repro_torch.kernels.dispatch import DispatchConfig
+    from repro_torch.kernels.launch_stats import LAUNCHES, reset_launches
+    from repro_torch.models import softmax
+    from repro_torch.optim import inverse_time, sgd
+    from repro_torch.tree import tree_leaves, value_and_grad
+    totals: dict = {}
+    plain = scenario_convex_run(dev, None, "round")
+    for p in SCENARIO_CONVEX["participation"]:
+        g = scenario_convex_run(dev, p, "round")
+        e = scenario_convex_run(dev, p, "step")
+        for run, what in ((e, "round vs step"),) + (
+                ((plain, "p = 1.0 vs the plain schedule"),) if p == 1.0
+                else ()):
+            for f in ("steps", "loss", "bits", "bits_down", "rounds"):
+                if getattr(g[0], f) != getattr(run[0], f):
+                    raise AssertionError(f"scenario p={p} {what}: "
+                                         f"History.{f} differs")
+            if not all(torch.equal(a, b) for a, b in zip(g[1], run[1])):
+                raise AssertionError(f"scenario p={p} {what}: masters "
+                                     "differ")
+        for run in (g, e):
+            for k, v in run[2].items():
+                totals[k] = totals.get(k, 0) + v
+        mask = scn.Scenario(participation=p, seed=SCENARIO_CONVEX[
+            "seed"]).mask(SCENARIO_CONVEX["T"], SCENARIO_CONVEX["R"],
+                          SCENARIO_CONVEX["H"])
+        print("scenario convex " + json.dumps({
+            "participation": p, "p_hat": scn.participation_of(mask),
+            "final_loss": g[0].loss[-1], "bits": g[0].bits[-1],
+            "rounds": g[0].rounds[-1], "captures": g[0].captures,
+            "round_shapes": g[0].round_shapes,
+            "ms_per_step": {"graphed": g[3], "eager": e[3]}}), flush=True)
+    c = ASYNC_FAULTS
+    x, y = mnist_like(CONVEX["n"], seed=0)
+    cfg = softmax.SoftmaxConfig(l2=1.0 / len(x))
+    grad_fn = value_and_grad(lambda p, b: softmax.loss_fn(p, b, cfg)[0])
+    spec = scn.parse_faults(c["faults"])
+    mask = schedule.async_schedule(c["T"], c["R"], c["H"], seed=0)
+    tables = spec.tables(c["T"], c["R"])
+    batches = list(worker_batches(x, y, c["R"], CONVEX["b"], c["T"], seed=0))
+    kw = dict(queue_depth=spec.depth, dispatch=DispatchConfig(mode="kernel"))
+    outs = {}
+    for name in ("async_qsparse", "engine", "engine_rounds"):
+        params = softmax.init_params(cfg, device=dev)
+        args = (grad_fn, sgd(), TopK(k=K_CONVEX), inverse_time(60.0, 100.0),
+                c["R"])
+        _free_graphs()
+        reset_launches()
+        t0 = time.perf_counter()
+        if name == "async_qsparse":
+            st = async_qsparse.init(params, sgd(), c["R"], device=dev,
+                                    queue_depth=spec.depth)
+            fn = async_qsparse.make_fault_step(*args, **kw)
+            st, losses = async_qsparse.run_faults(st, fn, batches, mask,
+                                                  tables)
+        else:
+            st = engine.init(params, sgd(), c["R"], device=dev,
+                             queue_depth=spec.depth)
+            make = (engine.make_fault_step if name == "engine"
+                    else engine.make_fault_superstep)
+            drive = (engine.run_faults if name == "engine"
+                     else engine.run_fault_rounds)
+            fn = make(*args, global_rounds=False, **kw)
+            st, losses = drive(st, fn, batches, mask, tables)
+        torch.cuda.synchronize()
+        outs[name] = {
+            "losses": losses, "launches": dict(LAUNCHES),
+            "ms_per_step": (time.perf_counter() - t0) * 1e3 / c["T"],
+            "leaves": [t.clone() if isinstance(t, torch.Tensor) else
+                       np.asarray(t).tolist()
+                       for t in tree_leaves(tuple(st))],
+            "captures": getattr(fn, "captures", 0),
+            "shapes": getattr(fn, "shapes", 0)}
+        for k, v in LAUNCHES.items():
+            totals[k] = totals.get(k, 0) + v
+        del st, fn
+    ref = outs["engine"]
+    for name in ("async_qsparse", "engine_rounds"):
+        o = outs[name]
+        same = len(o["leaves"]) == len(ref["leaves"]) and all(
+            torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+            for a, b in zip(o["leaves"], ref["leaves"]))
+        if not same or o["losses"] != ref["losses"] or \
+                o["launches"] != ref["launches"]:
+            raise AssertionError(f"executed staleness: {name} differs from "
+                                 "engine.run_faults")
+    if not ref["launches"].get("topk_compress"):
+        raise AssertionError("executed staleness launched no topk_compress")
+    print("async faults " + json.dumps({
+        **c, "final_loss": ref["losses"][-1],
+        "captures": outs["engine_rounds"]["captures"],
+        "round_shapes": outs["engine_rounds"]["shapes"],
+        "launches": {k: v for k, v in ref["launches"].items() if v},
+        "ms_per_step": {n: o["ms_per_step"] for n, o in outs.items()}}),
+        flush=True)
+    return totals
+
+
 
 # ---------------------------------------------------------------------------
 # the serving path
@@ -1954,10 +2331,12 @@ def phase_lm_kernels(dev):
     return rows, dense
 
 
-def lm_run(wire: str, dev, ckpt=None, runtime: str = "round"):
+def lm_run(wire: str, dev, ckpt=None, runtime: str = "round",
+           extra: tuple = ()):
     """The launcher on gemma3-1b at full size, R = 1: returns its record
     and the launches it made (counted from 0 at its start).  ``ckpt``: a
-    directory for the launcher's ``--ckpt`` (the master at the end)."""
+    directory for the launcher's ``--ckpt`` (the master at the end);
+    ``extra``: more flags (a scenario)."""
     import numpy as np
     import torch
     from repro_torch.kernels.launch_stats import LAUNCHES, reset_launches
@@ -1965,7 +2344,8 @@ def lm_run(wire: str, dev, ckpt=None, runtime: str = "round"):
     argv = ["--arch", LM["arch"], "--mesh", "1x1", "--policy", "preset:arch",
             "--batch", str(LM["batch"]), "--seq", str(LM["seq"]),
             "--steps", str(LM["steps"]), "--H", str(LM["H"]),
-            "--wire", wire, "--dispatch", DISPATCH, "--runtime", runtime]
+            "--wire", wire, "--dispatch", DISPATCH, "--runtime", runtime,
+            *extra]
     if ckpt:
         argv += ["--ckpt", ckpt]
     _free_graphs()
@@ -1988,7 +2368,7 @@ def lm_run(wire: str, dev, ckpt=None, runtime: str = "round"):
     if not all(np.isfinite(rec["loss"])):
         raise AssertionError(f"LM {wire}: loss not finite: {rec['loss']}")
     if runtime == "round" and (rec["fused"] is not True
-                               or rec["captures"] != 1):
+                               or rec["captures"] != lm_captures(kinds)):
         raise AssertionError(f"LM {wire}: fused {rec['fused']}, captures "
                              f"{rec['captures']}")
     ups, prev = [], 0.0
@@ -2013,6 +2393,50 @@ def lm_run(wire: str, dev, ckpt=None, runtime: str = "round"):
            "launches": {k: v for k, v in launches.items() if v}}
     print("lm", json.dumps(row), flush=True)
     return row, launches, rec
+
+
+def lm_captures(kinds: list) -> int:
+    """The round graphs of a launcher run at one rank: the (length, sync)
+    round shapes that occur at least twice (the last step always closes
+    a round)."""
+    shapes, start = {}, 0
+    for t, kind in enumerate(kinds):
+        if kind == "sync" or t == len(kinds) - 1:
+            key = (t - start + 1, kind)
+            shapes[key] = shapes.get(key, 0) + 1
+            start = t + 1
+    return sum(n > 1 for n in shapes.values())
+
+
+#: the launcher under a fleet scenario: gemma3-1b at R = 1 on the sparse
+#: wire, and the smoke model at LM_RANKS' ranks on both wires
+LM_SCENARIO = ("--scenario", "preset:dropout", "--aggregate", "mean_S")
+
+
+def phase_lm_scenario(dev) -> dict:
+    """gemma3-1b at full size through the launcher under
+    ``--scenario preset:dropout --aggregate mean_S`` on the sparse wire
+    (the mesh's partial participation), graphed against ``--runtime
+    step``: the same record; ``topk_compact`` launched 7 times a sync."""
+    runs, totals = {}, {}
+    for runtime in ("round", "step"):
+        row, launches, rec = lm_run("sparse_allgather", dev, None, runtime,
+                                    LM_SCENARIO)
+        runs[runtime] = rec
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+    a, b = runs["round"], runs["step"]
+    for k in ("loss", "kind", "bits_up", "bits_down", "launches_per_sync",
+              "rounds"):
+        if a[k] != b[k]:
+            raise AssertionError(f"LM scenario: {k} differs between the "
+                                 f"runtimes: {a[k]} / {b[k]}")
+    if not totals.get("topk_compact"):
+        raise AssertionError("LM scenario: no topk_compact launch")
+    print(f"lm scenario {' '.join(LM_SCENARIO)}: round runtime equals "
+          f"--runtime step; kinds {a['kind']}, captures {a['captures']}",
+          flush=True)
+    return totals
 
 
 def phase_lm(dev, ckpt: str = None):
@@ -2060,11 +2484,11 @@ def phase_lm(dev, ckpt: str = None):
 
 def _rank_run(tmp: str, tag: str, wire: str, dispatch: str,
               runtime: str = "round", backend: str = "gloo",
-              ranks: int = LM_RANKS["ranks"]) -> dict:
+              ranks: int = LM_RANKS["ranks"], extra: tuple = ()) -> dict:
     """The launcher on the gemma3-1b smoke model at ``ranks`` ranks (by
     default LM_RANKS' ranks sharing the card over gloo; under NCCL one
-    rank a card): rank 0's run record (--json) and the path of its
-    master (--ckpt)."""
+    rank a card), with ``extra`` flags (a scenario): rank 0's run record
+    (--json) and the path of its master (--ckpt)."""
     from repro_torch.launch.mesh import run_local_ranks
     ckpt, record = os.path.join(tmp, tag), os.path.join(tmp, tag + ".json")
     cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
@@ -2072,7 +2496,7 @@ def _rank_run(tmp: str, tag: str, wire: str, dispatch: str,
            "--steps", str(LM_RANKS["steps"]), "--H", str(LM_RANKS["H"]),
            "--policy", "preset:arch", "--backend", backend, "--wire", wire,
            "--dispatch", dispatch, "--ckpt", ckpt, "--json", record,
-           "--runtime", runtime]
+           "--runtime", runtime, *extra]
     env = dict(os.environ, PYTHONPATH=SRC)
     procs = run_local_ranks(cmd, ranks, env=env, timeout=300)
     for r, (rc, _out, err) in enumerate(procs):
@@ -2107,13 +2531,19 @@ def phase_lm_ranks(dev):
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=os.path.join(
             SRC, "repro_torch", "kernels", "build")) as tmp:
-        runs = {tag: _rank_run(tmp, tag, wire, dispatch, runtime)
-                for tag, wire, dispatch, runtime in (
-                    ("sparse_kernel", "sparse_allgather", "kernel", "round"),
+        runs = {tag: _rank_run(tmp, tag, wire, dispatch, runtime, extra=ex)
+                for tag, wire, dispatch, runtime, ex in (
+                    ("sparse_kernel", "sparse_allgather", "kernel", "round",
+                     ()),
                     ("sparse_reference", "sparse_allgather", "reference",
-                     "round"),
-                    ("dense_kernel", "dense_psum", "kernel", "round"),
-                    ("sparse_step", "sparse_allgather", "kernel", "step"))}
+                     "round", ()),
+                    ("dense_kernel", "dense_psum", "kernel", "round", ()),
+                    ("sparse_step", "sparse_allgather", "kernel", "step",
+                     ()),
+                    ("sparse_scenario", "sparse_allgather", "kernel",
+                     "round", LM_SCENARIO),
+                    ("dense_scenario", "dense_psum", "kernel", "round",
+                     LM_SCENARIO))}
         st = runs["sparse_step"]
         for t in ("sparse_kernel", "sparse_reference", "dense_kernel"):
             if runs[t]["fused"] is not False:
@@ -2150,6 +2580,20 @@ def phase_lm_ranks(dev):
         for a, b in zip(masters["sparse_kernel"], masters["dense_kernel"]):
             torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
             err = max(err, float((a - b).abs().max()))
+        # the same scenario on both wires: the same kinds and bits, the
+        # masters as close as the fault-free pair's
+        ks, kd = runs["sparse_scenario"], runs["dense_scenario"]
+        if ks["kind"] != kd["kind"] or ks["bits_up"] != kd["bits_up"] or \
+                ks["bits_down"] != kd["bits_down"]:
+            raise AssertionError(f"multi-rank scenario: the wires differ: "
+                                 f"{ks['kind']} / {kd['kind']}, "
+                                 f"{ks['bits_up']} / {kd['bits_up']}")
+        for a, b in zip(*(tree_leaves(checkpoint.restore(r["ckpt"], like))
+                          for r in (ks, kd))):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+        print(f"lm ranks scenario {' '.join(LM_SCENARIO)}: kinds "
+              f"{ks['kind']}, bits equal on both wires "
+              f"({ks['bits_up'][-1]})", flush=True)
     print(f"lm ranks: R={LM_RANKS['ranks']} on one card over gloo, "
           f"kernel vs reference losses {k['loss']} / {r['loss']}, bits "
           f"equal ({k['bits_up'][-1]}), sparse vs dense masters within "
@@ -2363,11 +2807,14 @@ def main() -> int:
     topk, qsgd = phase_kernels(dev)
     serve_checks = phase_serve_kernels(dev)
     flash_checks, gemma_decode, gemma_gemm = phase_flash_kernels(dev)
-    runs, totals = phase_train(dev)
+    runs, totals, fault_free = phase_train(dev)
     phase_small_agreement(dev)
     wrapper_totals = phase_wrappers(dev)
     convex_totals, convex_checks = phase_convex(dev)
-    for more in (wrapper_totals, convex_totals):
+    fault_totals = phase_faults(dev, fault_free)
+    scenario_totals = phase_scenarios_convex(dev)
+    for more in (wrapper_totals, convex_totals, fault_totals,
+                 scenario_totals):
         for k, v in more.items():
             totals[k] = totals.get(k, 0) + v
     serve_totals = phase_serve(dev)
@@ -2381,6 +2828,8 @@ def main() -> int:
         compact, lm_topk = phase_lm_kernels(dev)
         dense_ckpt = os.path.join(tmp, "dense")
         lm_totals = phase_lm(dev, dense_ckpt)
+        for k, v in phase_lm_scenario(dev).items():
+            lm_totals[k] = lm_totals.get(k, 0) + v
         ckpt_totals = phase_checkpoint_serve(dev, saved, dense_ckpt, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

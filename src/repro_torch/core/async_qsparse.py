@@ -19,23 +19,23 @@ Per step t (Algorithm 2 lines 4-20), with s_r = [t+1 in I_T^{(r)}]:
   workers in S: x_{t+1}^{(r)} = x̂_{t+1}^{(r)} = x̄_{t+1}
 
 The round runtime (``make_superstep`` / ``run_rounds``) closes a round at
-every step where any worker syncs (``engine.make_superstep``); the
-executed-staleness fault runtime (``make_fault_step`` / ``run_faults``)
-is ROADMAP queue 1 item 10.
+every step where any worker syncs (``engine.make_superstep``).  The
+*executed* staleness regime (``make_fault_step`` / ``run_faults``) runs
+the engine's fault runtime: a payload computed at t is applied at t + τ
+out of a per-worker in-flight queue, with crashes, recoveries and lost
+payloads injected through ``scenarios.FaultSpec``.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core import engine
 from repro_torch.kernels import dispatch as dsp
 from repro_torch.optim.transforms import GradientTransform
-
-_FAULTS = ("the fault runtime is not ported to repro_torch yet: ROADMAP "
-           "queue 1 item 10 (make_fault_step / run_faults)")
 
 
 class AsyncQsparseState(NamedTuple):
@@ -52,14 +52,21 @@ class AsyncQsparseState(NamedTuple):
     bits_down: Optional[torch.Tensor] = None
     leaf_bits: Optional[torch.Tensor] = None
     leaf_bits_down: Optional[torch.Tensor] = None
+    # the fault runtime's in-flight queue; None unless init(...,
+    # queue_depth=) allocated it
+    inflight: Any = None
+    arrive_at: Optional[np.ndarray] = None
+    inflight_tau: Optional[np.ndarray] = None
 
 
 def init(params, inner_opt: GradientTransform, R: int, downlink=None,
-         leaf_ledger: bool = False, device=None) -> AsyncQsparseState:
-    """State for ``params`` on ``device`` (default cuda)."""
+         leaf_ledger: bool = False, device=None,
+         queue_depth: Optional[int] = None) -> AsyncQsparseState:
+    """State for ``params`` on ``device`` (default cuda); ``queue_depth``
+    allocates the fault runtime's queue (the fault spec's ``depth``)."""
     return AsyncQsparseState(*engine.init(
         params, inner_opt, R, downlink=downlink, leaf_ledger=leaf_ledger,
-        device=device))
+        device=device, queue_depth=queue_depth))
 
 
 def make_step(
@@ -121,8 +128,40 @@ def make_superstep(
         from_runner=lambda s: AsyncQsparseState(*s))
 
 
-def make_fault_step(*args, **kwargs):
-    raise NotImplementedError(_FAULTS)
+def make_fault_step(
+    grad_fn: Callable,
+    inner_opt: GradientTransform,
+    operator,
+    lr_schedule: Callable,
+    R: int,
+    *,
+    queue_depth: int,
+    dispatch: Optional[dsp.DispatchConfig] = None,
+    downlink=None,
+    leaf_ledger: bool = False,
+    aggregate: str = "mean_R",
+    staleness_weight: str = "uniform",
+):
+    """The *executed* Algorithm-2 staleness regime (the engine's fault
+    runtime, DESIGN.md §9): a payload computed at t is applied to the
+    master at t + τ out of a per-worker in-flight queue, with worker
+    crash / recover and payload drops from ``scenarios.FaultSpec``.  The
+    step takes ``(state, batch, fault_row, rng=None)`` with ``fault_row``
+    an ``engine.FaultRow``; allocate the state with ``init(...,
+    queue_depth=queue_depth)`` (the fault spec's ``depth``).  Drive with
+    :func:`run_faults`."""
+    engine_step = engine.make_fault_step(
+        grad_fn, inner_opt, operator, lr_schedule, R,
+        queue_depth=queue_depth, dispatch=dispatch, global_rounds=False,
+        downlink=downlink, leaf_ledger=leaf_ledger, aggregate=aggregate,
+        staleness_weight=staleness_weight)
+
+    def step_fn(state: AsyncQsparseState, batch, fault_row, rng=None):
+        new, loss = engine_step(engine.EngineState(*state), batch,
+                                fault_row, rng)
+        return AsyncQsparseState(*new), loss
+
+    return step_fn
 
 
 def run(state, step_fn, batches, sync_mask, rng=None):
@@ -137,5 +176,9 @@ def run_rounds(state, superstep, batches, sync_mask, rng=None):
     return engine.run_rounds(state, superstep, batches, sync_mask, rng)
 
 
-def run_faults(*args, **kwargs):
-    raise NotImplementedError(_FAULTS)
+def run_faults(state, step_fn, batches, sync_mask, tables, rng=None):
+    """Drive the executed-staleness regime: ``sync_mask`` bool[T, R] plus
+    the FaultSpec's expanded ``tables(T, R)``."""
+    new, losses = engine.run_faults(state, step_fn, batches, sync_mask,
+                                    tables, rng)
+    return AsyncQsparseState(*new), losses

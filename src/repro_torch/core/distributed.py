@@ -29,10 +29,15 @@ the model axis is 1.
 The round runtime (``make_dist_round``, ``make_dist_multiround``) runs a
 sync round, or a window of them, as one program: a CUDA graph on the
 card in a world of one whose collectives are device work
-(:func:`round_fused`), else the per-step composition.  Not ported yet, and refused with
-``NotImplementedError`` naming their ROADMAP item: ZeRO-1, partial
-participation (scenarios), a compressed downlink, the fault runtime and
-a model axis above 1.
+(:func:`round_fused`), else the per-step composition.
+
+``partial=True`` takes a per-step participation mask (fleet scenarios,
+``core/scenarios.py``): a worker whose bit is False transmits nothing,
+keeps its error memory and its half-step iterate, and its master
+*view* (carried in the state) stays on the copy it last received.  Not
+ported yet, and refused with ``NotImplementedError`` naming their
+ROADMAP item: ZeRO-1, a compressed downlink, the fault runtime and a
+model axis above 1.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ import torch
 
 from repro_torch.core import bits as bitlib
 from repro_torch.core import channel as chn
+from repro_torch.core.scenarios import AGGREGATES
 from repro_torch.core.engine import _inner_update
 from repro_torch.device import as_tensor
 from repro_torch.core.operators import (
@@ -64,7 +70,6 @@ from repro_torch.sharding.specs import is_spec
 from repro_torch.tree import tree_flatten, tree_leaves, tree_map, \
     tree_unflatten
 
-AGGREGATES = ("mean_R", "mean_S", "support_weighted")
 WIRES = ("dense_psum", "sparse_allgather")
 
 
@@ -83,6 +88,9 @@ class DistQsparseState(NamedTuple):
     bits: torch.Tensor        # uplink wire bits (worker -> server)
     rounds: int
     bits_down: torch.Tensor   # server -> worker
+    # partial participation: the master copy this worker last received
+    # (None unless built with partial=True)
+    view: Any = None
 
 
 # ---------------------------------------------------------------------------
@@ -441,6 +449,14 @@ def _make_dist_parts(
     counts, zero-support guard).  ``wire``: "dense_psum" or
     "sparse_allgather", the same math and ledger.  Both steps return
     (state, loss averaged over the workers).
+
+    ``partial``: the sync step takes ``mask=`` (bool[R] on the host,
+    which workers sync now; ``repro``'s ``sync_mask``).  A worker with a
+    False bit still compresses (every rank stays in step on the wire and
+    the shared generator) but transmits zeros, keeps its memory and
+    half-step iterate, and its ``view`` stays; "mean_S" divides by the
+    syncing count, "support_weighted" counts the survivors' support, and
+    ``rounds`` advances when anyone syncs.
     """
     if aggregate in WIRES:
         from repro_torch.core import policy as pol
@@ -461,10 +477,6 @@ def _make_dist_parts(
         raise NotImplementedError(
             "zero1 (the ZeRO-1 sharded master) is not ported yet: ROADMAP "
             "queue 1 item 12")
-    if partial:
-        raise NotImplementedError(
-            "partial participation (scenario masks) is not ported yet: "
-            "ROADMAP queue 1 item 10")
     daxes = tuple(data_axes)
     for a, size in mesh.shape.items():
         if a not in daxes and size > 1:
@@ -496,52 +508,92 @@ def _make_dist_parts(
                               step=state.step + 1), mesh.mean(loss)
 
     def _delta(state, half):
-        # f32 error-compensated accumulator m + x - x̂, repro's cast order
+        # f32 error-compensated accumulator m + x - x̂, repro's cast order;
+        # under partial participation against the worker's lagging view
+        ref = state.view if partial else state.master
         return tree_map(lambda m, x, h: m + x.to(torch.float32)
-                        - h.to(torch.float32), state.memory, state.master,
-                        half)
+                        - h.to(torch.float32), state.memory, ref, half)
 
-    def _dense_mean(g: torch.Tensor) -> torch.Tensor:
+    def _mask(mask):
+        """(this worker syncs, the syncing count) of a step's mask."""
+        if not partial:
+            return True, R
+        if mask is None:
+            raise ValueError(
+                "this step was built with partial=True: pass the bool[R] "
+                "mask= of the step (which workers sync now)")
+        m = np.broadcast_to(np.asarray(mask, bool).reshape(-1), (R,))
+        return bool(m[mesh.rank]), int(m.sum())
+
+    def _divisor(n_sync: int):
+        """The master's divisor: mean_S divides by the syncing count."""
+        if aggregate == "mean_S" and partial:
+            return float(max(n_sync, 1))
+        return R
+
+    def _dense_mean(g: torch.Tensor, n_sync: int) -> torch.Tensor:
         """The master's divisor rule over an all-reduced dense payload."""
         if aggregate == "support_weighted":
             cnt = mesh.all_reduce_sum((g != 0).to(torch.float32))
             return mesh.all_reduce_sum(g) / torch.clamp(cnt, min=1.0)
-        return mesh.all_reduce_sum(g) / R
+        return mesh.all_reduce_sum(g) / _divisor(n_sync)
 
-    def _finish(state, new_master, inner_new, memory, wire_bits, loss):
-        down_cost = bitlib.f32(R * down.dense_bits(state.master),
-                               state.bits.device)
+    def _finish(state, half, new_master, inner_new, memory, wire_bits, loss,
+                syncs: bool, n_sync: int):
+        dev = state.bits.device
+        if not partial:
+            return DistQsparseState(
+                master=new_master,
+                local=new_master,            # the exact broadcast
+                memory=memory, inner=inner_new, step=state.step + 1,
+                bits=state.bits + mesh.all_reduce_sum(wire_bits),
+                rounds=state.rounds + 1,
+                bits_down=state.bits_down + bitlib.f32(
+                    R * down.dense_bits(state.master), dev)), mesh.mean(loss)
+        # only the syncing workers receive x̄_{t+1}; the others keep their
+        # half-step iterate and their view
         return DistQsparseState(
             master=new_master,
-            local=new_master,            # the exact broadcast
-            memory=memory, inner=inner_new, step=state.step + 1,
-            bits=state.bits + mesh.all_reduce_sum(wire_bits),
-            rounds=state.rounds + 1,
-            bits_down=state.bits_down + down_cost), mesh.mean(loss)
+            local=new_master if syncs else half,
+            memory=memory if syncs else state.memory,
+            inner=inner_new, step=state.step + 1,
+            bits=state.bits + mesh.all_reduce_sum(
+                wire_bits if syncs else torch.zeros_like(wire_bits)),
+            rounds=state.rounds + int(n_sync > 0),
+            bits_down=state.bits_down + bitlib.f32(
+                np.float32(n_sync) * np.float32(
+                    down.dense_bits(state.master)), dev),
+            view=new_master if syncs else state.view), mesh.mean(loss)
 
     def _apply_mean(master, means):
         return tree_map(lambda x, gg: (x.to(torch.float32) - gg).to(x.dtype),
                         master, means)
 
     def sync_dense_at(state: DistQsparseState, batch, rng, lr,
-                      scalars=None):
+                      scalars=None, mask=None):
+        syncs, n_sync = _mask(mask)
         half, inner_new, loss = _local(state, batch, lr, scalars)
         delta = _delta(state, half)
-        del half
+        if not partial:
+            half = None          # freed before the compression
         g, new_mem, wire_bits = up.apply(delta, param_specs, rng=rng)
         del delta
-        new_master = _apply_mean(state.master, tree_map(_dense_mean, g))
-        return _finish(state, new_master, inner_new, new_mem, wire_bits,
-                       loss)
+        if not syncs:
+            g = tree_map(torch.zeros_like, g)     # transmits nothing
+        new_master = _apply_mean(state.master, tree_map(
+            lambda gg: _dense_mean(gg, n_sync), g))
+        return _finish(state, half, new_master, inner_new, new_mem,
+                       wire_bits, loss, syncs, n_sync)
 
-    def _sparse_mean(pl):
+    def _sparse_mean(pl, n_sync: int):
         """One leaf's mean over the W workers' gathered payloads."""
         if pl[0] == "dense":
             arr = mesh.all_gather(pl[1])                  # [W, ...]
             if aggregate == "support_weighted":
                 cnt = (arr != 0).to(torch.float32).sum(dim=0)
                 return arr.sum(dim=0) / torch.clamp(cnt, min=1.0)
-            return arr.sum(dim=0) / arr.shape[0]
+            return arr.sum(dim=0) / (_divisor(n_sync) if partial
+                                     else arr.shape[0])
         _, idx, sel, ax, moved = pl
         idx_all = mesh.all_gather(idx)                    # [W, ..., kcap]
         sel_all = mesh.all_gather(sel)
@@ -554,22 +606,33 @@ def _make_dist_parts(
         if aggregate == "support_weighted":
             cnt = _densify(ii, (ss != 0).to(torch.float32), moved, ax)
             return dense / torch.clamp(cnt, min=1.0)
-        return dense / W
+        return dense / (_divisor(n_sync) if partial else W)
+
+    def _silent(pl):
+        """A payload that transmits nothing: its values zeroed (the
+        sentinel-style decode and the support counts see zeros)."""
+        if pl[0] == "dense":
+            return ("dense", torch.zeros_like(pl[1]))
+        return pl[:2] + (torch.zeros_like(pl[2]),) + pl[3:]
 
     def sync_sparse_at(state: DistQsparseState, batch, rng, lr,
-                       scalars=None):
+                       scalars=None, mask=None):
+        syncs, n_sync = _mask(mask)
         half, inner_new, loss = _local(state, batch, lr, scalars)
         delta = _delta(state, half)
-        del half
+        if not partial:
+            half = None          # freed before the compression
         payloads, _, wire_bits, new_mem = compressor.compact(
             delta, param_specs, rng=rng)
         del delta
-        means = [_sparse_mean(pl) for pl in payloads]
+        if not syncs:
+            payloads = [_silent(pl) for pl in payloads]
+        means = [_sparse_mean(pl, n_sync) for pl in payloads]
         del payloads
         _, mspec = tree_flatten(state.master)
         new_master = _apply_mean(state.master, tree_unflatten(mspec, means))
-        return _finish(state, new_master, inner_new, new_mem, wire_bits,
-                       loss)
+        return _finish(state, half, new_master, inner_new, new_mem,
+                       wire_bits, loss, syncs, n_sync)
 
     sync_at = (sync_sparse_at if wire == "sparse_allgather"
                else sync_dense_at)
@@ -585,7 +648,9 @@ def _make_dist_parts(
             inner=inner_opt.init(params), step=0,
             bits=torch.zeros((), dtype=torch.float32, device=dev),
             rounds=0,
-            bits_down=torch.zeros((), dtype=torch.float32, device=dev))
+            bits_down=torch.zeros((), dtype=torch.float32, device=dev),
+            # every worker's first view is the initial master
+            view=params if partial else None)
 
     return init_fn, local_at, sync_at
 
@@ -605,8 +670,10 @@ def make_dist_steps(grad_fn: Callable, inner_opt: GradientTransform,
     def local_step(state: DistQsparseState, batch, rng=None):
         return local_at(state, batch, rng, lr_schedule(state.step))
 
-    def sync_step(state: DistQsparseState, batch, rng=None):
-        return sync_at(state, batch, rng, lr_schedule(state.step))
+    def sync_step(state: DistQsparseState, batch, rng=None, mask=None):
+        """``mask``: the step's bool[R] participation (``partial=True``)."""
+        return sync_at(state, batch, rng, lr_schedule(state.step),
+                       mask=mask)
 
     return init_fn, local_step, sync_step
 
@@ -633,49 +700,66 @@ def round_fused(mesh) -> bool:
 
 class DistRounds:
     """The distributed engine's round program: ``self(state, blocks,
-    rng=None) -> (state, losses [W, L], leds)`` runs W rounds of L steps
-    (``blocks`` leaves [W, L, ...]), L - 1 local steps and the sync step
-    at each round's tail; ``leds`` holds bits, bits_down and rounds after
-    each round.  :meth:`round` runs one round of an [L, ...] block.
-    ``fused``: one ``engine.RoundRunner`` program per (W, L), a CUDA
-    graph on the card.  Otherwise the per-step composition, each step at
-    the schedule's learning rate, as :func:`make_dist_steps` runs it."""
+    rng=None, tails=None) -> (state, losses [W, L], leds)`` runs W rounds
+    of L steps (``blocks`` leaves [W, L, ...]), L - 1 local steps and the
+    sync step at each round's tail; ``leds`` holds bits, bits_down and
+    rounds after each round.  Under ``partial`` ``tails`` gives the W
+    tail masks (bool[W, R]); an all-False tail is a local step.
+    :meth:`round` runs one round of an [L, ...] block.  ``fused``: one
+    ``engine.RoundRunner`` program per (W, L, tails), a CUDA graph on the
+    card.  Otherwise the per-step composition, each step at the
+    schedule's learning rate, as :func:`make_dist_steps` runs it."""
 
-    def __init__(self, local_at, sync_at, lr_schedule, inner_opt, mesh):
+    def __init__(self, local_at, sync_at, lr_schedule, inner_opt, mesh,
+                 partial: bool = False):
         from repro_torch.core.engine import RoundRunner
         self.local_at, self.sync_at = local_at, sync_at
         self.lr_schedule = lr_schedule
+        self.partial = partial
         self.fused = round_fused(mesh)
         self.runner = (RoundRunner(self._step, lr_schedule, inner_opt)
                        if self.fused else None)
 
     def _step(self, state, batch, mask, rng, lr, scalars=None):
-        fn = self.local_at if mask is None else self.sync_at
-        return fn(state, batch, rng, lr, scalars)
+        if mask is None or not np.any(mask):
+            return self.local_at(state, batch, rng, lr, scalars)
+        return self.sync_at(state, batch, rng, lr, scalars, mask=mask)
 
     @property
     def captures(self) -> int:
         return 0 if self.runner is None else self.runner.captures
 
-    def round(self, state: DistQsparseState, batch_block, rng=None):
+    def round(self, state: DistQsparseState, batch_block, rng=None,
+              tail=None):
         state, losses, _ = self(
-            state, tree_map(lambda x: x[None], batch_block), rng)
+            state, tree_map(lambda x: x[None], batch_block), rng,
+            None if tail is None else [tail])
         return state, losses[0]
 
-    def __call__(self, state: DistQsparseState, blocks, rng=None):
+    def _tails(self, W: int, tails) -> list:
+        if not self.partial:
+            return [np.ones((), bool)] * W
+        if tails is None or len(tails) != W:
+            raise ValueError(
+                "built with partial=True: pass the W rounds' tail masks "
+                "(tails=, bool[W, R])")
+        return [np.asarray(t, bool) for t in tails]
+
+    def __call__(self, state: DistQsparseState, blocks, rng=None,
+                 tails=None):
         lead = tree_leaves(blocks)[0]
         W, L = int(lead.shape[0]), int(lead.shape[1])
+        tails = self._tails(W, tails)
         if self.fused:
-            return self.runner.run(state, blocks, [np.ones((), bool)] * W,
-                                   rng)
+            return self.runner.run(state, blocks, tails, rng)
         dev = state.bits.device
         losses, leds = [], {"bits": [], "bits_down": [], "rounds": []}
         for w in range(W):
             for i in range(L):
-                fn = self.sync_at if i == L - 1 else self.local_at
                 batch = tree_map(lambda b: as_tensor(b[w, i], dev), blocks)
-                state, loss = fn(state, batch, rng,
-                                 self.lr_schedule(state.step))
+                state, loss = self._step(
+                    state, batch, tails[w] if i == L - 1 else None, rng,
+                    self.lr_schedule(state.step))
                 losses.append(loss)
             leds["bits"].append(state.bits.clone())
             leds["bits_down"].append(state.bits_down.clone())
@@ -698,11 +782,14 @@ def make_dist_round(grad_fn: Callable, inner_opt: GradientTransform,
     is one program, a CUDA graph per round length on the card (the
     donation contract of ``engine.make_superstep``); else the per-step
     composition, ``repro``'s ``fused=False`` shape.  Either way the
-    trajectory is :func:`make_dist_steps`'.  Keywords as there."""
+    trajectory is :func:`make_dist_steps`'.  Keywords as there; with
+    ``partial=True`` ``round_fn`` takes ``tail=`` (the tail step's
+    bool[R] mask: rounds close at any-worker-sync steps)."""
     init_fn, local_at, sync_at = _make_dist_parts(
         grad_fn, inner_opt, compressor, lr_schedule, mesh, data_axes,
         param_specs, **kw)
-    program = DistRounds(local_at, sync_at, lr_schedule, inner_opt, mesh)
+    program = DistRounds(local_at, sync_at, lr_schedule, inner_opt, mesh,
+                         partial=kw.get("partial", False))
     return init_fn, program.round, program.fused
 
 
@@ -720,5 +807,6 @@ def make_dist_multiround(grad_fn: Callable, inner_opt: GradientTransform,
     init_fn, local_at, sync_at = _make_dist_parts(
         grad_fn, inner_opt, compressor, lr_schedule, mesh, data_axes,
         param_specs, **kw)
-    program = DistRounds(local_at, sync_at, lr_schedule, inner_opt, mesh)
+    program = DistRounds(local_at, sync_at, lr_schedule, inner_opt, mesh,
+                         partial=kw.get("partial", False))
     return init_fn, program, program.fused

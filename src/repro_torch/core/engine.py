@@ -48,8 +48,19 @@ step with the sync phase, as one program: a CUDA graph per round shape
 on the card (:class:`RoundRunner`), the counterpart of ``repro``'s
 scanned, donated round program.  It takes the step's learning rate (and
 an optimizer's step scalars) from static buffers instead of the host, so
-a graph replays each step's own values.  The fault runtime is still to
-be ported (ROADMAP queue 1 item 10).
+a graph replays each step's own values.
+
+The staleness-first fault runtime (``make_fault_step``,
+``make_fault_superstep``, ``run_faults``, ``run_fault_rounds``; DESIGN.md
+§9) splits a sync into a compute time and an apply time: payloads wait
+in a per-worker in-flight queue (``init(..., queue_depth=)``), workers
+crash and recover, payloads are lost in flight.  The queue's values
+(``inflight``) live on the device; its arrival steps and staleness tags
+(``arrive_at``, ``inflight_tau``, int32 [R, depth]) stay on the host,
+as ``step`` and ``rounds`` do: every value in them follows from the
+host's fault rows, so which rows recover, compute, arrive and receive
+is decided on the host (:func:`plan_fault_step`) before the device
+works, and a fault round is keyed by those decisions.
 """
 
 from __future__ import annotations
@@ -61,6 +72,8 @@ import torch
 
 from repro_torch.core import bits as bitlib, channel as chn
 from repro_torch.core import policy as pol, rounds as rnd
+from repro_torch.core import scenarios as scn
+from repro_torch.core.scenarios import AGGREGATES
 from repro_torch.core.operators import CompressionOp, Uniforms
 from repro_torch.device import as_tensor, resolve_device
 from repro_torch.graphs import CudaGraph
@@ -68,8 +81,6 @@ from repro_torch.kernels import dispatch as dsp
 from repro_torch.optim.transforms import GradientTransform, apply_updates
 from repro_torch.tree import tree_flatten, tree_leaves, tree_map, \
     tree_unflatten
-
-AGGREGATES = ("mean_R", "mean_S", "support_weighted")
 
 
 class EngineState(NamedTuple):
@@ -90,6 +101,15 @@ class EngineState(NamedTuple):
     # ``leaf_group_names``) — None unless built with leaf_ledger=True
     leaf_bits: Optional[torch.Tensor] = None
     leaf_bits_down: Optional[torch.Tensor] = None
+    # the fault runtime's in-flight payload queue (DESIGN.md §9): a ring
+    # of ``queue_depth`` slots a worker holding *decompressed* payloads
+    # (float32, zeros in empty slots), with their global arrival step
+    # (-1 = empty) and staleness τ.  A payload computed at t sits in slot
+    # ``t % depth`` until its arrival step.  None unless init(...,
+    # queue_depth=) allocated it.
+    inflight: Any = None                       # [R, depth, ...] leaves
+    arrive_at: Optional[np.ndarray] = None     # int32 [R, depth], host
+    inflight_tau: Optional[np.ndarray] = None  # int32 [R, depth], host
 
 
 def replicate(tree, R: int):
@@ -104,14 +124,20 @@ def leaf_group_names(params) -> tuple:
 
 
 def init(params, inner_opt: GradientTransform, R: int, downlink=None,
-         leaf_ledger: bool = False, device=None) -> EngineState:
+         leaf_ledger: bool = False, device=None,
+         queue_depth: Optional[int] = None) -> EngineState:
     """Engine state for ``params`` (tensors or numpy arrays) on
     ``device`` (default cuda).  ``downlink``: the server→worker operator
     (or Channel) the state will be stepped with — needed here only to
     allocate the server-side memory; None/Identity allocates nothing.
     ``leaf_ledger``: allocate the per-group ledgers (pass the same flag
-    to :func:`make_step`)."""
+    to :func:`make_step`).  ``queue_depth``: allocate the fault
+    runtime's in-flight queue (``FaultSpec.depth`` slots a worker; pass
+    the same value to :func:`make_fault_step`); None leaves the queue
+    fields None."""
     dev = resolve_device(device)
+    if queue_depth is not None and queue_depth < 1:
+        raise ValueError(f"queue_depth must be >= 1, got {queue_depth}")
     master = tree_map(lambda x: as_tensor(x, dev).clone(), params)
     local = replicate(master, R)
     down = chn.as_channel(downlink, "downlink")
@@ -132,6 +158,13 @@ def init(params, inner_opt: GradientTransform, R: int, downlink=None,
                    if leaf_ledger else None),
         leaf_bits_down=(torch.zeros((G,), dtype=torch.float32, device=dev)
                         if leaf_ledger else None),
+        inflight=(None if queue_depth is None else tree_map(
+            lambda x: torch.zeros((R, queue_depth) + tuple(x.shape),
+                                  dtype=torch.float32, device=dev), master)),
+        arrive_at=(None if queue_depth is None
+                   else np.full((R, queue_depth), -1, np.int32)),
+        inflight_tau=(None if queue_depth is None
+                      else np.zeros((R, queue_depth), np.int32)),
     )
 
 
@@ -193,19 +226,62 @@ def _put(tree, idx: Optional[torch.Tensor], rows):
                     tree, rows)
 
 
-def _make_phases(grad_fn: Callable, inner_opt: GradientTransform,
-                 operator, R: int, *,
-                 dispatch: Optional[dsp.DispatchConfig] = None,
-                 global_rounds: bool = False, downlink=None,
-                 leaf_ledger: bool = False, aggregate: str = "mean_R"):
-    """The engine's step as ``(step, check)``: ``step(state, batch, mask,
-    rng, lr, scalars=None) -> (new_state, mean_loss)`` takes its learning
-    rate (and the inner optimizer's step scalars) from the caller, so the
-    per-step runtime and the round program share it; ``check(state)``
-    validates the state against the build options."""
-    if aggregate not in AGGREGATES:
-        raise ValueError(f"aggregate must be one of {AGGREGATES}, "
-                         f"got {aggregate!r}")
+def _idx(mask: np.ndarray, R: int, const, dev) -> Optional[torch.Tensor]:
+    """The rows ``mask`` selects as a device index (None for all R), made
+    once per mask (a CUDA graph of a step copies nothing from the host)."""
+    if mask.all():
+        return None
+    return const(("idx", mask.tobytes(), dev), lambda: torch.as_tensor(
+        np.flatnonzero(mask), device=dev))
+
+
+def _put_rows(tree, idx: Optional[torch.Tensor], rows, what: str):
+    """:func:`_put` over a tree that may hold host ints (an inner
+    optimizer's step count, shared by the workers): a count may only be
+    replaced for all rows or kept where it already agrees."""
+    if idx is None:
+        return rows
+
+    def one(x, v):
+        if isinstance(x, torch.Tensor):
+            return x.index_copy(0, idx, v.to(x.dtype))
+        if x != v:
+            raise ValueError(
+                f"{what}: the inner optimizer's state holds a count shared "
+                f"by all workers ({x!r} against {v!r} for some rows), which "
+                "cannot differ from worker to worker; use an optimizer "
+                "without one (sgd, momentum_sgd)")
+        return x
+
+    return tree_map(one, tree, rows)
+
+
+class _Parts(NamedTuple):
+    """The phases the engine's steps are made of (see ``_make_parts``)."""
+    const: Callable
+    local_phase: Callable
+    uplink: Callable
+    aggregate: Callable
+    broadcast: Callable
+    check: Callable
+
+
+def _make_parts(grad_fn: Callable, inner_opt: GradientTransform,
+                operator, R: int, *,
+                dispatch: Optional[dsp.DispatchConfig] = None,
+                downlink=None, leaf_ledger: bool = False,
+                aggregate: str = "mean_R") -> _Parts:
+    """The phases :func:`make_step` and :func:`make_fault_step` share:
+
+    * ``uplink(state, half, idx, rng)``: rows ``idx`` (None = all)
+      compress m + x - x̂ (Algorithm 1/2 lines 8-11); returns (g [n, ...],
+      memory, bits, leaf_bits) with the memory and ledgers updated;
+    * ``aggregate(master, pay, n)``: the master minus the rule's mean of
+      the n payload rows ``pay``;
+    * ``broadcast(state, half, new_master, idx, n, rng)``: rows ``idx``
+      receive the new master (exact, or through the compressed downlink);
+      returns (view, local, down_memory, bits_down, leaf_bits_down)."""
+    scn.validate_aggregate(aggregate)
     up_ch = (operator if isinstance(operator, chn.Channel)
              else chn.Channel(operator, "uplink", dispatch))
     down_ch = chn.as_channel(downlink, "downlink", dispatch)
@@ -220,39 +296,38 @@ def _make_phases(grad_fn: Callable, inner_opt: GradientTransform,
             consts[key] = make()
         return consts[key]
 
-    def sync_phase(state: EngineState, half, inner, mask: np.ndarray, rng):
-        """Masked compress-and-aggregate (Algorithm 1/2 lines 8-20)."""
-        dev = state.bits.device
-        n_sync = int(mask.sum())
-        idx = (None if n_sync == R else
-               const(("idx", mask.tobytes(), dev), lambda: torch.as_tensor(
-                   np.flatnonzero(mask), device=dev)))
+    def uplink(state: EngineState, half, idx, rng):
+        """Masked compress (Algorithm 1/2 lines 8-11) of rows ``idx``."""
         acc = tree_map(lambda m, x, h: m + x.to(torch.float32)
                        - h.to(torch.float32),
                        _take(state.memory, idx), _take(state.master_view, idx),
                        _take(half, idx))
         if leaf_ledger:
             gnames, gidx = pol.leaf_groups(state.master)
-            G = len(gnames)
             g, m_out, bits, lb = up_ch.apply(rng, acc, batched=True,
                                              per_leaf=True)
-            new_leaf_bits = state.leaf_bits + _group_bits(lb, gidx, G)
+            new_leaf_bits = state.leaf_bits + _group_bits(lb, gidx,
+                                                          len(gnames))
         else:
             g, m_out, bits = up_ch.apply(rng, acc, batched=True)
             new_leaf_bits = state.leaf_bits
-        new_mem = _put(state.memory, idx, m_out)
+        return (g, _put(state.memory, idx, m_out),
+                state.bits + bitlib.ledger_sum(bits.unbind(0)), new_leaf_bits)
+
+    def aggregate_fn(master, pay, n: int):
         if aggregate == "mean_R":
-            g_sum = tree_map(lambda gg: gg.sum(dim=0) / R, g)
+            g_sum = tree_map(lambda gg: gg.sum(dim=0) / R, pay)
         elif aggregate == "mean_S":
-            n = torch.tensor(float(max(n_sync, 1)), dtype=torch.float32)
-            g_sum = tree_map(lambda gg: gg.sum(dim=0) / n, g)
+            d = torch.tensor(float(max(n, 1)), dtype=torch.float32)
+            g_sum = tree_map(lambda gg: gg.sum(dim=0) / d, pay)
         else:  # support_weighted
             g_sum = tree_map(lambda gg: gg.sum(dim=0) / torch.clamp(
-                (gg != 0).to(torch.float32).sum(dim=0), min=1.0), g)
-        new_master = tree_map(
-            lambda x, gg: (x.to(torch.float32) - gg).to(x.dtype),
-            state.master, g_sum)
+                (gg != 0).to(torch.float32).sum(dim=0), min=1.0), pay)
+        return tree_map(lambda x, gg: (x.to(torch.float32) - gg).to(x.dtype),
+                        master, g_sum)
 
+    def broadcast(state: EngineState, half, new_master, idx, n: int, rng):
+        dev = state.bits.device
         view_s = _take(state.master_view, idx)
         if compressed_down:
             dacc = tree_map(lambda dm, v, nm: dm + nm.to(torch.float32)
@@ -260,10 +335,11 @@ def _make_phases(grad_fn: Callable, inner_opt: GradientTransform,
                             _take(state.down_memory, idx), view_s,
                             new_master)
             if leaf_ledger:
+                gnames, gidx = pol.leaf_groups(state.master)
                 q, dm_out, dbits, dlb = down_ch.apply(rng, dacc, batched=True,
                                                       per_leaf=True)
                 new_leaf_down = state.leaf_bits_down + _group_bits(
-                    dlb, gidx, G)
+                    dlb, gidx, len(gnames))
             else:
                 q, dm_out, dbits = down_ch.apply(rng, dacc, batched=True)
                 new_leaf_down = state.leaf_bits_down
@@ -273,46 +349,35 @@ def _make_phases(grad_fn: Callable, inner_opt: GradientTransform,
             new_down_mem = _put(state.down_memory, idx, dm_out)
             down_bits = state.bits_down + bitlib.ledger_sum(dbits.unbind(0))
         else:
-            # exact broadcast: workers in S receive x̄_{t+1} verbatim; the
+            # exact broadcast: the receivers get x̄_{t+1} verbatim; the
             # ledger charges the dense per-receiver cost
             new_view_s = tree_map(
-                lambda nm: nm[None].expand((n_sync,) + tuple(nm.shape)),
+                lambda nm: nm[None].expand((n,) + tuple(nm.shape)),
                 new_master)
             new_down_mem = state.down_memory
             down_bits = state.bits_down + bitlib.f32(
-                np.float32(n_sync)
-                * np.float32(down_ch.dense_bits(state.master)), dev)
+                np.float32(n) * np.float32(down_ch.dense_bits(state.master)),
+                dev)
             new_leaf_down = state.leaf_bits_down
             if leaf_ledger:
+                _, gidx = pol.leaf_groups(state.master)
+                G = len(state.leaf_bits_down)
+
                 # the per-receiver dense cost of each group, added leaf
                 # by leaf in flatten order
                 def dense_vec():
                     vec = np.zeros((G,), np.float32)
                     for leaf, i in zip(tree_leaves(state.master), gidx):
                         vec[i] += np.float32(32.0 * leaf.numel())
-                    return torch.from_numpy(np.float32(n_sync) * vec).to(dev)
+                    return torch.from_numpy(np.float32(n) * vec).to(dev)
 
                 new_leaf_down = new_leaf_down + const(
-                    ("dense_vec", n_sync, dev), dense_vec)
-        # (on an all-sync exact broadcast both are views of new_master;
-        # the engine never writes a state tensor in place)
-        new_view = _put(state.master_view, idx, new_view_s)
-        new_local = _put(half, idx, new_view_s)
-        inc = int(n_sync > 0) if global_rounds else n_sync
-        return EngineState(
-            master=new_master,
-            master_view=new_view,
-            local=new_local,
-            memory=new_mem,
-            inner=inner,
-            step=state.step + 1,
-            bits=state.bits + bitlib.ledger_sum(bits.unbind(0)),
-            rounds=state.rounds + inc,
-            down_memory=new_down_mem,
-            bits_down=down_bits,
-            leaf_bits=new_leaf_bits,
-            leaf_bits_down=new_leaf_down,
-        )
+                    ("dense_vec", n, dev), dense_vec)
+        # (on an all-row exact broadcast both are views of new_master; the
+        # engine never writes a state tensor in place)
+        return (_put(state.master_view, idx, new_view_s),
+                _put(half, idx, new_view_s), new_down_mem, down_bits,
+                new_leaf_down)
 
     def check(state: EngineState) -> None:
         if compressed_down and state.down_memory is None:
@@ -329,11 +394,52 @@ def _make_phases(grad_fn: Callable, inner_opt: GradientTransform,
                 "per-leaf ledger needs state fields: initialize with "
                 "engine.init(..., leaf_ledger=True)")
 
+    return _Parts(const, local_phase, uplink, aggregate_fn, broadcast, check)
+
+
+def _make_phases(grad_fn: Callable, inner_opt: GradientTransform,
+                 operator, R: int, *,
+                 dispatch: Optional[dsp.DispatchConfig] = None,
+                 global_rounds: bool = False, downlink=None,
+                 leaf_ledger: bool = False, aggregate: str = "mean_R"):
+    """The engine's step as ``(step, check)``: ``step(state, batch, mask,
+    rng, lr, scalars=None) -> (new_state, mean_loss)`` takes its learning
+    rate (and the inner optimizer's step scalars) from the caller, so the
+    per-step runtime and the round program share it; ``check(state)``
+    validates the state against the build options."""
+    p = _make_parts(grad_fn, inner_opt, operator, R, dispatch=dispatch,
+                    downlink=downlink, leaf_ledger=leaf_ledger,
+                    aggregate=aggregate)
+
+    def sync_phase(state: EngineState, half, inner, mask: np.ndarray, rng):
+        """Masked compress-and-aggregate (Algorithm 1/2 lines 8-20)."""
+        n_sync = int(mask.sum())
+        idx = _idx(mask, R, p.const, state.bits.device)
+        g, new_mem, new_bits, new_leaf_bits = p.uplink(state, half, idx, rng)
+        new_master = p.aggregate(state.master, g, n_sync)
+        new_view, new_local, new_down_mem, down_bits, new_leaf_down = (
+            p.broadcast(state, half, new_master, idx, n_sync, rng))
+        inc = int(n_sync > 0) if global_rounds else n_sync
+        return state._replace(
+            master=new_master,
+            master_view=new_view,
+            local=new_local,
+            memory=new_mem,
+            inner=inner,
+            step=state.step + 1,
+            bits=new_bits,
+            rounds=state.rounds + inc,
+            down_memory=new_down_mem,
+            bits_down=down_bits,
+            leaf_bits=new_leaf_bits,
+            leaf_bits_down=new_leaf_down,
+        )
+
     def step(state: EngineState, batch, mask: Optional[np.ndarray], rng,
              lr, scalars=None):
         """One step at learning rate ``lr``; ``mask`` None is a step
         known to sync no worker (a round's head)."""
-        half, inner, losses = local_phase(state, batch, lr, scalars)
+        half, inner, losses = p.local_phase(state, batch, lr, scalars)
         if mask is not None and mask.any():
             new_state = sync_phase(state, half, inner, mask, rng)
         else:
@@ -341,7 +447,7 @@ def _make_phases(grad_fn: Callable, inner_opt: GradientTransform,
                                        step=state.step + 1)
         return new_state, losses.mean()
 
-    return step, check
+    return step, p.check
 
 
 def make_step(
@@ -539,10 +645,12 @@ class RoundRunner:
 
     ``step(state, batch, tail, rng, lr, scalars) -> (state, loss)``:
     ``tail`` is None on a round's head steps and the round's tail mask on
-    its last step.  The state is a NamedTuple whose tensor leaves the
-    runner keeps in its own buffers (made from the first state it is
-    given, outside any graph pool) and whose int leaves (step, rounds,
-    an optimizer's count) stay on the host.
+    its last step; with ``per_step_rows`` (the fault rounds) a round's
+    "mask" is its L per-step rows (each with a ``key()``), one to a
+    step.  The state is a NamedTuple whose tensor leaves the runner
+    keeps in its own buffers (made from the first state it is given,
+    outside any graph pool) and whose int leaves (step, rounds, an
+    optimizer's count) stay on the host.
 
     A shape's first run goes through the step directly, with nothing
     kept; a shape that repeats gets a program (:class:`_Program`: static
@@ -569,9 +677,13 @@ class RoundRunner:
     LEDGER = ("bits", "bits_down", "leaf_bits", "leaf_bits_down", "rounds")
 
     def __init__(self, step: Callable, lr_schedule: Callable,
-                 inner_opt: Optional[GradientTransform]):
+                 inner_opt: Optional[GradientTransform],
+                 per_step_rows: bool = False):
         self.step, self.lr_schedule, self.inner_opt = (
             step, lr_schedule, inner_opt)
+        # True: a round's "mask" is a sequence of L per-step rows (each
+        # with a ``key()``), handed to every step; False: one tail mask
+        self.per_step_rows = per_step_rows
         self.max_programs = MAX_PROGRAMS
         self.graphed: Optional[bool] = None
         self.device: Optional[torch.device] = None
@@ -644,10 +756,11 @@ class RoundRunner:
             losses = []
             for i in range(L):
                 j = w * L + i
+                row = (masks[w][i] if self.per_step_rows else
+                       masks[w] if i == L - 1 else None)
                 state, loss = self.step(
-                    state, tree_map(lambda b: b[w, i], block),
-                    masks[w] if i == L - 1 else None, rng, lr[j],
-                    None if scalars is None else scalars[j])
+                    state, tree_map(lambda b: b[w, i], block), row, rng,
+                    lr[j], None if scalars is None else scalars[j])
                 losses.append(loss)
             yield state, losses
 
@@ -699,10 +812,17 @@ class RoundRunner:
                 "runtime='step')")
         lead = tree_leaves(blocks)[0]
         W, L = int(lead.shape[0]), int(lead.shape[1])
-        masks = tuple(np.asarray(m, bool).copy() for m in masks)
+        if self.per_step_rows:
+            masks = tuple(tuple(m) for m in masks)
+            if any(len(m) != L for m in masks):
+                raise ValueError(f"a round of {L} steps needs {L} rows")
+            sig = tuple(b"".join(r.key() for r in m) for m in masks)
+        else:
+            masks = tuple(np.asarray(m, bool).copy() for m in masks)
+            sig = tuple(m.tobytes() for m in masks)
         if len(masks) != W:
             raise ValueError(f"{len(masks)} tail masks for {W} rounds")
-        key = (W, L, tuple(m.tobytes() for m in masks), _block_sig(blocks))
+        key = (W, L, sig, _block_sig(blocks))
         lrs, scal = self._step_values(state, W * L)
         base = self.rebuild(self.bufs, host_in)
         prog = self.programs.get(key)
@@ -764,6 +884,11 @@ class Superstep:
     @property
     def captures(self) -> int:
         return self.runner.captures
+
+    @property
+    def shapes(self) -> int:
+        """Distinct round shapes run so far (captured or direct)."""
+        return len(self.runner.seen)
 
     def __call__(self, state, batch_block, tail_mask, rng=None):
         """One round: ``batch_block`` leaves [L, R, ...], ``tail_mask``
@@ -931,6 +1056,474 @@ def run_rounds_overlap(state: EngineState, superstep: Superstep, batches,
         state, ls, _ = superstep.multiround(state, block, tails, rng)
         losses.append(ls)
     return state, [float(x) for ls in losses for x in ls.reshape(-1).tolist()]
+
+
+# ---------------------------------------------------------------------------
+# the staleness-first fault runtime (DESIGN.md §9)
+# ---------------------------------------------------------------------------
+
+
+class FaultRow(NamedTuple):
+    """One step's fault data over the worker axis (leading-R numpy
+    arrays; the [T, R]-stacked form from :func:`fault_rows` drives the
+    per-step loop and the fault round program)."""
+
+    sync: Any      # bool[R]  — scheduled sync fires at this step
+    delay: Any     # int32[R] — staleness τ of a payload computed now
+    alive: Any     # bool[R]  — worker is up this step
+    drop: Any      # bool[R]  — a payload computed now is lost in flight
+    recover: Any   # bool[R]  — first alive step after an outage
+
+
+def fault_rows(mask, tables, R: int) -> FaultRow:
+    """Stack a [T]/[T, R] sync mask and expanded
+    :class:`~repro_torch.core.scenarios.FaultTables` into one [T, R]
+    FaultRow (numpy).  Slice step t with :func:`index_rows`."""
+    m = np.asarray(mask, bool)
+    if m.ndim == 1:
+        m = np.broadcast_to(m[:, None], (m.shape[0], R)).copy()
+    T = m.shape[0]
+    if tables.delay.shape[0] < T or tables.delay.shape[1] != R:
+        raise ValueError(
+            f"fault tables of shape {tables.delay.shape} don't cover the "
+            f"[{T}, {R}] mask — expand the spec with tables(T, R)")
+    return FaultRow(sync=m,
+                    delay=np.asarray(tables.delay[:T], np.int32),
+                    alive=np.asarray(tables.alive[:T], bool),
+                    drop=np.asarray(tables.drop[:T], bool),
+                    recover=np.asarray(tables.recover[:T], bool))
+
+
+def index_rows(rows: FaultRow, sl) -> FaultRow:
+    """Slice stacked [T, R] fault rows along the step axis."""
+    return FaultRow(*(np.asarray(x)[sl] for x in rows))
+
+
+class FaultPlan(NamedTuple):
+    """One fault step's host decisions (:func:`plan_fault_step`), all
+    fixed by the fault row, the step and the queue's host tags: the
+    device step reads these and nothing else of the queue's tags."""
+
+    alive: np.ndarray     # bool[R]: rows that take the local step
+    recover: np.ndarray   # bool[R]: rows re-initialized from the master
+    compute: np.ndarray   # bool[R]: rows that compress (sync & alive)
+    fresh: np.ndarray     # bool[R]: computed, kept, τ = 0: applied now
+    enqueue: np.ndarray   # bool[R]: computed, kept, τ > 0: into the slot
+    slot: int             # the queue slot of payloads computed now
+    arrive: np.ndarray    # bool[R, depth]: slots whose payload lands now
+    weight: np.ndarray    # float32[R, depth]: their staleness weights
+    receive: np.ndarray   # bool[R]: rows the new master is broadcast to
+    event: bool           # any compute or arrival (else a local step)
+    inc: int              # what ``rounds`` gains
+
+    def key(self) -> bytes:
+        return b"".join(np.ascontiguousarray(x).tobytes() for x in (
+            self.alive, self.recover, self.compute, self.fresh,
+            self.enqueue, np.int64(self.slot), self.arrive, self.weight,
+            self.receive, np.bool_(self.event), np.int64(self.inc)))
+
+
+def plan_fault_step(arrive_at: np.ndarray, tau: np.ndarray, step: int,
+                    row: FaultRow, *, global_rounds: bool = False,
+                    staleness_weight: str = "uniform"):
+    """The host half of a fault step (``repro``'s ``make_fault_step``
+    phases, on the queue's host tags): ``(plan, arrive_at, tau)`` after
+    the step.  A payload computed at ``step`` and kept is tagged to
+    arrive at step + τ in slot ``step % depth``; every payload whose
+    arrival step is ``step`` lands and its slot is freed."""
+    R, D = arrive_at.shape
+    as_r = lambda x, dt: np.broadcast_to(  # noqa: E731
+        np.asarray(x, dt).reshape(-1), (R,)).copy()
+    sync, delay = as_r(row.sync, bool), as_r(row.delay, np.int32)
+    alive, drop = as_r(row.alive, bool), as_r(row.drop, bool)
+    recover = as_r(row.recover, bool)
+    compute = sync & alive
+    slot = int(step % D)
+    none = np.zeros(R, bool)
+    event = bool(compute.any() or (arrive_at == step).any())
+    if not event:
+        plan = FaultPlan(alive, recover, compute, none, none, slot,
+                         np.zeros((R, D), bool), np.zeros((R, D), np.float32),
+                         none, False, 0)
+        return plan, arrive_at, tau
+    keep = compute & ~drop
+    arrive_at, tau = arrive_at.copy(), tau.copy()
+    arrive_at[keep, slot] = np.int32(step) + delay[keep]
+    tau[keep, slot] = delay[keep]
+    arr = arrive_at == step
+    if staleness_weight == "damped":
+        weight = np.float32(1.0) / (np.float32(1.0) + tau.astype(np.float32))
+    else:
+        weight = np.ones((R, D), np.float32)
+    weight = np.where(arr, weight, np.float32(0.0)).astype(np.float32)
+    inc = int(arr.any()) if global_rounds else int(compute.sum())
+    plan = FaultPlan(alive, recover, compute, keep & (delay == 0),
+                     keep & (delay > 0), slot, arr, weight,
+                     arr.any(axis=1) & alive, True, inc)
+    return (plan, np.where(arr, -1, arrive_at).astype(np.int32),
+            np.where(arr, 0, tau).astype(np.int32))
+
+
+def _plan_rounds(state, rows: FaultRow, L: int, **kw):
+    """Plans for the L steps of ``rows`` (leaves [L, R]) from ``state``'s
+    queue tags; the tags after the last."""
+    arrive_at, tau = state.arrive_at, state.inflight_tau
+    plans = []
+    for i in range(L):
+        plan, arrive_at, tau = plan_fault_step(
+            arrive_at, tau, state.step + i, index_rows(rows, i), **kw)
+        plans.append(plan)
+    return plans, arrive_at, tau
+
+
+def _make_fault_phases(grad_fn: Callable, inner_opt: GradientTransform,
+                       operator, R: int, *, queue_depth: int,
+                       dispatch: Optional[dsp.DispatchConfig] = None,
+                       downlink=None, leaf_ledger: bool = False,
+                       aggregate: str = "mean_R"):
+    """The device half of a fault step as ``(step, check)``: ``step(state,
+    batch, plan, rng, lr, scalars=None) -> (state, mean_loss)`` runs the
+    :class:`FaultPlan`'s phases (recover, local, compute / enqueue,
+    apply, broadcast) and leaves the queue's host tags as they are."""
+    p = _make_parts(grad_fn, inner_opt, operator, R, dispatch=dispatch,
+                    downlink=downlink, leaf_ledger=leaf_ledger,
+                    aggregate=aggregate)
+    D = int(queue_depth)
+    if D < 1:
+        raise ValueError(f"queue_depth must be >= 1, got {D}")
+
+    def rows_of(mask: np.ndarray, dev):
+        return _idx(mask, R, p.const, dev)
+
+    def index(values, dev):
+        values = np.asarray(values, np.int64)
+        return p.const(("pos", values.tobytes(), dev),
+                       lambda: torch.as_tensor(values, device=dev))
+
+    def recover_phase(state: EngineState, rec: np.ndarray):
+        idx = rows_of(rec, state.bits.device)
+        n = int(rec.sum())
+        bcast = tree_map(lambda m: m[None].expand((n,) + tuple(m.shape)),
+                         state.master)
+        local = _put(state.local, idx, bcast)
+        fresh = inner_opt.init(_take(local, idx))
+        return state._replace(
+            local=local,
+            master_view=_put(state.master_view, idx, bcast),
+            memory=_put(state.memory, idx, tree_map(
+                torch.zeros_like, _take(state.memory, idx))),
+            inner=_put_rows(state.inner, idx, fresh, "worker recovery"))
+
+    def select(alive: np.ndarray, new, old, dev):
+        """``new`` on the alive rows, ``old`` on the dead ones."""
+        if alive.all():
+            return new
+        if not alive.any():
+            return old
+        dead = ~alive
+        idx = rows_of(dead, dev)
+        return _put_rows(new, idx, tree_map(
+            lambda o: o[idx] if isinstance(o, torch.Tensor) else o, old),
+            "dead workers")
+
+    def arriving(state, queue, g, plan: FaultPlan, dev):
+        """The landing payloads [n, ...] in ``repro``'s flat (worker,
+        slot) order, weighted; the queue with their slots freed."""
+        flat = np.flatnonzero(plan.arrive.reshape(-1))
+        n = len(flat)
+        comp_pos = np.cumsum(plan.compute) - 1     # row -> position in g
+        fresh = [f % D == plan.slot and bool(plan.fresh[f // D])
+                 for f in flat]
+        from_g = [(j, int(comp_pos[f // D]))
+                  for j, (f, fr) in enumerate(zip(flat, fresh)) if fr]
+        from_q = [(j, int(f)) for j, (f, fr) in enumerate(zip(flat, fresh))
+                  if not fr]
+        if not from_q and len(from_g) == int(plan.compute.sum()):
+            pay = g             # every computed payload lands now, in order
+        elif not from_q:
+            gi = index([s for _, s in from_g], dev)
+            pay = tree_map(lambda gg: gg.index_select(0, gi), g)
+        else:
+            qi = index([f for _, f in from_q], dev)
+            qpos = index([j for j, _ in from_q], dev)
+
+            def gather(qq, gg=None):
+                flat_q = qq.reshape((R * D,) + tuple(qq.shape[2:]))
+                out = flat_q.new_empty((n,) + tuple(qq.shape[2:]))
+                out.index_copy_(0, qpos, flat_q.index_select(0, qi))
+                if from_g:
+                    out.index_copy_(0, index([j for j, _ in from_g], dev),
+                                    gg.index_select(0, index(
+                                        [s for _, s in from_g], dev)))
+                return out
+
+            pay = (tree_map(gather, queue) if not from_g
+                   else tree_map(gather, queue, g))
+            queue = tree_map(lambda qq: qq.reshape(
+                (R * D,) + tuple(qq.shape[2:])).index_fill(0, qi, 0.0)
+                .reshape(qq.shape), queue)
+        w = plan.weight.reshape(-1)[flat]
+        if not np.all(w == np.float32(1.0)):
+            wt = p.const(("w", w.tobytes(), dev),
+                         lambda: torch.from_numpy(w.copy()).to(dev))
+            pay = tree_map(lambda x: x * wt.reshape(
+                (n,) + (1,) * (x.dim() - 1)), pay)
+        return pay, n, queue
+
+    def step(state: EngineState, batch, plan: FaultPlan, rng, lr,
+             scalars=None):
+        dev = state.bits.device
+        if plan.recover.any():
+            state = recover_phase(state, plan.recover)
+        half_raw, inner_raw, losses = p.local_phase(state, batch, lr, scalars)
+        # dead workers take no local step (their gradient is computed and
+        # discarded, as repro's masking does; the loss averages all R)
+        half = select(plan.alive, half_raw, state.local, dev)
+        inner = select(plan.alive, inner_raw, state.inner, dev)
+        if not plan.event:
+            return state._replace(local=half, inner=inner,
+                                  step=state.step + 1), losses.mean()
+        g, new_mem, new_bits, new_leaf_bits = None, state.memory, \
+            state.bits, state.leaf_bits
+        if plan.compute.any():
+            g, new_mem, new_bits, new_leaf_bits = p.uplink(
+                state, half, rows_of(plan.compute, dev), rng)
+        queue = state.inflight
+        if plan.enqueue.any():
+            comp_pos = np.cumsum(plan.compute) - 1
+            src = index(comp_pos[plan.enqueue], dev)
+            dst = index(np.flatnonzero(plan.enqueue) * D + plan.slot, dev)
+            queue = tree_map(lambda qq, gg: qq.reshape(
+                (R * D,) + tuple(qq.shape[2:])).index_copy(
+                    0, dst, gg.index_select(0, src)).reshape(qq.shape),
+                queue, g)
+        new_master = state.master
+        n_arr = int(plan.arrive.sum())
+        if n_arr:
+            pay, n_arr, queue = arriving(state, queue, g, plan, dev)
+            new_master = p.aggregate(state.master, pay, n_arr)
+            del pay
+        new_view, new_local = state.master_view, half
+        new_down_mem, down_bits = state.down_memory, state.bits_down
+        new_leaf_down = state.leaf_bits_down
+        if plan.receive.any():
+            new_view, new_local, new_down_mem, down_bits, new_leaf_down = (
+                p.broadcast(state, half, new_master,
+                            rows_of(plan.receive, dev),
+                            int(plan.receive.sum()), rng))
+        return state._replace(
+            master=new_master, master_view=new_view, local=new_local,
+            memory=new_mem, inner=inner, step=state.step + 1, bits=new_bits,
+            rounds=state.rounds + plan.inc, down_memory=new_down_mem,
+            bits_down=down_bits, leaf_bits=new_leaf_bits,
+            leaf_bits_down=new_leaf_down, inflight=queue), losses.mean()
+
+    def check(state: EngineState) -> None:
+        if state.inflight is None or state.arrive_at is None:
+            raise ValueError(
+                "fault step needs the in-flight queue: initialize with "
+                f"engine.init(..., queue_depth={D})")
+        if tuple(state.arrive_at.shape) != (R, D):
+            raise ValueError(
+                f"state queue depth {tuple(state.arrive_at.shape)} != "
+                f"({R}, {D}) this step was built for")
+        p.check(state)
+
+    return step, check
+
+
+def make_fault_step(
+    grad_fn: Callable,               # (params, batch) -> (loss, grads)
+    inner_opt: GradientTransform,
+    operator: CompressionOp | Any,
+    lr_schedule: Callable,
+    R: int,
+    *,
+    queue_depth: int,
+    dispatch: Optional[dsp.DispatchConfig] = None,
+    global_rounds: bool = False,
+    downlink=None,
+    leaf_ledger: bool = False,
+    aggregate: str = "mean_R",
+    staleness_weight: str = "uniform",
+):
+    """Build the fault / staleness step ``(state, batch, row, rng=None)
+    -> (new_state, mean_loss)`` (DESIGN.md §9; ``repro``'s
+    ``make_fault_step``), ``row`` a :class:`FaultRow`.
+
+    Same algebra as :func:`make_step` with the sync event split into a
+    *compute* time and an *apply* time.  Per step t:
+
+    1. **recover**: workers on their first alive step after an outage
+       re-initialize from the current master (local and view ← x̄_t,
+       error memory ← 0, a fresh inner-optimizer state);
+    2. **local phase**: every worker's gradient is computed (the loss is
+       the mean over all R), alive workers step, dead ones stay frozen;
+    3. **compute** (scheduled sync AND alive): the error-compensated
+       payload of :func:`make_step`, memory updated and bits charged
+       now, then enqueued to arrive at t + τ; a dropped payload is
+       charged and compensated but never enqueued;
+    4. **apply**: every payload whose arrival step is t joins the
+       aggregation, weighted per ``staleness_weight`` ("uniform", or
+       "damped": 1/(1+τ)); "mean_S" counts arriving payloads,
+       "support_weighted" arriving support;
+    5. **broadcast**: alive workers with a payload landing now receive
+       the new master (exact or through the compressed downlink).
+
+    With trivial rows (τ ≡ 0, all alive, no drops) every phase is
+    :func:`make_step`'s, bit for bit.  The state must come from
+    ``init(..., queue_depth=queue_depth)``.  The decisions of a step are
+    made on the host (:func:`plan_fault_step`); a phase with no rows
+    (nobody computes, nothing lands, nobody receives) launches nothing.
+    """
+    scn.validate_staleness_weight(staleness_weight)
+    step, check = _make_fault_phases(
+        grad_fn, inner_opt, operator, R, queue_depth=queue_depth,
+        dispatch=dispatch, downlink=downlink, leaf_ledger=leaf_ledger,
+        aggregate=aggregate)
+
+    def step_fn(state: EngineState, batch, row: FaultRow, rng=None):
+        check(state)
+        plan, arrive_at, tau = plan_fault_step(
+            state.arrive_at, state.inflight_tau, state.step, row,
+            global_rounds=global_rounds, staleness_weight=staleness_weight)
+        new, loss = step(state, batch, plan, rng, lr_schedule(state.step))
+        return new._replace(arrive_at=arrive_at, inflight_tau=tau), loss
+
+    return step_fn
+
+
+class FaultSuperstep(Superstep):
+    """A fault round program over :class:`RoundRunner`: every step of the
+    round is the full fault step, its :class:`FaultPlan` made on the host
+    first.  A program is keyed by its plans (rows, slots, arrivals), so a
+    fault round shape that repeats (``preset:none``, a fixed delay) is
+    captured once; most fault rounds are first sightings and run
+    directly."""
+
+    def __init__(self, runner: RoundRunner, R: int, check: Callable, *,
+                 global_rounds: bool, staleness_weight: str):
+        super().__init__(runner, R, check)
+        self.plan_kw = dict(global_rounds=global_rounds,
+                            staleness_weight=staleness_weight)
+
+    def __call__(self, state, batch_block, rows: FaultRow, rng=None):
+        """One round: ``batch_block`` leaves [L, R, ...], ``rows`` the
+        round's [L, R] fault rows.  Returns (state, losses [L])."""
+        state, losses, _ = self.multiround(
+            state, tree_map(lambda x: x[None], batch_block), [rows], rng)
+        return state, losses[0]
+
+    def multiround(self, state, blocks, rows_list, rng=None):
+        """W rounds of L steps: ``blocks`` leaves [W, L, R, ...],
+        ``rows_list`` the W rounds' [L, R] fault rows.  Returns (state,
+        losses [W, L], ledger after each round)."""
+        state = self.to_runner(state)
+        self.check(state)
+        L = int(tree_leaves(blocks)[0].shape[1])
+        plans, cur = [], state
+        for rows in rows_list:
+            ps, arrive_at, tau = _plan_rounds(cur, rows, L, **self.plan_kw)
+            plans.append(tuple(ps))
+            cur = cur._replace(step=cur.step + L, arrive_at=arrive_at,
+                               inflight_tau=tau)
+        # the tags stay on the host, outside the program's state
+        state, losses, leds = self.runner.run(
+            state._replace(arrive_at=None, inflight_tau=None), blocks, plans,
+            rng)
+        return (self.from_runner(state._replace(arrive_at=arrive_at,
+                                                inflight_tau=tau)),
+                losses, leds)
+
+
+def make_fault_superstep(
+    grad_fn: Callable,
+    inner_opt: GradientTransform,
+    operator: CompressionOp | Any,
+    lr_schedule: Callable,
+    R: int,
+    *,
+    queue_depth: int,
+    dispatch: Optional[dsp.DispatchConfig] = None,
+    global_rounds: bool = False,
+    downlink=None,
+    leaf_ledger: bool = False,
+    aggregate: str = "mean_R",
+    staleness_weight: str = "uniform",
+) -> FaultSuperstep:
+    """Round program of the fault runtime: the full fault step over each
+    of the round's steps (crashes and recoveries happen anywhere;
+    arrivals close rounds, ``rounds.compile_fault_rounds``), as one
+    program on :class:`RoundRunner` (a CUDA graph per repeating round
+    shape on the card).  ``(state, batch_block, rows, rng=None) ->
+    (state, losses [L])``, bit for bit the per-step loop of
+    :func:`make_fault_step`; the state is donated as in
+    :func:`make_superstep`."""
+    scn.validate_staleness_weight(staleness_weight)
+    step, check = _make_fault_phases(
+        grad_fn, inner_opt, operator, R, queue_depth=queue_depth,
+        dispatch=dispatch, downlink=downlink, leaf_ledger=leaf_ledger,
+        aggregate=aggregate)
+    return FaultSuperstep(
+        RoundRunner(step, lr_schedule, inner_opt, per_step_rows=True), R,
+        check, global_rounds=global_rounds,
+        staleness_weight=staleness_weight)
+
+
+def _queue_depth_of(state) -> int:
+    if state.arrive_at is None:
+        raise ValueError("fault drivers need a queue-bearing state: "
+                         "initialize with engine.init(..., queue_depth=)")
+    return state.arrive_at.shape[0]
+
+
+def run_faults(state: EngineState, step_fn, batches, mask, tables, rng=None
+               ) -> tuple[EngineState, list[float]]:
+    """Drive T fault steps (the per-step loop; the oracle the round
+    driver is held to)."""
+    R = _queue_depth_of(state)
+    rows = fault_rows(mask, tables, R)
+    dev = state.bits.device
+    losses = []
+    for t, batch in enumerate(batches):
+        batch = tree_map(lambda b: as_tensor(b, dev), batch)
+        state, loss = step_fn(state, batch, index_rows(rows, t), rng)
+        losses.append(loss)
+    return state, [float(l) for l in losses]
+
+
+def run_fault_rounds(state: EngineState, superstep: FaultSuperstep, batches,
+                     mask, tables, rng=None
+                     ) -> tuple[EngineState, list[float]]:
+    """Drive the schedule as fault-round programs: rounds close at event
+    steps (scheduled syncs and payload arrivals,
+    ``rounds.compile_fault_rounds``), so master and ledgers change only
+    at round tails.  A batch stream shorter than the schedule stops
+    where it ends (the truncated round's steps sync nothing).  The state
+    argument is consumed."""
+    R = _queue_depth_of(state)
+    rows = fault_rows(mask, tables, R)
+    losses = []
+    it = iter(batches)
+    for plan in rnd.compile_fault_rounds(rows.sync, tables):
+        steps = []
+        for _ in range(plan.length):
+            try:
+                steps.append(next(it))
+            except StopIteration:
+                break
+        if not steps:
+            break
+        block_rows = index_rows(rows, slice(plan.start,
+                                            plan.start + len(steps)))
+        if len(steps) < plan.length:
+            block_rows = block_rows._replace(
+                sync=np.zeros_like(block_rows.sync))
+        state, ls = superstep(state, stack_block(steps), block_rows, rng)
+        losses.append(ls)
+        if len(steps) < plan.length:
+            break
+    return state, [float(x) for ls in losses for x in ls.tolist()]
 
 
 # ---------------------------------------------------------------------------

@@ -29,6 +29,8 @@ from typing import NamedTuple, Sequence
 
 import numpy as np
 
+from repro_torch.core.scenarios import fault_replay
+
 
 class RoundPlan(NamedTuple):
     start: int          # global step index of the round's first step
@@ -116,28 +118,6 @@ def expand_rounds(plans: Sequence[RoundPlan], R: int | None = None
     return out
 
 
-def fault_replay(mask, tables):
-    """Host-side replay of a fault schedule's event structure (a copy of
-    ``repro.core.scenarios.fault_replay``): ``(computed [T, R],
-    arrivals [T, R] int32, events [T])`` -- who computes a payload at t,
-    how many payloads from worker r land at t, and the steps where a
-    scheduled sync fires or a payload lands."""
-    m = np.asarray(mask, bool)
-    if m.ndim == 1:
-        m = np.broadcast_to(m[:, None], (m.shape[0], tables.alive.shape[1]))
-    T, R = m.shape
-    computed = m & np.asarray(tables.alive)[:T]
-    arrivals = np.zeros((T, R), np.int32)
-    src = computed & ~np.asarray(tables.drop)[:T]
-    for t, r in zip(*np.nonzero(src)):
-        a = t + int(tables.delay[t, r])
-        if a < T:
-            arrivals[a, r] += 1
-    events = m.any(axis=1) | (arrivals > 0).any(axis=1)
-    return computed, arrivals, events
-
-
-
 def compile_fault_rounds(mask, tables, extra_events=None) -> list[RoundPlan]:
     """Segment a sync schedule *under faults* into round plans.
 
@@ -152,7 +132,7 @@ def compile_fault_rounds(mask, tables, extra_events=None) -> list[RoundPlan]:
 
     ``mask`` is the bool ``[T]``/``[T, R]`` sync schedule and ``tables``
     the expanded fault tables (``delay``, ``alive``, ``drop``, [T, R]
-    each, as ``repro.core.scenarios.FaultTables`` holds them).  The
+    each: ``scenarios.FaultTables``).  The
     returned plans carry the *original* tail sync rows (the engine's
     fault superstep takes the full per-step fault rows separately);
     trailing no-event steps form the usual partial round.  With trivial

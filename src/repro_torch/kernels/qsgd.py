@@ -85,6 +85,8 @@ def qsgd_quantize(x: torch.Tensor, u: torch.Tensor, s: int) -> torch.Tensor:
                          f"x {tuple(x.shape)} on {x.device}")
     if int(s) < 1:
         raise ValueError(f"s={s} must be >= 1")
+    if x.shape[0] == 0:     # no live bucket: nothing to launch
+        return torch.empty_like(x)
     LAUNCHES["qsgd"] += 1
     if x.device.type == "cpu":
         return ref.qsgd_bucketed_ref(x, u, s)

@@ -148,6 +148,9 @@ def topk_compress(acc: torch.Tensor, k: int, *, iters: int = 24,
     _check_rows("acc", acc)
     rows, n = acc.shape
     _check_k(k, n, iters)
+    if rows == 0:       # no live row (every worker dead): nothing to launch
+        return (torch.empty_like(acc), torch.empty_like(acc),
+                torch.empty((0,), dtype=torch.int32, device=acc.device))
     LAUNCHES["topk_compress"] += 1
     if acc.device.type == "cpu":
         return ref.topk_compress_ref(acc, k, iters=iters, sign=sign)
@@ -191,6 +194,12 @@ def topk_compact(acc: torch.Tensor, k: int, kcap: int, *, iters: int = 24,
     _check_k(k, n, iters)
     if not 1 <= kcap <= max(n, 1):
         raise ValueError(f"kcap={kcap} outside [1, {n}]")
+    if rows == 0:       # no live row: nothing to launch
+        return (torch.empty((0, kcap), dtype=torch.int32, device=acc.device),
+                torch.empty((0, kcap), dtype=torch.float32,
+                            device=acc.device),
+                torch.empty_like(acc),
+                torch.empty((0,), dtype=torch.int32, device=acc.device))
     LAUNCHES["topk_compact"] += 1
     if acc.device.type == "cpu":
         return ref.topk_compact_ref(acc, k, kcap, iters=iters, sign=sign)

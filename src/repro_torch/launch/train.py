@@ -22,7 +22,8 @@ round of ``core.distributed.make_dist_multiround``; ``--overlap``:
 windows of up to ``--overlap-window`` rounds); ``--runtime
 step`` runs the steps eagerly.  The log and the ledgers are the same
 either way: a mid-round step reports the bits of the round before.
-Added: ``--device`` (default cuda), ``--seed`` (weights and the
+``--scenario`` runs a fleet scenario's participation mask on the mesh
+(``partial=True``).  Added: ``--device`` (default cuda), ``--seed`` (weights and the
 stochastic operators' draws), ``--backend`` (``gloo`` for several ranks
 sharing one GPU) and ``--json`` (the run's record, exact ledgers
 included).  Every flag of a feature not ported yet raises
@@ -44,7 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ARCHS, get_config, get_policy_preset
-from repro_torch.core import policy as pol
+from repro_torch.core import policy as pol, scenarios as scn
 from repro_torch.core.distributed import (ShardCompressor,
                                           make_dist_multiround,
                                           make_dist_steps)
@@ -61,11 +62,10 @@ from repro_torch.tree import tree_leaves, value_and_grad
 #: flags of features the port has not reached: (flag, test on the parsed
 #: args, ROADMAP item)
 UNPORTED = (
-    ("--scenario", lambda a: a.scenario is not None,
-     "queue 1 item 10 (scenarios)"),
     ("--faults", lambda a: (a.faults is not None or a.fault_seed is not None
                             or a.staleness_weight != "uniform"),
-     "queue 1 item 10 (faults)"),
+     "queue 1 item 10 (the mesh fault runtime: make_dist_fault_steps / "
+     "make_dist_fault_round)"),
     ("--tune", lambda a: a.tune or a.retune,
      "queue 1 item 11 (autotune)"),
     ("--zero1", lambda a: a.zero1, "queue 1 item 12 (ZeRO-1)"),
@@ -145,7 +145,9 @@ def parser() -> argparse.ArgumentParser:
                     choices=["dense_psum", "sparse_allgather"],
                     help="sync transport: dense all-reduce, or compact "
                          "(idx, val) all-gather")
-    ap.add_argument("--scenario", default=None, help="not ported")
+    ap.add_argument("--scenario", default=None,
+                    help="fleet scenario (core/scenarios.py): k=v,... or "
+                         "preset:<name>; partial participation on the mesh")
     ap.add_argument("--runtime", default="round", choices=["round", "step"],
                     help="execution runtime: 'round' runs each sync round "
                          "(H local steps + sync) as one program, a CUDA "
@@ -190,8 +192,11 @@ def refuse_unported(args) -> None:
                 f"{flag} is not ported to repro_torch yet: ROADMAP {item}")
 
 
-def is_sync(t: int, args) -> bool:
-    """The fixed schedule: every H-th step and the last one sync."""
+def is_sync(t: int, args, scenario_mask=None) -> bool:
+    """The fixed schedule: every H-th step and the last one sync; under
+    a scenario, the steps where any worker's mask row fires."""
+    if scenario_mask is not None:
+        return bool(scenario_mask[t].any())
     return (t + 1) % args.H == 0 or t == args.steps - 1
 
 
@@ -238,7 +243,18 @@ def setup(args, channel_spec, mesh) -> types.SimpleNamespace:
         else ShardCompressor("none", dispatch=args.dispatch),
         warmup_piecewise(args.lr, 5, [int(args.steps * 0.8)]),
         mesh, data_axes(mesh), param_specs(cfg))
-    engine_kw = dict(aggregate=args.aggregate, wire=args.wire)
+    R = worker_count(mesh)
+    scenario_mask = None
+    if args.scenario is not None:
+        scenario = scn.parse(args.scenario)
+        scenario_mask = scenario.mask(args.steps, R, H=args.H)
+        scn.warn_if_biased(scenario_mask, args.aggregate)
+        say(f"scenario: {scenario.to_string() or 'lossless'} "
+            f"(participation {scn.participation_of(scenario_mask):.2f}, "
+            f"{int(scenario_mask.any(axis=1).sum())} sync steps)",
+            flush=True)
+    engine_kw = dict(aggregate=args.aggregate, wire=args.wire,
+                     partial=scenario_mask is not None)
     local_step = sync_step = round_fn = fused = None
     if args.runtime == "step":
         init_fn, local_step, sync_step = make_dist_steps(*engine_args,
@@ -255,7 +271,6 @@ def setup(args, channel_spec, mesh) -> types.SimpleNamespace:
         else:
             say(f"runtime: round "
                 f"({'fused' if fused else 'per-step fallback'})", flush=True)
-    R = worker_count(mesh)
     stream = LMTokenStream(vocab=cfg.vocab, R=R, order=64, seed=0)
     # the prefix embeddings of a multimodal config draw from their own
     # generator, so the two runtimes (which build a round's batches
@@ -281,7 +296,8 @@ def setup(args, channel_spec, mesh) -> types.SimpleNamespace:
     # key is replicated over the worker axes)
     rng = torch.Generator(device=dev).manual_seed(args.seed + 1)
     return types.SimpleNamespace(
-        cfg=cfg, R=R, state=init_fn(params), local_step=local_step,
+        cfg=cfg, R=R, scenario_mask=scenario_mask,
+        state=init_fn(params), local_step=local_step,
         sync_step=sync_step, round_fn=round_fn, fused=fused, batches=batches,
         host_batches=host_batches, rng=rng, say=say)
 
@@ -312,11 +328,16 @@ def _run(args, channel_spec, mesh) -> dict:
     t0 = time.time()
     if args.runtime == "step":
         for t, b in enumerate(run.batches()):
-            sync = is_sync(t, args)
+            sync = is_sync(t, args, run.scenario_mask)
             before = dict(LAUNCHES)
             ts = time.perf_counter()
-            step = run.sync_step if sync else run.local_step
-            state, loss = step(state, b, run.rng)
+            if not sync:
+                state, loss = run.local_step(state, b, run.rng)
+            elif run.scenario_mask is None:
+                state, loss = run.sync_step(state, b, run.rng)
+            else:
+                state, loss = run.sync_step(state, b, run.rng,
+                                            mask=run.scenario_mask[t])
             loss, up = float(loss), float(state.bits)   # synchronizes
             rec["ms"].append((time.perf_counter() - ts) * 1e3)
             counts = ({k: LAUNCHES[k] - before[k] for k in LAUNCHES}
@@ -354,21 +375,25 @@ def _run(args, channel_spec, mesh) -> dict:
 
 def _run_rounds(args, run, state, rec: dict, log_step):
     """The round runtime's loop over ``engine.round_calls``: the fixed
-    schedule's rounds (every H-th step and the last one sync), one
-    program a round, or a window of rounds under ``--overlap``; each step
-    logged as ``--runtime step`` logs it, a mid-round step with the
-    ledger of the round before.  ``ms`` is a round's time over its
-    steps, ``round_ms`` the rounds' times."""
-    sync = np.array([is_sync(t, args) for t in range(args.steps)])
+    schedule's rounds (every H-th step and the last one sync) or the
+    scenario mask's (rounds close where any worker syncs; the tails'
+    masks go to the program), one program a round, or a window of rounds
+    under ``--overlap``; each step logged as ``--runtime step`` logs it,
+    a mid-round step with the ledger of the round before.  ``ms`` is a
+    round's time over its steps, ``round_ms`` the rounds' times."""
+    partial = run.scenario_mask is not None
+    sync = (run.scenario_mask if partial else
+            np.array([is_sync(t, args) for t in range(args.steps)]))
     up, down = float(state.bits), float(state.bits_down)
     rec["round_ms"] = []
-    for plans, block, _ in round_calls(
+    for plans, block, tails in round_calls(
             run.host_batches(), sync,
             args.overlap_window if args.overlap else 1):
         W, L = len(plans), plans[0].length
         before = dict(LAUNCHES)
         ts = time.perf_counter()
-        state, losses, leds = run.round_fn(state, block, run.rng)
+        state, losses, leds = run.round_fn(
+            state, block, run.rng, tails=tails if partial else None)
         losses = losses.tolist()                           # synchronizes
         ms = (time.perf_counter() - ts) * 1e3
         leds = {k: leds[k].tolist() for k in ("bits", "bits_down")}
@@ -376,8 +401,8 @@ def _run_rounds(args, run, state, rec: dict, log_step):
         for wi, plan in enumerate(plans):
             rec["round_ms"].append(ms / W)
             for i in range(L):
-                tail = i == L - 1
-                if tail:
+                tail = i == L - 1 and bool(np.any(plan.mask))
+                if i == L - 1:
                     up, down = leds["bits"][wi], leds["bits_down"][wi]
                 rec["ms"].append(ms / (W * L))
                 log_step(plan.start + i, tail, losses[wi][i], up, down,

@@ -12,9 +12,12 @@ types as uint8).  A compact checkpoint (``save_compact``) keeps each
 compressed serving leaf's ``(idx, val)`` / ``(levels, scale)`` buffers
 as ``a<i>_a`` / ``a<i>_b`` with its layout in the manifest, and
 ``load_compact`` rebuilds the serving tree from the manifest alone,
-never forming a dense weight.  The full train-state snapshots
-(``save_train_state`` / ``restore_train_state``) are ROADMAP queue 1
-item 10.
+never forming a dense weight.  A full train-state snapshot
+(``save_train_state`` / ``restore_train_state``) holds the whole engine
+state (queue, memories, ledgers) with the run's generator and a
+``train_state`` manifest record; its ``state`` subtree restores in
+either package, its ``key`` only in the package that wrote it (a
+``torch.Generator`` state here, a JAX PRNG key in ``repro``).
 """
 
 from __future__ import annotations
@@ -43,8 +46,15 @@ _EXOTIC = {
 _BY_TORCH = {tdt: name for name, (tdt, _, _) in _EXOTIC.items()}
 
 
-def _to_numpy(t: torch.Tensor) -> tuple:
-    """(numpy array to store, dtype name) of a tensor leaf."""
+def _to_numpy(t) -> tuple:
+    """(numpy array to store, dtype name) of a tensor leaf, or of a host
+    leaf of an engine state (a numpy array; an int, kept as int32 as
+    ``repro`` keeps its counters)."""
+    if isinstance(t, np.ndarray):
+        return t, str(t.dtype)
+    if isinstance(t, (int, np.integer)):
+        arr = np.asarray(t, np.int32)
+        return arr, str(arr.dtype)
     t = t.detach().cpu().contiguous()
     name = _BY_TORCH.get(t.dtype)
     if name is None:
@@ -241,6 +251,114 @@ def latest_step(root: str) -> Optional[int]:
 
 def latest_full(root: str) -> Optional[int]:
     """Latest ``full_step_<N>`` train-state snapshot under ``root``
-    (None if there is none; ``repro`` writes them, the port does not
-    yet: ROADMAP queue 1 item 10)."""
+    (None if there is none)."""
     return _latest(root, "full_step_", lambda d: d.rsplit("_", 1)[1])
+
+
+# ---------------------------------------------------------------------------
+# crash-consistent full train-state snapshots (DESIGN.md §9)
+# ---------------------------------------------------------------------------
+
+
+def save_train_state(path: str, state: Any, *, key: Any, cursor: int,
+                     policy: Optional[dict] = None,
+                     faults: Optional[str] = None,
+                     staleness_weight: Optional[str] = None) -> None:
+    """Write the whole training state: master, per-worker locals, both
+    error memories, the in-flight queue (values, arrival steps,
+    staleness tags), every ledger and the run's generator ``key`` (a
+    ``torch.Generator``, stored as its ``get_state()``), with the cursor
+    (the next global step to run) and the fault spec string and
+    staleness weighting in a ``train_state`` manifest record.
+
+    The tree is ``{"key": ..., "state": ...}``, leaves in ``repro``'s
+    order; ``step``, ``rounds``, ``arrive_at`` and ``inflight_tau`` are
+    written int32, as ``repro`` holds them, so the ``state`` subtree of
+    a snapshot from either package restores in the other.  The key
+    cannot cross frameworks: a ``torch.Generator`` state and a JAX PRNG
+    key are different objects."""
+    if isinstance(key, torch.Generator):
+        key = key.get_state()
+    save(path, {"key": key, "state": state}, step=cursor, policy=policy)
+    mpath = os.path.join(path, "manifest.json")
+    with open(mpath) as f:
+        manifest = json.load(f)
+    manifest["train_state"] = {"cursor": int(cursor), "faults": faults,
+                               "staleness_weight": staleness_weight}
+    with open(mpath, "w") as f:
+        json.dump(manifest, f, indent=2)
+
+
+def _restore_leaf(arr: np.ndarray, name: str, ref, what: str):
+    """A stored leaf in the kind of ``ref``: a tensor on ``ref``'s device
+    and dtype, a numpy array of ``ref``'s dtype, or an int."""
+    if isinstance(ref, torch.Tensor):
+        t = _from_numpy(arr, name)
+        if tuple(t.shape) != tuple(ref.shape):
+            raise ValueError(f"snapshot leaf {what} has shape "
+                             f"{tuple(t.shape)}, target {tuple(ref.shape)}")
+        return t.to(device=ref.device, dtype=ref.dtype)
+    a = np.asarray(arr)
+    if isinstance(ref, np.ndarray):
+        if a.shape != ref.shape:
+            raise ValueError(f"snapshot leaf {what} has shape {a.shape}, "
+                             f"target {ref.shape}")
+        return a.astype(ref.dtype)
+    if a.shape != ():
+        raise ValueError(f"snapshot leaf {what} has shape {a.shape}, "
+                         "target a scalar count")
+    return int(a)
+
+
+def train_state_info(path: str) -> dict:
+    """The ``train_state`` record of a full snapshot (``cursor``,
+    ``faults``, ``staleness_weight``), read without its arrays."""
+    with open(os.path.join(path, "manifest.json")) as f:
+        info = json.load(f).get("train_state")
+    if info is None:
+        raise ValueError(
+            f"{path} is a master-only checkpoint, not a full train-state "
+            "snapshot (no train_state record in the manifest)")
+    return dict(info)
+
+
+def restore_train_state(path: str, like_state: Any, like_key: Any = None
+                        ) -> tuple:
+    """Inverse of :func:`save_train_state`: ``(state, key, info)`` with
+    ``info`` the ``{"cursor", "faults", "staleness_weight"}`` record.
+    ``like_state`` gives the target structure (a fresh state of the same
+    run; tensors land on its devices and dtypes, host leaves stay on the
+    host).  ``like_key``: a ``torch.Generator``, whose state is set from
+    the snapshot and which is returned as ``key``; None skips the key
+    (``key`` is then None), which is how a snapshot written by ``repro``
+    (a JAX key) restores here."""
+    info = train_state_info(path)
+    with open(os.path.join(path, "manifest.json")) as f:
+        entries = json.load(f)["keys"]
+    key_entries = [e for e in entries if e["path"].split("/")[0] == "key"]
+    state_entries = [e for e in entries if e["path"].split("/")[0] != "key"]
+    leaves_like, spec = tree_flatten(like_state)
+    if len(state_entries) != len(leaves_like):
+        raise ValueError(
+            f"snapshot state has {len(state_entries)} leaves, target "
+            f"structure has {len(leaves_like)}")
+    with np.load(os.path.join(path, "arrays.npz")) as data:
+        out = [_restore_leaf(data[e["name"]], e["dtype"], ref, e["path"])
+               for e, ref in zip(state_entries, leaves_like)]
+        key = None
+        if like_key is not None:
+            if len(key_entries) != 1:
+                raise ValueError(f"snapshot has {len(key_entries)} key "
+                                 "leaves, a torch.Generator state needs 1")
+            e = key_entries[0]
+            if e["dtype"] != "uint8":
+                raise ValueError(
+                    f"the snapshot's key is a {e['dtype']} array, not a "
+                    "torch.Generator state (a key written by repro cannot "
+                    "seed the port's generator; pass like_key=None)")
+            like_key.set_state(_from_numpy(data[e["name"]], e["dtype"]))
+            key = like_key
+    state = tree_unflatten(spec, out)
+    if hasattr(like_state, "_fields"):     # a NamedTuple state type
+        state = type(like_state)(*state)
+    return state, key, info

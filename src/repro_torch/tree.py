@@ -40,7 +40,9 @@ def _flatten(node, is_leaf, leaves: list) -> TreeSpec:
                         [_flatten(node[k], is_leaf, leaves) for k in keys])
     if isinstance(node, (list, tuple)):
         kind = "list" if isinstance(node, list) else "tuple"
-        return TreeSpec(kind, None,
+        # a NamedTuple's field names name its paths (``.field``, as
+        # jax.tree_util names them)
+        return TreeSpec(kind, getattr(node, "_fields", None),
                         [_flatten(c, is_leaf, leaves) for c in node])
     leaves.append(node)
     return _LEAF
@@ -64,12 +66,14 @@ def _paths(s: TreeSpec, prefix: tuple, out: list) -> None:
             _paths(c, prefix + (k,), out)
     elif s.kind in ("list", "tuple"):
         for i, c in enumerate(s.children):
-            _paths(c, prefix + (i,), out)
+            _paths(c, prefix + (i if s.keys is None else "." + s.keys[i],),
+                   out)
 
 
 def tree_flatten_with_path(tree, is_leaf=None):
-    """([(path, leaf)], spec): each leaf with its key path (dict keys and
-    list / tuple indices, root first), in ``tree_flatten`` order."""
+    """([(path, leaf)], spec): each leaf with its key path (dict keys,
+    list / tuple indices and ``.field`` for a NamedTuple's fields, root
+    first), in ``tree_flatten`` order."""
     leaves, spec = tree_flatten(tree, is_leaf)
     paths: list = []
     _paths(spec, (), paths)

@@ -94,6 +94,26 @@ def test_round_runtime_equals_step_runtime(runs):
         assert torch.equal(x, y)
 
 
+def test_scenario_log_line_and_partial_syncs(capsys):
+    """``--scenario`` runs the scenario's mask on the mesh
+    (``partial=True``): ``repro``'s log line word for word, the syncs
+    where the mask has any worker (here one of the fixed schedule's two
+    is dropped), 7 ``topk_compact`` launches a sync; the round runtime
+    against the steps under a mask is ``test_torch_scenarios.py``'s."""
+    from repro_torch.core import scenarios as scn
+    spec = "participation=0.5,seed=1"
+    rec = lt.main(SMOKE + ["--wire", "sparse_allgather", "--scenario", spec,
+                           "--aggregate", "mean_S"])
+    m = scn.parse(spec).mask(4, 1, 2)
+    assert (f"scenario: {spec} (participation "
+            f"{scn.participation_of(m):.2f}, 1 sync steps)"
+            ) in capsys.readouterr().out
+    assert rec["kind"] == ["sync" if r.any() else "local" for r in m] == [
+        "local", "sync", "local", "local"]
+    assert rec["rounds"] == 1
+    assert [c["topk_compact"] for c in rec["launches_per_sync"]] == [7]
+
+
 def test_wires_agree(runs):
     dense, sparse = runs["dense_psum"][0], runs["sparse_allgather"][0]
     assert dense["bits_up"] == sparse["bits_up"]
@@ -188,7 +208,6 @@ def test_checkpoints_cross_bit_for_bit(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--scenario", "preset:flaky_fleet"], "queue 1 item 10"),
     (["--faults", "preset:chaos"], "queue 1 item 10"),
     (["--tune"], "queue 1 item 11"),
     (["--zero1"], "queue 1 item 12"),

@@ -126,10 +126,11 @@ def test_trainer_history_equals_step_runtime(kw):
     _, h_round = _softmax_run(**kw)
     a, b = dataclasses.asdict(h_step), dataclasses.asdict(h_round)
     for k in a:
-        if k not in ("wall_time", "round_blocks"):
+        if k not in ("wall_time", "round_blocks", "round_shapes"):
             assert a[k] == b[k], k
     assert sum(L for _, L, _ in h_round.round_blocks) == 14
     assert h_step.round_blocks == [] and h_round.captures == 0
+    assert h_step.round_shapes == 0 < h_round.round_shapes
 
 
 def test_trainer_overlap_guards():

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The distributed LM launcher's round runtime over NCCL, one rank a GPU.
 
-    python3 tools/check_nccl_rounds.py [--ranks 4]
+    python3 tools/check_nccl_rounds.py [--ranks 4] [--scenario preset:dropout]
 
 Runs ``repro_torch.launch.train`` on the gemma3-1b smoke model at
 ``--mesh Nx1`` with the NCCL backend, ``chip_smoke.py``'s LM_RANKS steps
@@ -10,7 +10,10 @@ and H, on both wires, under ``--runtime round`` (the default) and
 is the per-step composition (``core.distributed.round_fused``): fails
 unless it reports ``fused`` False and its record (losses, kinds, bits
 up and down, launches per sync) and final master equal the step
-runtime's.  Prints each run's ms a step and ms a round.  Needs N GPUs.
+runtime's.  Prints each run's ms a step and ms a round.  With
+``--scenario SPEC`` it then runs both wires again under that fleet
+scenario (partial participation on the mesh, ``--aggregate mean_S``).
+Needs N GPUs.
 """
 
 from __future__ import annotations
@@ -30,6 +33,8 @@ def main() -> int:
     import torch
     ap = argparse.ArgumentParser()
     ap.add_argument("--ranks", type=int, default=4)
+    ap.add_argument("--scenario", default=None,
+                    help="also run under this fleet scenario")
     args = ap.parse_args()
     if torch.cuda.device_count() < args.ranks:
         print(f"needs {args.ranks} CUDA devices, found "
@@ -50,25 +55,33 @@ def main() -> int:
     build = os.path.join(cs.SRC, "repro_torch", "kernels", "build")
     os.makedirs(build, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build) as tmp:
-        for wire in ("sparse_allgather", "dense_psum"):
-            runs = {rt: cs._rank_run(tmp, f"{wire}_{rt}", wire, "kernel", rt,
-                                     backend="nccl", ranks=args.ranks)
+        cells = [(wire, ()) for wire in ("sparse_allgather", "dense_psum")]
+        if args.scenario:
+            cells += [(wire, ("--scenario", args.scenario, "--aggregate",
+                              "mean_S"))
+                      for wire in ("sparse_allgather", "dense_psum")]
+        for wire, extra in cells:
+            name = wire + (f" {args.scenario}" if extra else "")
+            tag = wire + ("_scn" if extra else "")
+            runs = {rt: cs._rank_run(tmp, f"{tag}_{rt}", wire, "kernel", rt,
+                                     backend="nccl", ranks=args.ranks,
+                                     extra=extra)
                     for rt in ("round", "step")}
             g, e = runs["round"], runs["step"]
             if g["fused"] is not False or g.get("captures") != 0:
-                raise AssertionError(f"{wire}: fused {g['fused']}, captures "
+                raise AssertionError(f"{name}: fused {g['fused']}, captures "
                                      f"{g.get('captures')}")
             for key in ("loss", "kind", "bits_up", "bits_down",
                         "launches_per_sync"):
                 if g[key] != e[key]:
-                    raise AssertionError(f"{wire}: {key} differs between "
+                    raise AssertionError(f"{name}: {key} differs between "
                                          "the runtimes")
             a = tree_leaves(checkpoint.restore(g["ckpt"], like))
             b = tree_leaves(checkpoint.restore(e["ckpt"], like))
             if not all(torch.equal(x, y) for x, y in zip(a, b)):
-                raise AssertionError(f"{wire}: masters differ")
+                raise AssertionError(f"{name}: masters differ")
             H = cs.LM_RANKS["H"]
-            print(f"nccl rounds {wire}: R = {args.ranks}, round runtime "
+            print(f"nccl rounds {name}: R = {args.ranks}, round runtime "
                   "(per-step composition) equals --runtime step (record "
                   "and master); " + json.dumps({
                       "round_ms_per_step_median":
@@ -76,6 +89,7 @@ def main() -> int:
                       "step_ms_per_step_median":
                           float(np.median(e["ms"][2 * H:])),
                       "round_ms": g["round_ms"],
+                      "kind": g["kind"],
                       "bits_up": g["bits_up"][-1]}), flush=True)
     print(json.dumps({"ok": True, "ranks": args.ranks}))
     return 0
