@@ -2332,18 +2332,22 @@ def phase_lm_kernels(dev):
 
 
 def lm_run(wire: str, dev, ckpt=None, runtime: str = "round",
-           extra: tuple = ()):
+           extra: tuple = (), steps: int = LM["steps"],
+           down_stacks: int = 0):
     """The launcher on gemma3-1b at full size, R = 1: returns its record
     and the launches it made (counted from 0 at its start).  ``ckpt``: a
     directory for the launcher's ``--ckpt`` (the master at the end);
-    ``extra``: more flags (a scenario)."""
+    ``extra``: more flags (a scenario, faults, a policy).  Every sync
+    where a worker compresses launches the wire's kernel once a Top_k
+    stack: the uplink's 7 and ``down_stacks`` of a compressed downlink;
+    under faults a sync step that only lands payloads launches none."""
     import numpy as np
     import torch
     from repro_torch.kernels.launch_stats import LAUNCHES, reset_launches
     from repro_torch.launch import train as lt
     argv = ["--arch", LM["arch"], "--mesh", "1x1", "--policy", "preset:arch",
             "--batch", str(LM["batch"]), "--seq", str(LM["seq"]),
-            "--steps", str(LM["steps"]), "--H", str(LM["H"]),
+            "--steps", str(steps), "--H", str(LM["H"]),
             "--wire", wire, "--dispatch", DISPATCH, "--runtime", runtime,
             *extra]
     if ckpt:
@@ -2358,17 +2362,24 @@ def lm_run(wire: str, dev, ckpt=None, runtime: str = "round",
     kinds = rec["kind"]
     n_syncs = kinds.count("sync")
     kern = "topk_compact" if wire == "sparse_allgather" else "topk_compress"
-    want = {kern: LM["topk_stacks"] * n_syncs}
+    per_sync = LM["topk_stacks"] + down_stacks
+    want = {kern: per_sync * sum(rec["computes"])}
     for k, v in launches.items():
         if v != want.get(k, 0):
             raise AssertionError(f"LM {wire}: {v} {k} launches in {n_syncs} "
                                  f"syncs, want {want.get(k, 0)}")
+    for computes, counts in zip(rec["computes"], rec["launches_per_sync"]):
+        got = {k: v for k, v in counts.items() if v}
+        if got != ({kern: per_sync} if computes else {}):
+            raise AssertionError(f"LM {wire}: a sync launched {got} "
+                                 f"(computing: {computes})")
+    faults = "--faults" in extra
     if rec["n_params"] != LM["n_params"]:
         raise AssertionError(f"gemma3-1b has {rec['n_params']} parameters")
     if not all(np.isfinite(rec["loss"])):
         raise AssertionError(f"LM {wire}: loss not finite: {rec['loss']}")
-    if runtime == "round" and (rec["fused"] is not True
-                               or rec["captures"] != lm_captures(kinds)):
+    if runtime == "round" and (rec["fused"] is not True or (
+            not faults and rec["captures"] != lm_captures(kinds))):
         raise AssertionError(f"LM {wire}: fused {rec['fused']}, captures "
                              f"{rec['captures']}")
     ups, prev = [], 0.0
@@ -2380,14 +2391,20 @@ def lm_run(wire: str, dev, ckpt=None, runtime: str = "round",
     # over each round's steps
     round_ms = rec.get("round_ms") or [
         sum(rec["ms"][i:i + LM["H"]])
-        for i in range(0, LM["steps"], LM["H"])]
+        for i in range(0, steps, LM["H"])]
     late = round_ms[2:] or round_ms[-1:]
+    # under faults rounds close at every event: the median step past the
+    # first two H-step stretches
+    median = (float(np.median(rec["ms"][2 * LM["H"]:] or rec["ms"]))
+              if faults else float(np.median(late)) / LM["H"])
     row = {"wire": wire, "runtime": runtime, "loss": rec["loss"],
            "ms_per_step": rec["ms"], "ms_per_round": round_ms,
-           "ms_per_step_median": float(np.median(late)) / LM["H"],
+           "ms_per_step_median": median,
            "bits_up_per_sync": ups, "bits_down": rec["bits_down"][-1],
            "peak_device_bytes": rec["peak_device_bytes"],
            "ckpt_s": rec.get("ckpt_s"), "captures": rec.get("captures", 0),
+           "round_shapes": rec.get("round_shapes"),
+           "queue_bytes": rec.get("queue_bytes"), "kinds": kinds,
            "launches_per_sync": {k: v / n_syncs for k, v in launches.items()
                                  if v},
            "launches": {k: v for k, v in launches.items() if v}}
@@ -2482,6 +2499,136 @@ def phase_lm(dev, ckpt: str = None):
     return totals
 
 
+#: the mesh fault runtime on gemma3-1b (the wire's queue at depth 3: on
+#: dense_psum 3 x 999,812,736 float32 payload values), and the
+#: bidirectional policy with the ZeRO-1 master
+LM_FAULTS = ("--faults", "preset:lossy", "--staleness-weight", "damped")
+LM_BIDIR = ("--policy", "preset:lm_hetero_bidir", "--zero1")
+
+
+def _same_records(a: dict, b: dict, what: str) -> None:
+    for k in ("loss", "kind", "bits_up", "bits_down", "launches_per_sync",
+              "rounds"):
+        if a[k] != b[k]:
+            raise AssertionError(f"{what}: {k} differs between the "
+                                 f"runtimes: {a[k]} / {b[k]}")
+
+
+def _same_up_bits(runs: dict, what: str) -> float:
+    """The uplink bits of each sync on the two wires (round runs), within
+    phase_lm's one float32 rounding of the ledger."""
+    sparse, dense = (runs[w, "round"][0]["bits_up_per_sync"]
+                     for w in ("sparse_allgather", "dense_psum"))
+    if len(sparse) != len(dense):
+        raise AssertionError(f"{what}: {len(sparse)} / {len(dense)} syncs")
+    diff = 0.0
+    for a, b in zip(sparse, dense):
+        if abs(a - b) > 2.0 ** -23 * max(abs(a), abs(b)):
+            raise AssertionError(f"{what}: uplink bits per sync: sparse {a} "
+                                 f"vs dense {b}")
+        diff = max(diff, abs(a - b))
+    return diff
+
+
+def phase_lm_faults(dev) -> dict:
+    """gemma3-1b at full size through the launcher under ``--faults
+    preset:lossy --staleness-weight damped`` (the mesh fault runtime) on
+    both wires, the fault round (graphed where a round shape repeats)
+    against ``--runtime step``: the same record (losses, kinds, both
+    ledgers, launches, rounds); 7 launches a computing sync, none at a
+    sync that only lands payloads; the uplink bits of each sync equal
+    across the wires; the dense wire's queue is 3 x 3,999,250,944
+    bytes."""
+    runs, totals = {}, {}
+    for wire in ("sparse_allgather", "dense_psum"):
+        for runtime in ("round", "step"):
+            row, launches, rec = lm_run(wire, dev, None, runtime, LM_FAULTS,
+                                        steps=LM["steps"])
+            runs[wire, runtime] = (row, rec)
+            for k, v in launches.items():
+                totals[k] = totals.get(k, 0) + v
+        a, b = runs[wire, "round"][1], runs[wire, "step"][1]
+        _same_records(a, b, f"LM faults {wire}")
+        if not a["computes"] or not any(a["computes"]):
+            raise AssertionError(f"LM faults {wire}: no computing sync")
+        print(f"lm faults {wire}: round runtime equals --runtime step; "
+              f"kinds {a['kind']}, computing syncs {a['computes']}, "
+              f"{a['captures']} captures of {a['round_shapes']} round "
+              f"programs; ms a step "
+              f"{runs[wire, 'round'][0]['ms_per_step_median']:.1f} fault "
+              f"round, {runs[wire, 'step'][0]['ms_per_step_median']:.1f} "
+              f"eager; queue {a['queue_bytes']} bytes, peak "
+              f"{a['peak_device_bytes']} / {b['peak_device_bytes']} bytes",
+              flush=True)
+    want = 3 * LM["n_params"] * 4
+    got = runs["dense_psum", "round"][1]["queue_bytes"]
+    if got != want:
+        raise AssertionError(f"LM faults: dense queue {got} bytes, want "
+                             f"{want}")
+    diff = _same_up_bits(runs, "LM faults")
+    print(f"lm faults wires: uplink bits per sync differ by at most {diff}",
+          flush=True)
+    return totals
+
+
+def downlink_stacks() -> int:
+    """The Top_k stacks of lm_hetero_bidir's downlink on gemma3-1b (the
+    plans are the same at the smoke size): one kernel launch each a
+    sync, on top of the uplink's 7."""
+    import torch
+    from repro_torch.configs import get_config, get_policy_preset
+    from repro_torch.core import policy as pol
+    from repro_torch.core.distributed import ShardCompressor
+    from repro_torch.models import get_model
+    from repro_torch.tree import tree_leaves
+    cfg = get_config(LM["arch"], smoke=True)
+    params = get_model(cfg).init_params(torch.Generator().manual_seed(0),
+                                        cfg, device="cpu")
+    spec = pol.as_channel_spec(get_policy_preset("lm_hetero_bidir",
+                                                 arch=LM["arch"]))
+    comp = ShardCompressor.from_spec(spec.downlink, params)
+    leaves = tree_leaves(params)
+    return sum(plan[0] == "axis" and not comp._skip(x)
+               for plan, x in zip(comp._plans(len(leaves)), leaves))
+
+
+def phase_lm_bidir(dev) -> dict:
+    """gemma3-1b at full size through the launcher under ``--policy
+    preset:lm_hetero_bidir --zero1`` (a compressed downlink; the ZeRO-1
+    master, whole at one rank) on both wires, graphed against
+    ``--runtime step``: the same record; the uplink's 7 and the
+    downlink's Top_k stacks launched a sync; ``bits_down`` follows the
+    downlink's counted bits, below the dense broadcast's."""
+    runs, totals = {}, {}
+    down = downlink_stacks()
+    for wire in ("sparse_allgather", "dense_psum"):
+        for runtime in ("round", "step"):
+            row, launches, rec = lm_run(wire, dev, None, runtime, LM_BIDIR,
+                                        down_stacks=down)
+            runs[wire, runtime] = (row, rec)
+            for k, v in launches.items():
+                totals[k] = totals.get(k, 0) + v
+        a = runs[wire, "round"][1]
+        _same_records(a, runs[wire, "step"][1], f"LM bidir {wire}")
+        dense = 32.0 * LM["n_params"] * a["kind"].count("sync")
+        if not 0 < a["bits_down"][-1] < dense:
+            raise AssertionError(f"LM bidir {wire}: bits_down "
+                                 f"{a['bits_down'][-1]}, the dense "
+                                 f"broadcast {dense}")
+        print(f"lm bidir {wire}: round runtime equals --runtime step; "
+              f"{LM['topk_stacks']} + {down} launches a sync; bits down "
+              f"{a['bits_down'][-1]:.6g} (dense broadcast {dense:.6g}); ms "
+              f"a step {runs[wire, 'round'][0]['ms_per_step_median']:.1f} "
+              f"graphed, {runs[wire, 'step'][0]['ms_per_step_median']:.1f}"
+              f" eager; peak {a['peak_device_bytes']} / "
+              f"{runs[wire, 'step'][1]['peak_device_bytes']} bytes",
+              flush=True)
+    diff = _same_up_bits(runs, "LM bidir")
+    print(f"lm bidir wires: uplink bits per sync differ by at most {diff}",
+          flush=True)
+    return totals
+
+
 def _rank_run(tmp: str, tag: str, wire: str, dispatch: str,
               runtime: str = "round", backend: str = "gloo",
               ranks: int = LM_RANKS["ranks"], extra: tuple = ()) -> dict:
@@ -2511,6 +2658,18 @@ def _rank_run(tmp: str, tag: str, wire: str, dispatch: str,
     return rec
 
 
+def _rank_runs(tmp: str, specs) -> dict:
+    """:func:`_rank_run` over (tag, wire, dispatch, runtime, extra) specs,
+    four runs at a time on the card (their ranks mostly start up): the
+    records by tag."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(4) as pool:
+        runs = {tag: pool.submit(_rank_run, tmp, tag, wire, dispatch,
+                                 runtime, extra=ex)
+                for tag, wire, dispatch, runtime, ex in specs}
+        return {tag: run.result() for tag, run in runs.items()}
+
+
 def phase_lm_ranks(dev):
     """Multi-rank agreement on the one card (the collective path with
     R > 1): dispatch "kernel" (the CUDA kernels) against "reference"
@@ -2531,19 +2690,16 @@ def phase_lm_ranks(dev):
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=os.path.join(
             SRC, "repro_torch", "kernels", "build")) as tmp:
-        runs = {tag: _rank_run(tmp, tag, wire, dispatch, runtime, extra=ex)
-                for tag, wire, dispatch, runtime, ex in (
-                    ("sparse_kernel", "sparse_allgather", "kernel", "round",
-                     ()),
-                    ("sparse_reference", "sparse_allgather", "reference",
-                     "round", ()),
-                    ("dense_kernel", "dense_psum", "kernel", "round", ()),
-                    ("sparse_step", "sparse_allgather", "kernel", "step",
-                     ()),
-                    ("sparse_scenario", "sparse_allgather", "kernel",
-                     "round", LM_SCENARIO),
-                    ("dense_scenario", "dense_psum", "kernel", "round",
-                     LM_SCENARIO))}
+        runs = _rank_runs(tmp, (
+            ("sparse_kernel", "sparse_allgather", "kernel", "round", ()),
+            ("sparse_reference", "sparse_allgather", "reference", "round",
+             ()),
+            ("dense_kernel", "dense_psum", "kernel", "round", ()),
+            ("sparse_step", "sparse_allgather", "kernel", "step", ()),
+            ("sparse_scenario", "sparse_allgather", "kernel", "round",
+             LM_SCENARIO),
+            ("dense_scenario", "dense_psum", "kernel", "round",
+             LM_SCENARIO)))
         st = runs["sparse_step"]
         for t in ("sparse_kernel", "sparse_reference", "dense_kernel"):
             if runs[t]["fused"] is not False:
@@ -2599,6 +2755,86 @@ def phase_lm_ranks(dev):
           f"equal ({k['bits_up'][-1]}), sparse vs dense masters within "
           f"{err:.3g}; round runtime (fused False) equals --runtime "
           f"step, {time.perf_counter() - t0:.1f}s", flush=True)
+
+
+
+#: the multi-rank fault and downlink runs: worker 1 down for steps 2-4
+RANK_FAULTS = ("--faults", "preset:chaos")
+RANK_BIDIR = ("--policy", "preset:lm_hetero_bidir")
+
+
+def phase_lm_ranks_mesh(dev):
+    """The mesh fault runtime, ZeRO-1 and the compressed downlink at
+    LM_RANKS' ranks sharing the card over gloo (the smoke model; the
+    round runtime is the per-step composition there): under
+    ``--faults preset:chaos`` the two wires give the same kinds and bits
+    and masters within rtol 1e-5 / atol 1e-6, and the fault round equals
+    ``--runtime step`` (record and master); ``--zero1`` equals the whole
+    master's run (record and the gathered master, bit for bit); the
+    downlink on the two wires gives the same kinds and bits and masters
+    within the same tolerance."""
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import checkpoint
+    from repro_torch.tree import tree_leaves
+    t0 = time.perf_counter()
+    like = tf.init_params(torch.Generator().manual_seed(0),
+                          get_config(LM["arch"], smoke=True), device="cpu")
+
+    def master(run):
+        return tree_leaves(checkpoint.restore(run["ckpt"], like))
+
+    def same_wires(a, b, what):
+        if a["kind"] != b["kind"] or a["bits_up"] != b["bits_up"] or \
+                a["bits_down"] != b["bits_down"]:
+            raise AssertionError(f"{what}: the wires differ: {a['kind']} / "
+                                 f"{b['kind']}, {a['bits_up']} / "
+                                 f"{b['bits_up']}")
+        err = 0.0
+        for x, y in zip(master(a), master(b)):
+            torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-6)
+            err = max(err, float((x - y).abs().max()))
+        return err
+
+    with tempfile.TemporaryDirectory(dir=os.path.join(
+            SRC, "repro_torch", "kernels", "build")) as tmp:
+        runs = _rank_runs(tmp, (
+            ("sparse_faults", "sparse_allgather", "kernel", "round",
+             RANK_FAULTS),
+            ("dense_faults", "dense_psum", "kernel", "round", RANK_FAULTS),
+            ("sparse_faults_step", "sparse_allgather", "kernel", "step",
+             RANK_FAULTS),
+            ("sparse_bidir", "sparse_allgather", "kernel", "round",
+             RANK_BIDIR),
+            ("sparse_bidir_z1", "sparse_allgather", "kernel", "round",
+             RANK_BIDIR + ("--zero1",)),
+            ("dense_bidir_z1", "dense_psum", "kernel", "round",
+             RANK_BIDIR + ("--zero1",))))
+        f_err = same_wires(runs["sparse_faults"], runs["dense_faults"],
+                           "multi-rank faults")
+        a, b = runs["sparse_faults"], runs["sparse_faults_step"]
+        _same_records(a, b, "multi-rank faults")
+        if not all(torch.equal(x, y) for x, y in zip(master(a), master(b))):
+            raise AssertionError("multi-rank faults: the fault round's "
+                                 "master differs from --runtime step")
+        a, b = runs["sparse_bidir"], runs["sparse_bidir_z1"]
+        _same_records(a, b, "multi-rank zero1")
+        if not all(torch.equal(x, y) for x, y in zip(master(a), master(b))):
+            raise AssertionError("multi-rank zero1: the gathered master "
+                                 "differs from the whole master's run")
+        d_err = same_wires(runs["sparse_bidir_z1"], runs["dense_bidir_z1"],
+                           "multi-rank downlink")
+    k = runs["sparse_faults"]
+    print(f"lm ranks mesh: R={LM_RANKS['ranks']} over gloo; faults "
+          f"{' '.join(RANK_FAULTS)}: kinds {k['kind']}, bits equal on both "
+          f"wires ({k['bits_up'][-1]}), masters within {f_err:.3g}, fault "
+          f"round = --runtime step; --zero1 = the whole master's run; "
+          f"downlink wires: bits down "
+          f"{runs['dense_bidir_z1']['bits_down'][-1]}, masters within "
+          f"{d_err:.3g}; "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
 
 
 
@@ -2774,6 +3010,15 @@ def phase_checkpoint_serve(dev, saved: dict, dense_path: str, tmp: str):
     return totals
 
 
+def timed_phase(fn, *args):
+    """``fn(*args)``, printing the seconds it took (the run's budget by
+    phase)."""
+    t = time.perf_counter()
+    out = fn(*args)
+    print(f"phase {fn.__name__}: {time.perf_counter() - t:.1f}s", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2804,39 +3049,45 @@ def main() -> int:
     print(f"built {[os.path.relpath(s, HERE) for s in _build.sources()]} "
           f"in {time.perf_counter() - t0:.1f}s", flush=True)
 
-    topk, qsgd = phase_kernels(dev)
-    serve_checks = phase_serve_kernels(dev)
-    flash_checks, gemma_decode, gemma_gemm = phase_flash_kernels(dev)
-    runs, totals, fault_free = phase_train(dev)
-    phase_small_agreement(dev)
-    wrapper_totals = phase_wrappers(dev)
-    convex_totals, convex_checks = phase_convex(dev)
-    fault_totals = phase_faults(dev, fault_free)
-    scenario_totals = phase_scenarios_convex(dev)
+    topk, qsgd = timed_phase(phase_kernels, dev)
+    serve_checks = timed_phase(phase_serve_kernels, dev)
+    flash_checks, gemma_decode, gemma_gemm = timed_phase(
+        phase_flash_kernels, dev)
+    runs, totals, fault_free = timed_phase(phase_train, dev)
+    timed_phase(phase_small_agreement, dev)
+    wrapper_totals = timed_phase(phase_wrappers, dev)
+    convex_totals, convex_checks = timed_phase(phase_convex, dev)
+    fault_totals = timed_phase(phase_faults, dev, fault_free)
+    scenario_totals = timed_phase(phase_scenarios_convex, dev)
     for more in (wrapper_totals, convex_totals, fault_totals,
                  scenario_totals):
         for k, v in more.items():
             totals[k] = totals.get(k, 0) + v
-    serve_totals = phase_serve(dev)
-    phase_serve_agreement(dev)
+    serve_totals = timed_phase(phase_serve, dev)
+    timed_phase(phase_serve_agreement, dev)
     tmp = tempfile.mkdtemp(dir=os.path.join(SRC, "repro_torch", "kernels",
                                             "build"))
     try:
-        flash_totals, saved = phase_serve_flash(dev, tmp)
+        flash_totals, saved = timed_phase(phase_serve_flash, dev, tmp)
         for arch in ("gemma3-1b", "yi-6b"):
-            phase_serve_agreement(dev, arch, unscanned=True)
-        compact, lm_topk = phase_lm_kernels(dev)
+            timed_phase(phase_serve_agreement, dev, arch, True)
+        compact, lm_topk = timed_phase(phase_lm_kernels, dev)
         dense_ckpt = os.path.join(tmp, "dense")
-        lm_totals = phase_lm(dev, dense_ckpt)
-        for k, v in phase_lm_scenario(dev).items():
-            lm_totals[k] = lm_totals.get(k, 0) + v
-        ckpt_totals = phase_checkpoint_serve(dev, saved, dense_ckpt, tmp)
+        lm_totals = timed_phase(phase_lm, dev, dense_ckpt)
+        for more in (timed_phase(phase_lm_scenario, dev),
+                     timed_phase(phase_lm_faults, dev),
+                     timed_phase(phase_lm_bidir, dev)):
+            for k, v in more.items():
+                lm_totals[k] = lm_totals.get(k, 0) + v
+        ckpt_totals = timed_phase(phase_checkpoint_serve, dev, saved,
+                                  dense_ckpt, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for more in (flash_totals, ckpt_totals):
         for k, v in more.items():
             serve_totals[k] = serve_totals.get(k, 0) + v
-    phase_lm_ranks(dev)
+    timed_phase(phase_lm_ranks, dev)
+    timed_phase(phase_lm_ranks_mesh, dev)
 
     head_topk, head_qsgd = topk[1], qsgd[0]
     kernels = [

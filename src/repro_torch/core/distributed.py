@@ -5,8 +5,9 @@ port of ``repro.core.distributed``, worker axes first).
 the step inside ``shard_map``.  Here one process (rank) is one worker,
 as one device per data-axis slot is there (``launch/mesh.py``):
 
-  * ``master`` is replicated on every rank; ``local``, ``memory`` and
-    ``inner`` belong to the rank's own worker (no worker axis);
+  * ``master`` is replicated on every rank (or sliced over them, ZeRO-1);
+    ``local``, ``memory``, ``inner``, ``view`` and ``down_memory`` belong
+    to the rank's own worker (no worker axis);
   * ``psum`` of the wire bits is ``all_reduce(SUM)``; ``pmean`` of the
     loss and of the dense payload is ``all_reduce`` then a divide by R;
   * the sparse wire's gathered buffers are an ``all_gather`` of each
@@ -19,7 +20,7 @@ build time, ``dense_psum`` (compressed dense payloads, all-reduced) or
 ``sparse_allgather`` (compact survivor slots written by the
 ``topk_compact`` kernel, all-gathered): the same math and the same
 ledger either way.  The exact dense broadcast of the new master is
-charged to ``bits_down``.
+charged to ``bits_down``, or the compressed downlink's counted bits.
 
 Compression is per leaf along one axis: ``_pick_axis`` keeps Top_k off
 the ``model``-sharded axis of the leaf's spec (Corollary 1, piecewise
@@ -34,10 +35,19 @@ card in a world of one whose collectives are device work
 ``partial=True`` takes a per-step participation mask (fleet scenarios,
 ``core/scenarios.py``): a worker whose bit is False transmits nothing,
 keeps its error memory and its half-step iterate, and its master
-*view* (carried in the state) stays on the copy it last received.  Not
-ported yet, and refused with ``NotImplementedError`` naming their
-ROADMAP item: ZeRO-1, a compressed downlink, the fault runtime and a
-model axis above 1.
+*view* (carried in the state) stays on the copy it last received.
+``downlink=`` compresses the server→worker channel against a server
+memory for each worker (the rank's ``down_memory``); ``zero1=True``
+keeps a slice of each master leaf on each rank (ZeRO-1), gathered at
+the sync.
+
+The fault runtime (``make_dist_fault_steps``, ``make_dist_fault_round``;
+DESIGN.md §9) executes staleness, crashes and drops: every rank replays
+the whole fleet's queue tags on the host from the deterministic fault
+rows (``engine.plan_fault_step``), a crashed worker's rank keeps joining
+every collective with a zero contribution, and each rank queues only its
+own payloads, in place.  A model axis above 1 is not ported
+(``NotImplementedError`` naming its ROADMAP item).
 """
 
 from __future__ import annotations
@@ -74,11 +84,11 @@ WIRES = ("dense_psum", "sparse_allgather")
 
 
 class DistQsparseState(NamedTuple):
-    """One rank's view of the distributed state: the replicated master
-    and its own worker's iterate, error memory and optimizer state.
-    ``step`` and ``rounds`` are host counters; ``bits`` / ``bits_down``
-    are float32 ledgers summed over all workers (every rank holds the
-    same totals)."""
+    """One rank's view of the distributed state: the master (whole, or
+    this rank's ZeRO-1 slices) and its own worker's iterate, error memory
+    and optimizer state.  ``step`` and ``rounds`` are host counters;
+    ``bits`` / ``bits_down`` are float32 ledgers summed over all workers
+    (every rank holds the same totals)."""
 
     master: Any
     local: Any
@@ -88,9 +98,23 @@ class DistQsparseState(NamedTuple):
     bits: torch.Tensor        # uplink wire bits (worker -> server)
     rounds: int
     bits_down: torch.Tensor   # server -> worker
-    # partial participation: the master copy this worker last received
-    # (None unless built with partial=True)
+    # the master copy this worker last received (partial participation,
+    # a compressed downlink and the fault runtime; None otherwise)
     view: Any = None
+    # the server's downlink error memory for this worker (a compressed
+    # downlink only)
+    down_memory: Any = None
+    # the fault runtime's queue of this worker's in-flight payloads
+    # (DESIGN.md §9), written in place: on dense_psum a master-shaped
+    # tree of float32 [depth, ...] buffers; on sparse_allgather a tuple
+    # with, per leaf, the compact (idx [depth, ..., kcap] at the
+    # out-of-row sentinel, val float32) pair, or a float32 [depth, ...]
+    # buffer where the leaf's payload is dense.  ``arrive_at`` / its
+    # staleness ``inflight_tau`` are the whole fleet's host tags (int32
+    # [R, depth], -1 = empty), the same on every rank.
+    inflight: Any = None
+    arrive_at: Optional[np.ndarray] = None
+    inflight_tau: Optional[np.ndarray] = None
 
 
 # ---------------------------------------------------------------------------
@@ -423,6 +447,130 @@ def worker_count(mesh, data_axes: Sequence[str]) -> int:
     return out
 
 
+def _check_mesh(mesh, data_axes) -> tuple:
+    """(data axes, R): the data-parallel mesh the engine runs on, one rank
+    a worker (a model axis above 1 is not ported)."""
+    daxes = tuple(data_axes)
+    for a, size in mesh.shape.items():
+        if a not in daxes and size > 1:
+            raise NotImplementedError(
+                f"mesh axis {a!r} of size {size}: tensor parallelism is not "
+                "ported yet (ROADMAP queue 1 item 12)")
+    R = worker_count(mesh, daxes)
+    if R != mesh.world_size:
+        raise ValueError(f"{R} workers on the mesh but a world of "
+                         f"{mesh.world_size} ranks")
+    return daxes, R
+
+
+def _zero1_axis(shape, spec, W: int):
+    """ZeRO-1 shard axis of a leaf (``repro``'s rule): the first axis
+    that divides by the worker count and is unsharded in the spec; None
+    when no axis qualifies (the leaf stays whole on every rank)."""
+    entries = (list(spec) + [None] * len(shape)) if spec is not None \
+        else [None] * len(shape)
+    for ax, n in enumerate(shape):
+        if entries[ax] is None and n % W == 0 and n >= W:
+            return ax
+    return None
+
+
+def _zero1_axes(full_tree, param_specs, W: int) -> list:
+    """Per leaf of a whole (full-shape) tree: its ZeRO-1 axis or None."""
+    leaves = tree_leaves(full_tree)
+    specs = ShardCompressor._leaf_specs(param_specs, len(leaves))
+    return [_zero1_axis(tuple(x.shape), sp, W)
+            for x, sp in zip(leaves, specs)]
+
+
+def _own_slices(full_tree, axes, mesh):
+    """This rank's slice of each leaf along its ZeRO-1 axis (a copy, so
+    the whole leaf can go); leaves without an axis stay whole."""
+    W, r = mesh.world_size, mesh.rank
+
+    def one(x, ax):
+        if ax is None or W == 1:
+            return x
+        n = x.shape[ax] // W
+        return x.narrow(ax, r * n, n).clone()
+
+    leaves, spec = tree_flatten(full_tree)
+    return tree_unflatten(spec, [one(x, ax) for x, ax in zip(leaves, axes)])
+
+
+def _gather_slices(tree, axes, mesh):
+    """The whole leaves back from every rank's ZeRO-1 slices: one
+    ``all_gather`` a sharded leaf, concatenated along its axis."""
+    def one(x, ax):
+        if ax is None or mesh.world_size == 1:
+            return x
+        return torch.cat(mesh.all_gather(x).unbind(0), dim=ax)
+
+    leaves, spec = tree_flatten(tree)
+    return tree_unflatten(spec, [one(x, ax) for x, ax in zip(leaves, axes)])
+
+
+def gather_master(state: DistQsparseState, mesh, param_specs=None):
+    """The whole master of a state on every rank: a ZeRO-1 master (its
+    leaves shorter than the worker's iterate along their axis) gathered
+    from the ranks' slices, else the master as it is.  Every rank must
+    call it (the gather is a collective)."""
+    masters, full = tree_leaves(state.master), tree_leaves(state.local)
+    axes = [None if tuple(m.shape) == tuple(f.shape) else ax
+            for m, f, ax in zip(masters, full, _zero1_axes(
+                state.local, param_specs, mesh.world_size))]
+    return _gather_slices(state.master, axes, mesh)
+
+
+def _decode_gathered(idx_all, val_all, moved, ax):
+    """Every gathered worker's (idx, val) slots of a leaf ([N, ...,
+    kcap]: N the workers, or workers times queue slots) decoded and
+    summed in one scatter-add: the indices are row-local and the same
+    rows of every worker decode together (sentinel slots drop)."""
+    N, kcap = idx_all.shape[0], idx_all.shape[-1]
+    ii = torch.movedim(idx_all, 0, -2).reshape(-1, N * kcap)
+    ss = torch.movedim(val_all, 0, -2).reshape(-1, N * kcap)
+    dense = _densify(ii, ss, moved, ax)
+    return dense, ii, ss
+
+
+def _apply_mean(master, means):
+    return tree_map(lambda x, gg: (x.to(torch.float32) - gg).to(x.dtype),
+                    master, means)
+
+
+def _make_local(grad_fn: Callable, inner_opt: GradientTransform):
+    """The worker's local step (Algorithm 1 lines 5-7) from an iterate
+    and an inner state: (half-step iterate, inner state, loss)."""
+
+    def local(params, inner, batch, lr, scalars):
+        loss, grads = grad_fn(params, batch)
+        updates, inner_new = _inner_update(inner_opt, grads, inner, params,
+                                           lr, scalars)
+        return apply_updates(params, updates), inner_new, loss
+
+    return local
+
+
+def _validate(aggregate: str, wire: str) -> tuple:
+    if aggregate in WIRES:
+        from repro_torch.core import policy as pol
+        pol.warn_once(
+            "dist-aggregate-wire",
+            "aggregate= now names the aggregation rule ('mean_R' | "
+            "'mean_S' | 'support_weighted'); wire formats moved to "
+            f"wire=. Mapping aggregate={aggregate!r} to wire= with "
+            "aggregate='mean_R' (the historical behaviour).")
+        wire, aggregate = aggregate, "mean_R"
+    if aggregate not in AGGREGATES:
+        raise ValueError(f"unknown aggregate {aggregate!r}; expected one "
+                         f"of {AGGREGATES}")
+    if wire not in WIRES:
+        raise ValueError(f"unknown wire {wire!r}; expected 'dense_psum' "
+                         f"| 'sparse_allgather'")
+    return aggregate, wire
+
+
 def _make_dist_parts(
     grad_fn: Callable,                 # (params, batch) -> (loss, grads)
     inner_opt: GradientTransform,
@@ -457,60 +605,53 @@ def _make_dist_parts(
     half-step iterate, and its ``view`` stays; "mean_S" divides by the
     syncing count, "support_weighted" counts the survivors' support, and
     ``rounds`` advances when anyone syncs.
+
+    ``downlink``: the server→worker channel (DESIGN.md §5).  Compressed,
+    the server keeps an error memory for each worker (the rank's
+    ``down_memory``) and sends it the compressed ``down_memory +
+    x̄_{t+1} − view``; the worker's ``view`` (and iterate) advances by the
+    decompressed q, the uplink compresses against that view, and
+    ``bits_down`` charges the downlink's counted bits.  On the sparse
+    wire each rank decodes only its own q.  None / identity: the exact
+    broadcast, its dense cost charged.
+
+    ``zero1``: each rank keeps only its slice of each master leaf along
+    the leaf's ZeRO-1 axis (:func:`_zero1_axis`; a leaf with none stays
+    whole); the sync gathers the whole master, computes as without, and
+    keeps its own slice of the new one.  The local step never reads the
+    master.
     """
-    if aggregate in WIRES:
-        from repro_torch.core import policy as pol
-        pol.warn_once(
-            "dist-aggregate-wire",
-            "aggregate= now names the aggregation rule ('mean_R' | "
-            "'mean_S' | 'support_weighted'); wire formats moved to "
-            f"wire=. Mapping aggregate={aggregate!r} to wire= with "
-            "aggregate='mean_R' (the historical behaviour).")
-        wire, aggregate = aggregate, "mean_R"
-    if aggregate not in AGGREGATES:
-        raise ValueError(f"unknown aggregate {aggregate!r}; expected one "
-                         f"of {AGGREGATES}")
-    if wire not in WIRES:
-        raise ValueError(f"unknown wire {wire!r}; expected 'dense_psum' "
-                         f"| 'sparse_allgather'")
-    if zero1:
-        raise NotImplementedError(
-            "zero1 (the ZeRO-1 sharded master) is not ported yet: ROADMAP "
-            "queue 1 item 12")
-    daxes = tuple(data_axes)
-    for a, size in mesh.shape.items():
-        if a not in daxes and size > 1:
-            raise NotImplementedError(
-                f"mesh axis {a!r} of size {size}: tensor parallelism is not "
-                "ported yet (ROADMAP queue 1 item 12)")
-    R = worker_count(mesh, daxes)
-    if R != mesh.world_size:
-        raise ValueError(f"{R} workers on the mesh but a world of "
-                         f"{mesh.world_size} ranks")
+    aggregate, wire = _validate(aggregate, wire)
+    daxes, R = _check_mesh(mesh, data_axes)
     if compressor is None:
         compressor = ShardCompressor("none")
     up = chn.ShardChannel(compressor, "uplink")
     down = chn.ShardChannel(downlink, "downlink")
-    if not down.is_identity():
-        raise NotImplementedError(
-            "a compressed downlink on the distributed engine is not ported "
-            "yet: ROADMAP queue 1 item 12")
+    down_active = not down.is_identity()
+    # partial participation needs each worker's lagging master view even
+    # without a compressed downlink (non-syncers fall behind the master)
+    carry_view = down_active or partial
+    _local_fn = _make_local(grad_fn, inner_opt)
 
     def _local(state: DistQsparseState, batch, lr, scalars):
-        loss, grads = grad_fn(state.local, batch)
-        updates, inner_new = _inner_update(inner_opt, grads, state.inner,
-                                           state.local, lr, scalars)
-        return apply_updates(state.local, updates), inner_new, loss
+        return _local_fn(state.local, state.inner, batch, lr, scalars)
 
     def local_at(state: DistQsparseState, batch, rng, lr, scalars=None):
         half, inner_new, loss = _local(state, batch, lr, scalars)
         return state._replace(local=half, inner=inner_new,
                               step=state.step + 1), mesh.mean(loss)
 
-    def _delta(state, half):
+    def _z1(state):
+        """Per master leaf: its ZeRO-1 axis (None: whole), from the
+        worker's full-shape iterate."""
+        if not zero1:
+            return [None] * len(tree_leaves(state.master))
+        return _zero1_axes(state.local, param_specs, R)
+
+    def _delta(state, full_master, half):
         # f32 error-compensated accumulator m + x - x̂, repro's cast order;
-        # under partial participation against the worker's lagging view
-        ref = state.view if partial else state.master
+        # against the worker's lagging view where it carries one
+        ref = state.view if carry_view else full_master
         return tree_map(lambda m, x, h: m + x.to(torch.float32)
                         - h.to(torch.float32), state.memory, ref, half)
 
@@ -538,52 +679,91 @@ def _make_dist_parts(
             return mesh.all_reduce_sum(g) / torch.clamp(cnt, min=1.0)
         return mesh.all_reduce_sum(g) / _divisor(n_sync)
 
-    def _finish(state, half, new_master, inner_new, memory, wire_bits, loss,
-                syncs: bool, n_sync: int):
+    def _down_q(dacc, rng):
+        """The downlink's (q, new server memory, bits) of this worker: the
+        dense form on ``dense_psum``; on ``sparse_allgather`` the compact
+        form, decoded here (only this worker's q: no gather)."""
+        if wire == "dense_psum":
+            return down.apply(dacc, param_specs, rng=rng)
+        payloads, spec, dbits, new_dm = down.compact(dacc, param_specs,
+                                                     rng=rng)
+        q = [pl[1] if pl[0] == "dense" else _densify(pl[1], pl[2], pl[4],
+                                                     pl[3])
+             for pl in payloads]
+        return tree_unflatten(spec, q), new_dm, dbits
+
+    def _finish(state, half, new_full, axes, inner_new, memory, wire_bits,
+                loss, syncs: bool, n_sync: int, rng):
+        """The sync's new state from the new whole master: the exact
+        broadcast or the compressed downlink to the syncing workers, the
+        ledgers, this rank's master slice (ZeRO-1)."""
         dev = state.bits.device
+        master = _own_slices(new_full, axes, mesh)
+        bits = state.bits + mesh.all_reduce_sum(
+            wire_bits if syncs else torch.zeros_like(wire_bits))
+        rounds = state.rounds + (int(n_sync > 0) if partial else 1)
+        memory = memory if syncs else state.memory
+        if down_active:
+            # error-compensated compression of the master delta against
+            # the server's memory for this worker (every rank compresses:
+            # the ranks stay in step on the shared generator)
+            dacc = tree_map(lambda d, nm, v: d + nm.to(torch.float32)
+                            - v.to(torch.float32),
+                            state.down_memory, new_full, state.view)
+            q, new_dm, dbits = _down_q(dacc, rng)
+            del dacc
+            if syncs:
+                view = tree_map(
+                    lambda v, qq: (v.to(torch.float32) + qq).to(v.dtype),
+                    state.view, q)
+            else:
+                view, new_dm = state.view, state.down_memory
+                dbits = torch.zeros_like(dbits)
+            del q
+            return DistQsparseState(
+                master=master, local=view if syncs else half,
+                memory=memory, inner=inner_new, step=state.step + 1,
+                bits=bits, rounds=rounds,
+                bits_down=state.bits_down + mesh.all_reduce_sum(dbits),
+                view=view, down_memory=new_dm), mesh.mean(loss)
         if not partial:
             return DistQsparseState(
-                master=new_master,
-                local=new_master,            # the exact broadcast
+                master=master,
+                local=new_full,             # the exact broadcast
                 memory=memory, inner=inner_new, step=state.step + 1,
-                bits=state.bits + mesh.all_reduce_sum(wire_bits),
-                rounds=state.rounds + 1,
+                bits=bits, rounds=rounds,
                 bits_down=state.bits_down + bitlib.f32(
-                    R * down.dense_bits(state.master), dev)), mesh.mean(loss)
+                    R * down.dense_bits(new_full), dev)), mesh.mean(loss)
         # only the syncing workers receive x̄_{t+1}; the others keep their
         # half-step iterate and their view
         return DistQsparseState(
-            master=new_master,
-            local=new_master if syncs else half,
-            memory=memory if syncs else state.memory,
-            inner=inner_new, step=state.step + 1,
-            bits=state.bits + mesh.all_reduce_sum(
-                wire_bits if syncs else torch.zeros_like(wire_bits)),
-            rounds=state.rounds + int(n_sync > 0),
+            master=master,
+            local=new_full if syncs else half,
+            memory=memory, inner=inner_new, step=state.step + 1,
+            bits=bits, rounds=rounds,
             bits_down=state.bits_down + bitlib.f32(
                 np.float32(n_sync) * np.float32(
-                    down.dense_bits(state.master)), dev),
-            view=new_master if syncs else state.view), mesh.mean(loss)
-
-    def _apply_mean(master, means):
-        return tree_map(lambda x, gg: (x.to(torch.float32) - gg).to(x.dtype),
-                        master, means)
+                    down.dense_bits(new_full)), dev),
+            view=new_full if syncs else state.view), mesh.mean(loss)
 
     def sync_dense_at(state: DistQsparseState, batch, rng, lr,
                       scalars=None, mask=None):
         syncs, n_sync = _mask(mask)
         half, inner_new, loss = _local(state, batch, lr, scalars)
-        delta = _delta(state, half)
+        axes = _z1(state)
+        full = _gather_slices(state.master, axes, mesh)
+        delta = _delta(state, full, half)
         if not partial:
             half = None          # freed before the compression
         g, new_mem, wire_bits = up.apply(delta, param_specs, rng=rng)
         del delta
         if not syncs:
             g = tree_map(torch.zeros_like, g)     # transmits nothing
-        new_master = _apply_mean(state.master, tree_map(
+        new_full = _apply_mean(full, tree_map(
             lambda gg: _dense_mean(gg, n_sync), g))
-        return _finish(state, half, new_master, inner_new, new_mem,
-                       wire_bits, loss, syncs, n_sync)
+        del g, full
+        return _finish(state, half, new_full, axes, inner_new, new_mem,
+                       wire_bits, loss, syncs, n_sync, rng)
 
     def _sparse_mean(pl, n_sync: int):
         """One leaf's mean over the W workers' gathered payloads."""
@@ -595,18 +775,13 @@ def _make_dist_parts(
             return arr.sum(dim=0) / (_divisor(n_sync) if partial
                                      else arr.shape[0])
         _, idx, sel, ax, moved = pl
-        idx_all = mesh.all_gather(idx)                    # [W, ..., kcap]
-        sel_all = mesh.all_gather(sel)
-        W, kcap = idx_all.shape[0], idx_all.shape[-1]
-        # all W workers' slots of a row decode in one scatter-add (the
-        # indices are row-local; sentinel slots drop)
-        ii = torch.movedim(idx_all, 0, -2).reshape(-1, W * kcap)
-        ss = torch.movedim(sel_all, 0, -2).reshape(-1, W * kcap)
-        dense = _densify(ii, ss, moved, ax)
+        # all W workers' slots of a row decode in one scatter-add
+        dense, ii, ss = _decode_gathered(mesh.all_gather(idx),
+                                         mesh.all_gather(sel), moved, ax)
         if aggregate == "support_weighted":
             cnt = _densify(ii, (ss != 0).to(torch.float32), moved, ax)
             return dense / torch.clamp(cnt, min=1.0)
-        return dense / (_divisor(n_sync) if partial else W)
+        return dense / (_divisor(n_sync) if partial else R)
 
     def _silent(pl):
         """A payload that transmits nothing: its values zeroed (the
@@ -619,7 +794,9 @@ def _make_dist_parts(
                        scalars=None, mask=None):
         syncs, n_sync = _mask(mask)
         half, inner_new, loss = _local(state, batch, lr, scalars)
-        delta = _delta(state, half)
+        axes = _z1(state)
+        full = _gather_slices(state.master, axes, mesh)
+        delta = _delta(state, full, half)
         if not partial:
             half = None          # freed before the compression
         payloads, _, wire_bits, new_mem = compressor.compact(
@@ -629,20 +806,24 @@ def _make_dist_parts(
             payloads = [_silent(pl) for pl in payloads]
         means = [_sparse_mean(pl, n_sync) for pl in payloads]
         del payloads
-        _, mspec = tree_flatten(state.master)
-        new_master = _apply_mean(state.master, tree_unflatten(mspec, means))
-        return _finish(state, half, new_master, inner_new, new_mem,
-                       wire_bits, loss, syncs, n_sync)
+        _, mspec = tree_flatten(full)
+        new_full = _apply_mean(full, tree_unflatten(mspec, means))
+        del means, full
+        return _finish(state, half, new_full, axes, inner_new, new_mem,
+                       wire_bits, loss, syncs, n_sync, rng)
 
     sync_at = (sync_sparse_at if wire == "sparse_allgather"
                else sync_dense_at)
 
     def init_fn(params) -> DistQsparseState:
-        """``params`` are the same on every rank (the replicated master)."""
+        """``params`` are the same on every rank (the replicated master);
+        under ``zero1`` each rank keeps its slice of the master."""
         leaves = tree_leaves(params)
         dev = leaves[0].device if leaves else torch.device("cpu")
+        axes = (_zero1_axes(params, param_specs, R) if zero1
+                else [None] * len(leaves))
         return DistQsparseState(
-            master=params, local=params,
+            master=_own_slices(params, axes, mesh), local=params,
             memory=tree_map(lambda x: torch.zeros(
                 x.shape, dtype=torch.float32, device=x.device), params),
             inner=inner_opt.init(params), step=0,
@@ -650,7 +831,9 @@ def _make_dist_parts(
             rounds=0,
             bits_down=torch.zeros((), dtype=torch.float32, device=dev),
             # every worker's first view is the initial master
-            view=params if partial else None)
+            view=params if carry_view else None,
+            # the server's downlink memory for this worker starts at zero
+            down_memory=down.init_memory(params) if down_active else None)
 
     return init_fn, local_at, sync_at
 
@@ -809,4 +992,467 @@ def make_dist_multiround(grad_fn: Callable, inner_opt: GradientTransform,
         param_specs, **kw)
     program = DistRounds(local_at, sync_at, lr_schedule, inner_opt, mesh,
                          partial=kw.get("partial", False))
+    return init_fn, program, program.fused
+
+
+# ---------------------------------------------------------------------------
+# the fault runtime (DESIGN.md §9)
+# ---------------------------------------------------------------------------
+
+
+def _make_dist_fault_parts(grad_fn: Callable, inner_opt: GradientTransform,
+                           compressor: Optional[ShardCompressor], mesh,
+                           data_axes, param_specs, *, queue_depth: int,
+                           aggregate: str, wire: str, staleness_weight: str,
+                           downlink=None, zero1: bool = False):
+    """(init_fn, step_at, check, plan_kw) of the mesh fault runtime:
+    ``step_at(state, batch, plan, rng, lr, scalars=None) -> (state, loss)``
+    runs one step's :class:`~repro_torch.core.engine.FaultPlan` (the
+    fleet's, the same on every rank) for this rank's worker and leaves
+    the queue's host tags as they are; ``plan_kw`` are the planner's
+    keywords."""
+    from repro_torch.core import scenarios as scn
+    aggregate, wire = _validate(aggregate, wire)
+    scn.validate_staleness_weight(staleness_weight)
+    if queue_depth < 1:
+        raise ValueError(f"queue_depth must be >= 1, got {queue_depth}")
+    if zero1:
+        raise ValueError(
+            "zero1 master sharding is not supported under faults: the "
+            "recover phase re-initializes workers from the full master "
+            "inside the manual region (gather-free); run faults with "
+            "zero1=False")
+    if downlink is not None and not chn.ShardChannel(
+            downlink, "downlink").is_identity():
+        raise ValueError(
+            "a compressed downlink is not supported under faults on the "
+            "mesh engine; use the single-host engine "
+            "(engine.make_fault_step) for compressed-downlink fault "
+            "studies, or downlink=None here")
+    _, R = _check_mesh(mesh, data_axes)
+    if compressor is None:
+        compressor = ShardCompressor("none")
+    up = chn.ShardChannel(compressor, "uplink")
+    down = chn.ShardChannel(None, "downlink")
+    Dq = int(queue_depth)
+    me = mesh.rank
+    sparse = wire == "sparse_allgather"
+    local_fn = _make_local(grad_fn, inner_opt)
+
+    def _queue_leaves(queue) -> list:
+        """Per master leaf: its queue buffer, or its (idx, val) pair."""
+        if sparse:
+            return list(queue)
+        return tree_leaves(queue)
+
+    def _payload_leaves(pay) -> list:
+        """Per master leaf: the payload as the queue holds it (a dense
+        tensor, or the compact (idx, val) pair)."""
+        if not sparse:
+            return tree_leaves(pay)
+        return [pl[1] if pl[0] == "dense" else (pl[1], pl[2]) for pl in pay]
+
+    def _enqueue(queue, pay, slot: int) -> None:
+        """In place: this worker's payload into its slot of the queue."""
+        for buf, p in zip(_queue_leaves(queue), _payload_leaves(pay)):
+            if isinstance(buf, tuple):
+                buf[0][slot].copy_(p[0])
+                buf[1][slot].copy_(p[1])
+            else:
+                buf[slot].copy_(p)
+
+    def _dequeue(queue, slots, meta) -> None:
+        """In place: landed slots emptied (idx at the out-of-row
+        sentinel, values zero)."""
+        for buf, (_kind, _ax, moved) in zip(_queue_leaves(queue), meta):
+            for s in slots:
+                if isinstance(buf, tuple):
+                    buf[0][s].fill_(moved[-1])
+                    buf[1][s].zero_()
+                else:
+                    buf[s].zero_()
+
+    def _divide(tot, cnt, n_arr: int):
+        if aggregate == "support_weighted":
+            return tot / torch.clamp(cnt, min=1.0)
+        if aggregate == "mean_S":
+            return tot / float(max(n_arr, 1))
+        return tot / R
+
+    def _landing(queue, pay, plan, slots):
+        """Per master leaf: this worker's landing payloads in slot order
+        (the fresh payload in its slot), weighted."""
+        fresh = plan.slot if plan.fresh[me] else None
+        w = plan.weight[me]
+        pays = None if pay is None else _payload_leaves(pay)
+        out = []
+        for i, buf in enumerate(_queue_leaves(queue)):
+            items = []
+            for s in slots:
+                if s == fresh:
+                    x = pays[i]
+                elif isinstance(buf, tuple):
+                    x = (buf[0][s], buf[1][s])
+                else:
+                    x = buf[s]
+                if w[s] != np.float32(1.0):
+                    x = ((x[0], x[1] * float(w[s])) if isinstance(x, tuple)
+                         else x * float(w[s]))
+                items.append(x)
+            out.append(items)
+        return out
+
+    def _land_dense(master, landing, n_arr: int) -> list:
+        """dense_psum: each rank sums its landing payloads, one
+        ``all_reduce`` a leaf (a rank with none contributes zeros)."""
+        means = []
+        for ml, items in zip(tree_leaves(master), landing):
+            if not items:
+                tot = torch.zeros(tuple(ml.shape), dtype=torch.float32,
+                                  device=ml.device)
+            elif len(items) == 1:
+                tot = items[0].clone()      # the queue is never reduced
+            else:
+                tot = items[0] + items[1]
+                for x in items[2:]:
+                    tot = tot + x
+            cnt = None
+            if aggregate == "support_weighted":
+                cnt = torch.zeros_like(tot)
+                for x in items:
+                    cnt = cnt + (x != 0).to(torch.float32)
+                cnt = mesh.all_reduce_sum(cnt)
+            means.append(_divide(mesh.all_reduce_sum(tot), cnt, n_arr))
+        return means
+
+    def _land_sparse(master, landing, n_arr: int, M: int, meta,
+                     queue) -> list:
+        """sparse_allgather: each rank's landing compact slots, padded to
+        the step's most landings on any rank (M, from the host plan),
+        gathered once and decoded in one scatter-add a leaf."""
+        means = []
+        for ml, items, (kind, ax, moved), buf in zip(
+                tree_leaves(master), landing, meta, _queue_leaves(queue)):
+            if kind == "dense":
+                stack = torch.zeros((M,) + tuple(ml.shape),
+                                    dtype=torch.float32, device=ml.device)
+                for j, x in enumerate(items):
+                    stack[j].copy_(x)
+                arr = mesh.all_gather(stack).reshape(
+                    (-1,) + tuple(ml.shape))            # [W * M, ...]
+                cnt = ((arr != 0).to(torch.float32).sum(dim=0)
+                       if aggregate == "support_weighted" else None)
+                means.append(_divide(arr.sum(dim=0), cnt, n_arr))
+                continue
+            n, shape = moved[-1], tuple(buf[0].shape[1:])
+            idx = torch.full((M,) + shape, n, dtype=torch.int32,
+                             device=ml.device)
+            val = torch.zeros((M,) + shape, dtype=torch.float32,
+                              device=ml.device)
+            for j, (ii, vv) in enumerate(items):
+                idx[j].copy_(ii)
+                val[j].copy_(vv)
+            idx_all = mesh.all_gather(idx).reshape((-1,) + shape)
+            val_all = mesh.all_gather(val).reshape((-1,) + shape)
+            dense, ii, ss = _decode_gathered(idx_all, val_all, moved, ax)
+            cnt = (_densify(ii, (ss != 0).to(torch.float32), moved, ax)
+                   if aggregate == "support_weighted" else None)
+            means.append(_divide(dense, cnt, n_arr))
+        return means
+
+    def step_at(state: DistQsparseState, batch, plan, rng, lr,
+                scalars=None):
+        dev = state.bits.device
+        local, view, memory, inner = (state.local, state.view, state.memory,
+                                      state.inner)
+        if plan.recover[me]:
+            # the crash lost the worker's state: it restarts from the
+            # current master with no error memory and a fresh optimizer
+            local = tree_map(lambda x, l: x.to(l.dtype), state.master, local)
+            view = tree_map(lambda x, v: x.to(v.dtype), state.master, view)
+            memory = tree_map(torch.zeros_like, memory)
+            inner = inner_opt.init(local)
+        half, inner_new, loss = local_fn(local, inner, batch, lr, scalars)
+        if not plan.alive[me]:
+            # a dead worker takes no step: its gradient is computed and
+            # discarded (the loss averages all R), as repro's masking does
+            half, inner_new = local, inner
+        loss = mesh.mean(loss)
+        if not plan.event:
+            return state._replace(local=half, view=view, memory=memory,
+                                  inner=inner_new,
+                                  step=state.step + 1), loss
+        queue, bits, pay = state.inflight, state.bits, None
+        if plan.compute.any():
+            # compute-time error feedback: memory and bits advance now;
+            # every rank compresses (in step on the wire and the shared
+            # generator), the workers that do not compute discard it
+            delta = tree_map(lambda m, x, h: m + x.to(torch.float32)
+                             - h.to(torch.float32), memory, view, half)
+            if sparse:
+                pay, _, wire_bits, mem_c = compressor.compact(
+                    delta, param_specs, rng=rng)
+            else:
+                pay, mem_c, wire_bits = up.apply(delta, param_specs, rng=rng)
+            del delta
+            if plan.compute[me]:
+                memory = mem_c
+            else:
+                wire_bits = torch.zeros_like(wire_bits)
+            del mem_c
+            bits = bits + mesh.all_reduce_sum(wire_bits)
+            if plan.enqueue[me]:
+                _enqueue(queue, pay, plan.slot)
+        master = state.master
+        n_arr = int(plan.arrive.sum())
+        if n_arr:
+            slots = [int(s) for s in np.flatnonzero(plan.arrive[me])]
+            landing = _landing(queue, pay, plan, slots)
+            meta = compressor.leaf_meta(master, param_specs)
+            if sparse:
+                means = _land_sparse(
+                    master, landing, n_arr,
+                    int(plan.arrive.sum(axis=1).max()), meta, queue)
+            else:
+                means = _land_dense(master, landing, n_arr)
+            del landing, pay
+            _, mspec = tree_flatten(master)
+            master = _apply_mean(master, tree_unflatten(mspec, means))
+            del means
+            fresh = plan.slot if plan.fresh[me] else None
+            _dequeue(queue, [s for s in slots if s != fresh], meta)
+        receive = bool(plan.receive[me])
+        n_recv = int(plan.receive.sum())
+        bits_down = state.bits_down
+        if n_recv:
+            bits_down = bits_down + bitlib.f32(
+                np.float32(n_recv) * np.float32(down.dense_bits(master)),
+                dev)
+        return state._replace(
+            master=master, local=master if receive else half,
+            memory=memory, inner=inner_new,
+            view=master if receive else view, step=state.step + 1,
+            bits=bits, rounds=state.rounds + plan.inc, bits_down=bits_down,
+            inflight=queue), loss
+
+    def check(state: DistQsparseState) -> None:
+        if state.inflight is None or state.arrive_at is None:
+            raise ValueError(
+                "fault steps need the in-flight queue: build the state "
+                "with this factory's init_fn")
+        if tuple(state.arrive_at.shape) != (R, Dq):
+            raise ValueError(
+                f"state queue tags {tuple(state.arrive_at.shape)} != "
+                f"({R}, {Dq}) these steps were built for")
+
+    def init_fn(params) -> DistQsparseState:
+        """``params`` are the same on every rank.  The queue is allocated
+        once, at its full depth (each rank holds only its own worker's)."""
+        leaves = tree_leaves(params)
+        dev = leaves[0].device if leaves else torch.device("cpu")
+        if sparse:
+            bufs = []
+            plans = compressor._plans(len(leaves))
+            for leaf, (kind, _ax, moved), plan in zip(
+                    leaves, compressor.leaf_meta(params, param_specs),
+                    plans):
+                if kind == "dense":
+                    bufs.append(torch.zeros((Dq,) + tuple(leaf.shape),
+                                            dtype=torch.float32, device=dev))
+                    continue
+                n = moved[-1]
+                shape = (Dq,) + tuple(moved[:-1]) + (
+                    dsp.capacity(resolve_k(plan[1], n), n),)
+                bufs.append((torch.full(shape, n, dtype=torch.int32,
+                                        device=dev),
+                             torch.zeros(shape, dtype=torch.float32,
+                                         device=dev)))
+            inflight = tuple(bufs)
+        else:
+            inflight = tree_map(lambda x: torch.zeros(
+                (Dq,) + tuple(x.shape), dtype=torch.float32, device=dev),
+                params)
+        return DistQsparseState(
+            master=params, local=params,
+            memory=tree_map(lambda x: torch.zeros(
+                x.shape, dtype=torch.float32, device=x.device), params),
+            inner=inner_opt.init(params), step=0,
+            bits=torch.zeros((), dtype=torch.float32, device=dev),
+            rounds=0,
+            bits_down=torch.zeros((), dtype=torch.float32, device=dev),
+            view=params, inflight=inflight,
+            arrive_at=np.full((R, Dq), -1, np.int32),
+            inflight_tau=np.zeros((R, Dq), np.int32))
+
+    # the mesh's ``rounds`` counts landing events (repro: + any landing)
+    plan_kw = dict(global_rounds=True, staleness_weight=staleness_weight)
+    return init_fn, step_at, check, plan_kw
+
+
+def make_dist_fault_steps(
+    grad_fn: Callable,
+    inner_opt: GradientTransform,
+    compressor: Optional[ShardCompressor],
+    lr_schedule: Callable,
+    mesh,
+    data_axes: Sequence[str] = ("data",),
+    param_specs=None,
+    *,
+    queue_depth: int,
+    aggregate: str = "mean_R",
+    wire: str = "dense_psum",
+    staleness_weight: str = "uniform",
+    downlink: Optional[ShardCompressor] = None,
+    zero1: bool = False,
+):
+    """The mesh engine's counterpart of ``engine.make_fault_step``: the
+    executed staleness regime on both wires (``repro``'s
+    ``make_dist_fault_steps``).  A payload computed at step t (uplink
+    error memory updated and wire bits charged then) waits in this
+    worker's bounded queue (``queue_depth`` slots) and lands on the
+    master at t + τ; workers crash (state frozen), recover (restart from
+    the current master: error memory zeroed, inner state fresh), and
+    payloads drop in flight, per the step's ``engine.FaultRow``.
+
+    Returns ``(init_fn, fault_local_step, fault_sync_step)``, both
+    ``(state, batch, row, rng=None) -> (state, loss)``: the host drives
+    the dispatch from the fault tables (``scenarios.fault_replay``),
+    event steps (a scheduled sync row or an arrival) through
+    ``fault_sync_step``, the others through ``fault_local_step`` (recover
+    and the alive-masked local step; it refuses an event step).
+
+    The whole fleet's queue tags stay on the host, the same on every
+    rank: a step's recover / compute / enqueue / land / receive rows come
+    from ``engine.plan_fault_step`` (``rounds`` counts landing events), so
+    a crashed worker's rank joins every collective with a zero
+    contribution.  ``aggregate`` (mean_R: Σ/R; mean_S: by the fleet's
+    landing count; support_weighted: by the landing support) and
+    ``staleness_weight`` ("uniform", or "damped": 1/(1+τ)) as in the
+    single-process engine.  ``dense_psum`` queues the decompressed
+    payloads (float32 [depth, ...] a leaf) and all-reduces each rank's
+    landing sum; ``sparse_allgather`` queues the compact (idx, val) slots
+    and gathers the landing ones once a step, padded to the step's most
+    landings on any rank, decoded in one scatter-add: the same ledgers.
+    Enqueue and dequeue write the queue in place; a payload that lands
+    in the step that computed it skips the queue, so trivial rows are
+    :func:`make_dist_steps` bit for bit.  The loss is the mean over all R
+    workers, dead ones included; ``bits_down`` charges the exact
+    broadcast to each receiving worker.  ``zero1`` and a compressed
+    ``downlink`` are refused, as in ``repro``."""
+    init_fn, step_at, check, plan_kw = _make_dist_fault_parts(
+        grad_fn, inner_opt, compressor, mesh, data_axes, param_specs,
+        queue_depth=queue_depth, aggregate=aggregate,
+        wire=wire, staleness_weight=staleness_weight, downlink=downlink,
+        zero1=zero1)
+    from repro_torch.core.engine import plan_fault_step
+
+    def _step(state, batch, row, rng, local_only: bool):
+        check(state)
+        plan, arrive_at, tau = plan_fault_step(
+            state.arrive_at, state.inflight_tau, state.step, row, **plan_kw)
+        if local_only and plan.event:
+            raise ValueError(
+                f"step {state.step} is an event step (a sync or an "
+                "arrival): run it through fault_sync_step")
+        new, loss = step_at(state, batch, plan, rng,
+                            lr_schedule(state.step))
+        return new._replace(arrive_at=arrive_at, inflight_tau=tau), loss
+
+    def fault_local_step(state: DistQsparseState, batch, row, rng=None):
+        return _step(state, batch, row, rng, True)
+
+    def fault_sync_step(state: DistQsparseState, batch, row, rng=None):
+        return _step(state, batch, row, rng, False)
+
+    return init_fn, fault_local_step, fault_sync_step
+
+
+class DistFaultRounds:
+    """The mesh fault runtime's round program: ``self(state, batch_block,
+    rows, rng=None) -> (state, losses [L])`` runs one round of L steps
+    (``batch_block`` leaves [L, ...] of this rank's batches, ``rows`` the
+    round's [L, R] ``engine.FaultRow``), each step the full fault step of
+    its host plan.  ``fused``: one ``engine.RoundRunner`` program keyed by
+    the round's plans, as ``engine.FaultSuperstep`` (a CUDA graph on the
+    card where :func:`round_fused` allows; a round that recovers a worker
+    runs directly, its optimizer counts being reset).  Otherwise the
+    per-step composition.  Bit for bit the per-step fault steps."""
+
+    def __init__(self, step_at, check, lr_schedule, inner_opt, mesh,
+                 plan_kw: dict):
+        from repro_torch.core.engine import RoundRunner
+        self.step_at, self.check = step_at, check
+        self.lr_schedule, self.plan_kw = lr_schedule, plan_kw
+        self.rank = mesh.rank
+        self.fused = round_fused(mesh)
+        # the state's tensors (the queue among them) become the runner's
+        # buffers: the queue is not copied
+        self.runner = (RoundRunner(step_at, lr_schedule, inner_opt,
+                                   per_step_rows=True, adopt=True)
+                       if self.fused else None)
+
+    @property
+    def captures(self) -> int:
+        return 0 if self.runner is None else self.runner.captures
+
+    @property
+    def shapes(self) -> int:
+        """Round programs made so far (repeating round shapes)."""
+        return 0 if self.runner is None else len(self.runner.programs)
+
+    def __call__(self, state: DistQsparseState, batch_block, rows,
+                 rng=None):
+        from repro_torch.core.engine import _plan_rounds, plan_rows
+        self.check(state)
+        L = int(tree_leaves(batch_block)[0].shape[0])
+        plans, arrive_at, tau = _plan_rounds(state, rows, L, **self.plan_kw)
+        if not self.fused:
+            dev = state.bits.device
+            losses = []
+            for i, plan in enumerate(plans):
+                batch = tree_map(lambda b: as_tensor(b[i], dev), batch_block)
+                state, loss = self.step_at(state, batch, plan, rng,
+                                           self.lr_schedule(state.step))
+                losses.append(loss)
+            return (state._replace(arrive_at=arrive_at, inflight_tau=tau),
+                    torch.stack(losses))
+        # the tags stay on the host, outside the program's state; the
+        # optimizer's count is this rank's column of the plans' rows
+        mine = {k: v[:, self.rank] for k, v in plan_rows(plans).items()}
+        state, losses, _ = self.runner.run(
+            state._replace(arrive_at=None, inflight_tau=None),
+            tree_map(lambda x: x[None], batch_block), [tuple(plans)], rng,
+            rows=mine, replay=not any(p.recover.any() for p in plans))
+        return (state._replace(arrive_at=arrive_at, inflight_tau=tau),
+                losses[0])
+
+
+def make_dist_fault_round(
+    grad_fn: Callable,
+    inner_opt: GradientTransform,
+    compressor: Optional[ShardCompressor],
+    lr_schedule: Callable,
+    mesh,
+    data_axes: Sequence[str] = ("data",),
+    param_specs=None,
+    *,
+    queue_depth: int,
+    aggregate: str = "mean_R",
+    wire: str = "dense_psum",
+    staleness_weight: str = "uniform",
+):
+    """Round program of the mesh fault runtime (``repro``'s
+    ``make_dist_fault_round``): rounds close at every event step
+    (``rounds.compile_fault_rounds``).  Returns ``(init_fn, round_fn,
+    fused)``, ``round_fn`` a :class:`DistFaultRounds`: ``(state,
+    batch_block, row_block, rng=None) -> (state, losses [L])`` with
+    ``row_block`` the round's [L, R] rows (``engine.index_rows(rows,
+    slice(start, stop))``).  Bit for bit :func:`make_dist_fault_steps`;
+    the state is donated (its tensors become the program's buffers)."""
+    init_fn, step_at, check, plan_kw = _make_dist_fault_parts(
+        grad_fn, inner_opt, compressor, mesh, data_axes, param_specs,
+        queue_depth=queue_depth, aggregate=aggregate,
+        wire=wire, staleness_weight=staleness_weight)
+    program = DistFaultRounds(step_at, check, lr_schedule, inner_opt, mesh,
+                              plan_kw)
     return init_fn, program, program.fused

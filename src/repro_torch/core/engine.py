@@ -148,7 +148,7 @@ def init(params, inner_opt: GradientTransform, R: int, downlink=None,
         local=local,
         memory=tree_map(lambda x: torch.zeros(
             x.shape, dtype=torch.float32, device=dev), local),
-        inner=inner_opt.init(local),
+        inner=per_worker(inner_opt.init(local), R),
         step=0,
         bits=torch.zeros((), dtype=torch.float32, device=dev),
         rounds=0,
@@ -166,6 +166,16 @@ def init(params, inner_opt: GradientTransform, R: int, downlink=None,
         inflight_tau=(None if queue_depth is None
                       else np.zeros((R, queue_depth), np.int32)),
     )
+
+
+def per_worker(inner, R: int):
+    """An inner-optimizer state over [R, ...] leaves with each host count
+    (an int, Adam's step count) made one int32 count a worker, as
+    ``repro``'s state vmapped over R holds it: faults freeze and reset
+    workers one by one."""
+    return tree_map(lambda x: np.full((R,), x, np.int32)
+                    if isinstance(x, (int, np.integer))
+                    and not isinstance(x, bool) else x, inner)
 
 
 def _group_bits(per_leaf: list, gidx: tuple, G: int) -> torch.Tensor:
@@ -235,22 +245,28 @@ def _idx(mask: np.ndarray, R: int, const, dev) -> Optional[torch.Tensor]:
         np.flatnonzero(mask), device=dev))
 
 
-def _put_rows(tree, idx: Optional[torch.Tensor], rows, what: str):
-    """:func:`_put` over a tree that may hold host ints (an inner
-    optimizer's step count, shared by the workers): a count may only be
-    replaced for all rows or kept where it already agrees."""
+def _put_rows(tree, idx: Optional[torch.Tensor], mask: np.ndarray, rows,
+              what: str):
+    """:func:`_put` over a tree that may hold host counts: rows ``idx``
+    (the rows ``mask`` selects) replaced on the tensors and on each
+    count a worker (int arrays, :func:`per_worker`).  A count shared by
+    all workers (a plain int) may only be kept where it agrees."""
     if idx is None:
         return rows
 
     def one(x, v):
         if isinstance(x, torch.Tensor):
             return x.index_copy(0, idx, v.to(x.dtype))
+        if isinstance(x, np.ndarray):
+            out = x.copy()
+            out[mask] = v
+            return out
         if x != v:
             raise ValueError(
                 f"{what}: the inner optimizer's state holds a count shared "
                 f"by all workers ({x!r} against {v!r} for some rows), which "
-                "cannot differ from worker to worker; use an optimizer "
-                "without one (sgd, momentum_sgd)")
+                "cannot differ from worker to worker; keep one count a "
+                "worker (engine.per_worker)")
         return x
 
     return tree_map(one, tree, rows)
@@ -572,7 +588,7 @@ class _Program:
     lives in the runner's buffers."""
 
     def __init__(self, runner: "RoundRunner", W: int, L: int, masks: tuple,
-                 block_like, rng, scalar_width: int):
+                 block_like, rng, scalar_shape: Optional[tuple]):
         dev = runner.device
         self.runner, self.W, self.L, self.masks, self.rng = (
             runner, W, L, masks, rng)
@@ -580,8 +596,9 @@ class _Program:
             tuple(x.shape), dtype=as_tensor(x[:0]).dtype, device=dev),
             block_like)
         self.lr = torch.empty((W * L,), dtype=torch.float32, device=dev)
-        self.scalars = (None if not scalar_width else torch.empty(
-            (W * L, scalar_width), dtype=torch.float32, device=dev))
+        self.scalars = (None if scalar_shape is None else torch.empty(
+            (W * L,) + tuple(scalar_shape), dtype=torch.float32,
+            device=dev))
         self.loss = torch.empty((W, L), dtype=torch.float32, device=dev)
         self.leds = {f: torch.empty((W,) + tuple(t.shape), dtype=t.dtype,
                                     device=dev)
@@ -627,15 +644,19 @@ class _Program:
 
 def _host_delta(before, after):
     """How a host leaf of the state moves over one run of a program:
-    ints (step, rounds, an optimizer's count) by a fixed amount, other
-    host values not at all."""
+    ints (step, rounds, an optimizer's count) and int arrays (a count a
+    worker) by a fixed amount, None for no move; other host values may
+    not move at all."""
+    if isinstance(before, np.ndarray) and before.dtype.kind in "iu":
+        delta = np.asarray(after) - before
+        return delta if delta.any() else None
     if isinstance(before, (int, np.integer)) and not isinstance(before, bool):
-        return int(after) - int(before)
+        return (int(after) - int(before)) or None
     if after is not before and after != before:
         raise ValueError(f"a host value of the state changed in a round "
                          f"program ({before!r} -> {after!r}); only ints "
                          "may advance")
-    return 0
+    return None
 
 
 class RoundRunner:
@@ -668,8 +689,10 @@ class RoundRunner:
     the program's body runs eagerly.
 
     Donation, as in ``repro``: the state passed in is consumed (copied
-    into the buffers unless it already is them), and the returned state
-    aliases the buffers, so the next call overwrites it.
+    into the buffers unless it already is them; with ``adopt``, the first
+    state's tensors that own their memory alone become the buffers), and
+    the returned state aliases the buffers, so the next call overwrites
+    it.
     """
 
     #: the state fields snapshotted after each round, where the state has
@@ -678,9 +701,12 @@ class RoundRunner:
 
     def __init__(self, step: Callable, lr_schedule: Callable,
                  inner_opt: Optional[GradientTransform],
-                 per_step_rows: bool = False):
+                 per_step_rows: bool = False, adopt: bool = False):
         self.step, self.lr_schedule, self.inner_opt = (
             step, lr_schedule, inner_opt)
+        # True: the first state's tensors that own their memory alone
+        # become the buffers themselves (a large queue is not copied)
+        self.adopt = adopt
         # True: a round's "mask" is a sequence of L per-step rows (each
         # with a ``key()``), handed to every step; False: one tail mask
         self.per_step_rows = per_step_rows
@@ -731,8 +757,16 @@ class RoundRunner:
             if self.graphed:
                 self.pool = torch.cuda.graph_pool_handle()
                 self.stream = torch.cuda.Stream(self.device)
-            self.bufs = [torch.empty(tuple(x.shape), dtype=x.dtype,
-                                     device=self.device) for x in tensors]
+            owners: dict = {}
+            for x in tensors:
+                owners[_storage(x)] = owners.get(_storage(x), 0) + 1
+            self.bufs = [
+                x if (self.adopt and owners[_storage(x)] == 1
+                      and x.is_contiguous() and x.storage_offset() == 0
+                      and x.untyped_storage().nbytes()
+                      == x.numel() * x.element_size())
+                else torch.empty(tuple(x.shape), dtype=x.dtype,
+                                 device=self.device) for x in tensors]
             self.ledger_tensors = {
                 f: getattr(state, f) for f in self.LEDGER
                 if isinstance(getattr(state, f, None), torch.Tensor)}
@@ -785,13 +819,16 @@ class RoundRunner:
                 for f in self.ledger_tensors}
         return torch.stack(loss_rows), leds, host_out, led_ints
 
-    def _step_values(self, state, n: int):
+    def _step_values(self, state, n: int, rows=None):
+        """The n steps' learning rates and the inner optimizer's step
+        scalars; ``rows`` (alive / recover, bool [n, ...]) for a fault
+        run's counts."""
         lrs = torch.stack([torch.as_tensor(
             self.lr_schedule(state.step + i), dtype=torch.float32).to(
                 "cpu").reshape(()) for i in range(n)])
         fn = getattr(self.inner_opt, "step_scalars", None)
-        scal = None if fn is None else np.asarray(fn(state.inner, n),
-                                                  np.float32)
+        scal = None if fn is None else np.asarray(
+            fn(state.inner, n, **(rows or {})), np.float32)
         return lrs, scal
 
     @property
@@ -800,10 +837,15 @@ class RoundRunner:
         return sum(p.graph.captures for p in self.programs.values()
                    if p.graph is not None)
 
-    def run(self, state, blocks, masks: Sequence[np.ndarray], rng):
+    def run(self, state, blocks, masks: Sequence[np.ndarray], rng,
+            rows=None, replay: bool = True):
         """W rounds: ``blocks`` leaves [W, L, ...], ``masks`` the W tail
         masks.  Returns (state, losses [W, L], ledger snapshots after
-        each round: {field: [W, ...]}), the ledger's ints as CPU int64."""
+        each round: {field: [W, ...]}), the ledger's ints as CPU int64.
+        ``rows``: the steps' alive / recover rows for the optimizer's
+        step scalars (fault rounds).  ``replay`` False: the rounds run
+        directly and make no program (a round that resets host counts,
+        which no fixed delta replays)."""
         host_in = self._bind(state)
         if self.graphed and isinstance(rng, Uniforms):
             raise ValueError(
@@ -823,12 +865,13 @@ class RoundRunner:
         if len(masks) != W:
             raise ValueError(f"{len(masks)} tail masks for {W} rounds")
         key = (W, L, sig, _block_sig(blocks))
-        lrs, scal = self._step_values(state, W * L)
+        lrs, scal = self._step_values(state, W * L, rows)
         base = self.rebuild(self.bufs, host_in)
-        prog = self.programs.get(key)
-        if prog is None and (key not in self.seen
+        prog = self.programs.get(key) if replay else None
+        if prog is None and (key not in self.seen or not replay
                              or len(self.programs) >= self.max_programs):
-            self.seen.add(key)
+            if replay:
+                self.seen.add(key)
             if self.graphed:
                 cur = torch.cuda.current_stream(self.device)
                 self.stream.wait_stream(cur)
@@ -844,7 +887,7 @@ class RoundRunner:
             return self.rebuild(self.bufs, host_out), losses, leds
         if prog is None:
             prog = _Program(self, W, L, masks, blocks, rng,
-                            0 if scal is None else scal.shape[1])
+                            None if scal is None else scal.shape[1:])
             self.programs[key] = prog
         elif prog.graph is not None and prog.rng is not rng:
             raise ValueError("a round graph draws from the generator it was "
@@ -857,7 +900,7 @@ class RoundRunner:
             prog.scalars.copy_(torch.from_numpy(scal))
         prog.host_in = host_in
         prog()
-        host_out = [h + d if d else h
+        host_out = [h if d is None else h + d
                     for h, d in zip(host_in, prog.host_delta)]
         leds = {f: prog.leds[f].clone() for f in prog.leds}
         for j, f in enumerate(self.ledger_ints):
@@ -1164,6 +1207,13 @@ def plan_fault_step(arrive_at: np.ndarray, tau: np.ndarray, step: int,
             np.where(arr, 0, tau).astype(np.int32))
 
 
+def plan_rows(plans) -> dict:
+    """The plans' alive / recover rows, stacked (``step_scalars``' keyword
+    arguments)."""
+    return dict(alive=np.stack([p.alive for p in plans]),
+                recover=np.stack([p.recover for p in plans]))
+
+
 def _plan_rounds(state, rows: FaultRow, L: int, **kw):
     """Plans for the L steps of ``rows`` (leaves [L, R]) from ``state``'s
     queue tags; the tags after the last."""
@@ -1212,7 +1262,8 @@ def _make_fault_phases(grad_fn: Callable, inner_opt: GradientTransform,
             master_view=_put(state.master_view, idx, bcast),
             memory=_put(state.memory, idx, tree_map(
                 torch.zeros_like, _take(state.memory, idx))),
-            inner=_put_rows(state.inner, idx, fresh, "worker recovery"))
+            inner=_put_rows(state.inner, idx, rec, fresh,
+                            "worker recovery"))
 
     def select(alive: np.ndarray, new, old, dev):
         """``new`` on the alive rows, ``old`` on the dead ones."""
@@ -1222,8 +1273,9 @@ def _make_fault_phases(grad_fn: Callable, inner_opt: GradientTransform,
             return old
         dead = ~alive
         idx = rows_of(dead, dev)
-        return _put_rows(new, idx, tree_map(
-            lambda o: o[idx] if isinstance(o, torch.Tensor) else o, old),
+        return _put_rows(new, idx, dead, tree_map(
+            lambda o: o[idx] if isinstance(o, torch.Tensor)
+            else o[dead] if isinstance(o, np.ndarray) else o, old),
             "dead workers")
 
     def arriving(state, queue, g, plan: FaultPlan, dev):
@@ -1427,10 +1479,14 @@ class FaultSuperstep(Superstep):
             plans.append(tuple(ps))
             cur = cur._replace(step=cur.step + L, arrive_at=arrive_at,
                                inflight_tau=tau)
-        # the tags stay on the host, outside the program's state
+        # the tags stay on the host, outside the program's state; the
+        # optimizer's counts follow the plans' alive / recover rows, and a
+        # round that resets counts runs directly (no delta replays it)
+        flat = [p for ps in plans for p in ps]
         state, losses, leds = self.runner.run(
             state._replace(arrive_at=None, inflight_tau=None), blocks, plans,
-            rng)
+            rng, rows=plan_rows(flat),
+            replay=not any(p.recover.any() for p in flat))
         return (self.from_runner(state._replace(arrive_at=arrive_at,
                                                 inflight_tau=tau)),
                 losses, leds)

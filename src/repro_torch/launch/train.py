@@ -23,19 +23,26 @@ windows of up to ``--overlap-window`` rounds); ``--runtime
 step`` runs the steps eagerly.  The log and the ledgers are the same
 either way: a mid-round step reports the bits of the round before.
 ``--scenario`` runs a fleet scenario's participation mask on the mesh
-(``partial=True``).  Added: ``--device`` (default cuda), ``--seed`` (weights and the
-stochastic operators' draws), ``--backend`` (``gloo`` for several ranks
-sharing one GPU) and ``--json`` (the run's record, exact ledgers
-included).  Every flag of a feature not ported yet raises
-``NotImplementedError`` naming its ROADMAP item.  Batches come from
+(``partial=True``); ``--faults`` (``--fault-seed``,
+``--staleness-weight``) the mesh fault runtime
+(``make_dist_fault_round`` / ``make_dist_fault_steps``, rounds closing
+at every event step); ``--zero1`` shards the master (ZeRO-1) and a
+``'up >> down'`` policy compresses the downlink.  Added: ``--device``
+(default cuda), ``--seed`` (weights and the stochastic operators'
+draws), ``--backend`` (``gloo`` for several ranks sharing one GPU) and
+``--json`` (the run's record, exact ledgers included).  ``--tune``, the
+one flag of a feature not ported yet, raises ``NotImplementedError``
+naming its ROADMAP item.  Batches come from
 ``data.LMTokenStream`` (a numpy copy of ``repro``'s), so a seed gives
 both packages the same tokens; each rank takes its own worker's row.
-Only rank 0 prints and writes ``--ckpt``.
+Only rank 0 prints and writes ``--ckpt`` (under ``--zero1`` every rank
+joins the master's gather first).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 import types
@@ -46,10 +53,14 @@ import torch
 
 from repro_torch.configs import ARCHS, get_config, get_policy_preset
 from repro_torch.core import policy as pol, scenarios as scn
-from repro_torch.core.distributed import (ShardCompressor,
+from repro_torch.core.distributed import (ShardCompressor, gather_master,
+                                          make_dist_fault_round,
+                                          make_dist_fault_steps,
                                           make_dist_multiround,
                                           make_dist_steps)
-from repro_torch.core.engine import round_calls
+from repro_torch.core.engine import (fault_rows, index_rows, round_calls,
+                                     stack_block)
+from repro_torch.core.rounds import compile_fault_rounds
 from repro_torch.data import LMTokenStream
 from repro_torch.kernels.launch_stats import LAUNCHES
 from repro_torch.launch.mesh import data_axes, make_mesh, worker_count
@@ -62,13 +73,8 @@ from repro_torch.tree import tree_leaves, value_and_grad
 #: flags of features the port has not reached: (flag, test on the parsed
 #: args, ROADMAP item)
 UNPORTED = (
-    ("--faults", lambda a: (a.faults is not None or a.fault_seed is not None
-                            or a.staleness_weight != "uniform"),
-     "queue 1 item 10 (the mesh fault runtime: make_dist_fault_steps / "
-     "make_dist_fault_round)"),
     ("--tune", lambda a: a.tune or a.retune,
      "queue 1 item 11 (autotune)"),
-    ("--zero1", lambda a: a.zero1, "queue 1 item 12 (ZeRO-1)"),
 )
 
 
@@ -160,17 +166,22 @@ def parser() -> argparse.ArgumentParser:
                     help="most rounds a window (power-of-2 chunks)")
     ap.add_argument("--tune", action="store_true", help="not ported")
     ap.add_argument("--retune", action="store_true", help="not ported")
-    ap.add_argument("--faults", default=None, help="not ported")
+    ap.add_argument("--faults", default=None,
+                    help="fault spec (DESIGN.md §9): k=v,... or "
+                         "preset:<name>; staleness, drops and crashes "
+                         "executed on the mesh")
     ap.add_argument("--fault-seed", type=int, default=None,
-                    help="not ported")
+                    help="override the fault spec's seed")
     ap.add_argument("--staleness-weight", default="uniform",
-                    choices=["uniform", "damped"], help="not ported")
+                    choices=["uniform", "damped"],
+                    help="weighting of late payloads: uniform, or damped "
+                         "1/(1+tau)")
     ap.add_argument("--downlink", default=None,
-                    help="DEPRECATED: use --policy; only 'identity' (the "
-                         "exact broadcast) is ported")
+                    help="DEPRECATED: use --policy")
     ap.add_argument("--downlink-k-frac", type=float, default=None,
                     help="DEPRECATED: use --policy")
-    ap.add_argument("--zero1", action="store_true", help="not ported")
+    ap.add_argument("--zero1", action="store_true",
+                    help="shard the master over the workers (ZeRO-1)")
     ap.add_argument("--lr", type=float, default=0.1)
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -209,13 +220,23 @@ def main(argv: Optional[list] = None) -> dict:
     and times, ledgers, launches per sync, peak device memory)."""
     args = parser().parse_args(argv)
     refuse_unported(args)
-    if args.overlap and args.runtime != "round":
-        raise SystemExit("--overlap requires --runtime round")
     channel_spec = resolve_policy_arg(args)
-    if channel_spec.downlink is not None:
-        raise NotImplementedError(
-            "a compressed downlink is not ported to repro_torch yet: "
-            "ROADMAP queue 1 item 12")
+    if args.faults is not None:
+        # repro's refusals, in its words
+        if args.zero1:
+            raise SystemExit("--faults does not support --zero1 (the "
+                             "recover phase needs the full master)")
+        if channel_spec.downlink is not None:
+            raise SystemExit("--faults does not support a compressed "
+                             "downlink on the mesh engine; drop the "
+                             "'>> down' half of the policy")
+    if args.overlap:
+        if args.runtime != "round":
+            raise SystemExit("--overlap requires --runtime round")
+        if args.faults is not None:
+            raise SystemExit(
+                "--overlap is unsupported with --faults: arrival "
+                "events segment rounds dynamically")
     mesh = make_mesh(args.mesh, device=args.device, backend=args.backend)
     try:
         return _run(args, channel_spec, mesh)
@@ -237,6 +258,10 @@ def setup(args, channel_spec, mesh) -> types.SimpleNamespace:
     say("policy:", channel_spec.to_string(), flush=True)
     uplink = ShardCompressor.from_spec(channel_spec.uplink, params,
                                        dispatch=args.dispatch)
+    downlink = None
+    if channel_spec.downlink is not None:
+        downlink = ShardCompressor.from_spec(channel_spec.downlink, params,
+                                             dispatch=args.dispatch)
     engine_args = (
         grad_fn, momentum_sgd(0.9),
         uplink if uplink is not None
@@ -253,10 +278,41 @@ def setup(args, channel_spec, mesh) -> types.SimpleNamespace:
             f"(participation {scn.participation_of(scenario_mask):.2f}, "
             f"{int(scenario_mask.any(axis=1).sum())} sync steps)",
             flush=True)
-    engine_kw = dict(aggregate=args.aggregate, wire=args.wire,
+    faults = None
+    if args.faults is not None:
+        spec = scn.parse_faults(args.faults)
+        if args.fault_seed is not None:
+            spec = dataclasses.replace(spec, seed=int(args.fault_seed))
+        base_mask = (scenario_mask if scenario_mask is not None
+                     else np.array([is_sync(t, args)
+                                    for t in range(args.steps)]))
+        tables = spec.tables(args.steps, R)
+        rows = fault_rows(base_mask, tables, R)
+        _, arrivals, events = scn.fault_replay(rows.sync, tables)
+        faults = types.SimpleNamespace(spec=spec, tables=tables, rows=rows,
+                                       events=events)
+        say(f"faults: {spec.to_string() or 'none'} "
+            f"(queue depth {spec.depth}, "
+            f"{int(arrivals.sum())} arrivals, "
+            f"{int((~tables.alive).sum())} crashed worker-steps, "
+            f"weighting {args.staleness_weight})", flush=True)
+    engine_kw = dict(zero1=args.zero1, aggregate=args.aggregate,
+                     downlink=downlink, wire=args.wire,
                      partial=scenario_mask is not None)
     local_step = sync_step = round_fn = fused = None
-    if args.runtime == "step":
+    if faults is not None:
+        fault_kw = dict(queue_depth=faults.spec.depth,
+                        aggregate=args.aggregate, wire=args.wire,
+                        staleness_weight=args.staleness_weight)
+        if args.runtime == "round":
+            init_fn, round_fn, fused = make_dist_fault_round(*engine_args,
+                                                             **fault_kw)
+            say(f"runtime: fault round "
+                f"({'fused' if fused else 'per-step fallback'})", flush=True)
+        else:
+            init_fn, local_step, sync_step = make_dist_fault_steps(
+                *engine_args, **fault_kw)
+    elif args.runtime == "step":
         init_fn, local_step, sync_step = make_dist_steps(*engine_args,
                                                          **engine_kw)
     else:
@@ -296,7 +352,7 @@ def setup(args, channel_spec, mesh) -> types.SimpleNamespace:
     # key is replicated over the worker axes)
     rng = torch.Generator(device=dev).manual_seed(args.seed + 1)
     return types.SimpleNamespace(
-        cfg=cfg, R=R, scenario_mask=scenario_mask,
+        cfg=cfg, R=R, scenario_mask=scenario_mask, faults=faults,
         state=init_fn(params), local_step=local_step,
         sync_step=sync_step, round_fn=round_fn, fused=fused, batches=batches,
         host_batches=host_batches, rng=rng, say=say)
@@ -310,8 +366,16 @@ def _run(args, channel_spec, mesh) -> dict:
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     rec = {"loss": [], "kind": [], "ms": [], "bits_up": [], "bits_down": [],
-           "launches_per_sync": [], "runtime": args.runtime,
+           "launches_per_sync": [], "computes": [], "runtime": args.runtime,
            "fused": run.fused}
+    faults = run.faults
+
+    def computes(t) -> bool:
+        """Does any worker compress a payload at sync step t (under
+        faults an event step may only land payloads)?"""
+        if faults is None:
+            return True
+        return bool((faults.rows.sync[t] & faults.rows.alive[t]).any())
 
     def log_step(t, sync, loss, up, down, counts=None):
         rec["loss"].append(loss)
@@ -321,6 +385,7 @@ def _run(args, channel_spec, mesh) -> dict:
         note = ""
         if counts is not None:
             rec["launches_per_sync"].append(counts)
+            rec["computes"].append(computes(t))
             note = f" launches/round [{_note(counts)}]"
         say(f"step {t + 1:4d} [{'sync ' if sync else 'local'}] loss "
             f"{loss:.4f} bits up {up:.3g} down {down:.3g}{note}", flush=True)
@@ -328,10 +393,17 @@ def _run(args, channel_spec, mesh) -> dict:
     t0 = time.time()
     if args.runtime == "step":
         for t, b in enumerate(run.batches()):
-            sync = is_sync(t, args, run.scenario_mask)
+            faults = run.faults
+            sync = (bool(faults.events[t]) if faults is not None
+                    else is_sync(t, args, run.scenario_mask))
             before = dict(LAUNCHES)
             ts = time.perf_counter()
-            if not sync:
+            if faults is not None:
+                # event steps (a sync row or an arrival) are the syncs
+                step = run.sync_step if sync else run.local_step
+                state, loss = step(state, b, index_rows(faults.rows, t),
+                                   run.rng)
+            elif not sync:
                 state, loss = run.local_step(state, b, run.rng)
             elif run.scenario_mask is None:
                 state, loss = run.sync_step(state, b, run.rng)
@@ -343,6 +415,8 @@ def _run(args, channel_spec, mesh) -> dict:
             counts = ({k: LAUNCHES[k] - before[k] for k in LAUNCHES}
                       if sync else None)
             log_step(t, sync, loss, up, float(state.bits_down), counts)
+    elif run.faults is not None:
+        state = _run_fault_rounds(args, run, state, rec, log_step)
     else:
         state = _run_rounds(args, run, state, rec, log_step)
     dt = time.time() - t0
@@ -357,16 +431,25 @@ def _run(args, channel_spec, mesh) -> dict:
             flush=True)
     if not np.all(np.isfinite(rec["loss"])):
         raise FloatingPointError(f"loss not finite: {rec['loss']}")
-    if args.ckpt and mesh.rank == 0:
+    if args.ckpt:
         # the policy rides along so a resume reproduces the per-leaf
-        # operators (and so the bits)
+        # operators (and so the bits); a ZeRO-1 master is gathered first,
+        # by every rank
         t_save = time.perf_counter()
-        checkpoint.save(args.ckpt, state.master, step=args.steps,
-                        policy=channel_spec.to_dict())
-        rec["ckpt_s"] = time.perf_counter() - t_save
-        say("checkpoint saved to", args.ckpt, flush=True)
+        master = (gather_master(state, mesh, param_specs(run.cfg))
+                  if args.zero1 else state.master)
+        if mesh.rank == 0:
+            checkpoint.save(args.ckpt, master, step=args.steps,
+                            policy=channel_spec.to_dict())
+            rec["ckpt_s"] = time.perf_counter() - t_save
+            say("checkpoint saved to", args.ckpt, flush=True)
+        del master
     rec.update(R=R, rounds=state.rounds, wall_s=dt,
-               n_params=sum(p.numel() for p in tree_leaves(state.master)))
+               n_params=sum(p.numel() for p in tree_leaves(state.local)))
+    if state.inflight is not None:
+        # this rank's in-flight queue (the fault runtime), allocated once
+        rec["queue_bytes"] = sum(x.numel() * x.element_size()
+                                 for x in tree_leaves(state.inflight))
     if args.json and mesh.rank == 0:
         with open(args.json, "w") as f:
             json.dump(rec, f, indent=1)
@@ -408,6 +491,39 @@ def _run_rounds(args, run, state, rec: dict, log_step):
                 log_step(plan.start + i, tail, losses[wi][i], up, down,
                          counts if tail else None)
     rec["captures"] = run.round_fn.captures
+    return state
+
+
+def _run_fault_rounds(args, run, state, rec: dict, log_step):
+    """The fault round runtime's loop (``repro``'s): rounds close at every
+    event step (``rounds.compile_fault_rounds``), each a call of the
+    fault round program with its [L, R] fault rows; a step logs as
+    ``--runtime step`` logs it."""
+    faults = run.faults
+    up, down = float(state.bits), float(state.bits_down)
+    rec["round_ms"] = []
+    it = run.host_batches()
+    for plan in compile_fault_rounds(faults.rows.sync, faults.tables):
+        sl = slice(plan.start, plan.start + plan.length)
+        block = stack_block([next(it) for _ in range(plan.length)])
+        before = dict(LAUNCHES)
+        ts = time.perf_counter()
+        state, losses = run.round_fn(state, block,
+                                     index_rows(faults.rows, sl), run.rng)
+        losses = losses.tolist()                           # synchronizes
+        ms = (time.perf_counter() - ts) * 1e3
+        counts = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+        rec["round_ms"].append(ms)
+        for i in range(plan.length):
+            t = plan.start + i
+            tail = i == plan.length - 1
+            sync = tail and bool(faults.events[t])
+            if tail:
+                up, down = float(state.bits), float(state.bits_down)
+            rec["ms"].append(ms / plan.length)
+            log_step(t, sync, losses[i], up, down, counts if sync else None)
+    rec["captures"] = run.round_fn.captures
+    rec["round_shapes"] = run.round_fn.shapes
     return state
 
 

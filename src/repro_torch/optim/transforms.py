@@ -11,11 +11,18 @@ applied in float32 in ``repro``'s expression order.
 
 A transform whose update needs per-step values computed on the host
 (Adam's bias corrections, from its host step count) names them with
-``step_scalars(state, n) -> float32 [n, m]``: the values of the next n
-updates.  A caller that cannot run host code per step (the engine's
-round program, a CUDA graph on the card) passes row i to update i as
-``update(..., scalars=row)``, a float32 [m] tensor on the device;
-without it the update computes the same values itself.
+``step_scalars(state, n, alive=None, recover=None) -> float32 [n, ...,
+m]``: the values of the next n updates.  A caller that cannot run host
+code per step (the engine's round program, a CUDA graph on the card)
+passes row i to update i as ``update(..., scalars=row)``, a float32
+[..., m] tensor on the device; without it the update computes the same
+values itself.
+
+A host count is an int, or an int array with one count for each worker
+(the engine's state has a leading worker axis R, as ``repro``'s vmapped
+state does): a worker that is down keeps its count and a recovered one
+restarts from a fresh state, so the counts part.  ``alive`` /
+``recover`` (bool [n, ...], one row a step) replay that on the host.
 """
 
 from __future__ import annotations
@@ -89,16 +96,35 @@ def adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         return {"m": _zeros_like(params), "v": _zeros_like(params),
                 "count": 0}
 
-    def bias_corrections(count: int) -> list:
-        # float32 powers on the host (libm powf), as repro's b ** f32(count)
-        c = np.float32(count)
-        return [np.float32(1) - np.float32(b1) ** c,
-                np.float32(1) - np.float32(b2) ** c]
+    def bias_corrections(count) -> np.ndarray:
+        """float32 [..., 2]: (1 - b1^c, 1 - b2^c) for a count or an array
+        of counts.  Each power is a float32 scalar power (libm powf), as
+        repro's b ** f32(count); numpy's vectorized float32 power rounds
+        some counts otherwise."""
+        cs = np.asarray(count)
+        out = np.empty(cs.shape + (2,), np.float32)
+        for i, c in np.ndenumerate(cs):
+            c = np.float32(c)
+            out[i] = (np.float32(1) - np.float32(b1) ** c,
+                      np.float32(1) - np.float32(b2) ** c)
+        return out
 
-    def step_scalars(state, n: int) -> np.ndarray:
-        """(1 - b1^t, 1 - b2^t) of the next ``n`` updates, float32 [n, 2]."""
-        return np.array([bias_corrections(state["count"] + 1 + i)
-                         for i in range(n)], np.float32)
+    def step_scalars(state, n: int, alive=None, recover=None) -> np.ndarray:
+        """The bias corrections of the next ``n`` updates, float32 [n, 2]
+        (or [n, R, 2] for a count a worker).  ``alive`` / ``recover``
+        (bool [n, R]): a recovered worker's count restarts at 0 before
+        the step, a dead worker's stays after it (its update is computed
+        and discarded, at the count it would have had)."""
+        count = np.asarray(state["count"])
+        rows = []
+        for i in range(n):
+            if recover is not None:
+                count = np.where(recover[i], 0, count)
+            nxt = count + 1
+            rows.append(bias_corrections(nxt))
+            count = nxt if alive is None else np.where(alive[i], nxt, count)
+        return np.stack(rows) if rows else np.zeros(
+            (0,) + count.shape + (2,), np.float32)
 
     def update(grads, state, params, lr, scalars=None):
         count = state["count"] + 1
@@ -107,15 +133,17 @@ def adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                      state["v"], grads)
         if scalars is None:
             # on the parameters' device: a true division by a device
-            # scalar, as the round program's (a CPU scalar divisor is a
+            # tensor, as the round program's (a CPU scalar divisor is a
             # reciprocal multiply in PyTorch's CUDA kernels)
             dev = tree_leaves(m)[0].device if tree_leaves(m) else None
-            scalars = torch.from_numpy(np.array(bias_corrections(count),
-                                                np.float32)).to(dev)
-        bc1, bc2 = scalars[0], scalars[1]
+            scalars = torch.from_numpy(bias_corrections(count)).to(dev)
+        bc1, bc2 = scalars[..., 0], scalars[..., 1]
 
         def upd(m_, v_, p):
-            u = (m_ / bc1) / (torch.sqrt(v_ / bc2) + eps)
+            # a count a worker: [R] corrections over the leading axis
+            shape = tuple(bc1.shape) + (1,) * (m_.dim() - bc1.dim())
+            u = (m_ / bc1.reshape(shape)) / (
+                torch.sqrt(v_ / bc2.reshape(shape)) + eps)
             if weight_decay:
                 u = u + weight_decay * p
             return _times_lr(lr, u)

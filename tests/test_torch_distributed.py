@@ -195,11 +195,6 @@ def test_from_spec_identity_and_unported(jx):
     mesh = Mesh((1, 2), ("data", "model"))
     with pytest.raises(NotImplementedError, match="item 12"):
         D.make_dist_steps(None, sgd(), comp, constant(0.1), mesh)
-    mesh = Mesh((1, 1), ("data", "model"))
-    for kw, item in ((dict(zero1=True), "item 12"),
-                     (dict(downlink=D.ShardCompressor("topk")), "item 12")):
-        with pytest.raises(NotImplementedError, match=item):
-            D.make_dist_steps(None, sgd(), comp, constant(0.1), mesh, **kw)
 
 
 # ---------------------------------------------------------------------------

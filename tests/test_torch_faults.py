@@ -343,19 +343,60 @@ def test_async_wrapper_runs_the_fault_runtime(problem):
     assert a.rounds == int((mask & spec.tables(T, R).alive).sum())
 
 
-def test_adam_count_refuses_per_worker_faults(problem):
-    """An inner optimizer whose step count all workers share (the port's
-    Adam) cannot freeze a dead worker alone: refused with a reason."""
+@pytest.mark.parametrize("runtime", ["step", "round"])
+def test_adam_fault_step_matches_repro(problem, runtime):
+    """Adam keeps a step count for each worker, as ``repro``'s state
+    vmapped over R does: worker 1 crashes (its count stays) and recovers
+    (a fresh Adam state, count 0), against ``repro``'s
+    ``make_fault_step(..., adam(), ...)``.  The round runtime equals the
+    per-step loop bit for bit (a round that recovers runs directly; the
+    others replay the counts' deltas).  The operator is the scaled sign:
+    Adam's first step after the recovery moves every coordinate by about
+    the learning rate, near-ties a Top_k would break by rounding."""
+    from repro.optim import adam as jadam
     from repro_torch.optim import adam
-    grad_t, _, batches, mask = problem
+    grad_t, grad_j, batches, mask = problem
     spec = scn.FaultSpec(crash=((1, 2, 6),))
-    state = teng.init({"w": torch.zeros(D)}, adam(), R, device="cpu",
-                      queue_depth=spec.depth)
-    step = teng.make_fault_step(grad_t, adam(), tops.TopK(k=6),
-                                constant(LR), R, queue_depth=spec.depth)
-    with pytest.raises(ValueError, match="count"):
-        teng.run_faults(state, step, [torch.from_numpy(b) for b in batches],
-                        mask, spec.tables(T, R))
+    jspec = jscn.FaultSpec(crash=((1, 2, 6),))
+    tables = spec.tables(T, R)
+    assert not tables.alive.all() and tables.recover.any()
+    state_j = jeng.init({"w": jnp.zeros(D)}, jadam(), R,
+                        queue_depth=jspec.depth)
+    step_j = jeng.make_fault_step(grad_j, jadam(), jops.Sign(),
+                                  jconstant(LR), R, queue_depth=jspec.depth)
+    sj, lj = jeng.run_faults(state_j, step_j, [jnp.asarray(b)
+                                               for b in batches],
+                             mask, jspec.tables(T, R), jax.random.PRNGKey(0))
+
+    def port(rounds: bool):
+        state = teng.init({"w": torch.zeros(D)}, adam(), R, device="cpu",
+                          queue_depth=spec.depth)
+        make = teng.make_fault_superstep if rounds else teng.make_fault_step
+        fn = make(grad_t, adam(), tops.Sign(), constant(LR), R,
+                  queue_depth=spec.depth)
+        drive = teng.run_fault_rounds if rounds else teng.run_faults
+        return drive(state, fn, [torch.from_numpy(b) for b in batches],
+                     mask, tables)
+
+    st, lt = port(runtime == "round")
+    np.testing.assert_array_equal(st.inner["count"],
+                                  np.asarray(sj.inner["count"]))
+    assert st.inner["count"].tolist() != [T] * R
+    np.testing.assert_allclose(lt, lj, **TOL)
+    for f in ("master", "local", "memory", "inflight"):
+        np.testing.assert_allclose(getattr(st, f)["w"].numpy(),
+                                   np.asarray(getattr(sj, f)["w"]), **TOL,
+                                   err_msg=f)
+    for f in ("m", "v"):
+        np.testing.assert_allclose(st.inner[f]["w"].numpy(),
+                                   np.asarray(sj.inner[f]["w"]), **TOL,
+                                   err_msg=f)
+    assert float(st.bits) == float(sj.bits) > 0
+    assert st.rounds == int(sj.rounds)
+    if runtime == "round":
+        ss, ls = port(False)
+        assert ls == lt
+        assert_same(st, ss)
 
 
 def test_kernels_on_no_live_rows():

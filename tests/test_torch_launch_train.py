@@ -208,11 +208,7 @@ def test_checkpoints_cross_bit_for_bit(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--faults", "preset:chaos"], "queue 1 item 10"),
     (["--tune"], "queue 1 item 11"),
-    (["--zero1"], "queue 1 item 12"),
-    (["--downlink", "topk"], "queue 1 item 12"),
-    (["--policy", "topk:k=0.01 >> topk:k=0.05"], "queue 1 item 12"),
     (["--mesh", "1x2"], "queue 1 item 12"),
 ])
 def test_unported_flags_raise(flags, item):
