@@ -40,12 +40,12 @@ Phases, each of which exits non-zero on failure:
    dispatcher builds (15 rows of 7,840 and 10 floats zero-padded to 7936
    and 128 columns, k = 40 and 1, s = 15), then the quickstart's two
    methods (R=8, T=300) and bench_convex's TopK-SGD, EF-QSGD and QTop_k
-   (R=15, T=400), each under dispatch "auto" and "kernel" (EF-QSGD's
+   (R=15, T=200), each under dispatch "auto" and "kernel" (EF-QSGD's
    shared uniforms on the per-step runtime), and under "kernel" graphed
    against ``runtime="step"`` (the same History, one capture), TopK-SGD
    also overlapped (windows of 8 rounds), with bits, rounds, bits to
    the target loss and ms a round and a step; then Algorithm 2 at
-   bench_async's sizes (TopK, R=15, T=400, H=4), the round runtime
+   bench_async's sizes (TopK, R=15, T=200, H=4), the round runtime
    against ``runtime="step"`` (the same History and launches; captures
    the tail masks that repeat, at most ``engine.MAX_PROGRAMS``), with
    the schedule's distinct and repeated round shapes at H = 4 and 8;
@@ -126,7 +126,31 @@ Phases, each of which exits non-zero on failure:
    ``--compressed`` (tokens equal to compressing the restored master
    in-process), and that compressed tree saved as compact-v1 and served
    (tokens equal to an in-process engine on the same tree), with bytes
-   on disk and seconds to save and to load.
+   on disk and seconds to save and to load;
+9. the other model families: ``flash_attention`` at zamba2-7b's prefill
+   (4 x 2048 tokens, 32 heads of 112, causal) and ``flash_decode`` at
+   zamba2-7b's and qwen3-moe-30b-a3b's decode shapes (step 3's checks
+   and times); rwkv6-3b, zamba2-7b and qwen3-moe-30b-a3b at full width
+   and depth (random bf16 weights from a seed) served in-process under
+   ``use_pallas``: a prefill of 4 prompts of 1024 / 2048 / 512 tokens
+   and 32 greedy ``decode_step`` s, asserting 14 ``flash_attention`` a
+   prefill and 14 ``flash_decode`` a step (zamba2-7b) and 48
+   ``flash_decode`` a step (qwen3-moe); every kernel call of a first
+   prefill and decode step held to its plain version on the same inputs
+   (2^-7 of each row's largest), and the first logits to the plain path
+   (``use_pallas=False``) within the noise floor that one bf16 rounding's
+   error in the embeddings gives; the same shapes in float32 at full
+   width and a cut depth (4 / 12 / 4 layers), the kernel path's first
+   logits within 2^-7 of the plain path's; the smoke configs in float32
+   with dispatch "kernel" against "reference" (the same tokens); then the
+   three trained through the launcher at full width, the depth cut for
+   the card's memory (qwen3-moe 1 layer, rwkv6-3b and zamba2-7b 12), R
+   = 1 over NCCL, ``preset:arch`` on the sparse wire, batch 2 of 1024, 8
+   steps at H = 4, graphed against ``--runtime step`` (the same record),
+   the policy's per-leaf table printed and checked against its rule, and
+   its ``topk_compact`` launches a sync asserted: one for each sparse
+   leaf less those that the dispatch rule's limits send to the plain
+   version, each printed with its reason.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX
@@ -135,6 +159,7 @@ or of the JAX package ``repro``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -181,7 +206,9 @@ WRAP_ADDS = 1700
 #: the paper's convex runs (Section 5.2: softmax regression on mnist_like,
 #: d = 7850 in two leaves of 7,840 and 10 floats, lr = 60 / (100 + t)):
 #: the quickstart's two methods and bench_convex's methods that meet a
-#: kernel rule (TopK-SGD, EF-QSGD) or draw as one does (QTop_k)
+#: kernel rule (TopK-SGD, EF-QSGD) or draw as one does (QTop_k), at T =
+#: 200 where bench_convex runs 400: the first half of its runs (lr does
+#: not depend on T), for the script's time limit
 K_CONVEX = 40 / 7850.0
 CONVEX = {
     "n": 4000, "b": 8, "target": 1.0, "leaves": (7840, 10),
@@ -192,17 +219,18 @@ CONVEX = {
          "kw": {"k": 0.01, "m": 1}, "R": 8, "T": 300, "H": 4,
          "log_every": 50, "batch_seed": 1},
         {"name": "topk_sgd", "op": "topk", "kw": {"k": K_CONVEX}, "R": 15,
-         "T": 400, "H": 1, "log_every": 25, "batch_seed": 0,
+         "T": 200, "H": 1, "log_every": 25, "batch_seed": 0,
          "kernel": "topk_compress", "per_sync": 2, "overlap": True},
         {"name": "ef_qsgd_4bit", "op": "qsgd", "kw": {"s": 15}, "R": 15,
-         "T": 400, "H": 1, "log_every": 25, "batch_seed": 0,
+         "T": 200, "H": 1, "log_every": 25, "batch_seed": 0,
          "kernel": "qsgd", "per_sync": 2},
         {"name": "qtopk_4bit", "op": "qtopk", "kw": {"k": K_CONVEX, "s": 15},
-         "R": 15, "T": 400, "H": 1, "log_every": 25, "batch_seed": 0},
+         "R": 15, "T": 200, "H": 1, "log_every": 25, "batch_seed": 0},
     ]}
 #: Algorithm 2 on the convex problem at bench_async.py's sizes (TopK,
-#: sync gaps U[1, H]); the round shapes are also counted at H = 8
-ASYNC_CONVEX = {"R": 15, "T": 400, "H": 4, "shapes_at_H": (4, 8)}
+#: sync gaps U[1, H]) but T = 200 of its 400, for the script's time limit;
+#: the round shapes are also counted at H = 8
+ASYNC_CONVEX = {"R": 15, "T": 200, "H": 4, "shapes_at_H": (4, 8)}
 #: how far "kernel" may sit from "auto" where their arithmetic differs
 #: (largest relative gap over the log points, bits and smoothed loss);
 #: each limit lies within 2-20x of the gaps measured on the H100
@@ -898,7 +926,7 @@ def qsgd_uniforms(dev, method: dict, dispatch: str):
 def phase_convex(dev):
     """The paper's Section 5.2 problem on the card: the quickstart's two
     methods (R = 8, T = 300) and bench_convex's methods that reach a
-    kernel rule or share its draws (R = 15, T = 400), each once under
+    kernel rule or share its draws (R = 15, T = 200), each once under
     dispatch "auto" (these leaves, 7,840 and 10 floats, are below the
     kernels' min_size: the reference operators) and once under
     "kernel".  Where no kernel rule applies the two runs are one
@@ -1028,7 +1056,7 @@ def round_shapes(mask) -> dict:
 
 def convex_async(dev) -> dict:
     """Algorithm 2 through ``train`` at the paper's Section 5.2.3 sizes
-    (``benchmarks/bench_async.py``'s TopK rows: R = 15, T = 400, sync
+    (``benchmarks/bench_async.py``'s TopK rows: R = 15, T = 200, sync
     gaps drawn U[1, H]): the round runtime (the default) against
     ``runtime="step"``, one generator seed each.  Rounds close wherever
     any worker syncs, so nearly every round is one step with its own
@@ -3010,6 +3038,527 @@ def phase_checkpoint_serve(dev, saved: dict, dense_path: str, tmp: str):
     return totals
 
 
+#: the other model families at full width, served in-process (prefill,
+#: then greedy ``decode_step``) in bf16 with random weights from a seed
+#: under ``use_pallas``: batch, prompt tokens, new tokens, depth (None:
+#: the config's)
+FAMILY_SERVE = (
+    {"arch": "rwkv6-3b", "batch": 4, "prompt": 1024, "new": 32,
+     "layers": None},
+    {"arch": "zamba2-7b", "batch": 4, "prompt": 2048, "new": 32,
+     "layers": None},
+    {"arch": "qwen3-moe-30b-a3b", "batch": 4, "prompt": 512, "new": 32,
+     "layers": None},
+)
+#: the same shapes in float32 at full width and a cut depth: the kernel
+#: path against the plain path within 2^-7 of each row's largest logit
+FAMILY_F32_LAYERS = {"rwkv6-3b": 4, "zamba2-7b": 12, "qwen3-moe-30b-a3b": 4}
+#: ... and trained through the launcher at full width, R = 1, the depth
+#: cut so that a run's peak stays under FAMILY_PEAK_BYTES
+FAMILY_TRAIN = {"batch": 2, "seq": 1024, "steps": 8, "H": 4,
+                "layers": {"qwen3-moe-30b-a3b": 1, "rwkv6-3b": 12,
+                           "zamba2-7b": 12}}
+FAMILY_PEAK_BYTES = 70 * 2 ** 30
+#: what each family's preset:arch resolves, by DSL rule (first match
+#: wins): (pattern, the operator of the leaves it matches, the operator
+#: of the rest)
+FAMILY_RULES = {"budget_1pct": ("attn|mlp|ffn|expert|proj|mixer", "TopK",
+                                "Identity"),
+                "sign_hetero": ("ln|norm|bias|scale", "Identity",
+                                "SignSparsifier")}
+
+
+def family_config(arch: str, layers=None, **kw):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if layers is not None:
+        kw["n_layers"] = layers
+    return dataclasses.replace(cfg, **kw)
+
+
+def family_attention_launches(cfg) -> tuple:
+    """(flash_attention launches a prefill, flash_decode launches a
+    decode step) of a family under ``use_pallas``: Zamba2's shared block
+    once each an application (its window is static), MoE's scanned
+    periods none at prefill and one a layer at decode, RWKV-6 none."""
+    from repro_torch.models import zamba2
+    if cfg.family == "zamba2":
+        apps = len(zamba2.shared_apps(cfg))
+        return apps, apps
+    if cfg.family == "moe":
+        return 0, cfg.n_layers
+    return 0, 0
+
+
+def phase_family_kernels(dev):
+    """The attention kernels at the other families' serving shapes:
+    flash_attention at zamba2-7b's prefill (4 prompts of 2048, 32 heads
+    of 112 on 32 kv heads, causal), flash_decode at zamba2-7b's decode
+    (batch 4, 32 / 32 heads of 112, a 2080-slot ring, 2048-2080 valid)
+    and qwen3-moe-30b-a3b's (32 / 4 heads of 128, a 544-slot ring,
+    512-544 valid).  Returns the (flash_attention, flash_decode) rows."""
+    fa = [check_flash_attention(dev, 4, 2048, 32, 32, 112, -1, 5)]
+    fd = [check_flash_decode(dev, 10, B=4, H=32, KV=32, hd=112, C=2080,
+                             lengths=(2048, 2081)),
+          check_flash_decode(dev, 10, B=4, H=32, KV=4, hd=128, C=544,
+                             lengths=(512, 545))]
+    fa[0]["model"] = "zamba2-7b prefill"
+    fd[0]["model"], fd[1]["model"] = "zamba2-7b decode", "qwen3-moe decode"
+    for name, rows in (("flash_attention", fa), ("flash_decode", fd)):
+        for row in rows:
+            print(f"kernel check {name} ({row['model']})", json.dumps(row),
+                  flush=True)
+    return fa, fd
+
+
+@contextlib.contextmanager
+def held_to_plain(worst: dict):
+    """While open, every call of the attention kernels' dispatch entries
+    (``flash_attention``, ``flash_decode``) also runs the kernel's plain
+    version on the same inputs, and the kernel's output is held to it
+    within 2^-7 of each row's largest |output| (one bf16 rounding);
+    ``worst`` keeps the largest such error of each kernel.  The plain
+    versions launch nothing."""
+    from repro_torch.kernels import dispatch as dsp
+    from repro_torch.kernels import ref
+    fa, fd = dsp.flash_attention, dsp.flash_decode
+
+    def hold(name, out, want):
+        err = close_per_row(out, want, 2 ** -7, f"{name} on the main path")
+        worst[name] = max(worst.get(name, 0.0), err[1])
+        return out
+
+    def flash_attention(q, k, v, window=-1, cfg=None):
+        return hold("flash_attention", fa(q, k, v, window, cfg),
+                    ref.flash_attention_ref(q, k, v, window=window))
+
+    def flash_decode(q, k, v, valid, cfg=None):
+        return hold("flash_decode", fd(q, k, v, valid, cfg),
+                    ref.flash_decode_ref(q, k, v, valid))
+
+    dsp.flash_attention, dsp.flash_decode = flash_attention, flash_decode
+    try:
+        yield worst
+    finally:
+        dsp.flash_attention, dsp.flash_decode = fa, fd
+
+
+def row_gap(out, want) -> float:
+    """The largest |out - want| of a row over that row's largest
+    |want|, over the rows (logits [B, V])."""
+    o, w = (t.float().reshape(t.shape[0], -1) for t in (out, want))
+    return float(((o - w).abs().amax(-1)
+                  / w.abs().amax(-1).clamp_min(1e-30)).max())
+
+
+#: the draws of one bf16 rounding's error whose largest effect on the
+#: logits is the noise floor of ``family_serve_run``
+FLOOR_SEEDS = (2, 3, 4, 5)
+
+
+def one_rounding(x, seed: int):
+    """``x`` (bf16) moved by one rounding's error: each element one ulp
+    up or down with probability 1/24 each, an error of variance ulp^2 /
+    12, that of one rounding to bf16 (uniform within half an ulp), with
+    no second rounding (x +- ulp is a bf16 value: a step of the bit
+    pattern, +-1 times the sign; zeros stay)."""
+    import torch
+    g = torch.Generator(device=x.device).manual_seed(seed)
+    u = torch.rand(x.shape, generator=g, device=x.device)
+    step = (u < 1 / 24).to(torch.int16) - (u > 1 - 1 / 24).to(torch.int16)
+    del u
+    step *= torch.sign(x).to(torch.int16)
+    return (x.view(torch.int16) + step).view(x.dtype)
+
+
+def family_serve_run(dev, spec: dict) -> tuple:
+    """One family at full width (bf16, random weights from a seed):
+
+    1. the plain path (``use_pallas=False``): prefill, and a first decode
+       step on its greedy token; again, FLOOR_SEEDS times, with the
+       embedding table perturbed by one bf16 rounding's error
+       (``one_rounding``): the largest gap to the first run is the
+       logits' noise floor, what one rounding at the input moves them;
+    2. the kernel path (``use_pallas=True``) on the same inputs under
+       ``held_to_plain``: each kernel call held to its plain version on
+       the main path's own inputs within 2^-7 of each row's largest; its
+       prefill logits and first-step logits within max(2^-7, the noise
+       floor) of the plain path's, each row to its largest (the
+       kernels' rounding differences at 14-48 attention calls amplified
+       through a deep random-weight stack as the floor's one rounding
+       is; ``family_f32_run`` holds the same path in float32 to 2^-7);
+    3. the kernel path timed: prefill, then ``spec["new"]`` greedy decode
+       steps, asserting the attention kernels' launches a prefill and a
+       step and no other launch.
+
+    Returns (the printed row, the launches of 3)."""
+    import dataclasses
+    import hashlib
+    import torch
+    from repro_torch.kernels.launch_stats import LAUNCHES, reset_launches
+    from repro_torch.models import get_model
+    from repro_torch.tree import tree_leaves
+    cfg = family_config(spec["arch"], spec["layers"], use_pallas=True)
+    plain = dataclasses.replace(cfg, use_pallas=False)
+    m = get_model(cfg)
+    B, S, new = spec["batch"], spec["prompt"], spec["new"]
+    max_len = S + new
+    want_fa, want_fd = family_attention_launches(cfg)
+    _free_graphs()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = m.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                           device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    g = torch.Generator(device=dev).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (B, S), generator=g, device=dev)
+
+    def first_logits(p, c):
+        """(prefill logits [B, V], the first decode step's on tok0)."""
+        logits, cache, _ = m.prefill(p, {"tokens": toks}, c,
+                                     max_len=max_len)
+        step, _ = m.decode_step(p, cache, tok0, S, c)
+        return logits.reshape(B, -1), step
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    worst: dict = {}
+    with torch.no_grad():
+        (lp, cache, _), plain_prefill_ms = timed(lambda: m.prefill(
+            params, {"tokens": toks}, plain, max_len=max_len))
+        lp = lp.reshape(B, -1)
+        tok0 = lp.argmax(-1)
+        lp1, _ = m.decode_step(params, cache, tok0, S, plain)
+        del cache
+        e = params["embed"]
+        floor = [0.0, 0.0]
+        for seed in FLOOR_SEEDS:
+            params["embed"] = one_rounding(e, seed)
+            floor = [max(f, row_gap(x, y)) for f, x, y in zip(
+                floor, first_logits(params, plain), (lp, lp1))]
+        params["embed"] = e
+        with held_to_plain(worst):
+            gaps = [row_gap(x, y) for x, y in zip(first_logits(params, cfg),
+                                                  (lp, lp1))]
+        for what, gap, fl in zip(("prefill", "first step"), gaps, floor):
+            if gap > max(2 ** -7, fl):
+                raise AssertionError(
+                    f"{cfg.name} {what} logits: kernel path {gap} of the "
+                    f"row's largest from the plain path, over the noise "
+                    f"floor {fl}")
+        reset_launches()
+        (logits, cache, _), prefill_ms = timed(lambda: m.prefill(
+            params, {"tokens": toks}, cfg, max_len=max_len))
+        got = {k: v for k, v in LAUNCHES.items() if v}
+        if got != ({"flash_attention": want_fa} if want_fa else {}):
+            raise AssertionError(f"{cfg.name} prefill launched {got}, want "
+                                 f"{want_fa} flash_attention")
+        totals = dict(got)
+        reset_launches()
+        tok, steps = logits.reshape(B, -1).argmax(-1), []
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for i in range(new):
+            logits, cache = m.decode_step(params, cache, tok, S + i, cfg)
+            tok = logits.argmax(-1)
+            steps.append(tok)
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t) * 1e3 / new
+        got = {k: v for k, v in LAUNCHES.items() if v}
+        if got != ({"flash_decode": want_fd * new} if want_fd else {}):
+            raise AssertionError(f"{cfg.name} decode launched {got} in {new} "
+                                 f"steps, want {want_fd} flash_decode a step")
+        for k, v in got.items():
+            totals[k] = totals.get(k, 0) + v
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{cfg.name}: non-finite logits")
+    tokens = torch.stack(steps, dim=1).cpu().numpy()
+    row = {"card": card(), "arch": cfg.name, "family": cfg.family,
+           "layers": cfg.n_layers, "full_layers": family_config(
+               spec["arch"]).n_layers, "n_params": n_params,
+           "batch": B, "prompt": S, "new_tokens": new, "init_s": init_s,
+           "prefill_ms": prefill_ms, "plain_prefill_ms": plain_prefill_ms,
+           "decode_ms_per_step": decode_ms,
+           "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
+           "launches_per_prefill": {"flash_attention": want_fa},
+           "launches_per_step": {"flash_decode": want_fd},
+           "kernel_call_max_row_rel_err": worst,
+           "logits_row_gap": {"prefill": gaps[0], "first_step": gaps[1]},
+           "noise_floor": {"prefill": floor[0], "first_step": floor[1]},
+           "tokens_digest": hashlib.sha1(tokens.tobytes()).hexdigest()[:16]}
+    print("family serve", json.dumps(row), flush=True)
+    del params, cache, logits, lp, lp1, e
+    _free_graphs()
+    return row, totals
+
+
+def family_f32_run(dev, spec: dict) -> dict:
+    """``spec``'s arch at full width and FAMILY_F32_LAYERS' depth in
+    float32 (random weights from a seed), the same batch and prompt: the
+    kernel path's (``use_pallas``) prefill logits and first decode
+    step's logits within 2^-7 of each row's largest of the plain path's
+    (``use_pallas=False``), its attention kernels launched as the depth
+    gives.  Returns the printed row."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels.launch_stats import LAUNCHES, reset_launches
+    from repro_torch.models import get_model
+    cfg = family_config(spec["arch"], FAMILY_F32_LAYERS[spec["arch"]],
+                        use_pallas=True, param_dtype="float32",
+                        act_dtype="float32")
+    plain = dataclasses.replace(cfg, use_pallas=False)
+    m = get_model(cfg)
+    B, S = spec["batch"], spec["prompt"]
+    want_fa, want_fd = family_attention_launches(cfg)
+    _free_graphs()
+    params = m.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                           device=dev)
+    toks = torch.randint(0, cfg.vocab, (B, S), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    out = {}
+    with torch.no_grad():
+        for c in (plain, cfg):
+            reset_launches()
+            logits, cache, _ = m.prefill(params, {"tokens": toks}, c,
+                                         max_len=S + 1)
+            logits = logits.reshape(B, -1)
+            if c is plain:
+                tok0 = logits.argmax(-1)
+            step, _ = m.decode_step(params, cache, tok0, S, c)
+            out[c.use_pallas] = (logits, step,
+                                 {k: v for k, v in LAUNCHES.items() if v})
+            del cache
+    want = {k: v for k, v in (("flash_attention", want_fa),
+                              ("flash_decode", want_fd)) if v}
+    if out[True][2] != want or out[False][2]:
+        raise AssertionError(f"{cfg.name} float32: launches {out[True][2]} "
+                             f"/ {out[False][2]}, want {want}")
+    gaps = [row_gap(x, y) for x, y in zip(out[True][:2], out[False][:2])]
+    for what, gap in zip(("prefill", "first step"), gaps):
+        if not gap <= 2 ** -7:
+            raise AssertionError(f"{cfg.name} float32 {what} logits: kernel "
+                                 f"path {gap} of the row's largest from the "
+                                 f"plain path, over 2^-7")
+    row = {"card": card(), "arch": cfg.name, "dtype": "float32",
+           "layers": cfg.n_layers, "batch": B, "prompt": S,
+           "launches": want,
+           "logits_row_gap": {"prefill": gaps[0], "first_step": gaps[1]}}
+    print("family float32", json.dumps(row), flush=True)
+    del params, out
+    _free_graphs()
+    return row
+
+
+def family_smoke_agreement(dev) -> None:
+    """The three families' smoke configs in float32 under ``use_pallas``,
+    prefill and 8 greedy decode steps with dispatch "kernel" (the
+    float32 attention kernels where the family has them) against
+    "reference": the same tokens."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import dispatch as dsp
+    from repro_torch.kernels.launch_stats import LAUNCHES, reset_launches
+    from repro_torch.models import get_model
+    for spec in FAMILY_SERVE:
+        cfg = dataclasses.replace(get_config(spec["arch"], smoke=True),
+                                  use_pallas=True)
+        m = get_model(cfg)
+        params = m.init_params(torch.Generator(device=dev).manual_seed(3),
+                               cfg, device=dev)
+        toks = torch.randint(0, cfg.vocab, (2, 24), device=dev,
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(4))
+        out = {}
+        with torch.no_grad():
+            for mode in ("kernel", "reference"):
+                d = dsp.DispatchConfig(mode=mode)
+                reset_launches()
+                logits, cache, S = m.prefill(params, {"tokens": toks}, cfg,
+                                             d, max_len=40)
+                tok = logits.reshape(2, -1).argmax(-1)
+                seq = [tok]
+                for i in range(8):
+                    logits, cache = m.decode_step(params, cache, tok, S + i,
+                                                  cfg, d)
+                    tok = logits.argmax(-1)
+                    seq.append(tok)
+                out[mode] = (torch.stack(seq).cpu(),
+                             {k: v for k, v in LAUNCHES.items() if v})
+        fa, fd = family_attention_launches(cfg)
+        want = {k: v for k, v in (("flash_attention", fa),
+                                  ("flash_decode", fd * 8)) if v}
+        if out["kernel"][1] != want or out["reference"][1]:
+            raise AssertionError(f"{cfg.name}: launches {out['kernel'][1]} "
+                                 f"/ {out['reference'][1]}, want {want}")
+        if not torch.equal(out["kernel"][0], out["reference"][0]):
+            raise AssertionError(f"{cfg.name}: kernel and reference "
+                                 f"dispatch decode other tokens")
+        print(f"family smoke {cfg.name}: float32 kernel = reference "
+              f"dispatch, 9 greedy tokens x 2 rows equal, kernel "
+              f"launches {want}", flush=True)
+
+
+def phase_family_serve(dev):
+    """rwkv6-3b, zamba2-7b and qwen3-moe-30b-a3b served at full width
+    (``family_serve_run``), each followed by its float32 check at a cut
+    depth (``family_f32_run``), then the smoke configs' kernel-vs-
+    reference agreement.  Returns the launches of the bf16 runs."""
+    totals: dict = {}
+    for spec in FAMILY_SERVE:
+        _, launches = family_serve_run(dev, spec)
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        family_f32_run(dev, spec)
+    family_smoke_agreement(dev)
+    return totals
+
+
+def family_policy(arch: str, layers: int) -> int:
+    """Prints the per-leaf table that ``preset:arch`` resolves to on the
+    arch at full width and ``layers`` deep (a ``meta`` tree), checks it
+    against the preset's DSL rule (FAMILY_RULES: under budget_1pct a
+    leaf that matches none of its patterns, such as the expert stacks
+    ``layers/moe/w1``, is Identity) and returns the ``topk_compact``
+    launches a sync on the card, counted from the table: one for each
+    TopK / SignSparsifier leaf on the sparse wire, less each leaf that
+    the dispatch rule's limits send to the plain version (under "auto"
+    a leaf below ``min_size`` elements; a row that is not a multiple of
+    128 lanes or is longer than ``max_row``; a survivor capacity above
+    ``max_cap``), printed with its reason."""
+    import re
+    from repro_torch.configs import get_policy_preset
+    from repro_torch.configs.policies import ARCH_POLICIES
+    from repro_torch.core import policy as pol
+    from repro_torch.core.distributed import ShardCompressor, ops_for_leaves
+    from repro_torch.core.operators import resolve_k
+    from repro_torch.kernels import dispatch as dsp
+    from repro_torch.models import get_model
+    from repro_torch.sharding.specs import param_specs
+    cfg = family_config(arch, layers)
+    params = get_model(cfg).init_params(None, cfg, device="meta")
+    spec = pol.as_channel_spec(get_policy_preset("arch", arch=arch))
+    comp = ShardCompressor.from_spec(spec.uplink, params, dispatch=DISPATCH)
+    paths, leaves, _ = pol.tree_paths(params)
+    ops = ops_for_leaves(comp.ops, len(leaves))
+    meta = comp.leaf_meta(params, param_specs(cfg))
+    pattern, hit, miss = FAMILY_RULES[ARCH_POLICIES[arch]]
+    d = dsp.DispatchConfig(mode=DISPATCH)
+    table, plain, launches = [], [], 0
+    for path, leaf, op, (kind, _ax, moved) in zip(paths, leaves, ops, meta):
+        name = type(op).__name__
+        want = hit if re.search(pattern, path) else miss
+        if name != want:
+            raise AssertionError(f"{arch}: {path} resolves to {name}, the "
+                                 f"DSL rule gives {want}")
+        row, route = None, "dense wire"
+        if kind == "sparse":
+            if name not in ("TopK", "SignSparsifier"):
+                raise AssertionError(f"{arch}: {path} ({name}) on the "
+                                     f"sparse wire")
+            row = moved[-1]
+            kcap = dsp.capacity(resolve_k(op.k, row), row)
+            why = [what for what, bad in (
+                (f"{leaf.numel()} elements < min_size {d.min_size}",
+                 d.mode == "auto" and leaf.numel() < d.min_size),
+                (f"row {row} not a multiple of {dsp.LANES}",
+                 row % dsp.LANES != 0),
+                (f"row {row} > max_row {d.max_row}", row > d.max_row),
+                (f"kcap {kcap} > max_cap {d.max_cap}", kcap > d.max_cap))
+                if bad]
+            route = "plain: " + "; ".join(why) if why else "kernel"
+            launches += not why
+            if why:
+                plain.append([path, list(leaf.shape), route])
+        table.append([path, list(leaf.shape), name,
+                      round(getattr(op, "k", 1.0), 6), kind, row, route])
+    print(f"family policy {arch} ({ARCH_POLICIES[arch]}, {layers} layers): "
+          f"{launches} topk_compact launches a sync",
+          json.dumps(table), flush=True)
+    print(f"family policy {arch}: {len(plain)} sparse leaves on the plain "
+          f"version", json.dumps(plain), flush=True)
+    return launches
+
+
+def family_train_run(dev, arch: str, runtime: str, per_sync: int) -> tuple:
+    """The launcher on ``arch`` at full width, FAMILY_TRAIN's depth, R =
+    1 (NCCL), the sparse wire, ``preset:arch``.  Asserts finite losses,
+    ``per_sync`` topk_compact launches a sync and nothing else, one
+    capture a repeated round shape (round runtime), the peak under
+    FAMILY_PEAK_BYTES.  Returns (row, record, launches)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.launch_stats import LAUNCHES, reset_launches
+    from repro_torch.launch import train as lt
+    F = FAMILY_TRAIN
+    argv = ["--arch", arch, "--mesh", "1x1", "--policy", "preset:arch",
+            "--batch", str(F["batch"]), "--seq", str(F["seq"]),
+            "--steps", str(F["steps"]), "--H", str(F["H"]),
+            "--wire", "sparse_allgather", "--dispatch", DISPATCH,
+            "--runtime", runtime]
+    _free_graphs()
+    torch.cuda.synchronize()
+    reset_launches()
+    rec = lt.main(argv, n_layers=F["layers"][arch])
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    _free_graphs()
+    kinds = rec["kind"]
+    n_syncs = kinds.count("sync")
+    if launches != {"topk_compact": per_sync * n_syncs}:
+        raise AssertionError(f"{arch}: {launches} in {n_syncs} syncs, want "
+                             f"{per_sync} topk_compact a sync")
+    if not all(np.isfinite(rec["loss"])):
+        raise AssertionError(f"{arch}: loss not finite: {rec['loss']}")
+    if runtime == "round" and (rec["fused"] is not True
+                               or rec["captures"] != lm_captures(kinds)):
+        raise AssertionError(f"{arch}: fused {rec['fused']}, captures "
+                             f"{rec['captures']}")
+    if rec["peak_device_bytes"] > FAMILY_PEAK_BYTES:
+        raise AssertionError(f"{arch}: peak {rec['peak_device_bytes']} "
+                             f"bytes")
+    round_ms = rec.get("round_ms") or [
+        sum(rec["ms"][i:i + F["H"]]) for i in range(0, F["steps"], F["H"])]
+    row = {"card": card(), "arch": arch, "runtime": runtime,
+           "layers": F["layers"][arch], "n_params": rec["n_params"],
+           "loss": rec["loss"], "kinds": kinds, "bits_up": rec["bits_up"],
+           "ms_per_step": rec["ms"], "ms_per_round": round_ms,
+           "ms_per_step_late": round_ms[-1] / F["H"],
+           "peak_device_bytes": rec["peak_device_bytes"],
+           "captures": rec.get("captures", 0),
+           "launches_per_sync": {"topk_compact": per_sync}}
+    print("family train", json.dumps(row), flush=True)
+    return row, rec, launches
+
+
+def phase_family_train(dev) -> dict:
+    """qwen3-moe-30b-a3b, rwkv6-3b and zamba2-7b through the launcher at
+    full width (FAMILY_TRAIN's depths), each under the round runtime
+    (one CUDA graph a round) and ``--runtime step``: the same record
+    step by step.  Returns the launches."""
+    totals: dict = {}
+    for arch in FAMILY_TRAIN["layers"]:
+        per_sync = family_policy(arch, FAMILY_TRAIN["layers"][arch])
+        recs = {}
+        for runtime in ("round", "step"):
+            _, recs[runtime], launches = family_train_run(dev, arch, runtime,
+                                                          per_sync)
+            for k, v in launches.items():
+                totals[k] = totals.get(k, 0) + v
+        _same_records(recs["round"], recs["step"], f"family train {arch}")
+        print(f"family train {arch}: round runtime equals --runtime step",
+              flush=True)
+    return totals
+
+
 def timed_phase(fn, *args):
     """``fn(*args)``, printing the seconds it took (the run's budget by
     phase)."""
@@ -3088,6 +3637,11 @@ def main() -> int:
             serve_totals[k] = serve_totals.get(k, 0) + v
     timed_phase(phase_lm_ranks, dev)
     timed_phase(phase_lm_ranks_mesh, dev)
+    family_fa, family_fd = timed_phase(phase_family_kernels, dev)
+    for more, into in ((timed_phase(phase_family_serve, dev), serve_totals),
+                       (timed_phase(phase_family_train, dev), lm_totals)):
+        for k, v in more.items():
+            into[k] = into.get(k, 0) + v
 
     head_topk, head_qsgd = topk[1], qsgd[0]
     kernels = [
@@ -3150,8 +3704,9 @@ def main() -> int:
     paged["rows"] = [{"quant": r["quant"], **{k: r[k] for k in timed}}
                      for r in serve_checks["paged_decode"][1:]]
     kernels[-1]["max_row_rel_err"] = head["max_row_rel_err"]
-    kernels[-1]["rows"] = [{"cache": r["cache"], **{k: r[k] for k in timed}}
-                           for r in gemma_decode]
+    kernels[-1]["rows"] = [
+        {"cache": r["cache"], "model": r.get("model", "gemma3-1b decode"),
+         **{k: r[k] for k in timed}} for r in gemma_decode + family_fd]
     head = flash_checks[0]
     kernels.append({
         "name": "flash_attention", "route": "cuda",
@@ -3164,7 +3719,7 @@ def main() -> int:
         "max_row_rel_err": head["max_row_rel_err"],
         "kernel_route": head["route"],
         "rows": [{"window": r["window"], **{k: r[k] for k in timed}}
-                 for r in flash_checks[1:]]})
+                 for r in flash_checks[1:] + family_fa]})
     head = compact[0]
     kernels.append({
         "name": "topk_compact", "route": "cuda",

@@ -4,9 +4,9 @@
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py
 // (flash_attention_fwd -> _kernel).  Inputs: q [B, S, H, D]; k, v
 // [B, S, KV, D], all in one type, H a multiple of KV, D one of the
-// repo's head widths (16, 32, 64, 80, 128, 256).  Output [B, S, H, D] in
-// q's type.  Query i attends to keys j <= i, and only to j > i - window
-// when window > 0.
+// repo's head widths (16, 32, 64, 80, 112, 128, 256).  Output
+// [B, S, H, D] in q's type.  Query i attends to keys j <= i, and only to
+// j > i - window when window > 0.
 //
 // What it computes is the TPU body's arithmetic, not its block
 // structure: float32 scores scaled by D^-0.5, masked scores set to the
@@ -320,6 +320,7 @@ int launch_d(const void* q, const void* k, const void* v, void* out, int B,
     QS_FLASH_D(32)
     QS_FLASH_D(64)
     QS_FLASH_D(80)
+    QS_FLASH_D(112)
     QS_FLASH_D(128)
     QS_FLASH_D(256)
 #undef QS_FLASH_D
@@ -762,7 +763,7 @@ int launch(const void* q, const void* k, const void* v, void* out,
 }  // namespace
 
 // float32: q [B, S, H, D], k / v [B, S, KV, D], out [B, S, H, D]; D one
-// of 16, 32, 64, 80, 128, 256; window <= 0 = causal.  The FMA kernel.
+// of 16, 32, 64, 80, 112, 128, 256; window <= 0 = causal.  The FMA kernel.
 extern "C" int qs_flash_attention(const void* q, const void* k,
                                   const void* v, void* out, int B, int S,
                                   int H, int KV, int D, int window,
@@ -793,6 +794,7 @@ extern "C" int qs_flash_attention_bf16(const void* q, const void* k,
     QS_FLASH_TC_D(32)
     QS_FLASH_TC_D(64)
     QS_FLASH_TC_D(80)
+    QS_FLASH_TC_D(112)
     QS_FLASH_TC_D(128)
     QS_FLASH_TC_D(256)
 #undef QS_FLASH_TC_D
@@ -818,6 +820,7 @@ extern "C" int qs_flash_attention_bf16_geometry(int D, int* geo) {
     QS_FLASH_TC_GEO(32)
     QS_FLASH_TC_GEO(64)
     QS_FLASH_TC_GEO(80)
+    QS_FLASH_TC_GEO(112)
     QS_FLASH_TC_GEO(128)
     QS_FLASH_TC_GEO(256)
 #undef QS_FLASH_TC_GEO

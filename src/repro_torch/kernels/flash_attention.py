@@ -3,7 +3,8 @@
 
 - ``flash_attention_fwd`` (``csrc/flash_attention.cu``): causal,
   optionally sliding-window GQA attention over a whole sequence, the
-  prefill of unscanned layer stacks under ``cfg.use_pallas``.  Routed by
+  prefill of attention with a static window under ``cfg.use_pallas``
+  (unscanned dense stacks, Zamba2's shared block).  Routed by
   dtype: bfloat16 (every card path) to the tensor-core kernel, float32 to
   the float32 FMA kernel (full float32 precision, which the float32
   agreement checks need; TF32 would not give it).
@@ -33,7 +34,7 @@ from repro_torch.kernels import _build, ref
 from repro_torch.kernels.launch_stats import LAUNCHES
 
 #: head widths ``csrc/flash_attention.cu`` is instantiated for
-FLASH_HEAD_DIMS = (16, 32, 64, 80, 128, 256)
+FLASH_HEAD_DIMS = (16, 32, 64, 80, 112, 128, 256)
 #: the kernel ``flash_attention_fwd`` launches for each dtype
 ROUTES = {torch.bfloat16: "bf16 tensor cores (mma.sync m16n8k16)",
           torch.float32: "float32 FMA"}

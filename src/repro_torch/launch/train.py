@@ -1,7 +1,8 @@
 """Distributed LM training launcher (a port of ``repro.launch.train``).
 
 Drives the distributed Qsparse-local-SGD engine (``core/distributed.py``)
-for an architecture of the dense family, one process per worker:
+for an architecture of any family (``models.get_model``: dense, MoE,
+RWKV-6, Zamba2), one process per worker:
 
   # one GPU, one worker
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b \\
@@ -215,9 +216,12 @@ def _note(counts: dict) -> str:
     return " ".join(f"{k}={v}" for k, v in counts.items() if v) or "none"
 
 
-def main(argv: Optional[list] = None) -> dict:
+def main(argv: Optional[list] = None,
+         n_layers: Optional[int] = None) -> dict:
     """Run the launcher; returns the run's record (losses, step kinds
-    and times, ledgers, launches per sync, peak device memory)."""
+    and times, ledgers, launches per sync, peak device memory).
+    ``n_layers`` cuts the arch config's depth (no flag: callers from
+    Python, such as a card check sized to the card's memory)."""
     args = parser().parse_args(argv)
     refuse_unported(args)
     channel_spec = resolve_policy_arg(args)
@@ -239,17 +243,21 @@ def main(argv: Optional[list] = None) -> dict:
                 "events segment rounds dynamically")
     mesh = make_mesh(args.mesh, device=args.device, backend=args.backend)
     try:
-        return _run(args, channel_spec, mesh)
+        return _run(args, channel_spec, mesh, n_layers)
     finally:
         mesh.close()
 
 
-def setup(args, channel_spec, mesh) -> types.SimpleNamespace:
-    """The run's pieces: config, initial state, the two steps (``--runtime
-    step``) or the round program, the batch stream (this rank's rows),
-    the shared generator and printer."""
+def setup(args, channel_spec, mesh,
+          n_layers: Optional[int] = None) -> types.SimpleNamespace:
+    """The run's pieces: config (its depth cut to ``n_layers`` if
+    given), initial state, the two steps (``--runtime step``) or the
+    round program, the batch stream (this rank's rows), the shared
+    generator and printer."""
     dev = mesh.device
     cfg = get_config(args.arch, smoke=args.smoke)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     model = get_model(cfg)
     grad_fn = value_and_grad(lambda p, b: model.loss_fn(p, b, cfg)[0])
     params = model.init_params(
@@ -358,9 +366,9 @@ def setup(args, channel_spec, mesh) -> types.SimpleNamespace:
         host_batches=host_batches, rng=rng, say=say)
 
 
-def _run(args, channel_spec, mesh) -> dict:
+def _run(args, channel_spec, mesh, n_layers=None) -> dict:
     dev = mesh.device
-    run = setup(args, channel_spec, mesh)
+    run = setup(args, channel_spec, mesh, n_layers)
     state, say, R = run.state, run.say, run.R
     run.state = None        # so the initial state goes once it is replaced
     if dev.type == "cuda":

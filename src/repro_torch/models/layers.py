@@ -21,10 +21,12 @@ plain versions.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import dispatch as dsp
@@ -46,6 +48,64 @@ def dense_init(gen: torch.Generator, shape, dtype=torch.float32,
     w = torch.randn(tuple(shape), generator=gen, device=gen.device,
                     dtype=torch.float32) * s
     return w.to(device=device, dtype=dtype)
+
+
+def unstack_layers(tree, L: int) -> list:
+    """The L per-layer trees of a layer stack: a per-layer list as it
+    is, or a stacked dict with every tensor unbound once (one
+    ``UnbindBackward`` per leaf, which stacks the layers' gradients in
+    one write, where indexing ``w[i]`` per layer would write a full-size
+    zero gradient of the stack for every layer) and compressed leaves
+    sliced (``CompressedTensor.layer``)."""
+    if isinstance(tree, list):
+        return list(tree)
+    if isinstance(tree, dict):
+        per_key = {k: unstack_layers(v, L) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(L)]
+    if isinstance(tree, torch.Tensor):
+        return list(torch.unbind(tree, 0))
+    return [tree.layer(i) for i in range(L)]
+
+
+def remat(fn, *args):
+    """``fn(*args)`` under a non-reentrant activation checkpoint
+    (``jax.checkpoint``'s counterpart): its activations are recomputed
+    in the backward instead of kept."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def prompt_positions(B: int, S: int, device) -> torch.Tensor:
+    """The [B, S] positions 0 .. S-1 of a prompt (a view, not a copy)."""
+    return torch.arange(S, device=device).expand(B, S)
+
+
+def _chunk_nll(hc, lc, head):
+    logits = head(hc).to(torch.float32)
+    gold = torch.gather(logits, -1, lc[..., None])[..., 0]
+    return (torch.logsumexp(logits, dim=-1) - gold).sum()
+
+
+def chunked_ce(h, head, labels, loss_chunk: int, checkpointed: bool = False):
+    """Mean next-token cross-entropy of final hidden states h [B, S, d]
+    against labels [B, S] through ``head`` (a [d, V] matrix, or a
+    function of a chunk of h giving its logits), the head applied in
+    sequence chunks of ``loss_chunk`` (the [B, S, V] float32 logits are
+    never formed whole) and the chunks' sums added in order, as
+    ``repro``'s chunked losses scan them.  ``checkpointed``: each chunk
+    recomputes its logits in the backward instead of keeping them."""
+    if isinstance(head, torch.Tensor):
+        W = head
+        head = lambda hc: hc @ W  # noqa: E731
+    B, S, _ = h.shape
+    c = min(loss_chunk, S)
+    labels = labels.to(torch.int64)
+    fn = functools.partial(_chunk_nll, head=head)
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, S, c):
+        hc, lc = h[:, c0:c0 + c], labels[:, c0:c0 + c]
+        total = total + (remat(fn, hc, lc) if checkpointed else fn(hc, lc))
+    return total / (B * S)
 
 
 # ---------------------------------------------------------------------------
@@ -413,18 +473,20 @@ def gqa_project(x, p, cfg: ModelConfig, dispatch=None):
 
 
 def attn_block_train(x, p, cfg: ModelConfig, window: int, positions,
-                     dispatch=None):
+                     dispatch=None, static_window: bool = False):
     """Full-sequence attention block (prefill and training).  Returns
     (out, (k, v)).  As in ``repro``, the flash-attention kernel runs
-    where the window is static, i.e. on unscanned stacks under
-    ``cfg.use_pallas``; scanned stacks (whose windows ``repro`` traces)
-    run ``chunked_attention``.  The port passes every window as an int,
-    so the test is on ``cfg.scan_layers``.  The kernel has no backward:
-    differentiating through it raises."""
+    under ``cfg.use_pallas`` where the caller's window is static, and
+    ``chunked_attention`` where ``repro`` traces it (the layers of a
+    scanned stack).  The port passes every window as an int, so the
+    caller says which it is (``static_window``): the dense transformer's
+    unscanned stack and Zamba2's shared block have static windows, a
+    stacked dense stack and the MoE periods traced ones.  The kernel has
+    no backward: differentiating through it raises."""
     q, k, v = gqa_project(x, p, cfg, dispatch)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    if cfg.use_pallas and not cfg.scan_layers:
+    if cfg.use_pallas and static_window:
         o = dsp.flash_attention(q, k, v, window, dispatch)
     else:
         o = chunked_attention(q, k, v, window=window, q_chunk=cfg.q_chunk)

@@ -30,7 +30,6 @@ import functools
 from typing import Optional
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -40,6 +39,7 @@ from repro_torch.models.layers import (
     attn_block_train,
     attn_params,
     cache_prefill,
+    chunked_ce,
     dense_init,
     embed,
     init_kv_cache,
@@ -47,8 +47,11 @@ from repro_torch.models.layers import (
     layer_pool,
     mlp_params,
     norm_params,
+    prompt_positions,
+    remat,
     rmsnorm,
     swiglu,
+    unstack_layers,
 )
 
 
@@ -98,27 +101,6 @@ def _layer(tree, i: int):
     return tree.layer(i)
 
 
-def _unstack(tree, L: int) -> list:
-    """The L per-layer trees: the per-layer list as it is, or the
-    stacked dict with every tensor unbound once (one ``UnbindBackward``
-    per leaf, which stacks the layers' gradients in one write) and
-    compressed leaves sliced."""
-    if isinstance(tree, list):
-        return list(tree)
-    if isinstance(tree, dict):
-        per_key = {k: _unstack(v, L) for k, v in tree.items()}
-        return [{k: v[i] for k, v in per_key.items()} for i in range(L)]
-    if isinstance(tree, torch.Tensor):
-        return list(torch.unbind(tree, 0))
-    return [tree.layer(i) for i in range(L)]
-
-
-def _remat(fn, *args):
-    """``fn(*args)`` under a non-reentrant activation checkpoint."""
-    return checkpoint(fn, *args, use_reentrant=False,
-                      preserve_rng_state=False)
-
-
 def _apply_head(h, params, cfg: ModelConfig, dispatch=None):
     """LM head: ``h @ head`` (or ``h @ embed.T`` when tied); a compressed
     table's rows enumerate the vocab either way."""
@@ -136,7 +118,8 @@ def _apply_head(h, params, cfg: ModelConfig, dispatch=None):
 def _layer_fwd(h, lp, window: int, positions, cfg: ModelConfig, dispatch):
     """One layer: (h, (k, v))."""
     a, kv = attn_block_train(rmsnorm(h, lp["ln1"]), lp["attn"], cfg,
-                             window, positions, dispatch)
+                             window, positions, dispatch,
+                             static_window=not cfg.scan_layers)
     h = h + a
     h = h + swiglu(rmsnorm(h, lp["ln2"]), lp["mlp"], dispatch)
     return h, kv
@@ -151,12 +134,12 @@ def apply_stack(params, h, positions, cfg: ModelConfig, dispatch=None,
     """Runs all layers.  Returns (h, (ks, vs) | None): per-layer lists of
     k, v [B, S, KV, hd].  Under ``cfg.remat``, a forward that autograd
     records checkpoints each layer."""
-    layers = _unstack(params["layers"], cfg.n_layers)
-    remat = cfg.remat and h.requires_grad and not collect_kv
+    layers = unstack_layers(params["layers"], cfg.n_layers)
+    checkpointed = cfg.remat and h.requires_grad and not collect_kv
     ks, vs = [], []
     for lp, w in zip(layers, cfg.layer_windows()):
-        if remat:
-            h = _remat(functools.partial(
+        if checkpointed:
+            h = remat(functools.partial(
                 _layer_out, lp=lp, window=int(w), positions=positions,
                 cfg=cfg, dispatch=dispatch), h)
             continue
@@ -181,20 +164,10 @@ def forward(params, batch: dict, cfg: ModelConfig, dispatch=None):
     """Full-sequence logits [B, S_total, V] float32."""
     h, _ = embed_inputs(params, batch, cfg)
     B, S, _ = h.shape
-    positions = torch.arange(S, device=h.device).expand(B, S)
+    positions = prompt_positions(B, S, h.device)
     h, _ = apply_stack(params, h, positions, cfg, dispatch)
     h = rmsnorm(h, params["final_norm"])
     return _apply_head(h, params, cfg, dispatch).to(torch.float32)
-
-
-def _chunk_nll(hc, labels, params, cfg: ModelConfig, dispatch):
-    """Summed next-token negative log-likelihood of one chunk of final
-    hidden states [B, c, d] against labels [B, c]: the head's logits in
-    float32, logsumexp minus the gold logit."""
-    logits = _apply_head(hc, params, cfg, dispatch).to(torch.float32)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
-    return (lse - gold).sum()
 
 
 def loss_fn(params, batch: dict, cfg: ModelConfig, dispatch=None,
@@ -210,22 +183,16 @@ def loss_fn(params, batch: dict, cfg: ModelConfig, dispatch=None,
     labels = tokens[:, 1:].to(torch.int64)
     h, n_prefix = embed_inputs(params, inp, cfg)
     B, S, _ = h.shape
-    positions = torch.arange(S, device=h.device).expand(B, S)
+    positions = prompt_positions(B, S, h.device)
     h, _ = apply_stack(params, h, positions, cfg, dispatch)
     h = rmsnorm(h, params["final_norm"])
     if n_prefix:
         h = h[:, n_prefix:]
-    Stok = h.shape[1]
-    c = min(loss_chunk, Stok)
-    chunk = functools.partial(_chunk_nll, params=params, cfg=cfg,
-                              dispatch=dispatch)
-    total = torch.zeros((), dtype=torch.float32, device=h.device)
-    for c0 in range(0, Stok, c):
-        hc, lc = h[:, c0:c0 + c], labels[:, c0:c0 + c]
-        nll = (_remat(chunk, hc, lc) if cfg.remat and hc.requires_grad
-               else chunk(hc, lc))
-        total = total + nll
-    return total / (B * Stok), {"ntokens": B * Stok}
+    head = functools.partial(_apply_head, params=params, cfg=cfg,
+                             dispatch=dispatch)
+    loss = chunked_ce(h, head, labels, loss_chunk,
+                      cfg.remat and h.requires_grad)
+    return loss, {"ntokens": B * h.shape[1]}
 
 
 # ---------------------------------------------------------------------------
@@ -255,7 +222,7 @@ def prefill(params, batch: dict, cfg: ModelConfig, dispatch=None,
     h, _ = embed_inputs(params, batch, cfg)
     B, S, _ = h.shape
     max_len = max_len or max(cfg.max_seq_len, S)
-    positions = torch.arange(S, device=h.device).expand(B, S)
+    positions = prompt_positions(B, S, h.device)
     h, (ks, vs) = apply_stack(params, h, positions, cfg, dispatch,
                               collect_kv=True)
     hl = rmsnorm(h[:, -1:], params["final_norm"])

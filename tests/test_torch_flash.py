@@ -45,6 +45,7 @@ SHAPES = [
     (1, 100, 4, 4, 16, -1),      # ragged S against the 32-row blocks
     (2, 128, 8, 2, 64, 24),      # sliding window
     (1, 256, 2, 1, 128, 64),     # MQA, bigger head width
+    (1, 70, 4, 4, 112, -1),      # zamba2-7b's head width (MHA)
 ]
 DTYPES = {"float32": (torch.float32, 2e-4),
           "bfloat16": (torch.bfloat16, 2e-2)}
@@ -157,6 +158,33 @@ def test_kernel_is_declared_and_built_lazily():
     # every instantiated head width fits one block's shared memory
     assert max(flash_attention_smem(d) for d in FLASH_HEAD_DIMS) \
         <= 232_448
+
+
+@pytest.mark.parametrize("arch,scan,apps", [
+    ("zamba2-7b", True, 2),              # the shared block: static window
+    ("qwen3-moe-30b-a3b", True, 0),      # scanned periods: traced windows
+    ("llama4-maverick-400b-a17b", True, 0),
+    ("gemma3-1b", True, 0),              # the dense stacked stack
+    ("gemma3-1b", False, 2),             # unscanned: a launch a layer
+])
+def test_prefill_kernel_follows_static_windows(arch, scan, apps):
+    """As in ``repro``, a prefill under ``use_pallas`` runs the kernel
+    where the caller's window is static (Zamba2's shared block, an
+    unscanned dense stack) and chunked attention where ``repro`` traces
+    it (MoE periods, a stacked dense stack)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    cfg = dataclasses.replace(get_config(arch, smoke=True), use_pallas=True,
+                              scan_layers=scan)
+    m = get_model(cfg)
+    params = m.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 12)).astype(np.int32))
+    before = LAUNCHES["flash_attention"]
+    m.prefill(params, {"tokens": toks}, cfg,
+              dsp.DispatchConfig(mode="kernel"), max_len=16)
+    assert LAUNCHES["flash_attention"] - before == apps
 
 
 def schedule(S, H, KV, w, D):

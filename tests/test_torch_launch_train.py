@@ -222,3 +222,68 @@ def test_mesh_must_match_the_world():
     with pytest.raises(ValueError, match="world size is 1"):
         lt.main(["--arch", "gemma3-1b", "--smoke", "--mesh", "2x1",
                  "--device", "cpu"])
+
+
+FAMILIES = ["qwen3-moe-30b-a3b", "llama4-maverick-400b-a17b", "rwkv6-3b",
+            "zamba2-7b"]
+
+
+def family_args(arch: str) -> list:
+    return ["--arch", arch, "--smoke", "--mesh", "1x1", "--device", "cpu",
+            "--steps", "4", "--H", "2", "--policy", "preset:arch",
+            "--dispatch", "kernel", "--wire", "sparse_allgather"]
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_other_families_round_equals_step(arch, capsys):
+    """The MoE, RWKV-6 and Zamba2 smoke configs through the launcher
+    (``get_model`` dispatches them): 4 steps under their ``preset:arch``
+    policy on the sparse wire, ``--runtime round`` logging and recording
+    what ``--runtime step`` does, each sync launching ``topk_compact``
+    once for each leaf the policy sends sparse and the kernel takes."""
+    from repro_torch.configs import get_config, get_policy_preset
+    from repro_torch.core.distributed import ShardCompressor, ops_for_leaves
+    from repro_torch.core.operators import resolve_k
+    from repro_torch.kernels import dispatch as dsp
+    from repro_torch.models import get_model
+    from repro_torch.sharding.specs import param_specs
+    rnd = lt.main(family_args(arch))
+    rnd_text = capsys.readouterr().out
+    stp = lt.main(family_args(arch) + ["--runtime", "step"])
+    stp_text = capsys.readouterr().out
+    steps = [ln for ln in stp_text.splitlines() if STEP.match(ln)]
+    assert len(steps) == 4
+    assert steps == [ln for ln in rnd_text.splitlines() if STEP.match(ln)]
+    for k in ("loss", "kind", "bits_up", "bits_down", "launches_per_sync",
+              "rounds", "n_params"):
+        assert rnd[k] == stp[k], k
+    assert np.isfinite(rnd["loss"]).all() and rnd["kind"][1] == "sync"
+    cfg = get_config(arch, smoke=True)
+    params = get_model(cfg).init_params(torch.Generator(), cfg, "cpu")
+    spec = pol.as_channel_spec(get_policy_preset("arch", arch=arch))
+    comp = ShardCompressor.from_spec(spec.uplink, params, dispatch="kernel")
+    leaves = pol.tree_paths(params)[1]
+    want = 0
+    for op, (kind, _ax, moved) in zip(
+            ops_for_leaves(comp.ops, len(leaves)),
+            comp.leaf_meta(params, param_specs(cfg))):
+        if kind == "sparse":
+            row = moved[-1]
+            want += dsp.compact_rows_eligible(
+                row, dsp.capacity(resolve_k(op.k, row), row),
+                dsp.DispatchConfig(mode="kernel"), device="cpu")
+    assert want > 0
+    assert [c["topk_compact"] for c in rnd["launches_per_sync"]] == [want] * 2
+
+
+def test_n_layers_cuts_the_depth():
+    """``main(..., n_layers=)`` (no flag) trains the arch config cut to
+    that depth."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import rwkv6
+    from repro_torch.tree import tree_leaves
+    rec = lt.main(family_args("rwkv6-3b") + ["--steps", "2"], n_layers=1)
+    cfg = dataclasses.replace(get_config("rwkv6-3b", smoke=True), n_layers=1)
+    one = rwkv6.init_params(torch.Generator(), cfg, "cpu")
+    assert rec["n_params"] == sum(t.numel() for t in tree_leaves(one))
