@@ -309,6 +309,24 @@ class ShardCompressor:
         """Tiny and scalar leaves transmit dense whatever the plan."""
         return g.dim() == 0 or g.numel() <= 8
 
+    def _leaf_plans(self, leaves, param_specs) -> list:
+        """What every form (``__call__``, ``compact``, ``leaf_meta``,
+        ``launch_plans``) does with each leaf: ("skip",) dense, ("ref",
+        op) the reference operator, or ("axis", k_frac, sign, axis, n, k)
+        the axis Top_k along ``axis`` (n floats a row, k survivors)."""
+        specs = self._leaf_specs(param_specs, len(leaves))
+        out = []
+        for g, spec, plan in zip(leaves, specs, self._plans(len(leaves))):
+            if plan[0] == "skip" or self._skip(g):
+                out.append(("skip",))
+            elif plan[0] == "ref":
+                out.append(plan)
+            else:
+                ax = _pick_axis(tuple(g.shape), spec)
+                n = g.shape[ax]
+                out.append(plan + (ax, n, resolve_k(plan[1], n)))
+        return out
+
     @staticmethod
     def _ref_leaf(op: CompressionOp, g: torch.Tensor, rng, i: int):
         """Reference-operator leaf (dense payload): ``op(rng, g)``.  A
@@ -340,11 +358,10 @@ class ShardCompressor:
         """Dense form: (compressed tree in float32, total wire bits)."""
         dcfg = self._dispatch_cfg()
         leaves, tspec = tree_flatten(grads)
-        specs = self._leaf_specs(param_specs, len(leaves))
-        plans = self._plans(len(leaves))
         outs, bit_terms = [], []
-        for i, (g, spec, plan) in enumerate(zip(leaves, specs, plans)):
-            if plan[0] == "skip" or self._skip(g):
+        for i, (g, plan) in enumerate(zip(
+                leaves, self._leaf_plans(leaves, param_specs))):
+            if plan[0] == "skip":
                 outs.append(g.to(torch.float32))
                 bit_terms.append(bitlib.f32(bitlib.bits_dense(g.numel()),
                                             g.device))
@@ -354,9 +371,8 @@ class ShardCompressor:
                 outs.append(o)
                 bit_terms.append(b)
                 continue
-            _, k_frac, sign = plan
-            ax = _pick_axis(tuple(g.shape), spec)
-            if dsp.rows_eligible(g.shape[ax], dcfg, leaf_size=g.numel(),
+            _, k_frac, sign, ax, n, _k = plan
+            if dsp.rows_eligible(n, dcfg, leaf_size=g.numel(),
                                  device=g.device):
                 o, b = self._kernel_leaf(g, k_frac, ax, sign)
             else:
@@ -377,11 +393,10 @@ class ShardCompressor:
         """
         dcfg = self._dispatch_cfg()
         leaves, tspec = tree_flatten(grads)
-        specs = self._leaf_specs(param_specs, len(leaves))
-        plans = self._plans(len(leaves))
         payloads, bit_terms, mems = [], [], []
-        for i, (g, spec, plan) in enumerate(zip(leaves, specs, plans)):
-            if plan[0] == "skip" or self._skip(g):
+        for i, (g, plan) in enumerate(zip(
+                leaves, self._leaf_plans(leaves, param_specs))):
+            if plan[0] == "skip":
                 g32 = g.to(torch.float32)
                 payloads.append(("dense", g32))
                 mems.append(torch.zeros_like(g32))
@@ -394,8 +409,7 @@ class ShardCompressor:
                 mems.append(g.to(torch.float32) - q)
                 bit_terms.append(b)
                 continue
-            _, k_frac, sign = plan
-            ax = _pick_axis(tuple(g.shape), spec)
+            _, k_frac, sign, ax, _n, _k = plan
             idx, val, mem, b, moved = axis_topk_compact(
                 g, k_frac, ax, sign_bits=sign, dispatch_cfg=dcfg)
             payloads.append(("sparse", idx, val, ax, moved))
@@ -404,17 +418,43 @@ class ShardCompressor:
         return (payloads, tspec, bitlib.ledger_sum(bit_terms),
                 tree_unflatten(tspec, mems))
 
+    def launch_plans(self, params, param_specs, *,
+                     compact: bool) -> list:
+        """The kernel launches this compressor makes on one rank's
+        gradients shaped like ``params``, as ``autotune.ShapeKey`` rows
+        (the launcher's tuning work list): one a Top_k-family leaf that
+        the dispatch rule sends to the kernel, its rows along the chosen
+        axis; ``topk_compact`` on the sparse wire (``compact``), else
+        ``topk_compress``."""
+        from repro_torch.kernels.autotune import ShapeKey
+        dcfg = self._dispatch_cfg()
+        leaves = tree_leaves(params)
+        keys = []
+        for g, plan in zip(leaves, self._leaf_plans(leaves, param_specs)):
+            if plan[0] != "axis":
+                continue
+            _, _k_frac, sign, _ax, n, k = plan
+            if compact:
+                ok = dsp.compact_rows_eligible(n, dsp.capacity(k, n), dcfg,
+                                               g.numel(), g.device)
+            else:
+                ok = dsp.rows_eligible(n, dcfg, g.numel(), g.device)
+            key = ShapeKey("topk_compact" if compact else "topk_compress",
+                           g.numel() // n, n, k, sign)
+            if ok and key not in keys:
+                keys.append(key)
+        return keys
+
     def leaf_meta(self, master_tree, param_specs) -> list:
         """Payload kind per leaf, as :meth:`compact` decides it:
         ("sparse", axis, moved_shape) or ("dense", None, None)."""
         leaves = tree_leaves(master_tree)
-        specs = self._leaf_specs(param_specs, len(leaves))
         meta = []
-        for g, spec, plan in zip(leaves, specs, self._plans(len(leaves))):
-            if plan[0] != "axis" or self._skip(g):
+        for g, plan in zip(leaves, self._leaf_plans(leaves, param_specs)):
+            if plan[0] != "axis":
                 meta.append(("dense", None, None))
                 continue
-            ax = _pick_axis(tuple(g.shape), spec)
+            ax = plan[3]
             shape = list(g.shape)
             moved = tuple(shape[:ax] + shape[ax + 1:] + [shape[ax]])
             meta.append(("sparse", ax, moved))
@@ -1252,17 +1292,16 @@ def _make_dist_fault_parts(grad_fn: Callable, inner_opt: GradientTransform,
         dev = leaves[0].device if leaves else torch.device("cpu")
         if sparse:
             bufs = []
-            plans = compressor._plans(len(leaves))
             for leaf, (kind, _ax, moved), plan in zip(
                     leaves, compressor.leaf_meta(params, param_specs),
-                    plans):
+                    compressor._leaf_plans(leaves, param_specs)):
                 if kind == "dense":
                     bufs.append(torch.zeros((Dq,) + tuple(leaf.shape),
                                             dtype=torch.float32, device=dev))
                     continue
                 n = moved[-1]
                 shape = (Dq,) + tuple(moved[:-1]) + (
-                    dsp.capacity(resolve_k(plan[1], n), n),)
+                    dsp.capacity(plan[5], n),)
                 bufs.append((torch.full(shape, n, dtype=torch.int32,
                                         device=dev),
                              torch.zeros(shape, dtype=torch.float32,

@@ -490,4 +490,122 @@ __device__ __forceinline__ void merge(float& ma, float& la, float (&oa)[N],
   ma = m;
 }
 
+// ---------------------------------------------------------------------------
+// The row's sum of squares in one order that no launch geometry changes
+// (kernels/ref.py:tree_sq_ref, used by qsgd and the cluster SignTop_k).
+// A row of n floats is cut into groups of four, each summed as
+// ((a^2 + b^2) + c^2) + d^2 (no fused multiply-add; past n, zeros); the
+// groups are added by the adjacent-pair tree over their count rounded up
+// to a power of two (the missing ones zeros, x + 0 == x).  A row's units
+// of kTreeUnit floats are aligned subtrees of that tree, so any split of
+// the units over a cluster's blocks gives the same float: each block sums
+// whole units (unit_sums) and publishes them, and every block then adds
+// all the row's units in the tree (units_tree).
+// ---------------------------------------------------------------------------
+
+constexpr int kTreeUnit = 2048;  // floats a unit: 512 groups
+
+__device__ __forceinline__ float group_sq(float a, float b, float c,
+                                          float d) {
+  return __fadd_rn(
+      __fadd_rn(__fadd_rn(__fmul_rn(a, a), __fmul_rn(b, b)), __fmul_rn(c, c)),
+      __fmul_rn(d, d));
+}
+
+// the adjacent-pair tree over a warp's 32 lanes (lane i's value the i-th
+// leaf); every lane leaves with the root, since a + b == b + a
+__device__ __forceinline__ float lane_tree(float v) {
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) v += __shfl_xor_sync(FULL, v, off);
+  return v;
+}
+
+// The sums of units [u0, u1) of a row into units[0, u1 - u0): load(g) is
+// group g's four floats (g the row's group index; zeros past the row),
+// sq(e) their group value.  A segment of THREADS groups is summed by its
+// warps' lane trees and then over the warps; a unit is 512 / THREADS
+// segments.  kInFlight segments' loads are issued before any of their
+// trees runs (a load must not wait behind the shuffles of the one
+// before).  Every thread of the block calls it (block barriers inside);
+// `part` is shared scratch.
+template <int THREADS, typename Load, typename Sq>
+__device__ __forceinline__ void unit_sums(long long u0, long long u1,
+                                          Load load, Sq sq,
+                                          float (&part)[32][THREADS / 32],
+                                          float* units) {
+  constexpr int kWarps = THREADS / 32;
+  constexpr int kSegs = 512 / THREADS;  // segments a unit
+  constexpr int kInFlight = 8;
+  static_assert(kSegs >= 1 && 512 % THREADS == 0, "unit layout");
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long segs = (u1 - u0) * kSegs;
+  const long long g0 = u0 * 512 + threadIdx.x;
+  for (long long b0 = 0; b0 < segs; b0 += 32) {
+    const int nb = static_cast<int>(min(32LL, segs - b0));
+    for (int s0 = 0; s0 < nb; s0 += kInFlight) {
+      float4 e[kInFlight];
+#pragma unroll
+      for (int a = 0; a < kInFlight; ++a)
+        e[a] = s0 + a < nb ? load(g0 + (b0 + s0 + a) * THREADS)
+                           : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+      for (int a = 0; a < kInFlight; ++a) {
+        const float t = lane_tree(sq(e[a]));
+        if (lane == 0 && s0 + a < nb) part[s0 + a][warp] = t;
+      }
+    }
+    __syncthreads();
+    if (warp == 0) {
+      float w[kWarps];
+#pragma unroll
+      for (int i = 0; i < kWarps; ++i) w[i] = lane < nb ? part[lane][i] : 0.0f;
+#pragma unroll
+      for (int step = 1; step < kWarps; step <<= 1)
+#pragma unroll
+        for (int i = 0; i + step < kWarps; i += 2 * step) w[i] += w[i + step];
+      float v = w[0];
+      if (kSegs == 2) v += __shfl_xor_sync(FULL, v, 1);
+      if (lane < nb && lane % kSegs == 0) units[(b0 + lane) / kSegs] = v;
+    }
+    __syncthreads();
+  }
+}
+
+// group g's four floats of a row of n (zeros past n): 16-byte loads where
+// `Vec` (n a multiple of 4, the row 16-byte aligned), else four
+template <bool Vec>
+__device__ __forceinline__ float4 load_group(const float* __restrict__ row,
+                                             long long n, long long g) {
+  const long long i = 4 * g;
+  if (Vec)
+    return i < n ? __ldg(reinterpret_cast<const float4*>(row) + g)
+                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  float e[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) e[q] = i + q < n ? __ldg(row + i + q) : 0.0f;
+  return make_float4(e[0], e[1], e[2], e[3]);
+}
+
+// Warp-wide (call from one whole warp): the tree over a row's `count`
+// unit sums, unit j read by unit(j).  Lane l takes L = max(1, P / 32)
+// adjacent units (P: count rounded up to a power of two) and adds them by
+// the tree (a binary counter), then the lanes' sums meet in lane_tree.
+template <typename Unit>
+__device__ __forceinline__ float units_tree(long long count, Unit unit) {
+  long long P = 1;
+  while (P < count) P <<= 1;
+  const long long L = P > 32 ? P / 32 : 1;
+  const long long j0 = (threadIdx.x & 31) * L;
+  float stack[40];
+  int top = 0;
+  for (long long i = 0; i < L; ++i) {
+    float v = j0 + i < count ? unit(j0 + i) : 0.0f;
+    int lvl = 0;
+    for (long long c = i; c & 1; c >>= 1) v = stack[lvl++] + v;
+    stack[lvl] = v;
+    top = lvl;
+  }
+  return lane_tree(stack[top]);
+}
+
 }  // namespace qs

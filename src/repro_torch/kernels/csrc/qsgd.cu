@@ -18,19 +18,23 @@
 // across the whole row, and the quantization cannot start before it.
 // Design: a thread-block cluster of cs = 1-16 blocks of 512 threads a
 // row (the wrapper picks, kernels/qsgd.py:qsgd_geometry: the most blocks
-// a row that keep every row's blocks on the card at once), block r
-// owning the contiguous chunk [r chunk, (r + 1) chunk).  Each block
-// streams its chunk with 16-byte loads (four in flight a thread), sums
-// its squares (each thread in its order, a warp's butterfly, the warps
-// in order) and publishes the sum in its shared memory; after a cluster
-// barrier every block reads all the ranks' sums through distributed
-// shared memory and adds them in rank order, so every block has the
-// same float norm: deterministic, no atomics, no second launch.  The
+// a row that keep every row's blocks on the card at once; or the caller's
+// `cluster`), block r owning the contiguous chunk [r chunk, (r + 1)
+// chunk) for the quantization.  The norm is summed first, in the one
+// order common.cuh's unit_sums / units_tree give (kernels/ref.py:
+// tree_sq_ref): the row's units of 2048 floats are split over the
+// blocks, ceil(units / cs) each; each block sums its units by a fixed
+// tree (16-byte loads, eight in flight a thread) and publishes them in its
+// shared memory; after a cluster barrier every block reads all the row's
+// unit sums through distributed shared memory and adds them by the same
+// tree, so every block, at every cluster size, has the same float norm:
+// deterministic, no atomics, no second launch, and no geometry that the
+// tuner (kernels/autotune.py) can pick changes an output.  The
 // quantization streams the chunk again, x (mostly from L2) and u, and
 // writes out once, all 16-byte accesses.  A block arrives at a second
 // cluster barrier after its reads of the others' sums and waits on it
 // only at its end, so that no block leaves while another still reads its
-// sum.  Holding the chunk in registers instead (x read once) caps a
+// sums.  Holding the chunk in registers instead (x read once) caps a
 // block at 32,768 floats (512 threads x 64 registers): ResNet-50's
 // [16, 524288] then needs 256 blocks at one an SM, three waves of the 7
 // clusters of 16 the card holds, and took 0.086 ms against this design's
@@ -48,6 +52,8 @@ namespace {
 
 constexpr int kThreads = 512;
 constexpr int kUnroll = 4;  // loads in flight a thread
+// the most dynamic shared memory a block may take (an H100 SM's 227 KB)
+constexpr long long kMaxSmem = 232448;
 
 __device__ __forceinline__ void cluster_arrive() {
   asm volatile("barrier.cluster.arrive.aligned;\n" : : : "memory");
@@ -82,14 +88,14 @@ struct Pair {
   T x, u;
 };
 
-// `vec`: the chunk in float4s (16-byte accesses), else in floats.
+// `vec`: 16-byte accesses (n a multiple of 4, all three rows aligned);
+// `ub`: units of the norm's tree a block.
 __global__ void __launch_bounds__(kThreads)
 qsgd_cluster_kernel(const float* __restrict__ x, const float* __restrict__ u,
                     float* __restrict__ out, long long n, long long chunk,
-                    float s, int vec) {
-  constexpr int kWarps = kThreads / 32;
-  __shared__ float warp_sq[kWarps];
-  __shared__ float part;   // this block's sum of squares, read by the cluster
+                    float s, int vec, long long ub) {
+  extern __shared__ float units[];  // this block's unit sums, read by all
+  __shared__ float part[32][kThreads / 32];
   __shared__ float norm_sh;
 
   cg::cluster_group cluster = cg::this_cluster();
@@ -99,41 +105,32 @@ qsgd_cluster_kernel(const float* __restrict__ x, const float* __restrict__ u,
   const long long beg = min(n, rank * chunk);
   const long long len = min(n, beg + chunk) - beg;
   const long long base = row * n + beg;
+  const float* __restrict__ xr = x + row * n;
   const float* __restrict__ xc = x + base;
   const float* __restrict__ uc = u + base;
   float* __restrict__ oc = out + base;
   const float4* __restrict__ x4 = reinterpret_cast<const float4*>(xc);
   const float4* __restrict__ u4 = reinterpret_cast<const float4*>(uc);
   float4* __restrict__ o4 = reinterpret_cast<float4*>(oc);
-  const int tid = threadIdx.x;
 
-  float sq = 0.0f;
-  if (vec) {
-    stream<float4>(len / 4, [&](long long i) { return __ldg(x4 + i); },
-                   [&](long long, const float4& e) {
-                     sq += e.x * e.x;
-                     sq += e.y * e.y;
-                     sq += e.z * e.z;
-                     sq += e.w * e.w;
-                   });
-  } else {
-    stream<float>(len, [&](long long i) { return __ldg(xc + i); },
-                  [&](long long, float e) { sq += e * e; });
-  }
-  sq = qs::warp_sum(sq);
-  if ((tid & 31) == 0) warp_sq[tid >> 5] = sq;
-  __syncthreads();
-  if (tid == 0) {
-    float b = 0.0f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) b += warp_sq[w];
-    part = b;
-  }
+  // the norm: this block's units of the row, then all the row's units
+  const long long count = (n + qs::kTreeUnit - 1) / qs::kTreeUnit;
+  const long long u0 = min(count, rank * ub), u1 = min(count, u0 + ub);
+  auto sq = [](const float4& e) { return qs::group_sq(e.x, e.y, e.z, e.w); };
+  if (vec)
+    qs::unit_sums<kThreads>(
+        u0, u1, [&](long long g) { return qs::load_group<true>(xr, n, g); },
+        sq, part, units);
+  else
+    qs::unit_sums<kThreads>(
+        u0, u1, [&](long long g) { return qs::load_group<false>(xr, n, g); },
+        sq, part, units);
   cluster.sync();
-  if (tid == 0) {
-    float tot = 0.0f;  // the ranks in order: the same float in every block
-    for (int r = 0; r < cs; ++r) tot += *cluster.map_shared_rank(&part, r);
-    norm_sh = sqrtf(tot);
+  if (threadIdx.x < 32) {
+    const float tot = qs::units_tree(count, [&](long long j) {
+      return cluster.map_shared_rank(units, static_cast<int>(j / ub))[j % ub];
+    });
+    if (threadIdx.x == 0) norm_sh = sqrtf(tot);
   }
   __syncthreads();
   cluster_arrive();  // this block's reads of the other blocks are done
@@ -173,15 +170,29 @@ struct QsgdLaunch {
   cudaLaunchAttribute attr;
 };
 
-int qsgd_launch(QsgdLaunch& l, long long rows, int cs, cudaStream_t st) {
+// units of the norm's tree a block of a cluster of cs takes in rows of n
+long long units_per_block(long long n, int cs) {
+  const long long count = (n + qs::kTreeUnit - 1) / qs::kTreeUnit;
+  return (count + cs - 1) / cs;
+}
+
+int qsgd_launch(QsgdLaunch& l, long long rows, int cs, long long ub,
+                cudaStream_t st) {
   l = {};
+  const long long smem = ub * static_cast<long long>(sizeof(float));
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSuccess;
   if (cs > 8)
     err = cudaFuncSetAttribute(qsgd_cluster_kernel,
                                cudaFuncAttributeNonPortableClusterSizeAllowed,
                                1);
+  if (err == cudaSuccess && smem > 48 * 1024)
+    err = cudaFuncSetAttribute(qsgd_cluster_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
   l.cfg.gridDim = dim3(static_cast<unsigned>(rows * cs));
   l.cfg.blockDim = dim3(kThreads);
+  l.cfg.dynamicSmemBytes = static_cast<size_t>(smem);
   l.cfg.stream = st;
   l.attr.id = cudaLaunchAttributeClusterDimension;
   l.attr.val.clusterDim.x = static_cast<unsigned>(cs);
@@ -207,7 +218,9 @@ extern "C" int qs_qsgd_quantize_f32(const float* x, const float* u,
       (cs > 1 && (cs - 1) * chunk >= n))
     return static_cast<int>(cudaErrorInvalidValue);
   QsgdLaunch l;
-  const int err = qsgd_launch(l, rows, cs, static_cast<cudaStream_t>(stream));
+  long long ub = units_per_block(n, cs);
+  const int err =
+      qsgd_launch(l, rows, cs, ub, static_cast<cudaStream_t>(stream));
   if (err) return err;
   // 16-byte accesses where every chunk starts on a 16-byte boundary of
   // all three rows
@@ -215,7 +228,7 @@ extern "C" int qs_qsgd_quantize_f32(const float* x, const float* u,
             reinterpret_cast<uintptr_t>(u) % 16 == 0 &&
             reinterpret_cast<uintptr_t>(out) % 16 == 0;
   float sf = static_cast<float>(s);
-  void* args[] = {&x, &u, &out, &n, &chunk, &sf, &vec};
+  void* args[] = {&x, &u, &out, &n, &chunk, &sf, &vec, &ub};
   const cudaError_t e = cudaLaunchKernelExC(
       &l.cfg, reinterpret_cast<const void*>(qsgd_cluster_kernel), args);
   if (e != cudaSuccess) return static_cast<int>(e);

@@ -63,9 +63,14 @@
 //   FLT_MAX / 2, lo + hi may overflow to a mid above hi, and the row is
 //   counted in full instead.  The final count(|x| >= hi) is then known
 //   without a pass.  Integer sums are order-free, so the threshold is
-//   bit-identical to the plain version; the SignTop_k norm is a float
-//   sum over the cluster's blocks in a fixed shuffle tree
-//   (deterministic, in another order than the plain version's).
+//   bit-identical to the plain version.  The SignTop_k norm is a float
+//   sum in the one order common.cuh's unit_sums / units_tree give
+//   (kernels/ref.py:tree_sq_ref over the survivors): the row's units of
+//   2048 floats split over the blocks, each unit summed by a fixed tree,
+//   all the units then added by the same tree in every block, so the
+//   scale is one float at either cluster size (the tuner's choice,
+//   kernels/autotune.py) and differs from the plain version's only by
+//   the order of its sum.
 //   Cluster barriers are hardware: no scratch, no ticket, one launch.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -205,6 +210,11 @@ constexpr float kNoOverflow = 0x1.fffffep+126f;
 __host__ __device__ constexpr int band_cap(long long chunk) {
   return chunk / 4 > 8192 ? 8192 : (chunk / 4 < 256 ? 256 : chunk / 4);
 }
+// the most units of the SignTop_k tree a block of `chunk` floats takes:
+// ceil(ceil(n / 2048) / cs) <= ceil(chunk / 2048), as cs * chunk >= n
+__host__ __device__ constexpr long long units_cap(long long chunk) {
+  return (chunk + qs::kTreeUnit - 1) / qs::kTreeUnit;
+}
 
 // sum / max over groups of W consecutive lanes (every lane of a group
 // leaves with its group's result); a fixed tree, so deterministic
@@ -260,13 +270,16 @@ __global__ void __launch_bounds__(THREADS, 1024 / THREADS)
 topk_cluster_kernel(const float* __restrict__ acc, float* __restrict__ sel,
                     float* __restrict__ mem, int* __restrict__ cnt_out,
                     long long n, long long chunk, int k, int iters,
-                    int sign, int vec) {
+                    int sign, int vec, long long ub) {
   constexpr int kWarps = THREADS / 32;
   // the transposed reductions below run on whole warps
   static_assert((kMids + 1) * kWarps % 32 == 0 &&
                 (kMids + 1) * kMaxCluster % 32 == 0 &&
                 (kMids + 1) * kMaxCluster <= THREADS, "reduction layout");
-  extern __shared__ float band[];  // |x| of the band, from the second pass
+  // |x| of the band, from the second pass; then this block's units of
+  // the SignTop_k tree, read by the cluster
+  extern __shared__ float band[];
+  __shared__ float part[32][kWarps];
   __shared__ int warp_i[kWarps][kMids + 1];
   __shared__ float warp_f[kWarps];
   // what a block publishes to the cluster, two rounds alternating: a
@@ -463,24 +476,36 @@ topk_cluster_kernel(const float* __restrict__ acc, float* __restrict__ sel,
         make_float4(v.x - s.x, v.y - s.y, v.z - s.z, v.w - s.w);
   };
   int cs_cnt = 0;
-  float sq = 0.0f;
   auto keep = [&](float v) {
     const float a = fabsf(v);
-    if (a >= thr && a > 0.0f) {
-      cs_cnt += 1;
-      sq += v * v;
-    }
+    if (a >= thr && a > 0.0f) cs_cnt += 1;
   };
+  // SignTop_k: the count and the survivors' squares over the row's units
+  // (the tree's order), which the scale waits for
+  const long long units = (n + qs::kTreeUnit - 1) / qs::kTreeUnit;
+  float* __restrict__ my_units = band + cap;
   if (sign) {
-    visit_chunk<THREADS>(
-        src, len, vec,
-        [&](int, float4 v) {
-          keep(v.x);
-          keep(v.y);
-          keep(v.z);
-          keep(v.w);
-        },
-        [&](int, float v) { keep(v); });
+    const float* __restrict__ row_src = acc + row * n;
+    auto kept = [&](float v) {
+      const float a = fabsf(v);
+      const bool in = a >= thr && a > 0.0f;
+      cs_cnt += in;
+      return in ? v : 0.0f;
+    };
+    const long long u0 = min(units, rank * ub), u1 = min(units, u0 + ub);
+    auto sq = [&](const float4& e) {
+      return qs::group_sq(kept(e.x), kept(e.y), kept(e.z), kept(e.w));
+    };
+    if (vec)
+      qs::unit_sums<THREADS>(
+          u0, u1,
+          [&](long long g) { return qs::load_group<true>(row_src, n, g); },
+          sq, part, my_units);
+    else
+      qs::unit_sums<THREADS>(
+          u0, u1,
+          [&](long long g) { return qs::load_group<false>(row_src, n, g); },
+          sq, part, my_units);
   } else {
     // no scale to wait for: count while writing
     visit_chunk<THREADS>(
@@ -499,31 +524,24 @@ topk_cluster_kernel(const float* __restrict__ acc, float* __restrict__ sel,
   }
   {
     const int cw = __reduce_add_sync(qs::FULL, cs_cnt);
-    const float sw = group_sum<32>(sq);
-    if (lane == 0) {
-      warp_i[warp][0] = cw;
-      warp_f[warp] = sw;
-    }
+    if (lane == 0) warp_i[warp][0] = cw;
   }
   __syncthreads();
   if (warp == 0) {
     const int cb = group_sum<32>(lane < kWarps ? warp_i[lane][0] : 0);
-    const float sb = group_sum<32>(lane < kWarps ? warp_f[lane] : 0.0f);
-    if (lane == 0) {
-      pub_i[buf][0] = cb;
-      pub_f[buf] = sb;
-    }
+    if (lane == 0) pub_i[buf][0] = cb;
   }
   cluster.sync();
   if (warp == 0) {
-    int cv = 0;
-    float sv = 0.0f;
-    if (lane < cs) {
-      cv = *cluster.map_shared_rank(&pub_i[buf][0], lane);
-      sv = *cluster.map_shared_rank(&pub_f[buf], lane);
-    }
+    const int cv = lane < cs ? *cluster.map_shared_rank(&pub_i[buf][0], lane)
+                             : 0;
     const int cc = group_sum<32>(cv);
-    const float sc = group_sum<32>(sv);  // a fixed tree: deterministic
+    float sc = 0.0f;
+    if (sign)
+      sc = qs::units_tree(units, [&](long long j) {
+        return cluster.map_shared_rank(band + cap,
+                                       static_cast<int>(j / ub))[j % ub];
+      });
     if (lane == 0) {
       tot_i[0] = cc;
       tot_f = sc;
@@ -555,7 +573,10 @@ struct ClusterLaunch {
 
 int cluster_launch(ClusterLaunch& l, long long rows, int cs, long long chunk,
                    cudaStream_t st) {
-  const int smem = static_cast<int>(band_cap(chunk) * sizeof(float));
+  const long long floats = band_cap(chunk) + units_cap(chunk);
+  if (floats * static_cast<long long>(sizeof(float)) > 232448 - 8192)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = static_cast<int>(floats * sizeof(float));
   const bool small = chunk <= kSmallChunk;
   l = {};
   l.fn = small ? reinterpret_cast<const void*>(topk_cluster_kernel<256>)
@@ -632,8 +653,10 @@ extern "C" int qs_topk_compress_cluster_f32(const float* acc, float* sel,
   int vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(acc) % 16 == 0 &&
             reinterpret_cast<uintptr_t>(sel) % 16 == 0 &&
             reinterpret_cast<uintptr_t>(mem) % 16 == 0;
+  // units of the SignTop_k tree a block: ceil(ceil(n / 2048) / cs)
+  long long ub = ((n + qs::kTreeUnit - 1) / qs::kTreeUnit + cs - 1) / cs;
   void* args[] = {&acc, &sel, &mem, &cnt, &n, &chunk, &k, &iters, &sign,
-                  &vec};
+                  &vec, &ub};
   const cudaError_t e = cudaLaunchKernelExC(&l.cfg, l.fn, args);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());

@@ -28,6 +28,12 @@ The serving entries (``sparse_gemm``, ``qdq_gemm``, ``paged_decode``,
 activations' device: the hand-written kernel, or the kernel's plain
 version (``ref.py``) under ``mode="reference"``.
 
+Launch geometry: every launch of a kernel that has one resolves it in
+one place, :func:`_geometry` (an explicit ``DispatchConfig.block_rows``,
+then the tuning table of ``kernels/autotune.py``, then the kernel's own
+pick).  :func:`launch_plans` lists the signatures a run's compression
+launches: the tuner's work list.
+
 Eligibility is ``repro``'s, unchanged, because it decides which leaves
 take which path: at least ``min_size`` elements (``mode="auto"`` only),
 rows of a multiple of 128 elements, rows no longer than ``max_row``.
@@ -50,6 +56,7 @@ import dataclasses
 import functools
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -65,13 +72,14 @@ from repro_torch.core.operators import (
     resolve_k,
     uniform,
 )
+from repro_torch.kernels import autotune
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import qsgd as _qsgd
 from repro_torch.kernels import ref
 from repro_torch.kernels import sparse_gemm as _sgemm
 from repro_torch.kernels import topk_compress as _topk
-from repro_torch.tree import tree_flatten, tree_unflatten
+from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
 
 LANES = 128  # kernel rows are padded to a multiple of this (repro's rule)
 
@@ -90,10 +98,17 @@ class DispatchConfig:
     max_cap:  largest compact survivor capacity (slots per row) routed to
           ``topk_compact`` (``repro``'s bound, kept so the same leaves
           take the same path)
-    block_rows: kernel geometry where a kernel has one (``paged_decode``'s
-          pages per tile); None takes the kernel's default.  ``repro``
-          resolves it through its autotune table first, which is not
-          ported yet (ROADMAP queue 1 item 11).
+    block_rows: the launch geometry, for the launches that have one (the
+          meanings in ``kernels/autotune.py``): the long-row
+          ``topk_compress``'s and ``qsgd``'s cluster size,
+          ``topk_compact``'s rows a block on its warp route,
+          ``paged_decode``'s pages a block (clamped to the table width).
+          A value the launch's kernel cannot take raises, and so does any
+          value at a launch with no geometry to set (short Top_k rows, the
+          compact block and scan routes, the GEMMs and the attention
+          kernels): it is never ignored.  None (the default) resolves
+          each launch through the tuning table, then the kernel's own
+          pick.
     pack: megabuffer-pack same-bucket leaves (one kernel launch per
           bucket per sync round)
     """
@@ -176,6 +191,62 @@ def capacity(k: int, n: int) -> int:
 
 
 # ---------------------------------------------------------------------------
+# launch geometry
+# ---------------------------------------------------------------------------
+
+
+def _geometry(cfg: DispatchConfig, kernel: str, rows: int, n: int, k: int,
+              sign: bool, device=None) -> Optional[int]:
+    """The geometry of one launch of ``kernel`` on [rows, n] (k, sign: the
+    rest of its signature, ``autotune.ShapeKey``'s) on ``device``: an
+    explicit ``cfg.block_rows`` (the kernel's wrapper raises where it
+    cannot take it), else the entry of the device kind's tuning table
+    (``TUNE_CACHE`` counts one lookup per call: an eager run looks up at
+    every call, a graphed round at its capture), else None, the kernel's
+    own pick.  A table entry the launch cannot take (another build's) is
+    passed over."""
+    if cfg.block_rows is not None:
+        return cfg.block_rows
+    ent = autotune.lookup(kernel, rows, n, k, sign, device=device)
+    if ent is not None and autotune.takes(kernel, rows, n, k, sign,
+                                          ent.block_rows):
+        return ent.block_rows
+    return None
+
+
+def _no_geometry(cfg: DispatchConfig, kernel: str) -> None:
+    """Launches with no geometry to set refuse an explicit one."""
+    if cfg.block_rows is not None:
+        raise ValueError(f"{kernel} has no launch geometry to set; "
+                         f"DispatchConfig.block_rows={cfg.block_rows} "
+                         f"cannot apply to it (leave it None)")
+
+
+def _topk_launch(cfg: DispatchConfig, rows: torch.Tensor, k: int,
+                 sign: bool):
+    """``topk_compress`` on [rows, n] at the resolved geometry."""
+    cluster = _geometry(cfg, "topk_compress", rows.shape[0], rows.shape[1],
+                        k, sign, rows.device)
+    return _topk.topk_compress(rows, k, sign=sign, cluster=cluster)
+
+
+def _qsgd_launch(cfg: DispatchConfig, rows: torch.Tensor, urows, s: int):
+    """``qsgd_quantize`` on [rows, n] at the resolved geometry."""
+    cluster = _geometry(cfg, "qsgd", rows.shape[0], rows.shape[1], s, False,
+                        rows.device)
+    return _qsgd.qsgd_quantize(rows, urows, s, cluster=cluster)
+
+
+def _compact_launch(cfg: DispatchConfig, rows: torch.Tensor, k: int,
+                    kcap: int, sign: bool):
+    """``topk_compact`` on [rows, n] at the resolved geometry (the
+    signature's k is the survivor count, as in ``repro``)."""
+    group = _geometry(cfg, "topk_compact", rows.shape[0], rows.shape[1], k,
+                      sign, rows.device)
+    return _topk.topk_compact(rows, k, kcap, sign=sign, group=group)
+
+
+# ---------------------------------------------------------------------------
 # kernel rules
 # ---------------------------------------------------------------------------
 
@@ -247,7 +318,7 @@ def _worker_counts(cnt: torch.Tensor, B: int) -> torch.Tensor:
 def _run_topk_family(rule_name: str, op, rng, xb, cfg):
     B = xb.shape[0]
     rows, k, sign, bits_of = _plan_topk(rule_name, op, xb)
-    sel, _mem, cnt = _topk.topk_compress(rows, k, sign=sign)
+    sel, _mem, cnt = _topk_launch(cfg, rows, k, sign)
     return (_restore(sel, B, tuple(xb.shape[1:]), xb.dtype),
             bits_of(_worker_counts(cnt, B)))
 
@@ -271,7 +342,7 @@ def _qsgd_bits(op, out: torch.Tensor) -> torch.Tensor:
 
 def _run_qsgd(op: QSGDQuantizer, rng, xb, cfg):
     rows, urows = _plan_qsgd(rng, xb)
-    out = _restore(_qsgd.qsgd_quantize(rows, urows, op.s), xb.shape[0],
+    out = _restore(_qsgd_launch(cfg, rows, urows, op.s), xb.shape[0],
                    tuple(xb.shape[1:]), xb.dtype)
     return out, _qsgd_bits(op, out)
 
@@ -360,7 +431,7 @@ def topk_rows(rows: torch.Tensor, k: int, *, sign: bool = False,
               cfg: Optional[DispatchConfig] = None):
     """Kernel Top_k/SignTop_k over pre-shaped [rows, n] blocks: (selected,
     new_memory, count_per_row).  Callers check :func:`rows_eligible`."""
-    return _topk.topk_compress(rows.contiguous(), k, sign=sign)
+    return _topk_launch(_resolve(cfg), rows.contiguous(), k, sign)
 
 
 def compact_rows_eligible(row_len: int, kcap: int,
@@ -384,13 +455,13 @@ def compact_rows(rows: torch.Tensor, k: int, kcap: int, *,
     Returns (idx [rows, kcap] int32, val [rows, kcap] float32,
     new_mem [rows, n] float32, cnt [rows] int32); empty slots carry the
     out-of-row sentinel (idx = n, val = 0), DESIGN.md §3.3.  The launch
-    geometry is the kernel's own (``repro``'s autotuned ``block_rows`` /
-    ``chunk`` waits for the autotuner, ROADMAP queue 1 item 11).
+    geometry resolves through :func:`_geometry`.
     """
     n = rows.shape[1]
     if compact_rows_eligible(n, kcap, cfg, leaf_size, rows.device):
-        return _topk.topk_compact(rows.to(torch.float32).contiguous(), k,
-                                  kcap, sign=sign)
+        return _compact_launch(_resolve(cfg),
+                               rows.to(torch.float32).contiguous(), k, kcap,
+                               sign)
     return ref.topk_compact_ref(rows, k, kcap, sign=sign)
 
 
@@ -485,7 +556,8 @@ def compact_compress(op: CompressionOp, rng, x: torch.Tensor,
     kcap = capacity(k, n)
     used = would_compact(op, tuple(x.shape), x.dtype, cfg, x.device)
     if used:
-        idx, val, mem, cnt = _topk.topk_compact(rows, k, kcap, sign=sign)
+        idx, val, mem, cnt = _compact_launch(_resolve(cfg), rows, k, kcap,
+                                             sign)
     else:
         idx, val, mem, cnt = ref.topk_compact_ref(rows, k, kcap, sign=sign)
     mem_leaf = mem.reshape(-1)[:x.numel()].reshape(x.shape)
@@ -493,13 +565,22 @@ def compact_compress(op: CompressionOp, rng, x: torch.Tensor,
     return CompactLeaf(idx, val, mem_leaf, bits, n, kcap), used
 
 
-def paged_geometry(cfg: Optional[DispatchConfig], pages: int) -> int:
-    """Pages per tile for a ``paged_decode`` launch: an explicit
-    ``cfg.block_rows``, else the kernel's default; clamped to the table
-    width."""
+def paged_geometry(cfg: Optional[DispatchConfig], pages: int,
+                   page_size: int = 0, head_dim: int = 0,
+                   quant: bool = False, device=None) -> int:
+    """Pages a block for a ``paged_decode`` launch over a [B, ``pages``]
+    block table, through :func:`_geometry` (signature: table width, page
+    size, head width, int8 pages): an explicit ``cfg.block_rows``, else
+    ``device``'s tuning table, else the kernel's default; clamped to the
+    table width."""
     cfg = _resolve(cfg)
-    pb = (cfg.block_rows if cfg.block_rows is not None
-          else _pa.DEFAULT_PAGES_PER_BLOCK)
+    pb = _geometry(cfg, "paged_decode", pages, page_size, head_dim, quant,
+                   device)
+    if pb is None:
+        pb = _pa.DEFAULT_PAGES_PER_BLOCK
+    if int(pb) < 1:
+        raise ValueError(f"paged_decode takes at least one page a block, "
+                         f"got block_rows={pb}")
     return max(1, min(int(pb), pages))
 
 
@@ -512,7 +593,9 @@ def sparse_gemm(x: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
     buffers (rows enumerate output features).  The kernel when
     ``cfg.kernels_enabled``, the densify-then-matmul version otherwise;
     [M, R] float32 either way."""
-    if _resolve(cfg).kernels_enabled(x.device):
+    cfg = _resolve(cfg)
+    if cfg.kernels_enabled(x.device):
+        _no_geometry(cfg, "sparse_gemm")
         return _sgemm.sparse_gemm(x.contiguous(), idx, val, row_len)
     return ref.sparse_gemm_ref(x, idx, val, row_len)
 
@@ -521,7 +604,9 @@ def qdq_gemm(x: torch.Tensor, levels: torch.Tensor, scale: torch.Tensor,
              cfg: Optional[DispatchConfig] = None) -> torch.Tensor:
     """Serving entry for the QSGD-dequantize-fused GEMM: x [M, n], int8
     levels [R, n], float32 scale [R, 1] -> [M, R] float32."""
-    if _resolve(cfg).kernels_enabled(x.device):
+    cfg = _resolve(cfg)
+    if cfg.kernels_enabled(x.device):
+        _no_geometry(cfg, "qdq_gemm")
         return _sgemm.qdq_gemm(x.contiguous(), levels, scale)
     return ref.qdq_gemm_ref(x, levels, scale)
 
@@ -535,7 +620,8 @@ def paged_decode(x: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
     lengths [B]; [B, 1, H, hd] either way."""
     cfg = _resolve(cfg)
     if cfg.kernels_enabled(x.device):
-        pb = paged_geometry(cfg, tables.shape[-1])
+        pb = paged_geometry(cfg, tables.shape[-1], kp.shape[1], kp.shape[-1],
+                            kp.dtype == torch.int8, x.device)
         return _pa.paged_decode(x.contiguous(), kp, vp, kscale, vscale,
                                 tables, lengths, pages_per_block=pb)
     return ref.paged_decode_ref(x, kp, vp, kscale, vscale, tables, lengths)
@@ -546,7 +632,9 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  cfg: Optional[DispatchConfig] = None) -> torch.Tensor:
     """Serving entry for ring-cache decode attention: q [B, 1, H, hd]
     against k, v [B, C, KV, hd] under the [B, C] (or [C]) slot mask."""
-    if _resolve(cfg).kernels_enabled(q.device):
+    cfg = _resolve(cfg)
+    if cfg.kernels_enabled(q.device):
+        _no_geometry(cfg, "flash_decode")
         return _fa.flash_decode(q.contiguous(), k, v, valid)
     return ref.flash_decode_ref(q, k, v, valid)
 
@@ -556,7 +644,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     cfg: Optional[DispatchConfig] = None) -> torch.Tensor:
     """Prefill entry for causal (sliding-window when ``window`` > 0) GQA
     attention: q [B, S, H, hd] against k, v [B, S, KV, hd]."""
-    if _resolve(cfg).kernels_enabled(q.device):
+    cfg = _resolve(cfg)
+    if cfg.kernels_enabled(q.device):
+        _no_geometry(cfg, "flash_attention")
         return _fa.flash_attention_fwd(q.contiguous(), k.contiguous(),
                                        v.contiguous(), window=window)
     return ref.flash_attention_ref(q, k, v, window=window)
@@ -626,7 +716,7 @@ def _compress_leaves_packed(ops, rng, leaves, cfg, want_mem: bool = False):
     for (_, k, sign), entries in topk_buckets.items():
         mega = (entries[0][1] if len(entries) == 1
                 else torch.cat([e[1] for e in entries], dim=0))
-        sel, mem, cnt = _topk.topk_compress(mega, k, sign=sign)
+        sel, mem, cnt = _topk_launch(cfg, mega, k, sign)
         off = 0
         for i, rows, bits_of, xb in entries:
             r = rows.shape[0]
@@ -641,7 +731,7 @@ def _compress_leaves_packed(ops, rng, leaves, cfg, want_mem: bool = False):
                 else torch.cat([e[1] for e in entries], dim=0))
         megau = (entries[0][2] if len(entries) == 1
                  else torch.cat([e[2] for e in entries], dim=0))
-        out = _qsgd.qsgd_quantize(mega, megau, s)
+        out = _qsgd_launch(cfg, mega, megau, s)
         off = 0
         for i, rows, _urows, op, xb in entries:
             B = xb.shape[0]
@@ -723,3 +813,77 @@ def channel_compress_tree(op_tree, rng, acc,
     if want_leaf_bits:
         return out + (list(bit_terms),)
     return out
+
+# ---------------------------------------------------------------------------
+# launch plans (the tuner's work list)
+# ---------------------------------------------------------------------------
+
+
+def _plan_topk_shape(rule_name: str, op, shape) -> tuple:
+    """Shape-only twin of :func:`_plan_topk` for one worker: (rows,
+    row_len, k, sign) of the kernel buffer, without building it."""
+    d = _size(shape)
+    if rule_name in ("topk_global", "signtopk_global"):
+        return (1, _padded_len(d, LANES), resolve_k(op.k, d),
+                rule_name == "signtopk_global")
+    row = _row_len_of(op, shape)
+    return (_padded_len(d, row) // row, row, resolve_k(op.k, row),
+            rule_name == "row_signtopk")
+
+
+def _dtype_of(x) -> torch.dtype:
+    """A leaf's dtype as torch's (leaves may be tensors or numpy arrays)."""
+    if isinstance(x, torch.Tensor):
+        return x.dtype
+    return torch.from_numpy(np.empty(0, dtype=x.dtype)).dtype
+
+
+def launch_plans(op_tree, tree, cfg: Optional[DispatchConfig] = None, *,
+                 compact: bool = False, workers: int = 1,
+                 device=None) -> list:
+    """The kernel launches :func:`compress_tree` /
+    :func:`channel_compress_tree` make for this (op_tree, params-like
+    tree of one worker's leaves, tensors or numpy arrays), as
+    ``autotune.ShapeKey`` rows: under ``cfg.pack`` one a bucket, every
+    worker's rows in it (``workers``, the leading axis the engine
+    batches), else one a leaf.  ``compact=True`` names the Top_k family's
+    launches ``topk_compact`` (the sparse wire's kernel), as ``repro``'s
+    ``launch_plans`` does, to which this is equal at ``workers=1``.
+    ``device``: where the run's tensors are (default: where the port
+    runs by default)."""
+    cfg = _resolve(cfg)
+    plans: list = []
+    if not cfg.kernels_enabled(device):
+        return plans
+    leaves = tree_leaves(tree)
+    ops = ops_for_leaves(op_tree, len(leaves))
+    topk_name = "topk_compact" if compact else "topk_compress"
+    topk_buckets: dict = {}
+    qsgd_buckets: dict = {}
+    for op, x in zip(ops, leaves):
+        shape = tuple(x.shape)
+        rule = select_rule(op, shape, _dtype_of(x), cfg, device)
+        if rule is None:
+            continue
+        if rule.name == "qsgd_global":
+            n = _padded_len(_size(shape), LANES)
+            qsgd_buckets[(n, op.s)] = qsgd_buckets.get((n, op.s), 0) + workers
+            continue
+        rows, n, k, sign = _plan_topk_shape(rule.name, op, shape)
+        rows *= workers
+        topk_buckets[(n, k, sign)] = topk_buckets.get((n, k, sign), 0) + rows
+        if not cfg.pack:
+            key = autotune.ShapeKey(topk_name, rows, n, k, sign)
+            if key not in plans:
+                plans.append(key)
+    if cfg.pack:
+        for (n, k, sign), rows in topk_buckets.items():
+            plans.append(autotune.ShapeKey(topk_name, rows, n, k, sign))
+        for (n, s), rows in qsgd_buckets.items():
+            plans.append(autotune.ShapeKey("qsgd", rows, n, s, False))
+    else:
+        for n, s in qsgd_buckets:
+            key = autotune.ShapeKey("qsgd", workers, n, s, False)
+            if key not in plans:
+                plans.append(key)
+    return plans

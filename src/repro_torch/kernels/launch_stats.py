@@ -23,12 +23,28 @@ LAUNCHES = {"topk_compress": 0, "topk_compact": 0, "qsgd": 0,
 PAGE_POOL = {"pages_used": 0, "pages_free": 0, "peak_pages_used": 0,
              "fragmentation": 0.0, "preemptions": 0, "admission_stalls": 0}
 
+#: tuning-table resolutions (kernels/autotune.py ``lookup``): ``hit`` — the
+#: LRU held the launch's entry, ``miss`` — the table had to be consulted.
+#: Counted once per dispatch call that resolves a geometry with
+#: ``block_rows`` left on auto: an eager run looks up at every call, a
+#: graphed round only when it is captured.
+TUNE_CACHE = {"hit": 0, "miss": 0}
+
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
 
 
+def reset_tune_cache() -> None:
+    for k in TUNE_CACHE:
+        TUNE_CACHE[k] = 0
+
+
 def reset_page_pool() -> None:
     for k in PAGE_POOL:
         PAGE_POOL[k] = 0.0 if k == "fragmentation" else 0
+
+
+def total_launches() -> int:
+    return sum(LAUNCHES.values())

@@ -2,14 +2,17 @@
 ``kernels/qsgd.py::qsgd_quantize``), hand-written in CUDA C++ for
 Hopper (``csrc/qsgd.cu``).  The uniforms are an operand, so the kernel
 is deterministic given its inputs.  Each bucket (row) runs on a
-thread-block cluster of ``qsgd_geometry``'s size, each block streaming a
-chunk of the row; the blocks add their sums of squares in rank order
-through distributed shared memory."""
+thread-block cluster of ``qsgd_geometry``'s size (or the caller's
+``cluster``, the tuner's knob), each block streaming a chunk of the row.
+The norm is summed in one order that no cluster size changes
+(``ref.tree_sq_ref``): the blocks sum whole units of the row and read
+each other's through distributed shared memory, so the geometry changes
+the kernel's time and never its output."""
 
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -28,6 +31,13 @@ class QsgdGeometry(NamedTuple):
     """How ``qsgd_quantize`` spreads a row over a cluster."""
     cs: int        # blocks a row (the cluster size)
     chunk: int     # elements a block owns (a multiple of 4)
+
+
+def qsgd_clusters(n: int) -> tuple:
+    """The cluster sizes the kernel takes for rows of ``n`` floats: 1, and
+    each larger one of ``QSGD_CLUSTERS`` that leaves no block empty."""
+    return tuple(cs for cs in QSGD_CLUSTERS
+                 if cs == 1 or (cs - 1) * max(4, _chunk(n, cs)) < n)
 
 
 def qsgd_geometry(rows: int, n: int, slots: int) -> QsgdGeometry:
@@ -70,13 +80,16 @@ def _launch(x: torch.Tensor, u: torch.Tensor, s: int,
     return out
 
 
-def qsgd_quantize(x: torch.Tensor, u: torch.Tensor, s: int) -> torch.Tensor:
+def qsgd_quantize(x: torch.Tensor, u: torch.Tensor, s: int, *,
+                  cluster: Optional[int] = None) -> torch.Tensor:
     """x, u: [buckets, n] float32 -> dequantized [buckets, n] float32.
 
     A CUDA tensor launches the kernel on the current stream, at the
-    geometry ``qsgd_geometry`` picks for the card; a CPU tensor runs the
-    plain version (``ref.qsgd_bucketed_ref``).  There is no other route:
-    a failed build or launch raises.
+    geometry ``qsgd_geometry`` picks for the card, or at ``cluster``
+    blocks a bucket (one of ``qsgd_clusters(n)``; any other value
+    raises, on the CPU too); a CPU tensor runs the plain version
+    (``ref.qsgd_bucketed_ref``).  There is no other route: a failed build
+    or launch raises.
     """
     _check_rows("x", x)
     _check_rows("u", u)
@@ -85,6 +98,10 @@ def qsgd_quantize(x: torch.Tensor, u: torch.Tensor, s: int) -> torch.Tensor:
                          f"x {tuple(x.shape)} on {x.device}")
     if int(s) < 1:
         raise ValueError(f"s={s} must be >= 1")
+    if cluster is not None and cluster not in qsgd_clusters(x.shape[1]):
+        raise ValueError(f"qsgd_quantize takes cluster sizes "
+                         f"{qsgd_clusters(x.shape[1])} for rows of "
+                         f"{x.shape[1]} floats, got {cluster}")
     if x.shape[0] == 0:     # no live bucket: nothing to launch
         return torch.empty_like(x)
     LAUNCHES["qsgd"] += 1
@@ -92,5 +109,8 @@ def qsgd_quantize(x: torch.Tensor, u: torch.Tensor, s: int) -> torch.Tensor:
         return ref.qsgd_bucketed_ref(x, u, s)
     if x.device.type != "cuda":
         raise RuntimeError(f"qsgd_quantize: unsupported device {x.device}")
-    geo = qsgd_geometry(*x.shape, resident_blocks(x.device.index))
+    if cluster is None:
+        geo = qsgd_geometry(*x.shape, resident_blocks(x.device.index))
+    else:
+        geo = QsgdGeometry(cluster, max(4, _chunk(x.shape[1], cluster)))
     return _launch(x, u, s, geo)

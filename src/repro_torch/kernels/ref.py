@@ -84,7 +84,9 @@ def topk_threshold_levels_ref(acc: torch.Tensor, k: int, *, iters: int = 24,
     above it (every element where hi > FLT_MAX / 2: then lo + hi may
     overflow); sums the chunks' integer counts; and walks the levels,
     adding count(|acc| >= hi) to each count.  The SignTop_k sum of
-    squares is folded over the chunks in order.
+    squares of the survivors is :func:`cluster_sq_ref`'s at the kernel's
+    geometry (blocks of 256 threads for chunks of up to 8192 floats, else
+    512), the one order of :func:`tree_sq_ref`.
 
     Returns (selected, new_memory, count_per_row int32, threshold)."""
     accf = acc.to(torch.float32)
@@ -135,9 +137,7 @@ def topk_threshold_levels_ref(acc: torch.Tensor, k: int, *, iters: int = 24,
     cnt = mask.sum(dim=1).to(torch.int32)
     sel = torch.where(mask, accf, zero)
     if sign:
-        sq = torch.zeros(rows, dtype=torch.float32, device=dev)
-        for c0 in range(0, clusters * chunk, chunk):
-            sq = sq + (sel[:, c0:c0 + chunk] ** 2).sum(dim=1)
+        sq = cluster_sq_ref(sel, clusters, 256 if chunk <= 8192 else 512)
         scale = torch.sqrt(sq) / torch.clamp(cnt.to(torch.float32), min=1.0)
         sel = torch.where(mask, torch.sign(accf) * scale[:, None], zero)
     return sel, accf - sel, cnt, thr
@@ -404,22 +404,88 @@ def qsgd_bucketed_ref(x: torch.Tensor, u: torch.Tensor, s: int):
     return _qsgd_levels(xf, u, s, norm)
 
 
-def qsgd_cluster_ref(x: torch.Tensor, u: torch.Tensor, s: int, cs: int,
-                     chunk: int):
+def qsgd_cluster_ref(x: torch.Tensor, u: torch.Tensor, s: int, cs: int):
     """The arithmetic of ``qsgd_quantize``'s cluster kernel, in plain
-    PyTorch, for the tests only: block r of a row's cluster of ``cs``
-    owns elements [r * chunk, (r + 1) * chunk) and sums their squares;
-    the blocks' sums are added from 0 in rank order (every block of the
-    cluster does the same, so all share one float norm); then the levels
-    as :func:`qsgd_bucketed_ref` takes them.  Only the order of the sum
-    differs from that plain version."""
+    PyTorch, for the tests only: the norm summed as a cluster of ``cs``
+    blocks of 512 threads sums it (:func:`cluster_sq_ref`), then
+    the levels as :func:`qsgd_bucketed_ref` takes them.  Only the order
+    of the sum differs from that plain version, and no ``cs`` changes it
+    (it is :func:`tree_sq_ref`'s)."""
     xf = x.to(torch.float32)
-    tot = torch.zeros((xf.shape[0], 1), dtype=torch.float32,
-                      device=xf.device)
+    norm = torch.sqrt(cluster_sq_ref(xf, cs, 512))[:, None]
+    return _qsgd_levels(xf, u, s, norm)
+
+
+#: floats of a unit of the sum-of-squares tree (``csrc/common.cuh``
+#: kTreeUnit): 512 groups of four
+TREE_UNIT = 2048
+
+
+def _pair_tree(t: torch.Tensor) -> torch.Tensor:
+    """[rows, m] -> [rows]: the adjacent-pair tree over the columns, their
+    count padded with zeros to a power of two."""
+    m = max(1, t.shape[1])
+    p = 1
+    while p < m:
+        p *= 2
+    t = torch.nn.functional.pad(t, (0, p - t.shape[1]))
+    while t.shape[1] > 1:
+        t = t[:, 0::2] + t[:, 1::2]
+    return t[:, 0]
+
+
+def _group_sq(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """[rows, n] -> [rows, groups]: each group of four floats as
+    ((a^2 + b^2) + c^2) + d^2, zeros past n (each operation rounded to
+    float32, no fused multiply-add)."""
+    x = torch.nn.functional.pad(x, (0, 4 * groups - x.shape[1]))
+    sq = (x * x).reshape(x.shape[0], groups, 4)
+    return ((sq[..., 0] + sq[..., 1]) + sq[..., 2]) + sq[..., 3]
+
+
+def tree_sq_ref(x: torch.Tensor) -> torch.Tensor:
+    """[rows, n] -> [rows] float32: each row's sum of squares in the one
+    order the cluster kernels take at every geometry (``qsgd_quantize``'s
+    norm, the long-row SignTop_k scale over the survivors): groups of four
+    summed as ((a^2 + b^2) + c^2) + d^2, then the adjacent-pair tree over
+    the groups, their count padded with zeros to a power of two."""
+    xf = x.to(torch.float32)
+    return _pair_tree(_group_sq(xf, max(1, -(-xf.shape[1] // 4))))
+
+
+def cluster_sq_ref(x: torch.Tensor, cs: int, threads: int) -> torch.Tensor:
+    """:func:`tree_sq_ref` computed as a cluster of ``cs`` blocks of
+    ``threads`` threads computes it (``csrc/common.cuh`` unit_sums /
+    units_tree): the row's units of ``TREE_UNIT`` floats split over the
+    blocks, ceil(units / cs) each; a unit's 512 groups in segments of
+    ``threads``, each the tree over its warps' 32-lane trees; then every
+    block adds all the units, lane l of a warp taking max(1, P / 32)
+    adjacent ones (P: the unit count rounded up to a power of two) and
+    the lanes their sums.  For the tests: it equals tree_sq_ref bit for
+    bit at every ``cs`` and ``threads``."""
+    xf = x.to(torch.float32)
+    rows, n = xf.shape
+    units = max(1, -(-n // TREE_UNIT))
+    q = _group_sq(xf, units * 512)
+    ub = -(-units // cs)
+    sums = []
     for r in range(cs):
-        part = xf[:, r * chunk:(r + 1) * chunk]
-        tot = tot + (part * part).sum(dim=1, keepdim=True)
-    return _qsgd_levels(xf, u, s, torch.sqrt(tot))
+        for j in range(r * ub, min(units, (r + 1) * ub)):
+            segs = []
+            for g0 in range(j * 512, (j + 1) * 512, threads):
+                warps = [_pair_tree(q[:, w:w + 32])
+                         for w in range(g0, g0 + threads, 32)]
+                segs.append(_pair_tree(torch.stack(warps, dim=1)))
+            sums.append(segs[0] if len(segs) == 1 else segs[0] + segs[1])
+    p = 1
+    while p < units:
+        p *= 2
+    per = max(1, p // 32)
+    tot = torch.stack(sums, dim=1)
+    lanes = [_pair_tree(tot[:, l * per:(l + 1) * per]) if l * per < units
+             else torch.zeros(rows, dtype=torch.float32, device=xf.device)
+             for l in range(32)]
+    return _pair_tree(torch.stack(lanes, dim=1))
 
 
 # ---------------------------------------------------------------------------

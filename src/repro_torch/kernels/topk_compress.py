@@ -14,12 +14,20 @@ registers (a warp, or a block of warps, a row: exact order statistics,
 then the bisection replayed).  Longer rows take a cluster of blocks per
 row in ``topk_compress`` (``cluster_geometry``) and a block per row in
 ``topk_compact`` (``compact_geometry``).
+
+The launch geometries the tuner (``kernels/autotune.py``) may pick are
+the long rows' cluster size (``cluster=``, one of ``cluster_sizes(n)``)
+and the warp route's rows a block (``group=``, one of
+``compact_groups(n, kcap)``).  Neither changes an output: counts are
+integers and the SignTop_k sum of squares has one order
+(``ref.tree_sq_ref``) at every cluster size; the warp route's rows are
+independent of each other.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -73,6 +81,16 @@ def cluster_geometry(rows: int, n: int, cap8: int,
     return ClusterGeometry(cs, _chunk(n, cs))
 
 
+def cluster_sizes(n: int) -> tuple:
+    """The cluster sizes the long-row kernel takes for rows of ``n``
+    floats (those of ``CLUSTER_SIZES`` that leave no block empty); none
+    for rows of up to ``SHORT_ROW``, whose kernel has no geometry to
+    pick (``csrc/topk_compress.cu`` chooses its warps a row from n)."""
+    if n <= SHORT_ROW:
+        return ()
+    return tuple(cs for cs in CLUSTER_SIZES if (cs - 1) * _chunk(n, cs) < n)
+
+
 @functools.lru_cache(maxsize=None)
 def cluster_capacity(index: int, cs: int, chunk: int) -> int:
     """Clusters of ``cs`` blocks, each owning ``chunk`` floats, that card
@@ -83,6 +101,13 @@ def cluster_capacity(index: int, cs: int, chunk: int) -> int:
     if got < 0:
         _build.check(-got)
     return got
+
+
+def card_cluster_geometry(rows: int, n: int, index: int) -> ClusterGeometry:
+    """``cluster_geometry`` with card ``index``'s capacities: the long-row
+    kernel's own pick there."""
+    return cluster_geometry(rows, n, *(
+        cluster_capacity(index, cs, _chunk(n, cs)) for cs in CLUSTER_SIZES))
 
 
 class CompactGeometry(NamedTuple):
@@ -98,6 +123,17 @@ def compact_area(kcap: int) -> int:
     three 256-bin histograms, whose space then holds its ``kcap`` slots
     (idx and val, each rounded up to 16 bytes)."""
     return 4 * max(3 * 256, 2 * (-(-kcap // 4) * 4))
+
+
+def compact_groups(n: int, kcap: int) -> tuple:
+    """Rows a block the warp route of ``topk_compact`` takes (rows of up
+    to ``WARP_ROW`` floats): 1, 2, 4 or 8, as far as their slots fit
+    ``COMPACT_STAGE``; none for the block and scan routes (one row a
+    block, no geometry to pick)."""
+    if n > WARP_ROW:
+        return ()
+    return tuple(g for g in (1, 2, 4, 8)
+                 if g == 1 or g * compact_area(kcap) <= COMPACT_STAGE)
 
 
 def compact_geometry(n: int, kcap: int) -> CompactGeometry:
@@ -134,20 +170,31 @@ def _check_k(k: int, n: int, iters: int) -> None:
         raise ValueError(f"iters={iters} outside [0, 64)")
 
 
+def _check_geometry(what: str, value, allowed: tuple, n: int) -> None:
+    if value is not None and value not in allowed:
+        raise ValueError(f"{what}={value} is not a geometry the kernel takes "
+                         f"for rows of {n} floats: "
+                         f"{allowed if allowed else 'none (leave it None)'}")
+
+
 def topk_compress(acc: torch.Tensor, k: int, *, iters: int = 24,
-                  sign: bool = False):
+                  sign: bool = False, cluster: Optional[int] = None):
     """acc: [rows, n] float32 -> (selected [rows, n], new_mem [rows, n],
     cnt [rows] int32): the survivors of the bisection threshold (or
     their SignTop_k values), the fused memory ``acc - selected`` and the
     survivor count per row.
 
-    A CUDA tensor launches the kernel on the current stream; a CPU
-    tensor runs the plain version (``ref.topk_compress_ref``).  There is
-    no other route: a failed build or launch raises.
+    A CUDA tensor launches the kernel on the current stream; rows longer
+    than ``SHORT_ROW`` take a cluster of ``cluster_geometry``'s size or
+    of ``cluster`` blocks (one of ``cluster_sizes(n)`` that the card
+    schedules; any other value raises, on the CPU too).  A CPU tensor
+    runs the plain version (``ref.topk_compress_ref``).  There is no
+    other route: a failed build or launch raises.
     """
     _check_rows("acc", acc)
     rows, n = acc.shape
     _check_k(k, n, iters)
+    _check_geometry("cluster", cluster, cluster_sizes(n), n)
     if rows == 0:       # no live row (every worker dead): nothing to launch
         return (torch.empty_like(acc), torch.empty_like(acc),
                 torch.empty((0,), dtype=torch.int32, device=acc.device))
@@ -168,16 +215,20 @@ def topk_compress(acc: torch.Tensor, k: int, *, iters: int = 24,
             _build.check(lib.qs_topk_compress_f32(*ptrs, *args, stream))
         else:
             index = acc.device.index
-            geo = cluster_geometry(rows, n, *(
-                cluster_capacity(index, cs, _chunk(n, cs))
-                for cs in CLUSTER_SIZES))
+            if cluster is None:
+                geo = card_cluster_geometry(rows, n, index)
+            elif cluster_capacity(index, cluster, _chunk(n, cluster)) > 0:
+                geo = ClusterGeometry(cluster, _chunk(n, cluster))
+            else:
+                raise ValueError(f"a cluster of {cluster} blocks does not "
+                                 f"schedule on {acc.device}")
             _build.check(lib.qs_topk_compress_cluster_f32(
                 *ptrs, *args, *geo, stream))
     return sel, mem, cnt
 
 
 def topk_compact(acc: torch.Tensor, k: int, kcap: int, *, iters: int = 24,
-                 sign: bool = False):
+                 sign: bool = False, group: Optional[int] = None):
     """acc: [rows, n] float32 -> (idx [rows, kcap] int32, val [rows, kcap]
     float32, new_mem [rows, n] float32, cnt [rows] int32): the survivors
     of :func:`topk_compress`'s threshold in ascending index order, the
@@ -185,15 +236,18 @@ def topk_compact(acc: torch.Tensor, k: int, kcap: int, *, iters: int = 24,
     sentinel ``(n, 0)`` in the empty slots.
 
     A CUDA tensor launches the kernel on the current stream, on the route
-    ``compact_geometry`` picks from the shape; a CPU tensor runs the
-    plain version (``ref.topk_compact_ref``).  A failed build or launch
-    raises.
+    ``compact_geometry`` picks from the shape, the warp route with
+    ``group`` rows a block where given (one of ``compact_groups(n,
+    kcap)``; any other value raises, on the CPU too); a CPU tensor runs
+    the plain version (``ref.topk_compact_ref``).  A failed build or
+    launch raises.
     """
     _check_rows("acc", acc)
     rows, n = acc.shape
     _check_k(k, n, iters)
     if not 1 <= kcap <= max(n, 1):
         raise ValueError(f"kcap={kcap} outside [1, {n}]")
+    _check_geometry("group", group, compact_groups(n, kcap), n)
     if rows == 0:       # no live row: nothing to launch
         return (torch.empty((0, kcap), dtype=torch.int32, device=acc.device),
                 torch.empty((0, kcap), dtype=torch.float32,
@@ -216,5 +270,5 @@ def topk_compact(acc: torch.Tensor, k: int, kcap: int, *, iters: int = 24,
         _build.check(lib.qs_topk_compact_f32(
             acc.data_ptr(), idx.data_ptr(), val.data_ptr(), mem.data_ptr(),
             cnt.data_ptr(), rows, n, int(k), int(kcap), int(iters),
-            int(bool(sign)), geo.rows, stream))
+            int(bool(sign)), geo.rows if group is None else group, stream))
     return idx, val, mem, cnt

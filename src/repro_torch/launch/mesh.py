@@ -102,6 +102,12 @@ class Mesh:
         dist.all_gather_into_tensor(out, src, group=self.group)
         return out.reshape((self.world_size,) + tuple(t.shape)).to(t.device)
 
+    def barrier(self) -> None:
+        """Every rank waits here for every other (a one-float sum, read
+        back on the host)."""
+        if self.group is not None:
+            self.all_reduce_sum(torch.zeros(1, device=self.device)).item()
+
     def close(self) -> None:
         if self.group is not None:
             dist.destroy_process_group()

@@ -31,9 +31,12 @@ at every event step); ``--zero1`` shards the master (ZeRO-1) and a
 ``'up >> down'`` policy compresses the downlink.  Added: ``--device``
 (default cuda), ``--seed`` (weights and the stochastic operators'
 draws), ``--backend`` (``gloo`` for several ranks sharing one GPU) and
-``--json`` (the run's record, exact ledgers included).  ``--tune``, the
-one flag of a feature not ported yet, raises ``NotImplementedError``
-naming its ROADMAP item.  Batches come from
+``--json`` (the run's record, exact ledgers included).  ``--tune``
+times the launch geometries of the kernels the run's compressors launch
+(``kernels/autotune.py``; ``topk_compact`` on the sparse wire) before
+any step is built or captured and keeps the winners in the card's table
+(``--retune`` re-measures signatures already there): rank 0 tunes and
+saves, then every rank reloads the table.  Batches come from
 ``data.LMTokenStream`` (a numpy copy of ``repro``'s), so a seed gives
 both packages the same tokens; each rank takes its own worker's row.
 Only rank 0 prints and writes ``--ckpt`` (under ``--zero1`` every rank
@@ -70,14 +73,6 @@ from repro_torch.optim import momentum_sgd, warmup_piecewise
 from repro_torch.sharding.specs import param_specs
 from repro_torch.train import checkpoint
 from repro_torch.tree import tree_leaves, value_and_grad
-
-#: flags of features the port has not reached: (flag, test on the parsed
-#: args, ROADMAP item)
-UNPORTED = (
-    ("--tune", lambda a: a.tune or a.retune,
-     "queue 1 item 11 (autotune)"),
-)
-
 
 def resolve_policy_arg(args) -> pol.ChannelSpec:
     """One ChannelSpec from the CLI (``repro``'s rules): ``--policy``
@@ -165,8 +160,14 @@ def parser() -> argparse.ArgumentParser:
                          "one program each; requires --runtime round")
     ap.add_argument("--overlap-window", type=int, default=8,
                     help="most rounds a window (power-of-2 chunks)")
-    ap.add_argument("--tune", action="store_true", help="not ported")
-    ap.add_argument("--retune", action="store_true", help="not ported")
+    ap.add_argument("--tune", action="store_true",
+                    help="time the compression kernels' launch geometries "
+                         "before training and keep the winners in the "
+                         "card's table (artifacts/tuning/<card>.json); "
+                         "signatures already tuned are reused")
+    ap.add_argument("--retune", action="store_true",
+                    help="with --tune: re-measure signatures already in "
+                         "the table")
     ap.add_argument("--faults", default=None,
                     help="fault spec (DESIGN.md §9): k=v,... or "
                          "preset:<name>; staleness, drops and crashes "
@@ -197,13 +198,6 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
-def refuse_unported(args) -> None:
-    for flag, used, item in UNPORTED:
-        if used(args):
-            raise NotImplementedError(
-                f"{flag} is not ported to repro_torch yet: ROADMAP {item}")
-
-
 def is_sync(t: int, args, scenario_mask=None) -> bool:
     """The fixed schedule: every H-th step and the last one sync; under
     a scenario, the steps where any worker's mask row fires."""
@@ -223,7 +217,9 @@ def main(argv: Optional[list] = None,
     ``n_layers`` cuts the arch config's depth (no flag: callers from
     Python, such as a card check sized to the card's memory)."""
     args = parser().parse_args(argv)
-    refuse_unported(args)
+    if args.retune and not args.tune:
+        raise SystemExit("--retune re-measures what --tune measures; pass "
+                         "--tune too")
     channel_spec = resolve_policy_arg(args)
     if args.faults is not None:
         # repro's refusals, in its words
@@ -248,6 +244,28 @@ def main(argv: Optional[list] = None,
         mesh.close()
 
 
+def tune_run(args, mesh, params, compressors, specs, say) -> None:
+    """``--tune``: rank 0 times the launch signatures the compressors make
+    (``ShardCompressor.launch_plans``, the wire's kernel) and saves the
+    card's table; after a barrier every rank drops what it held and
+    reads the table anew."""
+    from repro_torch.kernels import autotune
+    keys = []
+    for comp in compressors:
+        if comp is not None:
+            for key in comp.launch_plans(
+                    params, specs, compact=args.wire == "sparse_allgather"):
+                if key not in keys:
+                    keys.append(key)
+    if mesh.rank == 0:
+        fresh = autotune.tune(keys, retune=args.retune, device=mesh.device)
+        say(f"tune: {len(fresh)} measured, {autotune.tune.last_cached} "
+            f"cached -> {autotune.table_path(device=mesh.device)}",
+            flush=True)
+    mesh.barrier()
+    autotune.clear_cache()
+
+
 def setup(args, channel_spec, mesh,
           n_layers: Optional[int] = None) -> types.SimpleNamespace:
     """The run's pieces: config (its depth cut to ``n_layers`` if
@@ -270,12 +288,15 @@ def setup(args, channel_spec, mesh,
     if channel_spec.downlink is not None:
         downlink = ShardCompressor.from_spec(channel_spec.downlink, params,
                                              dispatch=args.dispatch)
+    specs = param_specs(cfg)
+    if args.tune:
+        tune_run(args, mesh, params, (uplink, downlink), specs, say)
     engine_args = (
         grad_fn, momentum_sgd(0.9),
         uplink if uplink is not None
         else ShardCompressor("none", dispatch=args.dispatch),
         warmup_piecewise(args.lr, 5, [int(args.steps * 0.8)]),
-        mesh, data_axes(mesh), param_specs(cfg))
+        mesh, data_axes(mesh), specs)
     R = worker_count(mesh)
     scenario_mask = None
     if args.scenario is not None:

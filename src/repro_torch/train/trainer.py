@@ -42,10 +42,12 @@ recover, from tables expanded with the fault seed.  ``ckpt_dir`` with
 (the round runtime: at the first round boundary at or after each
 point), and ``resume`` continues from the latest one.
 
-``RunConfig`` keeps the ``repro`` fields that switch a module on.  Those
-whose modules have not been ported yet (``tune``) raise
-``NotImplementedError`` naming their ROADMAP item; ``retune``, which
-only tunes that module, arrives with it.
+``tune`` times the launch geometries of the kernels the run's
+compression launches (``kernels/autotune.py``: ``dispatch.launch_plans``
+of the uplink and downlink trees, the R workers packed into each launch)
+before any step is built or a round captured, and keeps the winners in
+the card's table; ``retune`` re-measures signatures already there.  A
+geometry changes the kernels' time, never the History.
 """
 
 from __future__ import annotations
@@ -87,7 +89,11 @@ class RunConfig:
     # windows of equal-length rounds as one program (round runtime only)
     overlap: bool = False
     overlap_window: int = 8   # most rounds a window (power-of-2 chunks)
+    # time the kernels' launch geometries before the run, keep the
+    # winners in the card's table (kernels/autotune.py); retune
+    # re-measures signatures already in it
     tune: bool = False
+    retune: bool = False
     # ``core.policy`` spec: PolicySpec / ChannelSpec / OpSpec or a DSL
     # string; the ``operator`` argument and ``downlink_op`` then stay unset
     policy: Optional[Union[str, pol.PolicySpec, pol.ChannelSpec,
@@ -117,17 +123,13 @@ class RunConfig:
     resume: bool = False
 
 
-#: RunConfig options whose modules are still to be ported: (field, value
-#: meaning "unused", the ROADMAP item that brings it)
-_NOT_YET = (
-    ("tune", False, "queue 1 item 11 (kernels/autotune.py)"),
-)
-
-
-def _check_ported(run: RunConfig) -> None:
+def _check_run(run: RunConfig) -> None:
     if run.runtime not in ("round", "step"):
         raise ValueError(f"RunConfig.runtime must be 'round' or 'step', "
                          f"got {run.runtime!r}")
+    if run.retune and not run.tune:
+        raise ValueError("RunConfig.retune re-measures what tune measures; "
+                         "set tune=True too")
     if run.overlap:
         if run.runtime != "round":
             raise ValueError(
@@ -139,11 +141,6 @@ def _check_ported(run: RunConfig) -> None:
                 "RunConfig.overlap is unsupported with fault injection: "
                 "the fault runtime's arrival events segment rounds "
                 "dynamically (run with overlap=False)")
-    for field, unused, item in _NOT_YET:
-        if getattr(run, field) != unused:
-            raise NotImplementedError(
-                f"RunConfig.{field}={getattr(run, field)!r} is not ported "
-                f"to repro_torch yet: ROADMAP {item}")
 
 
 def resolve_run_channels(operator, run: RunConfig, params):
@@ -257,7 +254,7 @@ def train(
     seeded with ``run.seed``; a CUDA graph cannot take a feed, so on the
     card a feed needs ``runtime="step"``; full snapshots and ``resume``
     need a generator)."""
-    _check_ported(run)
+    _check_run(run)
     operator, downlink, channel_spec = resolve_run_channels(operator, run,
                                                             params)
     dev = resolve_device(device)
@@ -266,6 +263,10 @@ def train(
     hist = History()
     t0 = time.time()
     dispatch = DispatchConfig(mode=run.dispatch, pack=run.pack)
+    if run.tune:
+        from repro_torch.kernels import autotune
+        autotune.tune_for_run(operator, params, dispatch, downlink=downlink,
+                              retune=run.retune, workers=run.R, device=dev)
     scn.validate_staleness_weight(run.staleness_weight)
     fault_spec = tables = None
     if run.faults is not None:

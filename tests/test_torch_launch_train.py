@@ -208,7 +208,6 @@ def test_checkpoints_cross_bit_for_bit(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--tune"], "queue 1 item 11"),
     (["--mesh", "1x2"], "queue 1 item 12"),
 ])
 def test_unported_flags_raise(flags, item):

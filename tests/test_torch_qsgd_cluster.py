@@ -1,14 +1,16 @@
 """The cluster ``qsgd_quantize`` kernel's arithmetic and geometry, on the CPU.
 
 Each QSGD bucket (a row of up to 512Ki floats) runs on the card as a
-thread-block cluster: block r streams a contiguous chunk, sums its
-squares, and every block adds the blocks' sums in rank order through
-distributed shared memory, so all share one float norm.  Here
-``ref.qsgd_cluster_ref``, a plain model of that (each chunk's squares
-summed, the chunks added in rank order, then the plain version's level
+thread-block cluster: block r quantizes a contiguous chunk, and the norm
+is summed in one order that no cluster size changes (``ref.tree_sq_ref``:
+groups of four, then the adjacent-pair tree; the blocks sum whole units
+of 2048 floats and read each other's through distributed shared memory).
+Here ``ref.qsgd_cluster_ref``, a plain model of that (the norm as a
+cluster of ``cs`` blocks sums it, then the plain version's level
 expression), is held to the plain version ``ref.qsgd_bucketed_ref`` and
 to ``repro``'s ``qsgd_quantize`` in interpret mode and its oracle (whose
-level expression XLA rounds its own way: the level rule there).
+level expression XLA rounds its own way: the level rule there); it is
+one float at every cluster size (``tests/test_torch_autotune.py``).
 
 Tolerance: the norm is a float sum in another order, so an element
 whose uniform lies within rounding of its level's fraction may round
@@ -18,7 +20,8 @@ the other way: at most 16 elements differ, each by exactly one level
 dyadic values) the outputs are equal bit for bit.  ``qsgd_geometry`` is
 pinned at ResNet-50's bucket shapes with the blocks the H100 holds at
 once, and covers every element once.  The ``gpu`` cases run the kernel against
-the plain version at every cluster size.
+the plain version at every cluster size, and against the model bit for
+bit: one output whatever the geometry.
 """
 
 import types
@@ -67,10 +70,8 @@ def buckets(seed: int, rows: int, n: int, dyadic: bool = False):
 
 def geometries(n: int):
     """Every (cs, chunk) the kernel takes for rows of n."""
-    for cs in QSGD_CLUSTERS:
-        chunk = max(4, _chunk(n, cs))
-        if cs == 1 or (cs - 1) * chunk < n:
-            yield cs, chunk
+    for cs in qs.qsgd_clusters(n):
+        yield cs, max(4, _chunk(n, cs))
 
 
 @settings(max_examples=40, deadline=None)
@@ -82,7 +83,7 @@ def test_cluster_model_matches_plain_version(rows, n, s, seed, dyadic):
     xt, ut = torch.from_numpy(x), torch.from_numpy(u)
     want = ref.qsgd_bucketed_ref(xt, ut, s).numpy()
     for cs, chunk in geometries(n):
-        got = ref.qsgd_cluster_ref(xt, ut, s, cs, chunk).numpy()
+        got = ref.qsgd_cluster_ref(xt, ut, s, cs).numpy()
         if dyadic:
             np.testing.assert_array_equal(got, want)
         else:
@@ -97,8 +98,8 @@ def test_cluster_model_exact_on_dyadic_values(n):
     x, u = buckets(n, 4, n, dyadic=True)
     xt, ut = torch.from_numpy(x), torch.from_numpy(u)
     want = ref.qsgd_bucketed_ref(xt, ut, 15)
-    for cs, chunk in geometries(n):
-        assert torch.equal(ref.qsgd_cluster_ref(xt, ut, 15, cs, chunk), want)
+    for cs, _ in geometries(n):
+        assert torch.equal(ref.qsgd_cluster_ref(xt, ut, 15, cs), want)
 
 
 @pytest.fixture
@@ -120,9 +121,9 @@ def test_cluster_model_matches_repro(jx, rows, n, s, dyadic):
                                               s, interpret=True)),
              np.asarray(jx.ref.qsgd_bucketed_ref(jnp.asarray(x),
                                                  jnp.asarray(u), s))]
-    for cs, chunk in geometries(n):
+    for cs, _ in geometries(n):
         got = ref.qsgd_cluster_ref(torch.from_numpy(x), torch.from_numpy(u),
-                                   s, cs, chunk).numpy()
+                                   s, cs).numpy()
         # XLA rounds the level expression its own way (the plain versions
         # agree within rtol 1e-6, tests/test_torch_kernels.py): the level
         # rule, on dyadic values too
@@ -214,15 +215,18 @@ def cuda():
 def test_qsgd_kernel_every_cluster_size_on_card(cuda, n):
     """Each cluster size the kernel takes at a row length (n = 65537: not
     a multiple of 4, scalar accesses), against the plain version under
-    the level rule, and bit for bit on dyadic values."""
+    the level rule, bit for bit on dyadic values, and bit for bit against
+    the model (the same output at every cluster size)."""
     rows = 5
     for dyadic in (False, True):
         x, u = (torch.from_numpy(a).to(cuda)
                 for a in buckets(n, rows, n, dyadic))
         want = ref.qsgd_bucketed_ref(x, u, 15)
+        model = ref.qsgd_cluster_ref(x, u, 15, 1)
         for cs, chunk in geometries(n):
             got = qs._launch(x, u, 15, QsgdGeometry(cs, chunk))
             torch.cuda.synchronize()
+            assert torch.equal(got, model), (cs, chunk)
             if dyadic:
                 assert torch.equal(got, want), (cs, chunk)
             else:

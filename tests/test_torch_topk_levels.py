@@ -8,7 +8,9 @@ blocks per row that takes several bisection levels a pass.  Here
 ``ref.topk_compress_ref`` and to ``repro``'s ``topk_compress`` in
 interpret mode: the threshold float, the counts, the survivor masks and
 the plain Top_k values and memory exactly; SignTop_k values within rtol
-1e-6 (the norm is a float sum in another order).  Rows have ties, exact
+1e-6 (the norm is a float sum in another order: ``ref.tree_sq_ref``'s,
+which is the kernel's at either cluster size, ``tests/
+test_torch_autotune.py``).  Rows have ties, exact
 zeros and -0.0, subnormals, magnitudes past FLT_MAX / 2 (where lo + hi
 may overflow), k = 1 and k = n.  ``cluster_geometry`` is pinned: every
 element in exactly one block.  The kernel itself runs only on the card

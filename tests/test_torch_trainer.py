@@ -165,21 +165,6 @@ def _tiny_run(**kw):
         RunConfig(total_steps=2, R=2, **kw), device=device)
 
 
-@pytest.mark.parametrize("kw", [{"tune": True}])
-def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _tiny_run(**kw)()
-
-
-@pytest.mark.parametrize("kw", [{"retune": True}])
-def test_unported_tuning_fields_are_refused(kw):
-    """Fields that only tune an unported module are refused, not
-    silently ignored: they are not fields of the port's RunConfig yet."""
-    with pytest.raises(TypeError):
-        RunConfig(total_steps=2, R=2, **kw)
-    JRun(total_steps=2, R=2, **kw)          # repro has each of them
-
-
 def test_cuda_without_gpu_raises():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present")
