@@ -164,7 +164,21 @@ Phases, each of which exits non-zero on failure:
    the policy's per-leaf table printed and checked against its rule, and
    its ``topk_compact`` launches a sync asserted: one for each sparse
    leaf less those that the dispatch rule's limits send to the plain
-   version, each printed with its reason.
+   version, each printed with its reason;
+10. the dry run (``repro_torch.launch.dryrun``), its records made on
+   the ``meta`` device in a process of its own while steps 3-9 run:
+   gemma3-1b x train_4k, yi-6b x decode_32k and zamba2-7b x long_500k
+   at full size on ``dp256``, each ``ok`` with its roofline terms; step
+   7's gemma3-1b cell (one worker, sparse wire, ``preset:arch``) run
+   once more as one eager local and one eager sync step, measured as
+   the dry run measures: FLOPs equal to the dry run's exactly, launches
+   equal (7 ``topk_compact`` a sync), the peak over what was live before
+   within 15 % of the predicted argument + temp bytes, and step 7's
+   graphed ms a step as a share of the bf16 peak; step 9's zamba2-7b
+   prefill's peak within 15 % of its prediction, 14 ``flash_attention``
+   as predicted; the gemma3-1b smoke model at 2 gloo ranks on the card,
+   one sync step a wire profiled, its collective bytes read from the
+   trace equal to the dry run's at ``2x1`` by kind and in total.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX
@@ -176,19 +190,18 @@ from __future__ import annotations
 import atexit
 import contextlib
 import json
+import multiprocessing
 import os
 import shutil
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "src")
 
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
-F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
-BF16_OPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 R, B, T, H = 8, 8, 12, 4      # workers, per-worker batch, steps, local steps
 T_TIME = 20                   # steps of the ResNet-50 timing pair
 IMAGES = {"n": 512, "hw": 224, "classes": 1000, "seed": 0}
@@ -357,11 +370,12 @@ def time_ms(fn, reps: int) -> float:
     return ms
 
 
-def bound_ms(nbytes: float, ops: float,
-             ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+def kernel_bound(kernel: str, **shape) -> tuple[float, str]:
+    """(ms, "bytes" or "operations"): the bound of one launch of
+    ``kernel`` at ``shape`` (``roofline.kernel_cost`` with this run's
+    data-dependent counts, over the H100 SXM's data-sheet rates)."""
+    from repro_torch.launch import roofline
+    return roofline.bound_ms(*roofline.kernel_cost(kernel, **shape))
 
 
 def check_topk(dev, rows: int, n: int, k: int, sign: bool, reps: int,
@@ -397,10 +411,7 @@ def check_topk(dev, rows: int, n: int, k: int, sign: bool, reps: int,
     plain_ms = time_ms(lambda: ref.topk_compress_ref(x, k, sign=sign),
                        max(1, reps // 4))
     library_ms = time_ms(lambda: torch.topk(x.abs(), k, dim=1), reps)
-    iters = 24
-    elems = rows * n
-    bms, by = bound_ms(12.0 * elems + 4.0 * rows,
-                       3.0 * (iters + 4) * elems)
+    bms, by = kernel_bound("topk_compress", rows=rows, n=n, iters=24)
     return {"shape": [rows, n], "k": k, "sign": sign, "live": live or n,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bms, "bound_by": by}
@@ -435,7 +446,7 @@ def check_qsgd(dev, rows: int, n: int, s: int, reps: int, live: int = None):
     err = float((out - out_r).abs().max())
     ms = time_ms(lambda: qsgd_quantize(x, u, s), reps)
     plain_ms = time_ms(lambda: ref.qsgd_bucketed_ref(x, u, s), reps)
-    bms, by = bound_ms(12.0 * rows * n, 12.0 * rows * n)
+    bms, by = kernel_bound("qsgd", rows=rows, n=n)
     geo = qsgd_geometry(rows, n,
                         resident_blocks(torch.cuda.current_device()))
     return {"shape": [rows, n], "s": s, "live": live or n, "max_abs_err": err,
@@ -1719,7 +1730,8 @@ def check_sparse_gemm(dev, M: int, R: int, n: int, k: int, reps: int):
     w, xf = w[:, :n].contiguous(), x.float()
     library_ms = time_ms(lambda: torch.matmul(xf, w.T), reps)
     nnz = int((idx < n).sum())
-    bms, by = bound_ms(8.0 * nnz + 2.0 * M * n + 4.0 * M * R, 2.0 * M * nnz)
+    bms, by = kernel_bound("sparse_gemm", M=M, n=n, R=R, nnz=nnz,
+                           x_bytes=x.element_size())
     return {"shape": [M, n, R], "kcap": 128, "k_row": k, "nnz": nnz,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bms, "bound_by": by}
@@ -1746,8 +1758,8 @@ def check_qdq_gemm(dev, M: int, R: int, n: int, reps: int):
     w, xf = lv.float() * scale, x.float()
     library_ms = time_ms(lambda: torch.matmul(xf, w.T), reps)
     del w
-    bms, by = bound_ms(1.0 * R * n + 4.0 * R + 2.0 * M * n + 4.0 * M * R,
-                       2.0 * M * R * n)
+    bms, by = kernel_bound("qdq_gemm", M=M, n=n, R=R,
+                           x_bytes=x.element_size())
     return {"shape": [M, n, R], "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bms,
             "bound_by": by}
@@ -1838,10 +1850,9 @@ def check_paged_decode(dev, quant: bool, reps: int):
     live = torch.arange(P * ps, device=dev)[None, :] < lengths[:, None]
     library_ms = sdpa_ms(q, kg, vg, live, reps)
     tokens = int(lengths.sum())
-    elem = 1 if quant else 2
-    nbytes = (2.0 * tokens * KV * hd * elem + (8.0 * tokens if quant else 0)
-              + 2 * 2.0 * B * H * hd + 4.0 * B * P + 4.0 * B)
-    bms, by = bound_ms(nbytes, 4.0 * H * hd * tokens)
+    bms, by = kernel_bound("paged_decode", B=B, H=H, KV=KV, hd=hd, P=P,
+                           page_size=ps, tokens=tokens, quant=quant,
+                           elem=q.element_size())
     return {"shape": [B, H, KV, hd], "pool": [n_pages, ps],
             "quant": quant, "tokens": tokens, "max_abs_err": err,
             "max_row_rel_err": row_err, "ms": ms,
@@ -1878,8 +1889,8 @@ def check_flash_decode(dev, reps: int, B=8, H=32, KV=4, hd=128, C=512,
     plain_ms = time_ms(lambda: ref.flash_decode_ref(q, k, v, valid), reps)
     library_ms = sdpa_ms(q, k, v, valid, reps)
     tokens = int(valid.sum())
-    nbytes = 2.0 * tokens * KV * hd * 2 + B * C + 2 * 2.0 * B * H * hd
-    bms, by = bound_ms(nbytes, 4.0 * H * hd * tokens)
+    bms, by = kernel_bound("flash_decode", B=B, H=H, KV=KV, hd=hd, C=C,
+                           tokens=tokens, elem=q.element_size())
     return {"shape": [B, H, KV, hd], "cache": C, "tokens": tokens,
             "max_abs_err": err, "max_row_rel_err": row_err, "ms": ms,
             "plain_ms": plain_ms,
@@ -1944,14 +1955,6 @@ def check_flash_decode_cases(dev) -> dict:
                     close_to_scale(out[0, 0], mean, tol, tol, what)
     torch.cuda.synchronize()
     return errs
-
-
-def live_pairs(S: int, window: int) -> int:
-    """(query, key) pairs a causal (window > 0: sliding-window) mask
-    keeps in a sequence of S positions."""
-    if window <= 0 or window >= S:
-        return S * (S + 1) // 2
-    return window * (window + 1) // 2 + (S - window) * window
 
 
 def kernel_names(fn) -> list:
@@ -2029,10 +2032,12 @@ def check_flash_attention(dev, B: int, S: int, H: int, KV: int, D: int,
             return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
     library_ms = time_ms(lib, reps)
     names = kernel_names(lib)
-    pairs = B * live_pairs(S, window)
-    ops = 4.0 * D * H * pairs
-    nbytes = 2.0 * B * S * D * (2 * H + 2 * KV)
-    bms, by = bound_ms(nbytes, ops, BF16_OPS_PER_S)
+    from repro_torch.launch import roofline
+    pairs = B * roofline.live_pairs(S, window)
+    nbytes, ops, dtype = roofline.kernel_cost(
+        "flash_attention", B=B, S=S, H=H, KV=KV, D=D, window=window,
+        elem=q.element_size())
+    bms, by = roofline.bound_ms(nbytes, ops, dtype)
     return {"shape": [B, S, H, KV, D], "window": window, "dtype": "bfloat16",
             "route": ROUTES[torch.bfloat16],
             "split_tiles": split_tiles(S, H, KV, D, window),
@@ -2043,7 +2048,7 @@ def check_flash_attention(dev, B: int, S: int, H: int, KV: int, D: int,
             "library_backend": sdpa_backend(names),
             "library_kernels": [n[:100] for n in names], "bound_ms": bms,
             "bound_by": by,
-            "bound_f32_ms": ops / F32_OPS_PER_S * 1e3}
+            "bound_f32_ms": ops / roofline.PEAK_FLOPS[torch.float32] * 1e3}
 
 
 def phase_flash_kernels(dev):
@@ -2537,10 +2542,8 @@ def check_compact(dev, rows: int, n: int, k: int, kcap: int, sign: bool,
             lambda: ref.topk_compact_ref(x, k, kcap, sign=sign), 2)
         out["library_ms"] = time_ms(lambda: torch.topk(x.abs(), k, dim=1),
                                     reps)
-        elems, iters = rows * n, 24
-        out["bound_ms"], out["bound_by"] = bound_ms(
-            8.0 * elems + 8.0 * rows * kcap + 4.0 * rows,
-            3.0 * (iters + 4) * elems)
+        out["bound_ms"], out["bound_by"] = kernel_bound(
+            "topk_compact", rows=rows, n=n, kcap=kcap, iters=24)
     return out
 
 
@@ -2695,6 +2698,10 @@ def phase_lm_scenario(dev) -> dict:
     return totals
 
 
+#: ``phase_lm``'s median ms a step by (wire, runtime)
+LM_STEP_MS: dict = {}
+
+
 def phase_lm(dev, ckpt: str = None):
     """gemma3-1b through the launcher on both wires, each under the round
     runtime (the default: each round a CUDA graph) and ``--runtime
@@ -2728,6 +2735,9 @@ def phase_lm(dev, ckpt: str = None):
             if a[k] != b[k]:
                 raise AssertionError(f"LM {wire}: {k} differs between the "
                                      f"runtimes: {a[k]} / {b[k]}")
+        for runtime in ("round", "step"):
+            LM_STEP_MS[wire, runtime] = runs[wire, runtime][0][
+                "ms_per_step_median"]
         print(f"lm {wire}: round runtime equals --runtime step; ms a step "
               f"{runs[wire, 'round'][0]['ms_per_step_median']:.1f} graphed, "
               f"{runs[wire, 'step'][0]['ms_per_step_median']:.1f} eager",
@@ -2910,7 +2920,6 @@ def _rank_runs(tmp: str, specs) -> dict:
     """:func:`_rank_run` over (tag, wire, dispatch, runtime, extra) specs,
     four runs at a time on the card (their ranks mostly start up): the
     records by tag."""
-    from concurrent.futures import ThreadPoolExecutor
     with ThreadPoolExecutor(4) as pool:
         runs = {tag: pool.submit(_rank_run, tmp, tag, wire, dispatch,
                                  runtime, extra=ex)
@@ -3427,6 +3436,7 @@ def family_serve_run(dev, spec: dict) -> tuple:
     want_fa, want_fd = family_attention_launches(cfg)
     _free_graphs()
     torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
     t0 = time.perf_counter()
     params = m.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
                            device=dev)
@@ -3435,6 +3445,8 @@ def family_serve_run(dev, spec: dict) -> tuple:
     n_params = sum(t.numel() for t in tree_leaves(params))
     g = torch.Generator(device=dev).manual_seed(1)
     toks = torch.randint(0, cfg.vocab, (B, S), generator=g, device=dev)
+    # the prefill's arguments as the allocator holds them
+    argument_bytes = torch.cuda.memory_allocated(dev) - before
 
     def first_logits(p, c):
         """(prefill logits [B, V], the first decode step's on tok0)."""
@@ -3475,8 +3487,14 @@ def family_serve_run(dev, spec: dict) -> tuple:
                     f"row's largest from the plain path, over the noise "
                     f"floor {fl}")
         reset_launches()
+        # the prefill's own peak, over what was live before it (the
+        # dry run's prediction is held against it in phase_dryrun)
+        run_peak = torch.cuda.max_memory_allocated(dev)
+        live = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
         (logits, cache, _), prefill_ms = timed(lambda: m.prefill(
             params, {"tokens": toks}, cfg, max_len=max_len))
+        prefill_peak = torch.cuda.max_memory_allocated(dev) - live
         got = {k: v for k, v in LAUNCHES.items() if v}
         if got != ({"flash_attention": want_fa} if want_fa else {}):
             raise AssertionError(f"{cfg.name} prefill launched {got}, want "
@@ -3507,7 +3525,11 @@ def family_serve_run(dev, spec: dict) -> tuple:
            "batch": B, "prompt": S, "new_tokens": new, "init_s": init_s,
            "prefill_ms": prefill_ms, "plain_prefill_ms": plain_prefill_ms,
            "decode_ms_per_step": decode_ms,
-           "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
+           "peak_device_bytes": max(run_peak,
+                                    torch.cuda.max_memory_allocated(dev)),
+           "prefill_peak_over_live_bytes": prefill_peak,
+           "prefill_argument_bytes": argument_bytes,
+           "max_len": max_len,
            "launches_per_prefill": {"flash_attention": want_fa},
            "launches_per_step": {"flash_decode": want_fd},
            "kernel_call_max_row_rel_err": worst,
@@ -3631,15 +3653,22 @@ def phase_family_serve(dev):
     """rwkv6-3b, zamba2-7b and qwen3-moe-30b-a3b served at full width
     (``family_serve_run``), each followed by its float32 check at a cut
     depth (``family_f32_run``), then the smoke configs' kernel-vs-
-    reference agreement.  Returns the launches of the bf16 runs."""
+    reference agreement.  Returns the launches of the bf16 runs; their
+    rows are kept in ``FAMILY_ROWS`` (``phase_dryrun`` reads zamba2-7b's
+    prefill)."""
     totals: dict = {}
     for spec in FAMILY_SERVE:
-        _, launches = family_serve_run(dev, spec)
+        row, launches = family_serve_run(dev, spec)
+        FAMILY_ROWS[spec["arch"]] = row
         for k, v in launches.items():
             totals[k] = totals.get(k, 0) + v
         family_f32_run(dev, spec)
     family_smoke_agreement(dev)
     return totals
+
+
+#: the rows of ``phase_family_serve``'s bf16 runs, by arch
+FAMILY_ROWS: dict = {}
 
 
 def family_policy(arch: str, layers: int) -> int:
@@ -3779,6 +3808,300 @@ def phase_family_train(dev) -> dict:
     return totals
 
 
+#: the dry run's full-size records on ``dp256`` (phase_dryrun (a))
+DRY_FULL = (("gemma3-1b", "train_4k"), ("yi-6b", "decode_32k"),
+            ("zamba2-7b", "long_500k"))
+#: how far a measured peak, its arguments or its temporaries may sit
+#: from the dry run's prediction (the card's readings, PERF.md: 0.002-
+#: 0.18 % a peak, at most 0.37 % a part)
+DRY_PEAK_TOL = 0.01
+#: the 2-rank collectives check: the gemma3-1b smoke model, 2 gloo ranks
+#: sharing the card, one sync step a wire profiled in each rank
+DRY_RANKS = {"ranks": 2, "seq": 64, "global_batch": 2}
+DRY_RANK_CODE = r"""
+import json, sys
+sys.path.insert(0, {src!r})
+from repro_torch.configs import get_config
+from repro_torch.configs.base import InputShape
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_mesh
+mesh = make_mesh("{ranks}x1", device="cuda", backend="gloo")
+try:
+    ops = set()
+    out = dryrun.profile_sync_collectives(
+        "gemma3-1b", get_config("gemma3-1b", smoke=True), mesh,
+        InputShape("ranks", {seq}, {global_batch}, "train"),
+        ("dense_psum", "sparse_allgather"), mesh.device, seen=ops)
+    if mesh.rank == 0:
+        print("COLLECTIVES " + json.dumps({{"bytes": out,
+                                             "ops": sorted(ops)}}))
+finally:
+    mesh.close()
+"""
+
+
+def _lm_cell():
+    from repro_torch.configs.base import InputShape
+    return (InputShape("lm_cell", LM["seq"], LM["batch"], "train"),
+            dict(aggregate="sparse_allgather", policy="preset:arch"))
+
+
+def _family_prefill():
+    from repro_torch.configs.base import InputShape
+    spec = next(s for s in FAMILY_SERVE if s["arch"] == "zamba2-7b")
+    return spec, InputShape("family_prefill", spec["prompt"], spec["batch"],
+                            "prefill")
+
+
+def _ranks_shape():
+    from repro_torch.configs.base import InputShape
+    return InputShape("ranks", DRY_RANKS["seq"], DRY_RANKS["global_batch"],
+                      "train")
+
+
+def dry_records() -> dict:
+    """Every dry-run record ``phase_dryrun`` holds against the card, on
+    the ``meta`` device: host work only, run in a process of its own
+    while the card runs the other phases (``main`` starts it)."""
+    if SRC not in sys.path:
+        sys.path.insert(0, SRC)
+    from repro_torch.launch import dryrun as dr
+    shape, kw = _lm_cell()
+    spec, prefill = _family_prefill()
+    t = time.perf_counter()
+    out = {"full": [dr.run_one(a, s) for a, s in DRY_FULL],
+           "lm": dr.run_one(LM["arch"], shape=shape, mesh="1x1", **kw),
+           "prefill": dr.run_one(spec["arch"], shape=prefill, mesh="1x1",
+                                 cfg_overrides={"use_pallas": True},
+                                 max_len=spec["prompt"] + spec["new"]),
+           "ranks": {wire: dr.run_one(
+               LM["arch"], shape=_ranks_shape(), smoke=True,
+               mesh=f"{DRY_RANKS['ranks']}x1", aggregate=wire)
+               for wire in ("dense_psum", "sparse_allgather")}}
+    out["seconds"] = time.perf_counter() - t
+    return out
+
+
+def _ok(rec: dict, what: str) -> dict:
+    if rec["status"] != "ok":
+        raise AssertionError(f"dry run of {what}: "
+                             f"{rec.get('error', rec['status'])}")
+    return rec
+
+
+def _near(got: float, want: float, what: str, faults: list) -> float:
+    """|got - want| / want; a fault noted past DRY_PEAK_TOL."""
+    rel = abs(got - want) / want
+    if rel > DRY_PEAK_TOL:
+        faults.append(f"{what}: measured {got} bytes, the dry run predicts "
+                      f"{want} ({rel:.3f} apart, more than {DRY_PEAK_TOL})")
+    return rel
+
+
+def _raise(faults: list) -> None:
+    """The checks of a dry-run comparison fail after its row is printed."""
+    if faults:
+        raise AssertionError("; ".join(faults))
+
+
+def dry_lm_cell(dev, dry: dict) -> dict:
+    """(b) gemma3-1b as ``phase_lm`` trains it (``full()``, one worker,
+    batch 2 of 2048, the sparse wire, ``preset:arch``): the dry run's
+    record of the cell, then one eager ``local_step`` and one eager
+    ``sync_step`` of the same job on the card, each measured as the dry
+    run measures (FlopCounterMode, the kernels' costs through the
+    launch sink), after ``reset_peak_memory_stats``: FLOPs equal
+    exactly, launches equal, and each within DRY_PEAK_TOL of its
+    prediction: the peak over what was live before the job (argument +
+    temp bytes), the bytes live when the step starts (arguments) and
+    the peak over them (temporaries).
+    Then phase_lm's graphed ms a step as a share of the peak.  ``dry``:
+    the cell's record (``dry_records``)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch import roofline
+    from repro_torch.launch.mesh import Mesh
+    shape, kw = _lm_cell()
+    _ok(dry, "the LM cell")
+    _free_graphs()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    mesh = Mesh((1, 1), ("data", "model"), device=dev)
+    job = dr.build_train(LM["arch"], get_config(LM["arch"]), mesh, shape,
+                         device=dev, **kw)
+    state = dr.steady_state(job.init_fn(job.params))
+    del job.params
+    out, faults = {"card": card(), "steps": {}}, []
+    for name in ("local_step", "sync_step"):
+        want = dry["steps"][name]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        live = torch.cuda.memory_allocated(dev) - base
+        result, got = dr.measure(job.steps[name], (state, job.batch), mesh)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        del result
+        if got["flops"] != want["flops"]:
+            faults.append(f"LM cell {name}: {got['flops']} FLOPs on the "
+                          f"card, {want['flops']} in the dry run")
+        if got["launches"] != want["launches"]:
+            faults.append(f"LM cell {name}: launches {got['launches']} on "
+                          f"the card, {want['launches']} dry")
+        mem = want["memory"]
+        predicted = mem["argument_bytes"] + mem["temp_bytes"]
+        rel = _near(peak, predicted, f"LM cell {name} peak", faults)
+        rel_arg = _near(live, mem["argument_bytes"],
+                        f"LM cell {name} arguments", faults)
+        rel_temp = _near(peak - live, mem["temp_bytes"],
+                         f"LM cell {name} temporaries", faults)
+        out["steps"][name] = {
+            "flops": got["flops"], "dry_flops": want["flops"],
+            "kernel_flops": got["kernel_flops"],
+            "launches": got["launches"], "peak_bytes": peak,
+            "live_before_bytes": live, "predicted_bytes": predicted,
+            "predicted_argument_bytes": mem["argument_bytes"],
+            "predicted_temp_bytes": mem["temp_bytes"],
+            "card_meter_temp_bytes": got["memory"]["temp_bytes"],
+            "rel_gap": rel, "rel_gap_arguments": rel_arg,
+            "rel_gap_temp": rel_temp}
+    del job, state
+    _free_graphs()
+    H = LM["H"]
+    steps = out["steps"]
+    round_flops = (H - 1) * steps["local_step"]["flops"] + steps[
+        "sync_step"]["flops"]
+    ms = LM_STEP_MS.get(("sparse_allgather", "round"))
+    terms = roofline.analyze(dry)
+    out.update(dtype=dry["dtype"], round_flops=round_flops, terms={
+        k: terms[k] for k in ("t_compute_s", "t_memory_s", "t_collective_s",
+                              "dominant", "useful_ratio")})
+    if ms is not None:
+        rate = round_flops / (H * ms / 1e3)
+        out.update(graphed_ms_per_step=ms, achieved_flops_per_s=rate,
+                   share_of_peak=rate / roofline.PEAK_FLOPS[
+                       getattr(torch, dry["dtype"])])
+    print("dryrun lm cell", json.dumps(out), flush=True)
+    _raise(faults)
+    return out
+
+
+def dry_family_prefill(dry: dict) -> dict:
+    """(c) zamba2-7b's prefill as ``phase_family_serve`` ran it (bf16,
+    ``use_pallas``, [4, 2048]): the dry run's predicted argument + temp
+    bytes (``dry``, from ``dry_records``, at the card's cache length)
+    against the card's (the arguments as the allocator holds them, plus
+    the prefill's peak over what was live before it), each part and the
+    sum within DRY_PEAK_TOL; the flash_attention launches equal."""
+    spec, _ = _family_prefill()
+    row = FAMILY_ROWS[spec["arch"]]
+    st = _ok(dry, "zamba2-7b's prefill")["steps"]["prefill"]
+    predicted = st["memory"]["argument_bytes"] + st["memory"]["temp_bytes"]
+    measured = row["prefill_argument_bytes"] + row[
+        "prefill_peak_over_live_bytes"]
+    faults = []
+    rel = _near(measured, predicted, "zamba2-7b prefill peak", faults)
+    rel_arg = _near(row["prefill_argument_bytes"],
+                    st["memory"]["argument_bytes"],
+                    "zamba2-7b prefill arguments", faults)
+    rel_temp = _near(row["prefill_peak_over_live_bytes"],
+                     st["memory"]["temp_bytes"],
+                     "zamba2-7b prefill temporaries", faults)
+    if dry["max_len"] != row["max_len"]:
+        faults.append(f"zamba2-7b prefill: cache of {row['max_len']} on "
+                      f"the card, {dry['max_len']} in the dry run")
+    if st["launches"] != row["launches_per_prefill"]:
+        faults.append(f"zamba2-7b prefill: launches "
+                      f"{row['launches_per_prefill']} on the card, "
+                      f"{st['launches']} in the dry run")
+    out = {"card": card(), "predicted_bytes": predicted,
+           "predicted_argument_bytes": st["memory"]["argument_bytes"],
+           "predicted_temp_bytes": st["memory"]["temp_bytes"],
+           "measured_bytes": measured,
+           "argument_bytes": row["prefill_argument_bytes"],
+           "peak_over_live_bytes": row["prefill_peak_over_live_bytes"],
+           "rel_gap": rel, "rel_gap_arguments": rel_arg,
+           "rel_gap_temp": rel_temp, "launches": st["launches"],
+           "card_max_len": row["max_len"], "dry_max_len": dry["max_len"],
+           "flops": st["flops"], "prefill_ms": row["prefill_ms"]}
+    print("dryrun family prefill", json.dumps(out), flush=True)
+    _raise(faults)
+    return out
+
+
+def rank_collectives() -> dict:
+    """(d)'s card half: DRY_RANKS' gloo ranks of the gemma3-1b smoke model
+    on the one card, each profiling one sync step a wire; rank 0's
+    collective bytes by wire and the communication records its trace
+    named.  ``main`` runs it beside the multi-rank phases (host work,
+    smoke-sized on the card)."""
+    from repro_torch.launch.mesh import run_local_ranks
+    code = DRY_RANK_CODE.format(src=SRC, **DRY_RANKS)
+    procs = run_local_ranks([sys.executable, "-c", code], DRY_RANKS["ranks"],
+                            env=dict(os.environ, PYTHONPATH=SRC),
+                            timeout=300)
+    for r, (rc, _out, err) in enumerate(procs):
+        if rc != 0:
+            raise AssertionError(f"collectives rank {r} exited {rc}:\n"
+                                 f"{err[-3000:]}")
+    line = next(l for l in procs[0][1].splitlines()
+                if l.startswith("COLLECTIVES "))
+    return json.loads(line[len("COLLECTIVES "):])
+
+
+def dry_collectives(dry: dict, got: dict) -> dict:
+    """(d) the collectives ``rank_collectives`` read from rank 0's trace
+    (``got``) equal the dry run's at ``2x1`` (``dry``: its records by
+    wire), by kind and in total."""
+    out, faults = {"ops": got["ops"], "wires": {}}, []
+    for wire, measured in got["bytes"].items():
+        want = _ok(dry[wire], f"the {wire} ranks")["steps"]["sync_step"][
+            "collectives"]
+        if measured != want or not want["total"]:
+            faults.append(f"collectives {wire}: {measured} in the trace, "
+                          f"{want} in the dry run")
+        out["wires"][wire] = {"trace": measured, "dry": want}
+    print("dryrun collectives", json.dumps(out), flush=True)
+    _raise(faults)
+    return out
+
+
+def phase_dryrun(dev, records: dict, ranks: dict) -> dict:
+    """The dry run (``launch/dryrun.py``) held against the card, its
+    records from ``dry_records``: (a) full size on ``dp256`` on meta
+    (``DRY_FULL``), each ``ok`` with FLOPs, its roofline terms printed;
+    (b) the gemma3-1b LM cell (``dry_lm_cell``); (c) zamba2-7b's prefill
+    (``dry_family_prefill``); (d) the 2-rank collectives
+    (``dry_collectives`` on ``ranks``, ``rank_collectives``' result)."""
+    from repro_torch.launch import roofline
+    print(f"dryrun: records on meta in {records['seconds']:.1f}s beside "
+          f"the card's phases", flush=True)
+    full = []
+    for (arch, shape), rec in zip(DRY_FULL, records["full"]):
+        if rec["status"] != "ok" or not all(
+                st["flops"] > 0 for st in rec["steps"].values()):
+            raise AssertionError(f"dry run {arch} x {shape}: "
+                                 f"{rec.get('error', rec['status'])}")
+        a = roofline.analyze(rec)
+        row = {"arch": arch, "shape": shape, "mesh": rec["mesh"],
+               "params": rec["params"], "fits": rec["fits"],
+               "peak_bytes": rec["peak_bytes"], "dtype": rec["dtype"],
+               "steps": {n: {"flops": st["flops"],
+                             "bytes_accessed": st["bytes_accessed"],
+                             "memory": st["memory"],
+                             "collectives": st["collectives"]["total"],
+                             "launches": st["launches"]}
+                         for n, st in rec["steps"].items()},
+               **{k: a[k] for k in ("t_compute_s", "t_memory_s",
+                                    "t_collective_s", "dominant",
+                                    "useful_ratio")}}
+        print("dryrun", json.dumps(row), flush=True)
+        full.append(row)
+    return {"full": full, "lm": dry_lm_cell(dev, records["lm"]),
+            "prefill": dry_family_prefill(records["prefill"]),
+            "collectives": dry_collectives(records["ranks"], ranks)}
+
+
 def timed_phase(fn, *args):
     """``fn(*args)``, printing the seconds it took (the run's budget by
     phase)."""
@@ -3818,6 +4141,11 @@ def main() -> int:
     print(f"built {[os.path.relpath(s, HERE) for s in _build.sources()]} "
           f"in {time.perf_counter() - t0:.1f}s", flush=True)
 
+    # the dry run's records: meta work on the host, beside the card's
+    # phases, in a process of its own (spawned: no CUDA state to fork)
+    dry_pool = multiprocessing.get_context("spawn").Pool(1)
+    atexit.register(dry_pool.terminate)
+    dry_pending = dry_pool.apply_async(dry_records)
     topk, qsgd = timed_phase(phase_kernels, dev)
     # the tuning table of every tuned run of the script
     table_dir = tempfile.mkdtemp(dir=os.path.join(SRC, "repro_torch",
@@ -3860,6 +4188,9 @@ def main() -> int:
     for more in (flash_totals, ckpt_totals):
         for k, v in more.items():
             serve_totals[k] = serve_totals.get(k, 0) + v
+    # (d)'s ranks run beside the multi-rank phases' own
+    ranks_pool = ThreadPoolExecutor(1)
+    ranks_pending = ranks_pool.submit(rank_collectives)
     timed_phase(phase_lm_ranks, dev)
     timed_phase(phase_lm_ranks_mesh, dev)
     family_fa, family_fd = timed_phase(phase_family_kernels, dev)
@@ -3867,6 +4198,11 @@ def main() -> int:
                        (timed_phase(phase_family_train, dev), lm_totals)):
         for k, v in more.items():
             into[k] = into.get(k, 0) + v
+    timed_phase(phase_dryrun, dev, dry_pending.get(timeout=600),
+                ranks_pending.result(timeout=600))
+    ranks_pool.shutdown()
+    dry_pool.close()
+    dry_pool.join()
 
     head_topk, head_qsgd = topk[1], qsgd[0]
     kernels = [

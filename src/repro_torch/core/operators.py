@@ -56,8 +56,14 @@ Rng = Union[torch.Generator, Uniforms, None]
 
 
 def uniform(rng: Rng, shape, device) -> torch.Tensor:
-    """float32 uniforms in [0, 1) of ``shape`` on ``device`` from ``rng``."""
+    """float32 uniforms in [0, 1) of ``shape`` on ``device`` from ``rng``.
+    On the ``meta`` device (a dry run, ``launch/dryrun.py``) there is
+    nothing to draw: the tensor has the shape and no values, and ``rng``
+    does not advance."""
     shape = tuple(int(s) for s in shape)
+    if (isinstance(rng, (Uniforms, torch.Generator))
+            and torch.device(device).type == "meta"):
+        return torch.empty(shape, dtype=torch.float32, device=device)
     if isinstance(rng, Uniforms):
         return rng.draw(shape, device)
     if isinstance(rng, torch.Generator):

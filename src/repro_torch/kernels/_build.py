@@ -184,12 +184,13 @@ def check_tensor(name: str, t, ndim: int, dtypes) -> None:
 
 
 def device_of(*ts):
-    """The one device all of ``ts`` are on (the CPU or a CUDA card)."""
+    """The one device all of ``ts`` are on (the CPU, a CUDA card, or
+    ``meta``: a dry run's stand-in for the card)."""
     dev = ts[0].device
     for t in ts[1:]:
         if t.device != dev:
             raise ValueError(f"tensors on {dev} and {t.device}")
-    if dev.type not in ("cpu", "cuda"):
+    if dev.type not in ("cpu", "cuda", "meta"):
         raise RuntimeError(f"unsupported device {dev}")
     return dev
 

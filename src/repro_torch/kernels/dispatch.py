@@ -38,7 +38,8 @@ Eligibility is ``repro``'s, unchanged, because it decides which leaves
 take which path: at least ``min_size`` elements (``mode="auto"`` only),
 rows of a multiple of 128 elements, rows no longer than ``max_row``.
 ``mode="auto"`` dispatches when the tensors are on a CUDA device (where
-``repro`` asks for a TPU); ``mode="kernel"`` always dispatches, and on
+``repro`` asks for a TPU) or on the ``meta`` device (a dry run's
+stand-in for the card); ``mode="kernel"`` always dispatches, and on
 the CPU runs each kernel's plain version through the same packing path
 and launch counters; ``mode="reference"`` never dispatches.
 
@@ -88,11 +89,21 @@ LANES = 128  # kernel rows are padded to a multiple of this (repro's rule)
 class DispatchConfig:
     """Where and when compression runs through the kernels.
 
-    mode: "auto"      — kernels for tensors on a CUDA device (default)
+    mode: "auto"      — kernels for tensors on a CUDA device (default),
+                        and on the ``meta`` device: a dry run's tensors
+                        stand for the card's (``launch/dryrun.py``), so
+                        they take the card's route, to the wrappers'
+                        meta branches (empty outputs of the kernels'
+                        shapes, counted as launches and costed by the
+                        dry run); a meta tensor never reaches a plain
+                        version, and a leaf the rules send to the
+                        reference operators runs them on meta as it
+                        would on the card
           "kernel"    — always the kernel path (the plain versions on
-                        the CPU); bypasses min_size but not the
-                        structural limits
-          "reference" — never dispatch (pure core/operators.py)
+                        the CPU, the meta branches on meta); bypasses
+                        min_size but not the structural limits
+          "reference" — never dispatch (pure core/operators.py, which
+                        runs on meta as it runs on the card)
     min_size: smallest leaf (elements) worth a kernel launch in "auto"
     max_row:  longest kernel row (elements)
     max_cap:  largest compact survivor capacity (slots per row) routed to
@@ -129,7 +140,7 @@ class DispatchConfig:
             return False
         if self.mode == "kernel":
             return True
-        return _device(device).type == "cuda"
+        return _device(device).type in ("cuda", "meta")
 
 
 DEFAULT = DispatchConfig()
@@ -204,9 +215,12 @@ def _geometry(cfg: DispatchConfig, kernel: str, rows: int, n: int, k: int,
     (``TUNE_CACHE`` counts one lookup per call: an eager run looks up at
     every call, a graphed round at its capture), else None, the kernel's
     own pick.  A table entry the launch cannot take (another build's) is
-    passed over."""
+    passed over.  A ``meta`` launch (a dry run) reads no table: the
+    explicit value or the kernel's own pick."""
     if cfg.block_rows is not None:
         return cfg.block_rows
+    if device is not None and torch.device(device).type == "meta":
+        return None
     ent = autotune.lookup(kernel, rows, n, k, sign, device=device)
     if ent is not None and autotune.takes(kernel, rows, n, k, sign,
                                           ent.block_rows):

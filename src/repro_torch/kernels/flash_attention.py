@@ -14,8 +14,10 @@
   (row, kv head).
 
 A CUDA tensor launches a kernel on the current stream; a CPU tensor runs
-the plain version (``ref.flash_attention_ref``, ``ref.flash_decode_ref``).
-There is no other route: a failed build or launch raises.  A launch
+the plain version (``ref.flash_attention_ref``, ``ref.flash_decode_ref``);
+a ``meta`` tensor (a dry run) gets an empty output of the kernel's shape,
+after the card's argument checks that need no call to the card.  There
+is no other route: a failed build or launch raises.  A launch
 makes no host call that a CUDA-graph capture forbids: its scratch (the
 split partials) is a ``torch.empty`` of the call, which under a capture
 comes from the graph's memory pool and lives as long as the graph; its
@@ -31,7 +33,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.launch_stats import LAUNCHES
+from repro_torch.kernels.launch_stats import count
 
 #: head widths ``csrc/flash_attention.cu`` is instantiated for
 FLASH_HEAD_DIMS = (16, 32, 64, 80, 112, 128, 256)
@@ -175,7 +177,10 @@ def flash_attention_fwd(q, k, v, *, window: int = -1):
         if smem > MAX_SMEM:
             raise ValueError(f"flash_attention needs {smem} bytes of shared "
                              f"memory; at most {MAX_SMEM}")
-    LAUNCHES["flash_attention"] += 1
+    count("flash_attention", B=B, S=S, H=H, KV=KV, D=D, window=int(window),
+          elem=q.element_size())
+    if dev.type == "meta":
+        return torch.empty_like(q)
     if dev.type == "cpu":
         return ref.flash_attention_ref(q, k, v, window=window)
     lib = _build.load()
@@ -245,10 +250,13 @@ def flash_decode(q, k, v, valid):
         raise ValueError(f"valid must be bool [{C}] or [{B}, {C}], got "
                          f"{valid.dtype} {tuple(valid.shape)}")
     dev = _build.device_of(q, k, v, valid)
-    if dev.type == "cuda" and (hd % 8 or hd > 256):
+    if dev.type in ("cuda", "meta") and (hd % 8 or hd > 256):
         raise ValueError(f"flash_decode takes head widths that are "
                          f"multiples of 8 up to 256, got {hd}")
-    LAUNCHES["flash_decode"] += 1
+    count("flash_decode", B=B, H=H, KV=KV, hd=hd, C=C,
+          elem=q.element_size())
+    if dev.type == "meta":
+        return torch.empty_like(q)
     if dev.type == "cpu":
         return ref.flash_decode_ref(q, k, v, valid)
     _check_aligned(k=k, v=v)

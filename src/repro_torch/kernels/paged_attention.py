@@ -5,7 +5,8 @@ over each row's pages (``paged_splits``) with the live splits' partials
 merged by the last of them.
 
 A CUDA tensor launches the kernel on the current stream; a CPU tensor
-runs the plain version (``ref.paged_decode_ref``).  There is no other
+runs the plain version (``ref.paged_decode_ref``); a ``meta`` tensor (a
+dry run) gets an empty output of the kernel's shape.  There is no other
 route: a failed build or launch raises.  Under a CUDA-graph capture the
 split partials come from the graph's pool and the ticket buffer from
 before the capture, as ``flash_attention``'s do.
@@ -18,7 +19,7 @@ import torch
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.flash_attention import (
     _tickets, decode_heads_per_block)
-from repro_torch.kernels.launch_stats import LAUNCHES
+from repro_torch.kernels.launch_stats import count
 
 #: logical pages one block takes when the caller names no geometry
 DEFAULT_PAGES_PER_BLOCK = 4
@@ -61,11 +62,14 @@ def paged_decode(q, kp, vp, kscale, vscale, tables, lengths, *,
         raise ValueError(f"tables {tuple(tables.shape)} / lengths "
                          f"{tuple(lengths.shape)} do not match B={B}")
     dev = _build.device_of(q, kp, vp, kscale, vscale, tables, lengths)
-    if dev.type == "cuda" and (hd % 8 or hd > 256):
+    if dev.type in ("cuda", "meta") and (hd % 8 or hd > 256):
         raise ValueError(f"paged_decode takes head widths that are "
                          f"multiples of 8 up to 256, got {hd}")
     pb = max(1, min(int(pages_per_block), P))
-    LAUNCHES["paged_decode"] += 1
+    count("paged_decode", B=B, H=H, KV=KV, hd=hd, P=P, page_size=ps,
+          quant=kp.dtype == torch.int8, elem=q.element_size())
+    if dev.type == "meta":
+        return torch.empty_like(q)
     if dev.type == "cpu":
         return ref.paged_decode_ref(q, kp, vp, kscale, vscale, tables,
                                     lengths)

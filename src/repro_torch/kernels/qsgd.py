@@ -17,7 +17,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.launch_stats import LAUNCHES
+from repro_torch.kernels.launch_stats import count
 from repro_torch.kernels.topk_compress import _check_rows, _chunk
 
 #: the cluster sizes the kernel takes (16 is past the portable 8)
@@ -88,8 +88,9 @@ def qsgd_quantize(x: torch.Tensor, u: torch.Tensor, s: int, *,
     geometry ``qsgd_geometry`` picks for the card, or at ``cluster``
     blocks a bucket (one of ``qsgd_clusters(n)``; any other value
     raises, on the CPU too); a CPU tensor runs the plain version
-    (``ref.qsgd_bucketed_ref``).  There is no other route: a failed build
-    or launch raises.
+    (``ref.qsgd_bucketed_ref``); a ``meta`` tensor gets an empty output,
+    counted as a launch, with no occupancy query.  There is no other
+    route: a failed build or launch raises.
     """
     _check_rows("x", x)
     _check_rows("u", u)
@@ -104,7 +105,9 @@ def qsgd_quantize(x: torch.Tensor, u: torch.Tensor, s: int, *,
                          f"{x.shape[1]} floats, got {cluster}")
     if x.shape[0] == 0:     # no live bucket: nothing to launch
         return torch.empty_like(x)
-    LAUNCHES["qsgd"] += 1
+    count("qsgd", rows=x.shape[0], n=x.shape[1])
+    if x.device.type == "meta":     # a dry run: the output's shape
+        return torch.empty_like(x)
     if x.device.type == "cpu":
         return ref.qsgd_bucketed_ref(x, u, s)
     if x.device.type != "cuda":

@@ -4,8 +4,9 @@ hand-written in CUDA C++ for Hopper (``csrc/sparse_gemm.cu``).
 
 A CUDA tensor launches the kernel on the current stream; a CPU tensor
 runs the kernel's plain version (``ref.sparse_gemm_ref`` /
-``ref.qdq_gemm_ref``).  There is no other route: a failed build or
-launch raises.  Both count one launch per call in ``LAUNCHES``.
+``ref.qdq_gemm_ref``); a ``meta`` tensor (a dry run) gets an empty
+output of the kernel's shape.  There is no other route: a failed build
+or launch raises.  Both count one launch per call in ``LAUNCHES``.
 ``sparse_gemm`` runs one of three kernels, picked inside the launch
 (``sparse_route`` mirrors the choice): decode batches (M <= 8) stage x in
 shared memory once a block and walk batches of output rows
@@ -24,7 +25,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.launch_stats import LAUNCHES
+from repro_torch.kernels.launch_stats import count
 
 _X_DTYPES = (torch.float32, torch.bfloat16)
 #: ``sparse_gemm_route``'s kernels: the one the shapes pick, a warp per
@@ -157,7 +158,10 @@ def sparse_gemm_route(x: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
     if tuple(val.shape) != (R, kcap):
         raise ValueError(f"val {tuple(val.shape)} != idx {(R, kcap)}")
     dev = _build.device_of(x, idx, val)
-    LAUNCHES["sparse_gemm"] += 1
+    count("sparse_gemm", M=M, n=n, R=R, kcap=kcap,
+          x_bytes=x.element_size())
+    if dev.type == "meta":
+        return torch.empty((M, R), dtype=torch.float32, device=dev)
     if dev.type == "cpu":
         return ref.sparse_gemm_ref(x, idx, val, row_len)
     lib = _build.load()
@@ -188,7 +192,9 @@ def qdq_gemm(x: torch.Tensor, levels: torch.Tensor,
     if tuple(scale.shape) != (R, 1):
         raise ValueError(f"scale must be [{R}, 1], got {tuple(scale.shape)}")
     dev = _build.device_of(x, levels, scale)
-    LAUNCHES["qdq_gemm"] += 1
+    count("qdq_gemm", M=M, n=n, R=R, x_bytes=x.element_size())
+    if dev.type == "meta":
+        return torch.empty((M, R), dtype=torch.float32, device=dev)
     if dev.type == "cpu":
         return ref.qdq_gemm_ref(x, levels, scale)
     if n % 4 or levels.data_ptr() % 4:

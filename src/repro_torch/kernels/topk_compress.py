@@ -32,7 +32,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.launch_stats import LAUNCHES
+from repro_torch.kernels.launch_stats import count
 
 #: longest row ``topk_compress`` holds in one warp's or block's registers
 #: (``csrc/topk_compress.cu`` kShortMaxElems); longer rows take a cluster
@@ -188,8 +188,10 @@ def topk_compress(acc: torch.Tensor, k: int, *, iters: int = 24,
     than ``SHORT_ROW`` take a cluster of ``cluster_geometry``'s size or
     of ``cluster`` blocks (one of ``cluster_sizes(n)`` that the card
     schedules; any other value raises, on the CPU too).  A CPU tensor
-    runs the plain version (``ref.topk_compress_ref``).  There is no
-    other route: a failed build or launch raises.
+    runs the plain version (``ref.topk_compress_ref``); a ``meta`` tensor
+    (a dry run) gets empty outputs of the kernel's shapes, counted as a
+    launch, with no call to the card.  There is no other route: a failed
+    build or launch raises.
     """
     _check_rows("acc", acc)
     rows, n = acc.shape
@@ -198,7 +200,10 @@ def topk_compress(acc: torch.Tensor, k: int, *, iters: int = 24,
     if rows == 0:       # no live row (every worker dead): nothing to launch
         return (torch.empty_like(acc), torch.empty_like(acc),
                 torch.empty((0,), dtype=torch.int32, device=acc.device))
-    LAUNCHES["topk_compress"] += 1
+    count("topk_compress", rows=rows, n=n, iters=iters)
+    if acc.device.type == "meta":   # a dry run: the outputs' shapes
+        return (torch.empty_like(acc), torch.empty_like(acc),
+                torch.empty((rows,), dtype=torch.int32, device=acc.device))
     if acc.device.type == "cpu":
         return ref.topk_compress_ref(acc, k, iters=iters, sign=sign)
     if acc.device.type != "cuda":
@@ -239,8 +244,9 @@ def topk_compact(acc: torch.Tensor, k: int, kcap: int, *, iters: int = 24,
     ``compact_geometry`` picks from the shape, the warp route with
     ``group`` rows a block where given (one of ``compact_groups(n,
     kcap)``; any other value raises, on the CPU too); a CPU tensor runs
-    the plain version (``ref.topk_compact_ref``).  A failed build or
-    launch raises.
+    the plain version (``ref.topk_compact_ref``); a ``meta`` tensor gets
+    empty outputs of the kernel's shapes, counted as a launch.  A failed
+    build or launch raises.
     """
     _check_rows("acc", acc)
     rows, n = acc.shape
@@ -254,7 +260,14 @@ def topk_compact(acc: torch.Tensor, k: int, kcap: int, *, iters: int = 24,
                             device=acc.device),
                 torch.empty_like(acc),
                 torch.empty((0,), dtype=torch.int32, device=acc.device))
-    LAUNCHES["topk_compact"] += 1
+    count("topk_compact", rows=rows, n=n, kcap=kcap, iters=iters)
+    if acc.device.type == "meta":   # a dry run: the outputs' shapes
+        return (torch.empty((rows, kcap), dtype=torch.int32,
+                            device=acc.device),
+                torch.empty((rows, kcap), dtype=torch.float32,
+                            device=acc.device),
+                torch.empty_like(acc),
+                torch.empty((rows,), dtype=torch.int32, device=acc.device))
     if acc.device.type == "cpu":
         return ref.topk_compact_ref(acc, k, kcap, iters=iters, sign=sign)
     if acc.device.type != "cuda":

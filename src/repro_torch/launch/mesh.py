@@ -114,6 +114,42 @@ class Mesh:
             self.group = None
 
 
+@dataclasses.dataclass
+class DryMesh(Mesh):
+    """Rank 0 of a mesh of ``world_size`` workers with no process group,
+    for a dry run (``launch/dryrun.py``) on the ``meta`` device: every
+    collective returns what rank 0 would get, in shape, and appends its
+    ``(kind, dtype, shape)`` to ``events`` (``roofline_parse``'s
+    events, the result's shape on one device).  ``all_reduce_sum``
+    returns its input unchanged, ``all_gather`` a new [W, ...] tensor
+    (on meta: no storage), ``barrier`` is the one-float all-reduce it
+    is on a real mesh."""
+
+    events: list = dataclasses.field(default_factory=list)
+
+    def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
+        self.events.append(("all-reduce", t.dtype, tuple(t.shape)))
+        return t
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        shape = (self.world_size,) + tuple(t.shape)
+        self.events.append(("all-gather", t.dtype, shape))
+        return torch.empty(shape, dtype=t.dtype, device=t.device)
+
+    def barrier(self) -> None:
+        self.events.append(("all-reduce", torch.float32, (1,)))
+
+
+def dry_mesh(text: str, device="meta") -> DryMesh:
+    """The dry run's mesh for ``"DxM"`` / ``"PxDxM"``: rank 0 of the data
+    axes' workers (a ``model`` axis above 1 is refused where the engine
+    or the serving path checks the mesh)."""
+    dims, names = parse_mesh(text)
+    mesh = DryMesh(dims, names, device=torch.device(device))
+    mesh.world_size = worker_count(mesh)
+    return mesh
+
+
 def data_axes(mesh: Mesh) -> tuple:
     return tuple(a for a in mesh.axis_names if a in ("pod", "data"))
 
