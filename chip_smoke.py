@@ -129,6 +129,26 @@ Phases, each of which exits non-zero on failure:
    against the dense one (masters within 1e-5), the round runtime
    (per-step fallback under gloo) against ``--runtime step`` (equal),
    and both wires under the same scenario (equal kinds and bits);
+7b. tensor parallelism (``phase_tp``): gemma3-1b at full width and depth
+   through the launcher at ``--mesh 1x2``, two gloo ranks sharing the
+   card (each its model shard, the model's collectives staged through
+   host memory), 2 steps (H = 4: the last a sync) on both wires,
+   against its ``1x1`` eager twin: kinds equal, the ledgers within
+   TP_BITS_RTOL (ties in the bf16 deltas), both steps' losses within
+   TP_LOSS_RTOL, the first step's gradient of every leaf, gathered,
+   within TP_GRAD_RTOL of the whole model's (beside it the witness: the
+   ``1x1`` run with the batch rows swapped, the same sums in another
+   order); 7
+   ``topk_compact`` / ``topk_compress`` launches a sync a rank at
+   [89856 | 13312 | 3328, 1152] rows, each shape held against its plain
+   version; per shard against the whole tree at full size, the uplink's
+   bits and output bit for bit; each rank's local and sync step of the
+   dry run's cell within DRY_PEAK_TOL of the dry run's ``1x2`` record
+   (peak, arguments, temporaries), FLOPs and launches equal, and its
+   profiled collectives equal to the record's model-group bytes (the
+   ranks run beside step 7's multi-rank phases, which time nothing on
+   the card; the twins before them and the kernel checks after them in
+   this process);
 8. checkpoints from trainer to server, gemma3-1b at full width: step
    6's compressed unscanned tree, saved as a compact-v1 checkpoint as
    soon as step 6 has served it and then dropped, loaded by
@@ -2702,6 +2722,7 @@ def phase_lm_scenario(dev) -> dict:
 LM_STEP_MS: dict = {}
 
 
+
 def phase_lm(dev, ckpt: str = None):
     """gemma3-1b through the launcher on both wires, each under the round
     runtime (the default: each round a CUDA graph) and ``--runtime
@@ -2756,6 +2777,429 @@ def phase_lm(dev, ckpt: str = None):
           f"{dense['bits_up_per_sync']})", flush=True)
     return totals
 
+
+#: the tensor-parallel run: phase_lm's job (gemma3-1b full(), batch 2 of
+#: 2048, H = 4, preset:arch, seed 0) for ``steps`` steps (the last one a
+#: sync) at
+#: ``1x2``, two gloo ranks sharing the card, each holding its model
+#: shard, against its ``1x1`` eager twin of the same settings; the
+#: ``topk_compact`` rows a rank launches a sync (3 x w1 / w2 / w3, 2 x
+#: wq / wo, 2 x wk / wv: half of phase_lm's rows each)
+TP = {"mesh": "1x2", "ranks": 2, "steps": 2,
+      "rows": {89856: 3, 13312: 2, 3328: 2}, "n": 1152, "k": 12,
+      "kcap": 128}
+#: the 1x2 run's ledger against its 1x1 twin's, relative: a sync's delta
+#: is the difference of two bf16 iterates, whose rows tie at the k-th
+#: magnitude often, and a tie keeps every tied survivor, so where the
+#: two runs' deltas part (bf16 partial sums in another order) the
+#: counts do (on an H100 at 700 W: 4.0e-4 at the first sync, at most
+#: 2.4e-3 a sync over three; the 1x1 run with the batch rows swapped:
+#: 1.1e-4; PERF.md §6)
+TP_BITS_RTOL = 0.01
+#: the 1x2 run's losses against the twin's, relative, at each of the 2
+#: steps (on an H100 at 700 W: 1.07e-4 at the first, one forward of the
+#: same weights; 8.1e-4 at the second, after the first update; the 1x1
+#: run with the batch rows swapped: 0 and 7.4e-5)
+TP_LOSS_RTOL = 2.0 ** -9
+#: each leaf's first-step gradient at 1x2, gathered, against the whole
+#: model's on the same weights and batch: ||g - g_1x1|| / ||g_1x1|| (on
+#: an H100 at 700 W: at most 0.0118, wk; the 1x1 run with the batch
+#: rows swapped, the same sums in another order, 0.0122; a collective
+#: missing from the backward leaves a leaf's gradient half or wrong,
+#: O(1) off; PERF.md §6)
+TP_GRAD_RTOL = 2.0 ** -5
+#: each rank: the launcher on both wires (the per-step composition; the
+#: launches' shapes through launch_stats.SINK); the first step's
+#: gradient per shard, gathered (rank 0: against the whole model's, and
+#: the whole model's with the batch rows swapped); the dry run's cell at
+#: 1x2 (one eager local and sync step measured as the dry run measures,
+#: one sync step profiled for its collectives); then preset:arch's
+#: uplink on a whole-size delta of two bf16 iterates (ties in its rows),
+#: per shard against the whole tree on this rank: bits of both forms and
+#: the dense output gathered, equal
+TP_CODE = r"""
+import json, os, sys, time
+sys.path.insert(0, {src!r})
+import numpy as np
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from repro_torch.configs import get_config, get_policy_preset
+from repro_torch.configs.base import InputShape
+from repro_torch.core import policy as pol
+from repro_torch.core.distributed import ModelShards, ShardCompressor
+from repro_torch.data import LMTokenStream
+from repro_torch.kernels import launch_stats
+from repro_torch.launch import dryrun as dr
+from repro_torch.launch import train as lt
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.roofline_parse import (collective_bytes,
+                                              events_from_profile)
+from repro_torch.models import get_model
+from repro_torch.sharding import specs as sp
+from repro_torch.tree import (tree_flatten_with_path, tree_leaves, tree_map,
+                              value_and_grad)
+
+
+def rel_l2(a, b):
+    # ||a - b|| / ||b|| in float32 (0 where both are zero)
+    num = float(torch.linalg.vector_norm(a.float() - b.float()))
+    den = float(torch.linalg.vector_norm(b.float()))
+    return num / den if den else (0.0 if num == 0 else float("inf"))
+
+
+mesh = make_mesh({mesh!r}, device="cuda", backend="gloo")
+dev = mesh.device
+out = {{"rank": mesh.rank, "runs": {{}}, "steps": {{}}}}
+try:
+    shapes = []
+    launch_stats.SINK = lambda kernel, shape: shapes.append(
+        [kernel, shape["rows"], shape["n"]])
+    for wire in ("sparse_allgather", "dense_psum"):
+        del shapes[:]
+        argv = ["--arch", {arch!r}, "--mesh", {mesh!r}, "--backend",
+                "gloo", "--policy", "preset:arch", "--batch", "{batch}",
+                "--seq", "{seq}", "--steps", "{steps}", "--H", "{H}",
+                "--wire", wire, "--dispatch", {dispatch!r}, "--runtime",
+                "step"]
+        args = lt.parser().parse_args(argv)
+        rec = lt._run(args, lt.resolve_policy_arg(args), mesh)
+        out["runs"][wire] = {{"rec": rec, "launched": list(shapes)}}
+    launch_stats.SINK = None
+    # the backward at full size: the first step's gradient (the
+    # launcher's weights from --seed 0 and its first batch) per shard,
+    # gathered, against the whole model's on rank 0; the witness there:
+    # the whole model's with the batch's two rows swapped (the same
+    # mean, each weight gradient's sum over tokens in another order)
+    cfg = get_config({arch!r})
+    model = get_model(cfg)
+    whole = model.init_params(torch.Generator(device=dev).manual_seed(0),
+                              cfg, device=dev)
+    tokens = next(LMTokenStream(vocab=cfg.vocab, R=1, order=64, seed=0)
+                  .batches({batch}, {seq}, {steps}, seed=1))["tokens"][0]
+    batch = {{"tokens": torch.from_numpy(tokens).to(dev)}}
+    layout = sp.shard_layout(sp.param_specs(cfg), whole, mesh)
+    policy = sp.activation_policy(cfg, mesh)
+    loss_tp, grads = value_and_grad(
+        lambda p, b: model.loss_fn(p, b, cfg, policy=policy)[0])(
+            sp.shard_tree(whole, layout), batch)
+    grads = [sp.gather_leaf(g, ax, mesh)
+             for g, ax in zip(tree_leaves(grads), layout.axes)]
+    if mesh.rank == 0:
+        plain = value_and_grad(lambda p, b: model.loss_fn(p, b, cfg)[0])
+        loss_1, want = plain(whole, batch)
+        want = tree_leaves(want)
+        out["grad"] = {{
+            "leaves": [".".join(map(str, path)) for path, _ in
+                       tree_flatten_with_path(whole)[0]],
+            "loss": [float(loss_tp), float(loss_1)],
+            "rel_l2": [rel_l2(g, w) for g, w in zip(grads, want)]}}
+        del grads
+        loss_s, swapped = plain(whole, {{"tokens": batch["tokens"].flip(0)}})
+        out["grad"]["loss_swapped"] = float(loss_s)
+        out["grad"]["rel_l2_swapped"] = [
+            rel_l2(g, w) for g, w in zip(tree_leaves(swapped), want)]
+        del swapped, want
+    else:
+        del grads
+    del whole, batch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    shape = InputShape("lm_cell", {seq}, {batch}, "train")
+    job = dr.build_train({arch!r}, get_config({arch!r}), mesh, shape,
+                         device=dev, aggregate="sparse_allgather",
+                         policy="preset:arch")
+    state = dr.steady_state(job.init_fn(job.params))
+    del job.params
+    for name in ("local_step", "sync_step"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        live = torch.cuda.memory_allocated(dev) - base
+        result, got = dr.measure(job.steps[name], (state, job.batch), mesh)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        del result
+        out["steps"][name] = {{"flops": got["flops"],
+                               "launches": got["launches"],
+                               "live_before_bytes": live,
+                               "peak_bytes": peak}}
+    # a sync step profiled alone (under measure's dispatch mode the
+    # trace's collective records carry no dtypes)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU],
+            record_shapes=True) as prof:
+        result = job.steps["sync_step"](state, job.batch)
+        torch.cuda.synchronize()
+    del result, job, state
+    out["collectives"] = collective_bytes(events_from_profile(prof))
+    cfg = get_config({arch!r})
+    gen = torch.Generator(device=dev).manual_seed(7)
+    whole = get_model(cfg).init_params(gen, cfg, device=dev)
+    delta = tree_map(lambda x: x.float() - (
+        x.float() - 1e-3 * torch.randn(x.shape, generator=gen, device=dev)
+    ).to(x.dtype).float(), whole)
+    del whole
+    comp = ShardCompressor.from_spec(pol.as_channel_spec(get_policy_preset(
+        "arch", arch={arch!r})).uplink, delta, dispatch={dispatch!r})
+    specs = sp.param_specs(cfg)
+    layout = sp.shard_layout(specs, delta, mesh)
+    mine = sp.shard_tree(delta, layout)
+    shards = ModelShards(layout, mesh)
+    rng = lambda: torch.Generator(device=dev).manual_seed(5)
+    q_mine, bits_mine = comp(mine, specs, rng=rng(), shards=shards)
+    cbits_mine = comp.compact(mine, specs, rng=rng(), shards=shards)[2]
+    q_whole, bits_whole = comp(delta, specs, rng=rng())
+    cbits_whole = comp.compact(delta, specs, rng=rng())[2]
+    same = [bool(torch.equal(sp.gather_leaf(a, ax, mesh), b))
+            for a, b, ax in zip(tree_leaves(q_mine), tree_leaves(q_whole),
+                                layout.axes)]
+    out["whole"] = {{"bits": [float(bits_mine), float(bits_whole)],
+                     "compact_bits": [float(cbits_mine), float(cbits_whole)],
+                     "leaves_equal": same}}
+finally:
+    mesh.close()
+print("TP " + json.dumps(out), flush=True)
+"""
+
+
+def tp_ranks() -> list:
+    """TP's ranks, spawned from here: each rank's TP_CODE result, in rank
+    order."""
+    from repro_torch.launch.mesh import run_local_ranks
+    code = TP_CODE.format(src=SRC, mesh=TP["mesh"], arch=LM["arch"],
+                          batch=LM["batch"], seq=LM["seq"],
+                          steps=TP["steps"], H=LM["H"], dispatch=DISPATCH)
+    procs = run_local_ranks([sys.executable, "-c", code], TP["ranks"],
+                            env=dict(os.environ, PYTHONPATH=SRC),
+                            timeout=900)
+    outs = []
+    for r, (rc, text, err) in enumerate(procs):
+        if rc != 0:
+            raise AssertionError(f"tensor-parallel rank {r} exited {rc}:\n"
+                                 f"{err[-3000:]}")
+        line = next(l for l in text.splitlines() if l.startswith("TP "))
+        outs.append(json.loads(line[3:]))
+    return outs
+
+
+@contextlib.contextmanager
+def swapped_rows():
+    """The launcher's batches with each worker's rows in reverse order:
+    the same loss (a mean over the rows), every sum over tokens in
+    another order."""
+    from repro_torch.launch import train as lt
+    stream = lt.LMTokenStream
+
+    class Swapped(stream):
+        def batches(self, *args, **kw):
+            for b in super().batches(*args, **kw):
+                yield {**b, "tokens": b["tokens"][:, ::-1].copy()}
+
+    lt.LMTokenStream = Swapped
+    try:
+        yield
+    finally:
+        lt.LMTokenStream = stream
+
+
+def tp_twins(dev) -> dict:
+    """TP's ``1x1`` twins: the same job at ``--mesh 1x1``, eager, in this
+    process, by wire (each record with its median ms a step); and the
+    witness, "swapped": the sparse wire's twin with the batch rows
+    swapped (:func:`swapped_rows`), a ``1x1`` run whose reductions run
+    in another order."""
+    twins = {}
+    with untuned():
+        for wire in ("sparse_allgather", "dense_psum"):
+            row, _, twins[wire] = lm_run(wire, dev, None, "step",
+                                         steps=TP["steps"])
+            twins[wire]["ms_per_step_median"] = row["ms_per_step_median"]
+        with swapped_rows():
+            twins["swapped"] = lm_run("sparse_allgather", dev, None, "step",
+                                      steps=TP["steps"])[2]
+    _free_graphs()
+    return twins
+
+
+def phase_tp(dev, dry: dict, twins: dict, ranks: list) -> tuple:
+    """Tensor parallelism on the card (``--mesh 1x2``: TP's gemma3-1b job,
+    two gloo ranks sharing the card, each its model shard, collectives
+    staged through host memory): ``ranks`` (``tp_ranks``, run beside the
+    smoke model's rank phases) against ``twins`` (``tp_twins``).  On
+    both wires: each rank's record against its twin's: kinds equal, the
+    ledgers within TP_BITS_RTOL, every loss within TP_LOSS_RTOL and
+    finite; the two wires' ledgers at 1x2 equal (the same survivors).
+    The backward: each leaf's first-step gradient, gathered, within
+    TP_GRAD_RTOL of the whole model's (relative L2), the witness (the
+    ``1x1`` run with the batch rows swapped: its gradients, losses and
+    ledger against the twin's) printed beside it;
+    7 ``topk_compact`` (sparse wire) / ``topk_compress`` (dense wire)
+    launches a sync a rank, at TP's rows of 1152 with k = 12, each shape
+    then held against its plain version here.  The ledger's arithmetic
+    at full size: preset:arch's uplink on a whole-size delta of two bf16
+    iterates, per shard against the whole tree, the same bits on both
+    forms and the same dense output, bit for bit.  Each rank's one
+    eager local and sync step of the dry run's cell measured as the dry
+    run measures: FLOPs and launches equal to the dry run's ``1x2``
+    record (``dry``), the peak, the bytes live at the step's start and
+    the peak over them within DRY_PEAK_TOL of its argument + temp
+    bytes, argument bytes and temp bytes; the collective bytes of one
+    profiled sync step, by kind, equal to the record's model-group
+    bytes (at ``1x2`` every collective is the model group's: the data
+    group is one rank).  ms a step printed, labelled as gloo through
+    host memory.  Returns (the ``topk_compact`` and the
+    ``topk_compress`` check rows at TP's shapes, each with its launches
+    on the path, the launches by kernel)."""
+    import numpy as np
+    t0 = time.perf_counter()
+    _ok(dry, "the 1x2 LM cell")
+    faults, totals, at = [], {}, {}
+    out = {"card": card(), "mesh": TP["mesh"], "wires": {}, "ranks": []}
+    want_rows = sorted(r for r, n in TP["rows"].items() for _ in range(n))
+    for wire in ("sparse_allgather", "dense_psum"):
+        twin = twins[wire]
+        kern = ("topk_compact" if wire == "sparse_allgather"
+                else "topk_compress")
+        row = {"losses_1x1": twin["loss"], "bits_up_1x1": twin["bits_up"],
+               "bits_down_1x1": twin["bits_down"],
+               "ms_per_step_1x1": twin["ms_per_step_median"], "ranks": []}
+        for r in ranks:
+            run = r["runs"][wire]
+            rec = run["rec"]
+            for k in ("kind", "rounds"):
+                if rec[k] != twin[k]:
+                    faults.append(f"tp {wire} rank {r['rank']}: {k} "
+                                  f"{rec[k]} at 1x2, {twin[k]} at 1x1")
+            bits_rel = max(abs(a - b) / max(abs(b), 1.0) for a, b in zip(
+                rec["bits_up"] + rec["bits_down"],
+                twin["bits_up"] + twin["bits_down"]))
+            if bits_rel > TP_BITS_RTOL:
+                faults.append(f"tp {wire} rank {r['rank']}: ledgers "
+                              f"{bits_rel:.3g} apart (> {TP_BITS_RTOL})")
+            if rec["bits_up"] != ranks[0]["runs"]["sparse_allgather"][
+                    "rec"]["bits_up"]:
+                faults.append(f"tp {wire} rank {r['rank']}: bits up "
+                              f"{rec['bits_up']} differ between the wires "
+                              "or the ranks")
+            loss_rel = [abs(a - b) / abs(b)
+                        for a, b in zip(rec["loss"], twin["loss"])]
+            if max(loss_rel) > TP_LOSS_RTOL or not all(
+                    np.isfinite(rec["loss"])):
+                faults.append(f"tp {wire} rank {r['rank']}: losses "
+                              f"{rec['loss']} against {twin['loss']}")
+            n_syncs = rec["kind"].count("sync")
+            for counts in rec["launches_per_sync"]:
+                got = {k: v for k, v in counts.items() if v}
+                if got != {kern: sum(TP["rows"].values())}:
+                    faults.append(f"tp {wire}: a sync launched {got}")
+            launched = sorted(rows for kernel, rows, n in run["launched"]
+                              if kernel == kern and n == TP["n"])
+            if launched != sorted(want_rows * n_syncs) or len(
+                    run["launched"]) != len(launched):
+                faults.append(f"tp {wire}: launched {run['launched']}")
+            totals[kern] = totals.get(kern, 0) + len(launched)
+            for rows in launched:
+                at[kern, rows] = at.get((kern, rows), 0) + 1
+            ms = float(np.median(rec["ms"][1:]))
+            row["ranks"].append({
+                "rank": r["rank"], "loss": rec["loss"],
+                "loss_rel_diff": loss_rel, "bits_up": rec["bits_up"],
+                "bits_down": rec["bits_down"], "ledger_rel_diff": bits_rel,
+                "fused": rec["fused"], "model_axis": rec["model_axis"],
+                "peak_device_bytes": rec.get("peak_device_bytes"),
+                "ms_per_step_median_gloo_host": ms})
+        out["wires"][wire] = row
+        print(f"tp {wire}: ms a step "
+              f"{[x['ms_per_step_median_gloo_host'] for x in row['ranks']]}"
+              f" at 1x2 over gloo through host memory (beside the smoke "
+              f"model's rank phases), {twin['ms_per_step_median']:.1f} at "
+              "1x1 eager alone", flush=True)
+    # the backward: each leaf's gathered gradient against the whole
+    # model's; the witness (the 1x1 run with the batch rows swapped)
+    # beside it, not held
+    grad = ranks[0]["grad"]
+    worst = max(range(len(grad["rel_l2"])), key=grad["rel_l2"].__getitem__)
+    first = ranks[0]["runs"]["sparse_allgather"]["rec"]["loss"][0]
+    if grad["rel_l2"][worst] > TP_GRAD_RTOL or abs(
+            grad["loss"][0] - first) > TP_LOSS_RTOL * abs(first):
+        faults.append(f"tp gradient: {grad['leaves'][worst]} "
+                      f"{grad['rel_l2'][worst]:.3g} from the whole model's "
+                      f"(> {TP_GRAD_RTOL}); loss {grad['loss']}")
+    base, swap = twins["sparse_allgather"], twins["swapped"]
+    out["backward"] = {
+        "leaves": grad["leaves"], "rel_l2_1x2": grad["rel_l2"],
+        "rel_l2_swapped": grad["rel_l2_swapped"],
+        "max_rel_l2": {"1x2": grad["rel_l2"][worst],
+                       "swapped": max(grad["rel_l2_swapped"])},
+        "loss": {"1x2": grad["loss"][0], "1x1": grad["loss"][1],
+                 "swapped": grad["loss_swapped"]}}
+    out["witness_swapped_1x1"] = {
+        "loss": swap["loss"],
+        "loss_rel_diff": [abs(a - b) / abs(b)
+                          for a, b in zip(swap["loss"], base["loss"])],
+        "bits_up": swap["bits_up"],
+        "ledger_rel_diff": max(abs(a - b) / max(abs(b), 1.0)
+                               for a, b in zip(swap["bits_up"],
+                                               base["bits_up"]))}
+    print(f"tp backward: gathered gradients within "
+          f"{grad['rel_l2'][worst]:.3g} of the whole model's (worst "
+          f"{grad['leaves'][worst]}); witness, the 1x1 run with the batch "
+          f"rows swapped: gradients within "
+          f"{out['backward']['max_rel_l2']['swapped']:.3g}, losses "
+          f"{out['witness_swapped_1x1']['loss_rel_diff']}, ledger "
+          f"{out['witness_swapped_1x1']['ledger_rel_diff']:.3g}",
+          flush=True)
+    want_coll = dry["steps"]["sync_step"]["collectives_by_group"].get(
+        "model", {"total": 0})
+    for r in ranks:
+        for name, got in r["steps"].items():
+            want = dry["steps"][name]
+            mem = want["memory"]
+            if got["flops"] != want["flops"]:
+                faults.append(f"tp rank {r['rank']} {name}: {got['flops']} "
+                              f"FLOPs, {want['flops']} in the dry run")
+            if got["launches"] != want["launches"]:
+                faults.append(f"tp rank {r['rank']} {name}: launches "
+                              f"{got['launches']}, {want['launches']} dry")
+            got["rel_gap"] = _near(
+                got["peak_bytes"], mem["argument_bytes"] + mem["temp_bytes"],
+                f"tp rank {r['rank']} {name} peak", faults)
+            got["rel_gap_arguments"] = _near(
+                got["live_before_bytes"], mem["argument_bytes"],
+                f"tp rank {r['rank']} {name} arguments", faults)
+            got["rel_gap_temp"] = _near(
+                got["peak_bytes"] - got["live_before_bytes"],
+                mem["temp_bytes"], f"tp rank {r['rank']} {name} temporaries",
+                faults)
+            got["predicted"] = mem
+        if r["collectives"] != want_coll or not want_coll["total"]:
+            faults.append(f"tp rank {r['rank']}: collectives "
+                          f"{r['collectives']} in the trace, {want_coll} "
+                          "in the dry run")
+        whole = r["whole"]
+        if (len(set(whole["bits"])) != 1 or len(set(whole["compact_bits"]))
+                != 1 or not all(whole["leaves_equal"])):
+            faults.append(f"tp rank {r['rank']}: per shard against whole "
+                          f"leaves: {whole}")
+        out["ranks"].append({"rank": r["rank"], "steps": r["steps"],
+                             "collectives": r["collectives"],
+                             "whole": whole})
+    out["dry_collectives_model"] = want_coll
+    print("tp", json.dumps(out), flush=True)
+    _raise(faults)
+    compact, dense = [], []
+    for n_rows in TP["rows"]:
+        compact.append(check_compact(dev, n_rows, TP["n"], TP["k"],
+                                     TP["kcap"], False, 10))
+        compact[-1]["launches"] = at.get(("topk_compact", n_rows), 0)
+        dense.append(check_topk(dev, n_rows, TP["n"], TP["k"], False, 10))
+        dense[-1]["launches"] = at.get(("topk_compress", n_rows), 0)
+    for name, rows in (("topk_compact", compact), ("topk_compress", dense)):
+        for row in rows:
+            print(f"kernel check tp {name}", json.dumps(row), flush=True)
+    print(f"tp: {time.perf_counter() - t0:.1f}s", flush=True)
+    return compact, dense, totals
 
 #: the mesh fault runtime on gemma3-1b (the wire's queue at depth 3: on
 #: dense_psum 3 x 999,812,736 float32 payload values), and the
@@ -2846,7 +3290,7 @@ def downlink_stacks() -> int:
                                                  arch=LM["arch"]))
     comp = ShardCompressor.from_spec(spec.downlink, params)
     leaves = tree_leaves(params)
-    return sum(plan[0] == "axis" and not comp._skip(x)
+    return sum(plan[0] == "axis" and not comp._skip(tuple(x.shape))
                for plan, x in zip(comp._plans(len(leaves)), leaves))
 
 
@@ -2889,15 +3333,21 @@ def phase_lm_bidir(dev) -> dict:
 
 def _rank_run(tmp: str, tag: str, wire: str, dispatch: str,
               runtime: str = "round", backend: str = "gloo",
-              ranks: int = LM_RANKS["ranks"], extra: tuple = ()) -> dict:
+              ranks: int = LM_RANKS["ranks"], extra: tuple = (),
+              mesh: str = None) -> dict:
     """The launcher on the gemma3-1b smoke model at ``ranks`` ranks (by
     default LM_RANKS' ranks sharing the card over gloo; under NCCL one
     rank a card), with ``extra`` flags (a scenario): rank 0's run record
-    (--json) and the path of its master (--ckpt)."""
-    from repro_torch.launch.mesh import run_local_ranks
+    (--json) and the path of its master (--ckpt).  ``mesh``: a ``DxM``
+    mesh in place of ``{ranks}x1`` (its D * M ranks)."""
+    from repro_torch.launch.mesh import mesh_ranks, run_local_ranks
+    if mesh is not None:
+        ranks = mesh_ranks(mesh)
+    mesh = mesh or f"{ranks}x1"
+    workers = ranks // int(mesh.split("x")[-1])
     ckpt, record = os.path.join(tmp, tag), os.path.join(tmp, tag + ".json")
     cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-           LM["arch"], "--smoke", "--mesh", f"{ranks}x1",
+           LM["arch"], "--smoke", "--mesh", mesh,
            "--steps", str(LM_RANKS["steps"]), "--H", str(LM_RANKS["H"]),
            "--policy", "preset:arch", "--backend", backend, "--wire", wire,
            "--dispatch", dispatch, "--ckpt", ckpt, "--json", record,
@@ -2910,7 +3360,7 @@ def _rank_run(tmp: str, tag: str, wire: str, dispatch: str,
                                  f"{err[-3000:]}")
     with open(record) as f:
         rec = json.load(f)
-    if len(rec["loss"]) != LM_RANKS["steps"] or rec["R"] != ranks:
+    if len(rec["loss"]) != LM_RANKS["steps"] or rec["R"] != workers:
         raise AssertionError(f"{tag}: {len(rec['loss'])} steps, R={rec['R']}")
     rec["ckpt"] = ckpt
     return rec
@@ -2918,9 +3368,9 @@ def _rank_run(tmp: str, tag: str, wire: str, dispatch: str,
 
 def _rank_runs(tmp: str, specs) -> dict:
     """:func:`_rank_run` over (tag, wire, dispatch, runtime, extra) specs,
-    four runs at a time on the card (their ranks mostly start up): the
-    records by tag."""
-    with ThreadPoolExecutor(4) as pool:
+    all at once on the card (their ranks mostly start up: 12 smoke-model
+    processes beside the tensor-parallel ranks): the records by tag."""
+    with ThreadPoolExecutor(len(specs)) as pool:
         runs = {tag: pool.submit(_rank_run, tmp, tag, wire, dispatch,
                                  runtime, extra=ex)
                 for tag, wire, dispatch, runtime, ex in specs}
@@ -3877,7 +4327,8 @@ def dry_records() -> dict:
            "ranks": {wire: dr.run_one(
                LM["arch"], shape=_ranks_shape(), smoke=True,
                mesh=f"{DRY_RANKS['ranks']}x1", aggregate=wire)
-               for wire in ("dense_psum", "sparse_allgather")}}
+               for wire in ("dense_psum", "sparse_allgather")},
+           "tp": dr.run_one(LM["arch"], shape=shape, mesh=TP["mesh"], **kw)}
     out["seconds"] = time.perf_counter() - t
     return out
 
@@ -4159,8 +4610,8 @@ def main() -> int:
     timed_phase(phase_small_agreement, dev)
     wrapper_totals = timed_phase(phase_wrappers, dev)
     convex_totals, convex_checks = timed_phase(phase_convex, dev)
-    fault_totals = timed_phase(phase_faults, dev, fault_free)
     scenario_totals = timed_phase(phase_scenarios_convex, dev)
+    fault_totals = timed_phase(phase_faults, dev, fault_free)
     for more in (wrapper_totals, convex_totals, fault_totals,
                  scenario_totals):
         for k, v in more.items():
@@ -4188,19 +4639,33 @@ def main() -> int:
     for more in (flash_totals, ckpt_totals):
         for k, v in more.items():
             serve_totals[k] = serve_totals.get(k, 0) + v
-    # (d)'s ranks run beside the multi-rank phases' own
+    # the tensor-parallel ranks (gloo through host memory; 2 x 19 GB on
+    # the card, which beside the fault phase ran out of memory) and
+    # (d)'s run beside the smoke model's multi-rank phases, which time
+    # nothing on the card; the 1x1 twins run before them, alone, and
+    # phase_tp's kernel checks after them
+    twins = timed_phase(tp_twins, dev)
+    tp_pool = ThreadPoolExecutor(1)
+    tp_pending = tp_pool.submit(tp_ranks)
     ranks_pool = ThreadPoolExecutor(1)
     ranks_pending = ranks_pool.submit(rank_collectives)
     timed_phase(phase_lm_ranks, dev)
     timed_phase(phase_lm_ranks_mesh, dev)
+    ranks = ranks_pending.result(timeout=600)
+    ranks_pool.shutdown()
+    dry = dry_pending.get(timeout=600)
+    tp_compact, tp_dense, tp_totals = timed_phase(
+        phase_tp, dev, dry["tp"], twins, tp_pending.result(timeout=900))
+    tp_pool.shutdown()
+    compact, lm_topk = compact + tp_compact, lm_topk + tp_dense
+    for k, v in tp_totals.items():
+        lm_totals[k] = lm_totals.get(k, 0) + v
     family_fa, family_fd = timed_phase(phase_family_kernels, dev)
     for more, into in ((timed_phase(phase_family_serve, dev), serve_totals),
                        (timed_phase(phase_family_train, dev), lm_totals)):
         for k, v in more.items():
             into[k] = into.get(k, 0) + v
-    timed_phase(phase_dryrun, dev, dry_pending.get(timeout=600),
-                ranks_pending.result(timeout=600))
-    ranks_pool.shutdown()
+    timed_phase(phase_dryrun, dev, dry, ranks)
     dry_pool.close()
     dry_pool.join()
 
@@ -4219,7 +4684,7 @@ def main() -> int:
          "rows": [{"k": r["k"], "sign": r["sign"], **{
              k: r[k] for k in ("shape", "live", "max_abs_err", "ms",
                                "plain_ms", "bound_ms", "bound_by",
-                               "library_ms")}}
+                               "library_ms", "launches") if k in r}}
              for r in topk + lm_topk + convex_checks["topk"]
              if r is not head_topk]},
         {"name": "qsgd_quantize", "route": "cuda",
@@ -4292,7 +4757,8 @@ def main() -> int:
         "shape": head["shape"],
         "rows": [{"sign": r["sign"], **{
             k: r[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
-                              "bound_ms", "bound_by", "library_ms")}}
+                              "bound_ms", "bound_by", "library_ms",
+                              "launches") if k in r}}
             for r in compact[1:] if "ms" in r]})
     for k in kernels:
         if k["launches"] < 1:

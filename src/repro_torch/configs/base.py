@@ -3,17 +3,59 @@
 Every architecture has a module ``configs/<id>.py`` exporting ``full()``
 (the published config) and ``smoke()`` (a reduced variant of the same
 family).  ``ModelConfig`` keeps ``repro``'s fields and names; its
-``pdtype`` / ``adtype`` are torch dtypes.  ``repro``'s ``ShardingPolicy``
-(activation sharding constraints for the JAX mesh) has no counterpart
-here.
+``pdtype`` / ``adtype`` are torch dtypes.  ``ShardingPolicy`` is the
+counterpart of ``repro``'s: where ``repro`` hands XLA activation
+sharding constraints, the port's model code runs the tensor-parallel
+collectives itself, so the policy carries the mesh whose ``model`` group
+they run over (its size and this rank's place in it) and ``ep_axis``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingPolicy:
+    """What the model code needs of the tensor-parallel mesh (``repro``'s
+    ``ShardingPolicy``; built by ``sharding.specs.activation_policy``).
+
+    ``mesh`` is a ``launch.mesh.Mesh`` (or None: no model group); the
+    model's collectives (``sharding/collectives.py``) run over its
+    ``model`` group through its methods.  ``ep_axis``: the mesh axis of
+    explicit expert parallelism (MoE), refused above one model rank
+    until ROADMAP queue 1 item 12b ports it.  With a model group of one
+    every collective is the identity and the model runs as without a
+    policy."""
+
+    mesh: Any = None
+    ep_axis: Optional[str] = None
+
+    @property
+    def size(self) -> int:
+        """M: the ranks of the model group."""
+        return 1 if self.mesh is None else self.mesh.model_size
+
+    @property
+    def rank(self) -> int:
+        """This rank's place in its model group."""
+        return 0 if self.mesh is None else self.mesh.model_rank
+
+    @property
+    def active(self) -> bool:
+        return self.size > 1
+
+    def splits(self, n: int) -> bool:
+        """Does the model group split a dimension of ``n``?  Only where
+        it divides (``sharding.specs.sanitize_spec``'s rule: a dimension
+        that does not divide stays whole on every rank)."""
+        return self.active and n % self.size == 0
+
+
+NO_SHARDING = ShardingPolicy()
 
 
 @dataclasses.dataclass(frozen=True)

@@ -127,18 +127,21 @@ class ShardChannel:
         return tree_map(lambda x: torch.zeros(
             x.shape, dtype=torch.float32, device=x.device), tree)
 
-    def apply(self, acc, param_specs, rng=None):
+    def apply(self, acc, param_specs, rng=None, shards=None):
         """Dense-form error-compensated compression of ``acc``:
         ``(q, new_memory, bits)`` with ``q + new_memory == acc``.  ``rng``
-        feeds the stochastic operators of a heterogeneous policy."""
-        q, bits = self.compressor(acc, param_specs, rng=rng)
+        feeds the stochastic operators of a heterogeneous policy;
+        ``shards``: ``acc`` is a rank's model shards
+        (``core.distributed.ModelShards``)."""
+        q, bits = self.compressor(acc, param_specs, rng=rng, shards=shards)
         new_mem = tree_map(lambda a, g: a - g, acc, q)
         return q, new_mem, bits
 
-    def compact(self, acc, param_specs, rng=None):
+    def compact(self, acc, param_specs, rng=None, shards=None):
         """Compact wire form (DESIGN.md §3.3): ``ShardCompressor.compact``'s
         (payloads, spec, bits, memory)."""
-        return self.compressor.compact(acc, param_specs, rng=rng)
+        return self.compressor.compact(acc, param_specs, rng=rng,
+                                       shards=shards)
 
     def dense_bits(self, tree, value_bits: int = 32) -> float:
         return bitlib.bits_dense_tree(tree, value_bits)

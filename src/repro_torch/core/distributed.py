@@ -1,13 +1,18 @@
 """The distributed Qsparse-local-SGD engine on ``torch.distributed`` (a
 port of ``repro.core.distributed``, worker axes first).
 
-``repro`` maps worker r to one (pod, data) row of a TPU mesh and runs
-the step inside ``shard_map``.  Here one process (rank) is one worker,
-as one device per data-axis slot is there (``launch/mesh.py``):
+``repro`` maps worker r to one (pod, data) row of a TPU mesh, runs the
+step inside ``shard_map`` over the data axes and leaves the ``model``
+axis to XLA.  Here one process (rank) is one device of the mesh
+(``launch/mesh.py``): a worker is the M ranks of its model group, each
+holding its model shard of every leaf (``sharding.specs.shard_layout``;
+``repro``'s ``state_shardings``), and the workers' collectives run over
+the **data group**, the ranks that hold the same shard:
 
-  * ``master`` is replicated on every rank (or sliced over them, ZeRO-1);
-    ``local``, ``memory``, ``inner``, ``view`` and ``down_memory`` belong
-    to the rank's own worker (no worker axis);
+  * ``master`` is replicated over the workers (or sliced over them,
+    ZeRO-1); ``local``, ``memory``, ``inner``, ``view`` and
+    ``down_memory`` belong to the rank's own worker (no worker axis);
+    each is the rank's model shard;
   * ``psum`` of the wire bits is ``all_reduce(SUM)``; ``pmean`` of the
     loss and of the dense payload is ``all_reduce`` then a divide by R;
   * the sparse wire's gathered buffers are an ``all_gather`` of each
@@ -24,13 +29,22 @@ charged to ``bits_down``, or the compressed downlink's counted bits.
 
 Compression is per leaf along one axis: ``_pick_axis`` keeps Top_k off
 the ``model``-sharded axis of the leaf's spec (Corollary 1, piecewise
-compression), so the specs decide the rows and the wire bits even while
-the model axis is 1.
+compression), so the specs decide the rows and the wire bits whatever
+the model axis's size, and each rank compresses its own rows
+(:class:`ModelShards`).  The ledger is the whole worker's: the rows'
+survivor counts are summed over the model group as integers and the
+counted formula applied once, as ``repro`` counts once on the global
+leaf.  A leaf whose picked axis is itself split, or a reference operator
+(QSGD, ...) on a split leaf, is gathered whole over the model group,
+compressed whole (never half a row), and each rank keeps its slice.
+``repro``'s ``_legacy_tp_kernel_guard`` (a work-around for jax 0.4.x's
+partial-manual regions) has no counterpart.
 
 The round runtime (``make_dist_round``, ``make_dist_multiround``) runs a
 sync round, or a window of them, as one program: a CUDA graph on the
 card in a world of one whose collectives are device work
-(:func:`round_fused`), else the per-step composition.
+(:func:`round_fused`), else the per-step composition (always above one
+model rank).
 
 ``partial=True`` takes a per-step participation mask (fleet scenarios,
 ``core/scenarios.py``): a worker whose bit is False transmits nothing,
@@ -46,8 +60,8 @@ DESIGN.md §9) executes staleness, crashes and drops: every rank replays
 the whole fleet's queue tags on the host from the deterministic fault
 rows (``engine.plan_fault_step``), a crashed worker's rank keeps joining
 every collective with a zero contribution, and each rank queues only its
-own payloads, in place.  A model axis above 1 is not ported
-(``NotImplementedError`` naming its ROADMAP item).
+own payloads, in place.  It refuses a model axis above 1
+(``sharding.specs.PendingPort`` naming its ROADMAP item, 12e).
 """
 
 from __future__ import annotations
@@ -76,7 +90,8 @@ from repro_torch.core.operators import (
 from repro_torch.kernels import dispatch as dsp
 from repro_torch.kernels import ref
 from repro_torch.optim.transforms import GradientTransform, apply_updates
-from repro_torch.sharding.specs import is_spec
+from repro_torch.sharding.specs import (PendingPort, ShardLayout,
+                                       gather_leaf, is_spec)
 from repro_torch.tree import tree_flatten, tree_leaves, tree_map, \
     tree_unflatten
 
@@ -147,18 +162,26 @@ def _axis_rows(x: torch.Tensor, axis: int):
     return xm, xm.reshape(-1, xm.shape[-1])
 
 
-def _axis_bits(n: int, nrows: int, cnt: torch.Tensor, sign: bool):
+def _axis_bits(n: int, nrows: int, cnt: torch.Tensor, sign: bool,
+               total=None):
     """``repro``'s ledger for axis Top_k: one 32-bit field per row plus
-    the counted survivors (the counted helper already holds one field)."""
+    the counted survivors (the counted helper already holds one field).
+    ``total``: ``(nrows, survivors) -> (nrows, survivors)`` over the
+    whole leaf, where this rank holds some of its rows
+    (:meth:`ModelShards.total`)."""
     counted = (bitlib.bits_signtopk_counted if sign
                else bitlib.bits_topk_counted)
     dev = cnt.device
-    return (bitlib.f32(32 * nrows, dev) + counted(n, cnt.sum())
+    nnz = cnt.sum()
+    if total is not None:
+        nrows, nnz = total(nrows, nnz)
+    return (bitlib.f32(32 * nrows, dev) + counted(n, nnz)
             - bitlib.f32(32, dev))
 
 
 def axis_topk_compact(x: torch.Tensor, k_frac: float, axis: int,
-                      sign_bits: bool = False, dispatch_cfg=None):
+                      sign_bits: bool = False, dispatch_cfg=None,
+                      total=None):
     """Top_k along ``axis`` in compact form (DESIGN.md §3.3).
 
     Returns (idx [..., kcap] int32, val [..., kcap] float32, mem — the
@@ -166,6 +189,7 @@ def axis_topk_compact(x: torch.Tensor, k_frac: float, axis: int,
     moved_shape): idx / val on the moved-to-last layout, indices
     row-local, empty slots (n, 0).  ``dispatch.compact_rows`` runs the
     ``topk_compact`` kernel where it is eligible, else its plain version.
+    ``total`` as :func:`_axis_bits`'s.
     """
     n = x.shape[axis]
     k = resolve_k(k_frac, n)
@@ -174,7 +198,7 @@ def axis_topk_compact(x: torch.Tensor, k_frac: float, axis: int,
     idx, val, mem, cnt = dsp.compact_rows(
         rows, k, kcap, sign=sign_bits, cfg=dispatch_cfg,
         leaf_size=x.numel())
-    bits = _axis_bits(n, rows.shape[0], cnt, sign_bits)
+    bits = _axis_bits(n, rows.shape[0], cnt, sign_bits, total)
     moved = tuple(xm.shape)
     idx = idx.reshape(moved[:-1] + (kcap,))
     val = val.reshape(moved[:-1] + (kcap,))
@@ -192,7 +216,7 @@ def _densify(idx, sel, moved_shape, axis):
 
 
 def _threshold_axis_topk(x: torch.Tensor, k_frac: float, axis: int,
-                         sign_bits: bool, select):
+                         sign_bits: bool, select, total=None):
     """Dense Top_k along ``axis``: move it last, shape [rows, n], run
     ``select(rows, k, sign) -> (sel, mem, cnt)`` (the kernel or its plain
     version), move back, charge the counted bits."""
@@ -201,16 +225,66 @@ def _threshold_axis_topk(x: torch.Tensor, k_frac: float, axis: int,
     xm, rows = _axis_rows(x, axis)
     sel, _mem, cnt = select(rows, k, sign_bits)
     out = torch.movedim(sel.reshape(xm.shape), -1, axis)
-    return out, _axis_bits(n, rows.shape[0], cnt, sign_bits)
+    return out, _axis_bits(n, rows.shape[0], cnt, sign_bits, total)
 
 
 def axis_topk(x: torch.Tensor, k_frac: float, axis: int,
-              sign_bits: bool = False):
+              sign_bits: bool = False, total=None):
     """Dense Top_k along ``axis`` by the bisection threshold
     (``ref.topk_compress_ref``; exact-k generically, DESIGN.md §3.1)."""
     return _threshold_axis_topk(
         x, k_frac, axis, sign_bits,
-        lambda rows, k, sign: ref.topk_compress_ref(rows, k, sign=sign))
+        lambda rows, k, sign: ref.topk_compress_ref(rows, k, sign=sign),
+        total)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelShards:
+    """A rank's model shards as the compressor sees them: where the model
+    group splits each leaf (``layout``, from the whole tree) and the mesh
+    whose ``model`` group joins the slices.  Leaf i is, for a plan:
+
+    * ``"local"``: whole on every rank of the group (the group computes
+      it alike and counts it once);
+    * ``"rows"``: split on an axis the compression does not run along:
+      each rank compresses its own rows, and :meth:`total` sums the
+      rows' counts over the group;
+    * ``"whole"``: split on the axis the compression runs along, or
+      compressed by a reference operator (whose norms and draws span the
+      leaf): gathered whole over the group (:meth:`gather`), compressed
+      whole, each rank keeping its slice (:meth:`own`)."""
+
+    layout: ShardLayout
+    mesh: Any
+
+    def shape(self, i: int) -> tuple:
+        return self.layout.shapes[i]
+
+    def mode(self, i: int, plan) -> str:
+        ax = self.layout.axes[i]
+        if ax is None or plan[0] == "skip":
+            return "local"
+        if plan[0] == "ref" or plan[3] == ax:
+            return "whole"
+        return "rows"
+
+    def gather(self, i: int, g: torch.Tensor) -> torch.Tensor:
+        return gather_leaf(g, self.layout.axes[i], self.mesh)
+
+    def own(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        return self.layout.own(x, i)
+
+    def total(self, nrows: int, nnz: torch.Tensor) -> tuple:
+        """(the leaf's rows, its survivors): the rows split evenly over
+        the group; the survivor counts summed as integers."""
+        return (nrows * self.layout.size,
+                self.mesh.all_reduce_sum(nnz.to(torch.int64).clone(),
+                                         over="model"))
+
+    def dense_bits(self) -> float:
+        """One exact broadcast of the whole tree (every leaf whole)."""
+        return float(sum(bitlib.bits_dense(n)
+                         for n in self.layout.numels()))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -305,25 +379,29 @@ class ShardCompressor:
         return [("axis", self.k_frac, self.mode == "signtopk")] * n_leaves
 
     @staticmethod
-    def _skip(g: torch.Tensor) -> bool:
+    def _skip(shape: tuple) -> bool:
         """Tiny and scalar leaves transmit dense whatever the plan."""
-        return g.dim() == 0 or g.numel() <= 8
+        return len(shape) == 0 or int(np.prod(shape)) <= 8
 
-    def _leaf_plans(self, leaves, param_specs) -> list:
+    def _leaf_plans(self, leaves, param_specs, shards=None) -> list:
         """What every form (``__call__``, ``compact``, ``leaf_meta``,
         ``launch_plans``) does with each leaf: ("skip",) dense, ("ref",
         op) the reference operator, or ("axis", k_frac, sign, axis, n, k)
-        the axis Top_k along ``axis`` (n floats a row, k survivors)."""
+        the axis Top_k along ``axis`` (n floats a row, k survivors).
+        Decided on the whole leaf's shape (``shards``: a rank's model
+        shards hold slices), as ``repro`` decides on the global leaf."""
         specs = self._leaf_specs(param_specs, len(leaves))
         out = []
-        for g, spec, plan in zip(leaves, specs, self._plans(len(leaves))):
-            if plan[0] == "skip" or self._skip(g):
+        for i, (g, spec, plan) in enumerate(zip(
+                leaves, specs, self._plans(len(leaves)))):
+            shape = tuple(g.shape) if shards is None else shards.shape(i)
+            if plan[0] == "skip" or self._skip(shape):
                 out.append(("skip",))
             elif plan[0] == "ref":
                 out.append(plan)
             else:
-                ax = _pick_axis(tuple(g.shape), spec)
-                n = g.shape[ax]
+                ax = _pick_axis(shape, spec)
+                n = shape[ax]
                 out.append(plan + (ax, n, resolve_k(plan[1], n)))
         return out
 
@@ -340,13 +418,13 @@ class ShardCompressor:
         out, b = op(rng if op.stochastic else None, g)
         return out.to(torch.float32), bitlib.f32(b, g.device)
 
-    def _kernel_leaf(self, g, k_frac, ax, sign):
+    def _kernel_leaf(self, g, k_frac, ax, sign, total=None):
         """``axis_topk`` through the ``topk_compress`` kernel."""
         cfg = self._dispatch_cfg()
         return _threshold_axis_topk(
             g, k_frac, ax, sign,
             lambda rows, k, sign_: dsp.topk_rows(rows, k, sign=sign_,
-                                                 cfg=cfg))
+                                                 cfg=cfg), total)
 
     @staticmethod
     def _leaf_specs(param_specs, n: int) -> list:
@@ -354,40 +432,60 @@ class ShardCompressor:
             return [None] * n
         return tree_leaves(param_specs, is_leaf=is_spec)
 
-    def __call__(self, grads, param_specs, rng=None):
-        """Dense form: (compressed tree in float32, total wire bits)."""
+    @staticmethod
+    def _leaf_form(i: int, g, plan, shards):
+        """(the tensor leaf i compresses, the survivor-count total, the
+        slice back): the rank's own ``g``, or the leaf gathered whole
+        (:class:`ModelShards`)."""
+        if shards is None:
+            return g, None, None
+        mode = shards.mode(i, plan)
+        if mode == "whole":
+            return shards.gather(i, g), None, lambda x: shards.own(i, x)
+        return g, (shards.total if mode == "rows" else None), None
+
+    @staticmethod
+    def _dense_leaf_bits(g, i: int, shards) -> torch.Tensor:
+        n = g.numel() if shards is None else int(np.prod(shards.shape(i)))
+        return bitlib.f32(bitlib.bits_dense(n), g.device)
+
+    def __call__(self, grads, param_specs, rng=None, shards=None):
+        """Dense form: (compressed tree in float32, total wire bits).
+        ``shards``: the rank's :class:`ModelShards` (None: whole
+        leaves)."""
         dcfg = self._dispatch_cfg()
         leaves, tspec = tree_flatten(grads)
         outs, bit_terms = [], []
         for i, (g, plan) in enumerate(zip(
-                leaves, self._leaf_plans(leaves, param_specs))):
+                leaves, self._leaf_plans(leaves, param_specs, shards))):
             if plan[0] == "skip":
                 outs.append(g.to(torch.float32))
-                bit_terms.append(bitlib.f32(bitlib.bits_dense(g.numel()),
-                                            g.device))
+                bit_terms.append(self._dense_leaf_bits(g, i, shards))
                 continue
+            x, total, own = self._leaf_form(i, g, plan, shards)
             if plan[0] == "ref":
-                o, b = self._ref_leaf(plan[1], g, rng, i)
-                outs.append(o)
-                bit_terms.append(b)
-                continue
-            _, k_frac, sign, ax, n, _k = plan
-            if dsp.rows_eligible(n, dcfg, leaf_size=g.numel(),
-                                 device=g.device):
-                o, b = self._kernel_leaf(g, k_frac, ax, sign)
+                o, b = self._ref_leaf(plan[1], x, rng, i)
             else:
-                o, b = axis_topk(g, k_frac, ax, sign_bits=sign)
-            outs.append(o)
+                _, k_frac, sign, ax, n, _k = plan
+                if dsp.rows_eligible(n, dcfg, leaf_size=x.numel(),
+                                     device=x.device):
+                    o, b = self._kernel_leaf(x, k_frac, ax, sign, total)
+                else:
+                    o, b = axis_topk(x, k_frac, ax, sign_bits=sign,
+                                     total=total)
+            outs.append(o if own is None else own(o))
             bit_terms.append(b)
         return tree_unflatten(tspec, outs), bitlib.ledger_sum(bit_terms)
 
-    def compact(self, grads, param_specs, rng=None):
+    def compact(self, grads, param_specs, rng=None, shards=None):
         """Compact wire form: per leaf ("dense", g) for skipped and
         reference-operator leaves (the latter carry the compressed
         payload) or ("sparse", idx, val, axis, moved_shape), indices
         row-local to the moved-to-last axis, empty slots (n, 0).  The
         fused error memories come along, so the sync never densifies a
-        worker's own payload.
+        worker's own payload.  ``shards`` as :meth:`__call__`'s; a leaf
+        compressed whole carries a sixth element, the function that
+        takes the rank's slice of its decoded whole (:func:`_decoded`).
 
         Returns (payloads, tree spec, wire_bits, memory tree).
         """
@@ -395,52 +493,65 @@ class ShardCompressor:
         leaves, tspec = tree_flatten(grads)
         payloads, bit_terms, mems = [], [], []
         for i, (g, plan) in enumerate(zip(
-                leaves, self._leaf_plans(leaves, param_specs))):
+                leaves, self._leaf_plans(leaves, param_specs, shards))):
             if plan[0] == "skip":
                 g32 = g.to(torch.float32)
                 payloads.append(("dense", g32))
                 mems.append(torch.zeros_like(g32))
-                bit_terms.append(bitlib.f32(bitlib.bits_dense(g.numel()),
-                                            g.device))
+                bit_terms.append(self._dense_leaf_bits(g, i, shards))
                 continue
+            x, total, own = self._leaf_form(i, g, plan, shards)
             if plan[0] == "ref":
-                q, b = self._ref_leaf(plan[1], g, rng, i)
+                q, b = self._ref_leaf(plan[1], x, rng, i)
+                if own is not None:
+                    q = own(q)
                 payloads.append(("dense", q))
                 mems.append(g.to(torch.float32) - q)
                 bit_terms.append(b)
                 continue
             _, k_frac, sign, ax, _n, _k = plan
             idx, val, mem, b, moved = axis_topk_compact(
-                g, k_frac, ax, sign_bits=sign, dispatch_cfg=dcfg)
-            payloads.append(("sparse", idx, val, ax, moved))
-            mems.append(mem)
+                x, k_frac, ax, sign_bits=sign, dispatch_cfg=dcfg,
+                total=total)
+            if own is None:
+                payloads.append(("sparse", idx, val, ax, moved))
+                mems.append(mem)
+            else:
+                payloads.append(("sparse", idx, val, ax, moved, own))
+                mems.append(own(mem).clone())
             bit_terms.append(b)
         return (payloads, tspec, bitlib.ledger_sum(bit_terms),
                 tree_unflatten(tspec, mems))
 
     def launch_plans(self, params, param_specs, *,
-                     compact: bool) -> list:
+                     compact: bool, shards=None) -> list:
         """The kernel launches this compressor makes on one rank's
         gradients shaped like ``params``, as ``autotune.ShapeKey`` rows
         (the launcher's tuning work list): one a Top_k-family leaf that
         the dispatch rule sends to the kernel, its rows along the chosen
         axis; ``topk_compact`` on the sparse wire (``compact``), else
-        ``topk_compress``."""
+        ``topk_compress``.  ``shards``: ``params`` are a rank's model
+        shards, whose own rows it compresses (a leaf compressed whole:
+        all of them)."""
         from repro_torch.kernels.autotune import ShapeKey
         dcfg = self._dispatch_cfg()
         leaves = tree_leaves(params)
         keys = []
-        for g, plan in zip(leaves, self._leaf_plans(leaves, param_specs)):
+        for i, (g, plan) in enumerate(zip(
+                leaves, self._leaf_plans(leaves, param_specs, shards))):
             if plan[0] != "axis":
                 continue
             _, _k_frac, sign, _ax, n, k = plan
+            size = (g.numel() if shards is None
+                    or shards.mode(i, plan) != "whole"
+                    else int(np.prod(shards.shape(i))))
             if compact:
                 ok = dsp.compact_rows_eligible(n, dsp.capacity(k, n), dcfg,
-                                               g.numel(), g.device)
+                                               size, g.device)
             else:
-                ok = dsp.rows_eligible(n, dcfg, g.numel(), g.device)
+                ok = dsp.rows_eligible(n, dcfg, size, g.device)
             key = ShapeKey("topk_compact" if compact else "topk_compress",
-                           g.numel() // n, n, k, sign)
+                           size // n, n, k, sign)
             if ok and key not in keys:
                 keys.append(key)
         return keys
@@ -488,19 +599,33 @@ def worker_count(mesh, data_axes: Sequence[str]) -> int:
 
 
 def _check_mesh(mesh, data_axes) -> tuple:
-    """(data axes, R): the data-parallel mesh the engine runs on, one rank
-    a worker (a model axis above 1 is not ported)."""
+    """(data axes, R): the mesh the engine runs on, R workers over the
+    data axes, each the ``model`` axis's M ranks: R * M ranks in all."""
     daxes = tuple(data_axes)
     for a, size in mesh.shape.items():
-        if a not in daxes and size > 1:
-            raise NotImplementedError(
-                f"mesh axis {a!r} of size {size}: tensor parallelism is not "
-                "ported yet (ROADMAP queue 1 item 12)")
+        if a not in daxes and a != "model" and size > 1:
+            raise ValueError(f"mesh axis {a!r} of size {size} is neither a "
+                             f"data axis {daxes} nor 'model'")
     R = worker_count(mesh, daxes)
-    if R != mesh.world_size:
-        raise ValueError(f"{R} workers on the mesh but a world of "
-                         f"{mesh.world_size} ranks")
+    M = mesh.shape.get("model", 1)
+    if R * M != mesh.world_size:
+        raise ValueError(f"{R} workers of {M} ranks on the mesh but a "
+                         f"world of {mesh.world_size} ranks")
     return daxes, R
+
+
+def model_shards(mesh, layout: Optional[ShardLayout]):
+    """The engine's :class:`ModelShards` on ``mesh``: None for a model
+    axis of 1; above it the ``layout`` of the whole parameters
+    (``sharding.specs.shard_layout``) is required."""
+    if mesh.shape.get("model", 1) == 1:
+        return None
+    if layout is None:
+        raise ValueError(
+            f"a model axis of {mesh.shape['model']} needs layout= (the "
+            "whole parameters' sharding.specs.shard_layout): each rank "
+            "holds its model shard")
+    return ModelShards(layout, mesh)
 
 
 def _zero1_axis(shape, spec, W: int):
@@ -524,9 +649,9 @@ def _zero1_axes(full_tree, param_specs, W: int) -> list:
 
 
 def _own_slices(full_tree, axes, mesh):
-    """This rank's slice of each leaf along its ZeRO-1 axis (a copy, so
-    the whole leaf can go); leaves without an axis stay whole."""
-    W, r = mesh.world_size, mesh.rank
+    """This worker's slice of each leaf along its ZeRO-1 axis (a copy,
+    so the whole leaf can go); leaves without an axis stay whole."""
+    W, r = mesh.workers, mesh.worker
 
     def one(x, ax):
         if ax is None or W == 1:
@@ -539,10 +664,11 @@ def _own_slices(full_tree, axes, mesh):
 
 
 def _gather_slices(tree, axes, mesh):
-    """The whole leaves back from every rank's ZeRO-1 slices: one
-    ``all_gather`` a sharded leaf, concatenated along its axis."""
+    """The whole leaves back from every worker's ZeRO-1 slices: one
+    ``all_gather`` over the data group a sharded leaf, concatenated
+    along its axis."""
     def one(x, ax):
-        if ax is None or mesh.world_size == 1:
+        if ax is None or mesh.workers == 1:
             return x
         return torch.cat(mesh.all_gather(x).unbind(0), dim=ax)
 
@@ -550,16 +676,23 @@ def _gather_slices(tree, axes, mesh):
     return tree_unflatten(spec, [one(x, ax) for x, ax in zip(leaves, axes)])
 
 
-def gather_master(state: DistQsparseState, mesh, param_specs=None):
+def gather_master(state: DistQsparseState, mesh, param_specs=None,
+                  layout: Optional[ShardLayout] = None):
     """The whole master of a state on every rank: a ZeRO-1 master (its
     leaves shorter than the worker's iterate along their axis) gathered
-    from the ranks' slices, else the master as it is.  Every rank must
-    call it (the gather is a collective)."""
+    from the workers' slices over the data group, then (``layout``,
+    above one model rank) the model shards over the model group, else
+    the master as it is.  Every rank must call it (the gathers are
+    collectives)."""
     masters, full = tree_leaves(state.master), tree_leaves(state.local)
     axes = [None if tuple(m.shape) == tuple(f.shape) else ax
             for m, f, ax in zip(masters, full, _zero1_axes(
-                state.local, param_specs, mesh.world_size))]
-    return _gather_slices(state.master, axes, mesh)
+                state.local, param_specs, mesh.workers))]
+    master = _gather_slices(state.master, axes, mesh)
+    if layout is None or mesh.shape.get("model", 1) == 1:
+        return master
+    from repro_torch.sharding.specs import gather_tree
+    return gather_tree(master, layout, mesh)
 
 
 def _decode_gathered(idx_all, val_all, moved, ax):
@@ -572,6 +705,13 @@ def _decode_gathered(idx_all, val_all, moved, ax):
     ss = torch.movedim(val_all, 0, -2).reshape(-1, N * kcap)
     dense = _densify(ii, ss, moved, ax)
     return dense, ii, ss
+
+
+def _decoded(pl, dense: torch.Tensor) -> torch.Tensor:
+    """A sparse payload's decoded mean as this rank holds it: the rank's
+    slice where the leaf was compressed whole (the payload's sixth
+    element, ``ShardCompressor.compact``), else as it is."""
+    return pl[5](dense) if len(pl) > 5 else dense
 
 
 def _apply_mean(master, means):
@@ -624,6 +764,7 @@ def _make_dist_parts(
     downlink: Optional[ShardCompressor] = None,
     wire: str = "dense_psum",          # "dense_psum" | "sparse_allgather"
     partial: bool = False,
+    layout: Optional[ShardLayout] = None,
 ):
     """(init_fn, local_at, sync_at): the two steps at a learning rate the
     caller gives, ``step(state, batch, rng, lr, scalars=None) -> (state,
@@ -660,9 +801,18 @@ def _make_dist_parts(
     whole); the sync gathers the whole master, computes as without, and
     keeps its own slice of the new one.  The local step never reads the
     master.
+
+    ``layout``: above one model rank, where the model group splits each
+    leaf of the whole parameters (``sharding.specs.shard_layout``).  The
+    state and the batches' gradients are then the rank's model shards
+    (``grad_fn`` runs the model's own collectives over the model group),
+    each leaf is compressed per shard (:class:`ModelShards`), and the
+    wires, the means and ZeRO-1's slices run over the data group.  The
+    ledgers are the whole workers'.
     """
     aggregate, wire = _validate(aggregate, wire)
     daxes, R = _check_mesh(mesh, data_axes)
+    shards = model_shards(mesh, layout)
     if compressor is None:
         compressor = ShardCompressor("none")
     up = chn.ShardChannel(compressor, "uplink")
@@ -704,7 +854,7 @@ def _make_dist_parts(
                 "this step was built with partial=True: pass the bool[R] "
                 "mask= of the step (which workers sync now)")
         m = np.broadcast_to(np.asarray(mask, bool).reshape(-1), (R,))
-        return bool(m[mesh.rank]), int(m.sum())
+        return bool(m[mesh.worker]), int(m.sum())
 
     def _divisor(n_sync: int):
         """The master's divisor: mean_S divides by the syncing count."""
@@ -724,13 +874,17 @@ def _make_dist_parts(
         dense form on ``dense_psum``; on ``sparse_allgather`` the compact
         form, decoded here (only this worker's q: no gather)."""
         if wire == "dense_psum":
-            return down.apply(dacc, param_specs, rng=rng)
+            return down.apply(dacc, param_specs, rng=rng, shards=shards)
         payloads, spec, dbits, new_dm = down.compact(dacc, param_specs,
-                                                     rng=rng)
-        q = [pl[1] if pl[0] == "dense" else _densify(pl[1], pl[2], pl[4],
-                                                     pl[3])
-             for pl in payloads]
+                                                     rng=rng, shards=shards)
+        q = [pl[1] if pl[0] == "dense" else _decoded(
+            pl, _densify(pl[1], pl[2], pl[4], pl[3])) for pl in payloads]
         return tree_unflatten(spec, q), new_dm, dbits
+
+    def _dense_bits(tree) -> float:
+        """One exact broadcast of the whole master."""
+        return (down.dense_bits(tree) if shards is None
+                else shards.dense_bits())
 
     def _finish(state, half, new_full, axes, inner_new, memory, wire_bits,
                 loss, syncs: bool, n_sync: int, rng):
@@ -773,7 +927,7 @@ def _make_dist_parts(
                 memory=memory, inner=inner_new, step=state.step + 1,
                 bits=bits, rounds=rounds,
                 bits_down=state.bits_down + bitlib.f32(
-                    R * down.dense_bits(new_full), dev)), mesh.mean(loss)
+                    R * _dense_bits(new_full), dev)), mesh.mean(loss)
         # only the syncing workers receive x̄_{t+1}; the others keep their
         # half-step iterate and their view
         return DistQsparseState(
@@ -783,7 +937,7 @@ def _make_dist_parts(
             bits=bits, rounds=rounds,
             bits_down=state.bits_down + bitlib.f32(
                 np.float32(n_sync) * np.float32(
-                    down.dense_bits(new_full)), dev),
+                    _dense_bits(new_full)), dev),
             view=new_full if syncs else state.view), mesh.mean(loss)
 
     def sync_dense_at(state: DistQsparseState, batch, rng, lr,
@@ -795,7 +949,8 @@ def _make_dist_parts(
         delta = _delta(state, full, half)
         if not partial:
             half = None          # freed before the compression
-        g, new_mem, wire_bits = up.apply(delta, param_specs, rng=rng)
+        g, new_mem, wire_bits = up.apply(delta, param_specs, rng=rng,
+                                         shards=shards)
         del delta
         if not syncs:
             g = tree_map(torch.zeros_like, g)     # transmits nothing
@@ -814,14 +969,14 @@ def _make_dist_parts(
                 return arr.sum(dim=0) / torch.clamp(cnt, min=1.0)
             return arr.sum(dim=0) / (_divisor(n_sync) if partial
                                      else arr.shape[0])
-        _, idx, sel, ax, moved = pl
+        _, idx, sel, ax, moved = pl[:5]
         # all W workers' slots of a row decode in one scatter-add
         dense, ii, ss = _decode_gathered(mesh.all_gather(idx),
                                          mesh.all_gather(sel), moved, ax)
         if aggregate == "support_weighted":
             cnt = _densify(ii, (ss != 0).to(torch.float32), moved, ax)
-            return dense / torch.clamp(cnt, min=1.0)
-        return dense / (_divisor(n_sync) if partial else R)
+            return _decoded(pl, dense / torch.clamp(cnt, min=1.0))
+        return _decoded(pl, dense / (_divisor(n_sync) if partial else R))
 
     def _silent(pl):
         """A payload that transmits nothing: its values zeroed (the
@@ -840,7 +995,7 @@ def _make_dist_parts(
         if not partial:
             half = None          # freed before the compression
         payloads, _, wire_bits, new_mem = compressor.compact(
-            delta, param_specs, rng=rng)
+            delta, param_specs, rng=rng, shards=shards)
         del delta
         if not syncs:
             payloads = [_silent(pl) for pl in payloads]
@@ -856,8 +1011,9 @@ def _make_dist_parts(
                else sync_dense_at)
 
     def init_fn(params) -> DistQsparseState:
-        """``params`` are the same on every rank (the replicated master);
-        under ``zero1`` each rank keeps its slice of the master."""
+        """``params`` are the same on every rank of a data group (the
+        replicated master: the rank's model shards above one model
+        rank); under ``zero1`` each worker keeps its slice of it."""
         leaves = tree_leaves(params)
         dev = leaves[0].device if leaves else torch.device("cpu")
         axes = (_zero1_axes(params, param_specs, R) if zero1
@@ -914,8 +1070,11 @@ def round_fused(mesh) -> bool:
     the wire's NCCL calls.  Under gloo a CUDA tensor's collective is
     staged through host memory, which no graph can hold; NCCL rounds
     across several ranks are not enabled, as their one run on four
-    cards hung (PERF.md §6).  Both take the per-step composition.
-    Decided from the mesh, before anything runs."""
+    cards hung (PERF.md §6).  Both take the per-step composition, as does
+    every mesh above one model rank (the model's own collectives run
+    inside each step).  Decided from the mesh, before anything runs."""
+    if mesh.shape.get("model", 1) > 1:
+        return False
     if mesh.device.type == "cpu":
         return True
     return mesh.world_size == 1 and mesh.backend != "gloo"
@@ -1040,6 +1199,15 @@ def make_dist_multiround(grad_fn: Callable, inner_opt: GradientTransform,
 # ---------------------------------------------------------------------------
 
 
+def refuse_faults_model_axis(size: int) -> None:
+    """The fault runtime refuses a model axis above 1 (ROADMAP queue 1
+    item 12e): its queue, recover and landing paths hold whole leaves."""
+    if size > 1:
+        raise PendingPort(
+            f"the mesh fault runtime with a model axis of {size} is not "
+            "ported (ROADMAP queue 1 item 12e)")
+
+
 def _make_dist_fault_parts(grad_fn: Callable, inner_opt: GradientTransform,
                            compressor: Optional[ShardCompressor], mesh,
                            data_axes, param_specs, *, queue_depth: int,
@@ -1070,6 +1238,7 @@ def _make_dist_fault_parts(grad_fn: Callable, inner_opt: GradientTransform,
             "(engine.make_fault_step) for compressed-downlink fault "
             "studies, or downlink=None here")
     _, R = _check_mesh(mesh, data_axes)
+    refuse_faults_model_axis(mesh.shape.get("model", 1))
     if compressor is None:
         compressor = ShardCompressor("none")
     up = chn.ShardChannel(compressor, "uplink")

@@ -23,22 +23,28 @@ record holds, for one device (one worker's rank):
   rounded to the CUDA caching allocator's 512-byte blocks; XLA's
   ``code_bytes`` has no counterpart and is left out;
 * ``collectives``: the mesh's collectives (``DryMesh``'s events) in
-  ``roofline_parse.collective_bytes``'s dict;
+  ``roofline_parse.collective_bytes``'s dict, and ``collectives_by_group``
+  the same apart by group: the tensor-parallel ones under ``model``, the
+  engine's wires and means under ``data``;
 * ``launches``: the kernels launched, by name.
 
-The mesh is rank 0 of R workers with no process group
+The mesh is rank 0 of its ranks with no process group
 (``launch.mesh.DryMesh``): ``repro``'s device counts laid out
 data-parallel, ``256x1`` (record name ``dp256``) and ``2x128x1`` under
-``--multi-pod`` (``dp2x128``); ``--mesh DxM|PxDxM`` names another.  A
-``model`` axis above 1 (tensor parallelism, not ported) gives a record
-with ``status: "error"`` and the engine's ``NotImplementedError``.  A
-training worker takes ``global_batch / R`` sequences; a serving batch
-is split over the workers where it divides, else every device serves
-it whole (``repro``'s rule).
+``--multi-pod`` (``dp2x128``), and for the training shapes ``repro``'s
+production meshes too, ``16x16`` (and ``2x16x16``): R = P * D workers of
+M tensor-parallel ranks, rank 0 holding its model shard of every leaf;
+``--mesh DxM|PxDxM`` names another.  A record carries the model axis's
+``head_divisibility_note``.  The families not yet tensor-parallel
+(``sharding.specs.TP_PENDING``) and serving with a model axis above 1
+give a record with ``status: "error"``, ``pending: true`` and the
+``PendingPort`` naming their ROADMAP item.  A training worker takes ``global_batch / R``
+sequences; a serving batch is split over the workers where it divides,
+else every device serves it whole (``repro``'s rule).
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi-6b --shape train_4k
-    PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multi-pod]
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multi-pod] [--zero1]
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh 8x1 --smoke
 
 Records: ``artifacts/dryrun/<arch>__<shape>__<mesh>.json``; then
@@ -67,22 +73,27 @@ from torch.utils.weak import WeakIdKeyDictionary
 from repro_torch.configs import (ARCHS, INPUT_SHAPES, InputShape, get_config,
                                  get_policy_preset, shape_supported)
 from repro_torch.core import policy as pol
-from repro_torch.core.distributed import (ShardCompressor, _check_mesh,
-                                          make_dist_steps)
+from repro_torch.core.distributed import ShardCompressor, make_dist_steps
 from repro_torch.kernels import launch_stats
 from repro_torch.kernels.launch_stats import LAUNCHES
 from repro_torch.launch import roofline
 from repro_torch.launch.mesh import (DryMesh, Mesh, data_axes, dry_mesh,
                                      worker_count)
-from repro_torch.launch.roofline_parse import collective_bytes
+from repro_torch.launch.roofline_parse import (collective_bytes,
+                                              collectives_by_group)
 from repro_torch.models import get_model
 from repro_torch.optim import constant, momentum_sgd
-from repro_torch.sharding.specs import param_specs
+from repro_torch.sharding.specs import (PendingPort, activation_policy,
+                                        head_divisibility_note, param_specs,
+                                        shard_layout, shard_tree)
 from repro_torch.tree import tree_leaves, tree_map, value_and_grad
 
 ART_DIR = "artifacts/dryrun"
 #: ``repro``'s meshes' device counts, data-parallel: (mesh, record name)
 MESHES = {False: ("256x1", "dp256"), True: ("2x128x1", "dp2x128")}
+#: ``repro``'s production meshes (``launch/mesh.py``: data x model), which
+#: the training shapes run on too: (mesh, record name)
+TP_MESHES = {False: ("16x16", "16x16"), True: ("2x16x16", "2x16x16")}
 #: the CUDA caching allocator's block size: every storage is counted in
 #: whole blocks
 ALLOC_BYTES = 512
@@ -219,6 +230,8 @@ def measure(fn, args: tuple, mesh=None) -> tuple:
                            meter.flops_by_dtype.items()},
         "bytes_accessed": meter.bytes_accessed + kern["bytes"],
         "collectives": collective_bytes(mesh.events if dry else ()),
+        "collectives_by_group": collectives_by_group(
+            mesh.events if dry else ()),
         "launches": {k: LAUNCHES[k] - before[k] for k in LAUNCHES
                      if LAUNCHES[k] != before[k]},
     }
@@ -244,7 +257,8 @@ def device_batch(global_batch: int, mesh) -> int:
 def abstract_params(cfg, mesh, model, device="meta", gen=None):
     """(params, specs): the full-size parameter tree on ``device`` (on
     ``meta``: no storage; elsewhere drawn from ``gen``) and its spec
-    tree.  Every rank holds the whole tree (data parallelism)."""
+    tree, every leaf whole (``shard_tree`` cuts a rank's model shards
+    out of it)."""
     if gen is None and torch.device(device).type != "meta":
         gen = torch.Generator(device=device).manual_seed(0)
     return model.init_params(gen, cfg, device=device), param_specs(cfg)
@@ -324,17 +338,24 @@ def build_train(arch: str, cfg, mesh, shape, *, zero1: bool = False,
     Returns a namespace (``init_fn``, ``steps`` by name, ``params``,
     ``batch``): a step is ``step(state, batch)``, its stochastic
     operators drawing from the job's generator (on meta they draw
-    nothing)."""
+    nothing).  Above one model rank ``params`` are the rank's model
+    shards and the loss runs tensor-parallel (``activation_policy``;
+    a family not ported for it raises)."""
     model = get_model(cfg)
+    sharding = activation_policy(cfg, mesh)
     gen = (None if torch.device(device).type == "meta"
            else torch.Generator(device=device).manual_seed(seed))
     params, specs = abstract_params(cfg, mesh, model, device, gen)
-    grad_fn = value_and_grad(lambda p, b: model.loss_fn(p, b, cfg)[0])
+    grad_fn = value_and_grad(
+        lambda p, b: model.loss_fn(p, b, cfg, policy=sharding)[0])
     up, down = compressors(arch, policy, params, compressor_mode, k_frac,
                            dispatch)
+    layout = shard_layout(specs, params, mesh)
+    params = shard_tree(params, layout)
     init_fn, local_step, sync_step = make_dist_steps(
         grad_fn, momentum_sgd(0.9), up, constant(1e-3), mesh,
-        data_axes(mesh), specs, zero1=zero1, wire=aggregate, downlink=down)
+        data_axes(mesh), specs, zero1=zero1, wire=aggregate, downlink=down,
+        layout=layout)
     batch = input_specs(cfg, shape, mesh, for_train=True, device=device,
                         gen=gen)
     rng = torch.Generator(device="cpu" if gen is None else device)
@@ -360,10 +381,11 @@ def lower_train(cfg, mesh, shape, *, zero1: bool = False,
                 ) -> dict:
     """Run the Qsparse ``sync_step`` (the step that communicates) and the
     ``local_step`` once each on ``meta``, both from ``steady_state``:
-    their step records by name.  ``repro``'s ``seq_shard`` (activation
-    sharding over the model axis) has no counterpart: the port is data
-    parallel, with no model axis above 1 (ROADMAP item 12).
-    ``arch``: the ``ARCHS`` id a ``preset:arch`` policy resolves by."""
+    their step records by name, on rank 0 of ``mesh`` (its model shards
+    above one model rank).  ``repro``'s ``seq_shard`` (activation
+    sharding over the model axis) has no counterpart: the residual
+    stream is whole on every rank of a model group.  ``arch``: the
+    ``ARCHS`` id a ``preset:arch`` policy resolves by."""
     job = build_train(arch or cfg.name, cfg, mesh, shape, zero1=zero1,
                       compressor_mode=compressor_mode, k_frac=k_frac,
                       aggregate=aggregate, policy=policy)
@@ -383,13 +405,13 @@ def lower_serve(cfg, mesh, shape, max_len: Optional[int] = None) -> dict:
     shapes) once on ``meta``, under ``torch.no_grad``: the step record
     by name.  ``max_len``: the cache's length where a server sizes it
     past ``seq_len`` (a prefill's prompt and the tokens it will add).
-    The serving path has no tensor parallelism either: a ``model`` axis
-    above 1 raises as the engine's does."""
+    Serving with a ``model`` axis above 1 is not ported and raises
+    (``activation_policy``, ROADMAP queue 1 item 12d)."""
     sh = _shape(shape)
     max_len = sh.seq_len if max_len is None else max_len
     if max_len < sh.seq_len:
         raise ValueError(f"max_len {max_len} < seq_len {sh.seq_len}")
-    _check_mesh(mesh, data_axes(mesh))
+    activation_policy(cfg, mesh, for_serving=True)
     model = get_model(cfg)
     params, _ = abstract_params(cfg, mesh, model)
     with torch.no_grad():
@@ -409,7 +431,8 @@ def lower_serve(cfg, mesh, shape, max_len: Optional[int] = None) -> dict:
 
 
 def profile_sync_collectives(arch: str, cfg, mesh, shape, wires, device,
-                             seen: Optional[set] = None) -> dict:
+                             seen: Optional[set] = None,
+                             policy: Optional[str] = None) -> dict:
     """On a real mesh (this rank's part of it): one ``sync_step`` of
     ``build_train``'s job a wire, profiled (``record_shapes``), its
     collectives read from the trace (``roofline_parse.events_from_profile``)
@@ -420,7 +443,7 @@ def profile_sync_collectives(arch: str, cfg, mesh, shape, wires, device,
     out = {}
     for wire in wires:
         job = build_train(arch, cfg, mesh, shape, aggregate=wire,
-                          device=device)
+                          device=device, policy=policy)
         state = job.init_fn(job.params)
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CPU],
@@ -440,10 +463,14 @@ def profile_sync_collectives(arch: str, cfg, mesh, shape, wires, device,
 
 def _mesh(mesh, multi_pod: bool) -> tuple:
     """(DryMesh, record name) from None (``repro``'s device counts), a
-    ``"DxM"`` / ``"PxDxM"`` string or a mesh."""
+    record name of :data:`MESHES` or :data:`TP_MESHES`, a ``"DxM"`` /
+    ``"PxDxM"`` string or a mesh."""
     if mesh is None:
         text, name = MESHES[multi_pod]
         return dry_mesh(text), name
+    named = {n: t for t, n in (*MESHES.values(), *TP_MESHES.values())}
+    if isinstance(mesh, str) and mesh in named:
+        return dry_mesh(named[mesh]), mesh
     if isinstance(mesh, str):
         return dry_mesh(mesh), mesh
     if isinstance(mesh, Mesh):
@@ -487,7 +514,7 @@ def run_one(arch: str, shape_name: Optional[str] = None, *,
         "arch": arch, "shape": shape_name, "mesh": mesh_name,
         "zero1": zero1, "compressor": compressor,
         "aggregate": aggregate, "policy": policy, "tag": tag,
-        "status": "skipped", "reason": reason,
+        "model_axis": dm.model_size, "status": "skipped", "reason": reason,
     }
     if not ok:
         return record
@@ -499,6 +526,8 @@ def run_one(arch: str, shape_name: Optional[str] = None, *,
         cfg = dataclasses.replace(cfg, swa_pattern=(64,))
     if cfg_overrides:
         cfg = dataclasses.replace(cfg, **cfg_overrides)
+    record["head_divisibility_note"] = head_divisibility_note(
+        cfg, dm.model_size)
     t0 = time.perf_counter()
     try:
         if shape.kind == "train":
@@ -517,8 +546,7 @@ def run_one(arch: str, shape_name: Optional[str] = None, *,
         record.update(
             status="ok", lower_s=round(time.perf_counter() - t0, 1),
             steps=steps, **param_fields(cfg),
-            n_devices=math.prod(dm.dims),
-            model_axis=dm.shape.get("model", 1), n_workers=worker_count(dm),
+            n_devices=math.prod(dm.dims), n_workers=worker_count(dm),
             seq_len=shape.seq_len, global_batch=shape.global_batch,
             device_batch=(max(1, shape.global_batch // worker_count(dm))
                           if shape.kind == "train"
@@ -532,8 +560,15 @@ def run_one(arch: str, shape_name: Optional[str] = None, *,
     except Exception as e:  # noqa: BLE001 - report every failure mode
         record["status"] = "error"
         record["error"] = f"{type(e).__name__}: {e}"
+        record["pending"] = isinstance(e, PendingPort)
         record["traceback"] = traceback.format_exc()[-4000:]
     return record
+
+
+def pending(record: dict) -> bool:
+    """Is an error record a refusal that names the ROADMAP item still to
+    port it (a family's tensor parallelism, serving on a model axis)?"""
+    return record.get("status") == "error" and record.get("pending", False)
 
 
 def save_record(record: dict, tag: str = "") -> str:
@@ -561,7 +596,8 @@ def main(argv: Optional[list] = None,
                     help="2x128x1 (dp2x128) in place of 256x1 (dp256)")
     ap.add_argument("--both-meshes", action="store_true")
     ap.add_argument("--mesh", default=None,
-                    help="DxM or PxDxM in place of the default meshes")
+                    help="DxM or PxDxM in place of the default meshes "
+                         "(dp256, and 16x16 for the training shapes)")
     ap.add_argument("--zero1", action="store_true")
     ap.add_argument("--compressor", default="topk",
                     choices=["topk", "signtopk", "none"])
@@ -575,14 +611,16 @@ def main(argv: Optional[list] = None,
     archs = sorted(ARCHS) if (args.all or not args.arch) else [args.arch]
     names = (sorted(INPUT_SHAPES) if (args.all or not args.shape)
              else [args.shape])
-    if args.mesh is not None:
-        meshes = [(args.mesh, False)]
-    else:
-        meshes = [(None, mp) for mp in
-                  ([False, True] if args.both_meshes else [args.multi_pod])]
+    pods = [False, True] if args.both_meshes else [args.multi_pod]
     records, failures = [], 0
     for a in archs:
         for s in names:
+            if args.mesh is not None:
+                meshes = [(args.mesh, False)]
+            else:
+                meshes = [(None, mp) for mp in pods]
+                if shapes[s].kind == "train":
+                    meshes += [(TP_MESHES[mp][1], mp) for mp in pods]
             for mesh, mp in meshes:
                 rec = run_one(a, s, shape=shapes[s], multi_pod=mp,
                               zero1=args.zero1,
@@ -602,7 +640,7 @@ def main(argv: Optional[list] = None,
                              f"coll={st['collectives']['total'] / 2**20:.1f}"
                              f"MiB fits={rec['fits']}")
                 elif status == "error":
-                    failures += 1
+                    failures += not pending(rec)
                     extra = rec["error"][:160]
                 print(f"[{status:7s}] {a} x {s} x {rec['mesh']}  {extra}",
                       flush=True)

@@ -2,11 +2,21 @@
 ``repro.launch.mesh``, on ``torch.distributed``).
 
 ``repro`` lays its workers over the ``pod`` / ``data`` axes of a device
-mesh and runs each worker's step inside ``shard_map``.  Here one process
-(rank) is one worker: the mesh string ``DxM`` / ``PxDxM`` names the same
-axes, and the data axes' product ``P * D`` must equal the world size (the
-engine refuses a ``model`` axis above 1 until ROADMAP queue 1 item 12
-ports tensor parallelism).
+mesh, runs each worker's step inside ``shard_map``, and leaves the
+``model`` axis (tensor parallelism) to XLA.  Here one process (rank) is
+one device of the mesh ``DxM`` / ``PxDxM``: the world is ``P * D * M``
+ranks, rank ``((p * D) + d) * M + m`` at coordinates (pod p, data d,
+model m), and a worker is the ``M`` ranks of one (pod, data) row.  Two
+subgroups a rank:
+
+  * the **model group**: the ``M`` ranks of its worker (the model's own
+    collectives, ``sharding/collectives.py``);
+  * the **data group**: the ``P * D`` ranks that hold the same model
+    shard (the engine's wires and means).
+
+Every collective names the group it runs over (``over="data"``, the
+default, ``"model"`` or ``"world"``); a group of one is the identity.
+With ``M == 1`` the data group is the world's group, as before.
 
 The process group is set up from the usual ``torchrun`` variables
 (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``,
@@ -21,6 +31,7 @@ detail, the computation stays on the card.  A failed setup raises.
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import socket
 import subprocess
@@ -49,11 +60,15 @@ def parse_mesh(text: str) -> tuple:
     return dims, AXES[-len(dims):]
 
 
+GROUPS = ("data", "model", "world")
+
+
 @dataclasses.dataclass
 class Mesh:
-    """The worker mesh as one rank sees it.  ``group`` is None for a
-    world of one without a process group (the collectives are then the
-    identity)."""
+    """The mesh as one rank sees it.  ``group`` is the world's process
+    group, None for a world of one without one; ``groups`` holds the
+    ``data`` and ``model`` subgroups (None where the group is this rank
+    alone: its collectives are then the identity)."""
 
     dims: tuple
     axis_names: tuple
@@ -62,92 +77,156 @@ class Mesh:
     device: torch.device = torch.device("cpu")
     backend: Optional[str] = None
     group: Optional[object] = None
+    groups: dict = dataclasses.field(default_factory=dict)
 
     @property
     def shape(self) -> dict:
         return dict(zip(self.axis_names, self.dims))
 
+    @property
+    def model_size(self) -> int:
+        """M: the ranks of one worker."""
+        return self.shape.get("model", 1)
+
+    @property
+    def workers(self) -> int:
+        """R = P * D: the workers (one model group each)."""
+        return worker_count(self)
+
+    @property
+    def worker(self) -> int:
+        """This rank's worker: its (pod, data) row in row-major order."""
+        return self.rank // self.model_size
+
+    @property
+    def model_rank(self) -> int:
+        """This rank's place in its model group."""
+        return self.rank % self.model_size
+
+    def coords(self) -> dict:
+        """This rank's coordinate on each axis of the mesh."""
+        out, r = {}, self.rank
+        for name, size in reversed(tuple(zip(self.axis_names, self.dims))):
+            out[name] = r % size
+            r //= size
+        return {a: out[a] for a in self.axis_names}
+
+    def size(self, over: str = "data") -> int:
+        """The ranks of the group ``over`` names."""
+        if over not in GROUPS:
+            raise ValueError(f"unknown group {over!r}; expected one of "
+                             f"{GROUPS}")
+        return {"data": self.workers, "model": self.model_size,
+                "world": self.world_size}[over]
+
+    def _group(self, over: str):
+        if over == "world" or (over == "data" and self.model_size == 1):
+            return self.group if self.size(over) > 1 else None
+        if self.size(over) == 1:
+            return None
+        return self.groups[over]
+
     def _staged(self, t: torch.Tensor) -> bool:
         return self.backend == "gloo" and t.device.type == "cuda"
 
-    def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
-        """The sum of ``t`` over the workers (in place when ``t`` is
-        contiguous; a strided view is reduced as a contiguous copy)."""
-        if self.group is None:
+    def _all_reduce(self, t: torch.Tensor, over: str, op) -> torch.Tensor:
+        group = self._group(over)
+        if group is None:
             return t
         t = t.contiguous()
         if self._staged(t):
             host = t.cpu()
-            dist.all_reduce(host, group=self.group)
+            dist.all_reduce(host, op=op, group=group)
             t.copy_(host)
         else:
-            dist.all_reduce(t, group=self.group)
+            dist.all_reduce(t, op=op, group=group)
         return t
 
-    def mean(self, t: torch.Tensor) -> torch.Tensor:
-        """The workers' mean of ``t`` (``pmean``: the sum over the world
-        size), as a new tensor."""
-        return self.all_reduce_sum(t.clone()) / self.world_size
+    def all_reduce_sum(self, t: torch.Tensor,
+                       over: str = "data") -> torch.Tensor:
+        """The sum of ``t`` over the group ``over`` (in place when ``t``
+        is contiguous; a strided view is reduced as a contiguous copy)."""
+        return self._all_reduce(t, over, dist.ReduceOp.SUM)
 
-    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
-        """[W, *t.shape]: every worker's ``t`` in rank order (fixed-shape
-        buffers, as the sparse wire's (idx, val) slots are)."""
-        if self.group is None:
+    def all_reduce_max(self, t: torch.Tensor,
+                       over: str = "model") -> torch.Tensor:
+        """The elementwise maximum of ``t`` over the group ``over``, in
+        place as :meth:`all_reduce_sum`."""
+        return self._all_reduce(t, over, dist.ReduceOp.MAX)
+
+    def mean(self, t: torch.Tensor) -> torch.Tensor:
+        """The workers' mean of ``t`` (``pmean`` over the data axes: the
+        sum over the data group over R), as a new tensor."""
+        return self.all_reduce_sum(t.clone()) / self.workers
+
+    def all_gather(self, t: torch.Tensor, over: str = "data") -> torch.Tensor:
+        """[W, *t.shape]: every rank's ``t`` of the group ``over`` in
+        rank order (fixed-shape buffers, as the sparse wire's (idx, val)
+        slots are)."""
+        group = self._group(over)
+        if group is None:
             return t[None].clone()
         src = t.reshape(-1).contiguous()
         if self._staged(src):
             src = src.cpu()
-        out = torch.empty((self.world_size * src.numel(),),
-                          dtype=src.dtype, device=src.device)
-        dist.all_gather_into_tensor(out, src, group=self.group)
-        return out.reshape((self.world_size,) + tuple(t.shape)).to(t.device)
+        W = self.size(over)
+        out = torch.empty((W * src.numel(),), dtype=src.dtype,
+                          device=src.device)
+        dist.all_gather_into_tensor(out, src, group=group)
+        return out.reshape((W,) + tuple(t.shape)).to(t.device)
 
     def barrier(self) -> None:
-        """Every rank waits here for every other (a one-float sum, read
-        back on the host)."""
+        """Every rank waits here for every other (a one-float sum over
+        the world, read back on the host)."""
         if self.group is not None:
-            self.all_reduce_sum(torch.zeros(1, device=self.device)).item()
+            self.all_reduce_sum(torch.zeros(1, device=self.device),
+                                over="world").item()
 
     def close(self) -> None:
         if self.group is not None:
             dist.destroy_process_group()
             self.group = None
+            self.groups = {}
 
 
 @dataclasses.dataclass
 class DryMesh(Mesh):
-    """Rank 0 of a mesh of ``world_size`` workers with no process group,
+    """Rank 0 of a mesh of ``world_size`` ranks with no process group,
     for a dry run (``launch/dryrun.py``) on the ``meta`` device: every
-    collective returns what rank 0 would get, in shape, and appends its
-    ``(kind, dtype, shape)`` to ``events`` (``roofline_parse``'s
-    events, the result's shape on one device).  ``all_reduce_sum``
-    returns its input unchanged, ``all_gather`` a new [W, ...] tensor
-    (on meta: no storage), ``barrier`` is the one-float all-reduce it
-    is on a real mesh."""
+    collective returns what rank 0 would get, in shape, and appends
+    ``(kind, dtype, shape, group)`` to ``events`` (``roofline_parse``'s
+    events, the result's shape on one device, and the group it ran
+    over: ``"data"``, ``"model"`` or ``"world"``).  A collective over a
+    group of one is the identity and records nothing, as on a real
+    mesh.  ``all_reduce_sum`` / ``all_reduce_max`` return their input
+    unchanged, ``all_gather`` a new [W, ...] tensor (on meta: no
+    storage), ``barrier`` is the one-float all-reduce it is on a real
+    mesh."""
 
     events: list = dataclasses.field(default_factory=list)
 
-    def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
-        self.events.append(("all-reduce", t.dtype, tuple(t.shape)))
+    def _all_reduce(self, t, over, op):
+        if self.size(over) > 1:
+            self.events.append(("all-reduce", t.dtype, tuple(t.shape), over))
         return t
 
-    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
-        shape = (self.world_size,) + tuple(t.shape)
-        self.events.append(("all-gather", t.dtype, shape))
+    def all_gather(self, t: torch.Tensor, over: str = "data") -> torch.Tensor:
+        shape = (self.size(over),) + tuple(t.shape)
+        if self.size(over) > 1:
+            self.events.append(("all-gather", t.dtype, shape, over))
         return torch.empty(shape, dtype=t.dtype, device=t.device)
 
     def barrier(self) -> None:
-        self.events.append(("all-reduce", torch.float32, (1,)))
+        if self.world_size > 1:
+            self.events.append(("all-reduce", torch.float32, (1,), "world"))
 
 
 def dry_mesh(text: str, device="meta") -> DryMesh:
-    """The dry run's mesh for ``"DxM"`` / ``"PxDxM"``: rank 0 of the data
-    axes' workers (a ``model`` axis above 1 is refused where the engine
-    or the serving path checks the mesh)."""
+    """The dry run's mesh for ``"DxM"`` / ``"PxDxM"``: rank 0 of its
+    ``P * D * M`` ranks."""
     dims, names = parse_mesh(text)
-    mesh = DryMesh(dims, names, device=torch.device(device))
-    mesh.world_size = worker_count(mesh)
-    return mesh
+    return DryMesh(dims, names, world_size=math.prod(dims),
+                   device=torch.device(device))
 
 
 def data_axes(mesh: Mesh) -> tuple:
@@ -159,6 +238,11 @@ def worker_count(mesh: Mesh) -> int:
     for a in data_axes(mesh):
         out *= mesh.shape[a]
     return out
+
+
+def mesh_ranks(text: str) -> int:
+    """The ranks a ``"DxM"`` / ``"PxDxM"`` mesh takes: P * D * M."""
+    return math.prod(parse_mesh(text)[0])
 
 
 def free_port() -> int:
@@ -184,10 +268,10 @@ def make_mesh(text: str, device="cuda", backend: str = "auto",
     local_rank = _env_int("LOCAL_RANK", rank)
     local_world = _env_int("LOCAL_WORLD_SIZE", world)
     mesh = Mesh(dims, names, rank=rank, world_size=world)
-    if worker_count(mesh) != world:
+    if math.prod(dims) != world:
         raise ValueError(
-            f"mesh {text!r} has {worker_count(mesh)} workers but the world "
-            f"size is {world}: one rank per worker")
+            f"mesh {text!r} has {math.prod(dims)} devices but the world "
+            f"size is {world}: one rank per device (P * D * M)")
     dev = resolve_device(device)
     if dev.type == "cuda":
         dev = torch.device("cuda", local_rank % torch.cuda.device_count())
@@ -217,13 +301,34 @@ def make_mesh(text: str, device="cuda", backend: str = "auto",
         dist.init_process_group(backend, init_method=method, rank=rank,
                                 world_size=world)
         mesh.group = dist.group.WORLD
+        mesh.groups = _subgroups(mesh)
     return mesh
+
+
+def _subgroups(mesh: Mesh) -> dict:
+    """The rank's model and data groups (``mesh.groups``).  Every rank
+    makes every group, in one order, as ``dist.new_group`` requires; with
+    M == 1 the data group is the world's and nothing is made."""
+    M, R = mesh.model_size, mesh.workers
+    if M == 1:
+        return {}
+    out = {}
+    for w in range(R):
+        g = dist.new_group([w * M + m for m in range(M)])
+        if w == mesh.worker:
+            out["model"] = g
+    if R > 1:
+        for m in range(M):
+            g = dist.new_group([w * M + m for w in range(R)])
+            if m == mesh.model_rank:
+                out["data"] = g
+    return out
 
 
 def run_local_ranks(cmd: list, world_size: int, env: Optional[dict] = None,
                     timeout: float = 600.0) -> list:
     """Start ``world_size`` copies of ``cmd`` on this host as the ranks of
-    one process group (``torchrun``'s variables, a free port) and wait
+    one process group (a mesh's P * D * M: ``mesh_ranks``) (``torchrun``'s variables, a free port) and wait
     for all of them.  Returns [(returncode, stdout, stderr)] in rank
     order.  Each rank writes to files of its own, so a rank that writes
     much never blocks on a full pipe while the others wait for it in a

@@ -4,7 +4,10 @@ terms of a dry-run record (``launch/dryrun.py``),
 
     compute    = FLOPs a device / the peak for the matmuls' dtype
     memory     = bytes a device moves / HBM bandwidth
-    collective = collective bytes a device / link bandwidth
+    collective = collective bytes a device / link bandwidth, the
+                 tensor-parallel all-reduces and gathers of the model
+                 group over its own link (NVLink where M <= 8) beside
+                 the data group's
 
 and the bytes and operations of every hand-written kernel's launch
 (:func:`kernel_cost`), from which ``chip_smoke.py`` takes each kernel's
@@ -221,6 +224,20 @@ def link_bw(n_devices: int) -> float:
     return LINK_BW if n_devices <= NODE_GPUS else NET_BW
 
 
+def collective_s(step: dict, n_devices: int, model_axis: int = 1) -> float:
+    """A step's collective term: the model group's bytes (the
+    tensor-parallel all-reduces and gathers, ``collectives_by_group``)
+    over the link of ``model_axis`` devices, every other byte over the
+    link of the whole mesh; a record without the split, every byte over
+    the mesh's link."""
+    groups = step.get("collectives_by_group")
+    if not groups:
+        return step["collectives"]["total"] / link_bw(n_devices)
+    tp = groups.get("model", {}).get("total", 0)
+    rest = step["collectives"]["total"] - tp
+    return tp / link_bw(model_axis) + rest / link_bw(n_devices)
+
+
 HINTS = {
     "compute": "reduce recompute (remat policy) / increase arithmetic "
                "intensity per chip",
@@ -247,7 +264,7 @@ def analyze(rec: dict, step_name: Optional[str] = None) -> Optional[dict]:
     peak = PEAK_FLOPS[getattr(torch, rec.get("dtype", "bfloat16"))]
     t_comp = st["flops"] / peak
     t_mem = st["bytes_accessed"] / HBM_BW
-    t_coll = st["collectives"]["total"] / link_bw(chips)
+    t_coll = collective_s(st, chips, rec.get("model_axis", 1))
     terms = {"compute": t_comp, "memory": t_mem, "collective": t_coll}
     dom = max(terms, key=terms.get)
     mf = model_flops(rec)

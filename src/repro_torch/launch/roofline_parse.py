@@ -64,16 +64,29 @@ def dtype_bytes(dtype) -> int:
 
 
 def collective_bytes(events) -> dict:
-    """Sum the result bytes of ``(kind, dtype, shape)`` events by kind,
-    with their ``total``: ``repro``'s dict."""
+    """Sum the result bytes of ``(kind, dtype, shape)`` events (a
+    ``DryMesh``'s carry their group as a fourth field) by kind, with
+    their ``total``: ``repro``'s dict."""
     out: dict = {}
-    for kind, dtype, shape in events:
+    for kind, dtype, shape, *_ in events:
         nbytes = dtype_bytes(dtype)
         for d in shape:
             nbytes *= int(d)
         out[kind] = out.get(kind, 0) + nbytes
     out["total"] = sum(v for k, v in out.items() if k != "total")
     return out
+
+
+def collectives_by_group(events) -> dict:
+    """:func:`collective_bytes` of a ``DryMesh``'s events apart by the
+    group each ran over: ``{"data": {...}, "model": {...}}`` (the
+    tensor-parallel collectives under ``model``, the engine's wires and
+    means under ``data``; a barrier's under ``world``), groups with no
+    event left out."""
+    groups: dict = {}
+    for ev in events:
+        groups.setdefault(ev[3] if len(ev) > 3 else "data", []).append(ev)
+    return {g: collective_bytes(evs) for g, evs in sorted(groups.items())}
 
 
 #: the prefixes of the process-group backends' own records of a collective

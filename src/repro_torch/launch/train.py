@@ -10,6 +10,9 @@ RWKV-6, Zamba2), one process per worker:
   # eight GPUs of one host, eight workers (NCCL)
   PYTHONPATH=src torchrun --nproc-per-node 8 -m repro_torch.launch.train \\
       --arch gemma3-1b --mesh 8x1 --policy preset:arch
+  # eight GPUs, four workers of two tensor-parallel ranks each
+  PYTHONPATH=src torchrun --nproc-per-node 8 -m repro_torch.launch.train \\
+      --arch gemma3-1b --mesh 4x2 --policy preset:arch
   # the CPU, at the smoke size
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b \\
       --smoke --mesh 1x1 --device cpu --steps 4 --H 2
@@ -39,8 +42,19 @@ any step is built or captured and keeps the winners in the card's table
 saves, then every rank reloads the table.  Batches come from
 ``data.LMTokenStream`` (a numpy copy of ``repro``'s), so a seed gives
 both packages the same tokens; each rank takes its own worker's row.
-Only rank 0 prints and writes ``--ckpt`` (under ``--zero1`` every rank
-joins the master's gather first).
+Only rank 0 prints and writes ``--ckpt`` (every rank joins the master's
+gather first under ``--zero1`` or a model axis above 1).
+
+A mesh ``DxM`` / ``PxDxM`` takes ``P * D * M`` ranks: R = P * D workers of
+M tensor-parallel ranks each (the dense family; the other families
+refuse M > 1, naming their ROADMAP item).  The parameters are drawn
+whole from ``--seed`` (or restored whole from ``--resume``) and each
+rank keeps its model shard, so a run equals its ``Dx1`` twin within
+rounding, with the same ledgers; a worker's batch rows (its data
+coordinate's) are shared by its model group.  ``--ckpt`` writes the
+whole master in the format a ``Dx1`` run writes.  Above one model rank
+the rounds are the per-step composition (``fused`` False) and the
+fault runtime is refused (ROADMAP queue 1 item 12e).
 """
 
 from __future__ import annotations
@@ -57,20 +71,24 @@ import torch
 
 from repro_torch.configs import ARCHS, get_config, get_policy_preset
 from repro_torch.core import policy as pol, scenarios as scn
-from repro_torch.core.distributed import (ShardCompressor, gather_master,
+from repro_torch.core.distributed import (ModelShards, ShardCompressor,
+                                          gather_master,
                                           make_dist_fault_round,
                                           make_dist_fault_steps,
                                           make_dist_multiround,
-                                          make_dist_steps)
+                                          make_dist_steps,
+                                          refuse_faults_model_axis)
 from repro_torch.core.engine import (fault_rows, index_rows, round_calls,
                                      stack_block)
 from repro_torch.core.rounds import compile_fault_rounds
 from repro_torch.data import LMTokenStream
 from repro_torch.kernels.launch_stats import LAUNCHES
-from repro_torch.launch.mesh import data_axes, make_mesh, worker_count
+from repro_torch.launch.mesh import (data_axes, make_mesh, parse_mesh,
+                                     worker_count)
 from repro_torch.models import get_model
 from repro_torch.optim import momentum_sgd, warmup_piecewise
-from repro_torch.sharding.specs import param_specs
+from repro_torch.sharding.specs import (activation_policy, param_specs,
+                                        shard_layout, shard_tree)
 from repro_torch.train import checkpoint
 from repro_torch.tree import tree_leaves, value_and_grad
 
@@ -122,7 +140,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config (CPU-sized)")
     ap.add_argument("--mesh", default="4x2",
-                    help="DxM or PxDxM mesh; P*D ranks, M must be 1")
+                    help="DxM or PxDxM mesh: P*D workers of M "
+                         "tensor-parallel ranks each, P*D*M ranks")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--batch", type=int, default=2, help="per-worker batch")
     ap.add_argument("--seq", type=int, default=64)
@@ -186,6 +205,10 @@ def parser() -> argparse.ArgumentParser:
                     help="shard the master over the workers (ZeRO-1)")
     ap.add_argument("--lr", type=float, default=0.1)
     ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--resume", default=None,
+                    help="start from a checkpoint's master (a --ckpt "
+                         "directory written at any mesh) in place of "
+                         "--seed's weights")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--backend", default="auto",
                     choices=["auto", "nccl", "gloo"],
@@ -222,6 +245,8 @@ def main(argv: Optional[list] = None,
                          "--tune too")
     channel_spec = resolve_policy_arg(args)
     if args.faults is not None:
+        dims, names = parse_mesh(args.mesh)
+        refuse_faults_model_axis(dict(zip(names, dims)).get("model", 1))
         # repro's refusals, in its words
         if args.zero1:
             raise SystemExit("--faults does not support --zero1 (the "
@@ -244,17 +269,20 @@ def main(argv: Optional[list] = None,
         mesh.close()
 
 
-def tune_run(args, mesh, params, compressors, specs, say) -> None:
+def tune_run(args, mesh, params, compressors, specs, say,
+             shards=None) -> None:
     """``--tune``: rank 0 times the launch signatures the compressors make
-    (``ShardCompressor.launch_plans``, the wire's kernel) and saves the
-    card's table; after a barrier every rank drops what it held and
-    reads the table anew."""
+    (``ShardCompressor.launch_plans`` on its model shards, the wire's
+    kernel) and saves the card's table; after a barrier every rank drops
+    what it held and reads the table anew.  Every rank of a model group
+    launches at its shard's shapes, which rank 0's are."""
     from repro_torch.kernels import autotune
     keys = []
     for comp in compressors:
         if comp is not None:
             for key in comp.launch_plans(
-                    params, specs, compact=args.wire == "sparse_allgather"):
+                    params, specs, compact=args.wire == "sparse_allgather",
+                    shards=shards):
                 if key not in keys:
                     keys.append(key)
     if mesh.rank == 0:
@@ -277,11 +305,17 @@ def setup(args, channel_spec, mesh,
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
     model = get_model(cfg)
-    grad_fn = value_and_grad(lambda p, b: model.loss_fn(p, b, cfg)[0])
+    policy = activation_policy(cfg, mesh)
+    grad_fn = value_and_grad(
+        lambda p, b: model.loss_fn(p, b, cfg, policy=policy)[0])
     params = model.init_params(
         torch.Generator(device=dev).manual_seed(args.seed), cfg, device=dev)
+    if args.resume:
+        params = checkpoint.restore(args.resume, params, device=dev)
     say = print if mesh.rank == 0 else (lambda *a, **k: None)
     say("policy:", channel_spec.to_string(), flush=True)
+    # the operators resolve per leaf against the whole parameters (a
+    # rule may read a leaf's size), as repro resolves on global leaves
     uplink = ShardCompressor.from_spec(channel_spec.uplink, params,
                                        dispatch=args.dispatch)
     downlink = None
@@ -289,8 +323,15 @@ def setup(args, channel_spec, mesh,
         downlink = ShardCompressor.from_spec(channel_spec.downlink, params,
                                              dispatch=args.dispatch)
     specs = param_specs(cfg)
+    layout = shard_layout(specs, params, mesh)
+    params = shard_tree(params, layout)     # the whole leaves go here
+    shards = ModelShards(layout, mesh) if mesh.model_size > 1 else None
+    if mesh.model_size > 1:
+        say(f"tensor parallel: {mesh.workers} workers x "
+            f"{mesh.model_size} model ranks, the rounds per-step",
+            flush=True)
     if args.tune:
-        tune_run(args, mesh, params, (uplink, downlink), specs, say)
+        tune_run(args, mesh, params, (uplink, downlink), specs, say, shards)
     engine_args = (
         grad_fn, momentum_sgd(0.9),
         uplink if uplink is not None
@@ -327,7 +368,7 @@ def setup(args, channel_spec, mesh,
             f"weighting {args.staleness_weight})", flush=True)
     engine_kw = dict(zero1=args.zero1, aggregate=args.aggregate,
                      downlink=downlink, wire=args.wire,
-                     partial=scenario_mask is not None)
+                     partial=scenario_mask is not None, layout=layout)
     local_step = sync_step = round_fn = fused = None
     if faults is not None:
         fault_kw = dict(queue_depth=faults.spec.depth,
@@ -363,10 +404,11 @@ def setup(args, channel_spec, mesh,
     data_rng = torch.Generator(device=dev).manual_seed(args.seed + 2)
 
     def host_batches():
-        """This rank's batches, tokens on the host."""
+        """This rank's batches, tokens on the host: its worker's row,
+        shared by the worker's model group."""
         for batch in stream.batches(args.batch, args.seq, args.steps,
                                     seed=1):
-            b = {"tokens": batch["tokens"][mesh.rank]}
+            b = {"tokens": batch["tokens"][mesh.worker]}
             if cfg.modality:
                 b["prefix_embeds"] = 0.02 * torch.randn(
                     (args.batch, cfg.n_frontend_tokens, cfg.d_model),
@@ -381,7 +423,8 @@ def setup(args, channel_spec, mesh,
     # key is replicated over the worker axes)
     rng = torch.Generator(device=dev).manual_seed(args.seed + 1)
     return types.SimpleNamespace(
-        cfg=cfg, R=R, scenario_mask=scenario_mask, faults=faults,
+        cfg=cfg, R=R, layout=layout, scenario_mask=scenario_mask,
+        faults=faults,
         state=init_fn(params), local_step=local_step,
         sync_step=sync_step, round_fn=round_fn, fused=fused, batches=batches,
         host_batches=host_batches, rng=rng, say=say)
@@ -462,19 +505,20 @@ def _run(args, channel_spec, mesh, n_layers=None) -> dict:
         raise FloatingPointError(f"loss not finite: {rec['loss']}")
     if args.ckpt:
         # the policy rides along so a resume reproduces the per-leaf
-        # operators (and so the bits); a ZeRO-1 master is gathered first,
-        # by every rank
+        # operators (and so the bits); a ZeRO-1 or tensor-parallel master
+        # is gathered whole first, by every rank
         t_save = time.perf_counter()
-        master = (gather_master(state, mesh, param_specs(run.cfg))
-                  if args.zero1 else state.master)
+        master = (gather_master(state, mesh, param_specs(run.cfg),
+                                run.layout)
+                  if args.zero1 or mesh.model_size > 1 else state.master)
         if mesh.rank == 0:
             checkpoint.save(args.ckpt, master, step=args.steps,
                             policy=channel_spec.to_dict())
             rec["ckpt_s"] = time.perf_counter() - t_save
             say("checkpoint saved to", args.ckpt, flush=True)
         del master
-    rec.update(R=R, rounds=state.rounds, wall_s=dt,
-               n_params=sum(p.numel() for p in tree_leaves(state.local)))
+    rec.update(R=R, model_axis=mesh.model_size, rounds=state.rounds,
+               wall_s=dt, n_params=run.layout.numel())
     if state.inflight is not None:
         # this rank's in-flight queue (the fault runtime), allocated once
         rec["queue_bytes"] = sum(x.numel() * x.element_size()

@@ -17,6 +17,13 @@ serving engine keeps one cache and one page pool for its whole life.
 = the module default): they decide whether compressed matmuls, prefill
 attention and decode attention run the hand-written kernels or their
 plain versions.
+
+``policy`` arguments are a ``configs.base.ShardingPolicy`` (None: no
+model group).  Where its model group splits a weight (as the specs of
+``sharding/specs.py`` place it), the training blocks run Megatron-style
+on this rank's slices, through ``sharding/collectives.py``: wq / wk / wv
+/ w1 / w3 column-parallel, wo / w2 row-parallel, the embedding and the
+LM head vocab-parallel.  The residual stream is whole on every rank.
 """
 
 from __future__ import annotations
@@ -31,6 +38,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import dispatch as dsp
 from repro_torch.kernels import ref
+from repro_torch.sharding.collectives import (copy_in, gather_features,
+                                              own_features, reduce_out,
+                                              vocab_embed, vocab_nll)
 
 NEG_INF = ref.NEG_INF
 
@@ -80,27 +90,32 @@ def prompt_positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, device=device).expand(B, S)
 
 
-def _chunk_nll(hc, lc, head):
+def _chunk_nll(hc, lc, head, policy=None):
     logits = head(hc).to(torch.float32)
+    if policy is not None:
+        return vocab_nll(logits, lc, policy)
     gold = torch.gather(logits, -1, lc[..., None])[..., 0]
     return (torch.logsumexp(logits, dim=-1) - gold).sum()
 
 
-def chunked_ce(h, head, labels, loss_chunk: int, checkpointed: bool = False):
+def chunked_ce(h, head, labels, loss_chunk: int, checkpointed: bool = False,
+               policy=None):
     """Mean next-token cross-entropy of final hidden states h [B, S, d]
     against labels [B, S] through ``head`` (a [d, V] matrix, or a
     function of a chunk of h giving its logits), the head applied in
     sequence chunks of ``loss_chunk`` (the [B, S, V] float32 logits are
     never formed whole) and the chunks' sums added in order, as
     ``repro``'s chunked losses scan them.  ``checkpointed``: each chunk
-    recomputes its logits in the backward instead of keeping them."""
+    recomputes its logits in the backward instead of keeping them.
+    ``policy``: the head gives this rank's vocab slice of the logits,
+    and the loss is ``collectives.vocab_nll``'s."""
     if isinstance(head, torch.Tensor):
         W = head
         head = lambda hc: hc @ W  # noqa: E731
     B, S, _ = h.shape
     c = min(loss_chunk, S)
     labels = labels.to(torch.int64)
-    fn = functools.partial(_chunk_nll, head=head)
+    fn = functools.partial(_chunk_nll, head=head, policy=policy)
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for c0 in range(0, S, c):
         hc, lc = h[:, c0:c0 + c], labels[:, c0:c0 + c]
@@ -133,8 +148,15 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     return out.to(x.dtype)
 
 
-def embed(tokens: torch.Tensor, table) -> torch.Tensor:
+def embed(tokens: torch.Tensor, table, policy=None,
+          vocab: Optional[int] = None) -> torch.Tensor:
+    """Rows of ``table`` for ``tokens``.  Under a ``policy`` whose model
+    group splits the ``vocab`` rows, ``table`` is this rank's slice and
+    the lookup is ``collectives.vocab_embed``'s."""
     if isinstance(table, torch.Tensor):
+        if policy is not None and vocab is not None \
+                and policy.splits(vocab):
+            return vocab_embed(tokens, table, policy)
         return table[tokens.to(torch.int64)]
     return table.take_rows(tokens)        # compressed serving table
 
@@ -458,22 +480,66 @@ def paged_decode_attention(q, pool: PagedKVCache, tables, lengths,
 # ---------------------------------------------------------------------------
 
 
-def swiglu(x, p, dispatch=None):
+def swiglu(x, p, dispatch=None, policy=None, d_ff: Optional[int] = None):
+    """The SwiGLU MLP.  Under a ``policy`` whose model group splits the
+    hidden width ``d_ff``: w1 / w3 column-parallel, w2 row-parallel."""
+    tp = policy is not None and d_ff is not None and policy.splits(d_ff)
+    if tp:
+        x = copy_in(x, policy)
     h = F.silu(matmul(x, p["w1"], dispatch)) * matmul(x, p["w3"], dispatch)
-    return matmul(h, p["w2"], dispatch)
+    out = matmul(h, p["w2"], dispatch)
+    return reduce_out(out, policy) if tp else out
 
 
-def gqa_project(x, p, cfg: ModelConfig, dispatch=None):
+def attn_split(cfg: ModelConfig, policy) -> bool:
+    """Does the policy's model group split the attention (wq's columns,
+    wo's rows)?  A kv projection that does not divide stays whole."""
+    return policy is not None and policy.splits(cfg.n_heads * cfg.hd)
+
+
+def heads_local(cfg: ModelConfig, policy) -> bool:
+    """Under a split attention: does each rank hold whole heads of q and
+    k / v (the group divides both head counts), so it attends over its
+    own heads alone?"""
+    M = policy.size
+    return (policy.splits(cfg.n_kv_heads * cfg.hd)
+            and cfg.n_heads % M == 0 and cfg.n_kv_heads % M == 0)
+
+
+def gqa_project(x, p, cfg: ModelConfig, dispatch=None, policy=None):
+    """q [B, S, H, hd], k / v [B, S, KV, hd].  Under a policy that splits
+    the attention (:func:`attn_split`) the heads this rank attends over:
+    its own slice of them where it holds whole heads
+    (:func:`heads_local`), else all of them, gathered from the group's
+    column slices (a kv projection left whole enters the region through
+    ``copy_in``): ``rope`` pairs dimension i with i + hd / 2, which a
+    slice of a head may not hold together."""
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = matmul(x, p["wq"], dispatch).reshape(B, S, H, hd)
-    k = matmul(x, p["wk"], dispatch).reshape(B, S, KV, hd)
-    v = matmul(x, p["wv"], dispatch).reshape(B, S, KV, hd)
-    return q, k, v
+    if not attn_split(cfg, policy):
+        q = matmul(x, p["wq"], dispatch).reshape(B, S, H, hd)
+        k = matmul(x, p["wk"], dispatch).reshape(B, S, KV, hd)
+        v = matmul(x, p["wv"], dispatch).reshape(B, S, KV, hd)
+        return q, k, v
+    kv_split = policy.splits(KV * hd)
+    xin = copy_in(x, policy)
+    q = matmul(xin, p["wq"], dispatch)
+    k = matmul(xin if kv_split else x, p["wk"], dispatch)
+    v = matmul(xin if kv_split else x, p["wv"], dispatch)
+    if heads_local(cfg, policy):
+        M = policy.size
+        return (q.reshape(B, S, H // M, hd), k.reshape(B, S, KV // M, hd),
+                v.reshape(B, S, KV // M, hd))
+    q = gather_features(q, policy)
+    k, v = ((gather_features(k, policy), gather_features(v, policy))
+            if kv_split else (copy_in(k, policy), copy_in(v, policy)))
+    return (q.reshape(B, S, H, hd), k.reshape(B, S, KV, hd),
+            v.reshape(B, S, KV, hd))
 
 
 def attn_block_train(x, p, cfg: ModelConfig, window: int, positions,
-                     dispatch=None, static_window: bool = False):
+                     dispatch=None, static_window: bool = False,
+                     policy=None):
     """Full-sequence attention block (prefill and training).  Returns
     (out, (k, v)).  As in ``repro``, the flash-attention kernel runs
     under ``cfg.use_pallas`` where the caller's window is static, and
@@ -482,8 +548,12 @@ def attn_block_train(x, p, cfg: ModelConfig, window: int, positions,
     caller says which it is (``static_window``): the dense transformer's
     unscanned stack and Zamba2's shared block have static windows, a
     stacked dense stack and the MoE periods traced ones.  The kernel has
-    no backward: differentiating through it raises."""
-    q, k, v = gqa_project(x, p, cfg, dispatch)
+    no backward: differentiating through it raises.  Under a ``policy``
+    that splits the attention the heads are :func:`gqa_project`'s; a
+    rank that attended over all of them gives the row-parallel wo its
+    own slice of ``o``, and wo's partial sums are summed over the
+    group."""
+    q, k, v = gqa_project(x, p, cfg, dispatch, policy)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     if cfg.use_pallas and static_window:
@@ -491,8 +561,12 @@ def attn_block_train(x, p, cfg: ModelConfig, window: int, positions,
     else:
         o = chunked_attention(q, k, v, window=window, q_chunk=cfg.q_chunk)
     B, S = x.shape[:2]
-    out = matmul(o.reshape(B, S, cfg.n_heads * cfg.hd), p["wo"], dispatch)
-    return out, (k, v)
+    o = o.reshape(B, S, -1)
+    if not attn_split(cfg, policy):
+        return matmul(o, p["wo"], dispatch), (k, v)
+    if not heads_local(cfg, policy):
+        o = own_features(o, policy)
+    return reduce_out(matmul(o, p["wo"], dispatch), policy), (k, v)
 
 
 def attn_block_decode(x, p, cfg: ModelConfig, cache: KVCache, pos,

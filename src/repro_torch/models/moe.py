@@ -56,6 +56,7 @@ from repro_torch.models.layers import (
     swiglu,
     unstack_layers,
 )
+from repro_torch.sharding.specs import PendingPort, refuse_model_axis
 
 
 # ---------------------------------------------------------------------------
@@ -204,9 +205,9 @@ def moe_ffn(x, mp, cfg: ModelConfig, ep_axis: Optional[str] = None):
     tensors).  ``ep_axis`` (``repro``'s ``policy.ep_axis``, the expert
     parallel path over the ``model`` axis) is not ported."""
     if ep_axis is not None:
-        raise NotImplementedError(
+        raise PendingPort(
             "expert parallelism (ep_axis) is not ported to repro_torch "
-            "yet: ROADMAP queue 1 item 12")
+            "yet: ROADMAP queue 1 item 12b")
     B, S, d = x.shape
     x2d = x.reshape(B * S, d)
     eids, w, aux = _route(x2d, mp["router"], cfg)
@@ -296,10 +297,12 @@ def apply_stack(params, h, positions, cfg: ModelConfig, dispatch=None,
 
 
 def loss_fn(params, batch: dict, cfg: ModelConfig, dispatch=None,
-            loss_chunk: int = 1024):
+            loss_chunk: int = 1024, policy=None):
     """Next-token cross-entropy plus ``router_aux_weight`` times the
     load-balance loss.  Returns (loss, {"aux_loss", "dropped"}), both
     device tensors."""
+    if policy is not None:
+        refuse_model_axis(cfg.family, policy.size)
     tokens = batch["tokens"]
     h = embed(tokens[:, :-1], params["embed"]).to(cfg.adtype)
     B, S, _ = h.shape

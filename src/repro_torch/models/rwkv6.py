@@ -32,6 +32,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import (chunked_ce, dense_init, embed, remat,
                                        rmsnorm, unstack_layers)
+from repro_torch.sharding.specs import refuse_model_axis
 
 #: elements of the largest per-group intra-chunk tensor (one float32
 #: [chunks, B, H, c, c, N] decay table): bounds the chunks batched at once
@@ -265,10 +266,12 @@ def apply_stack(params, h, cfg: ModelConfig):
 
 
 def loss_fn(params, batch: dict, cfg: ModelConfig, dispatch=None,
-            loss_chunk: int = 1024):
+            loss_chunk: int = 1024, policy=None):
     """Next-token cross-entropy; returns (loss, {}) as ``repro``'s.
     ``dispatch`` is accepted for the family interface (nothing on this
     path dispatches)."""
+    if policy is not None:
+        refuse_model_axis(cfg.family, policy.size)
     tokens = batch["tokens"]
     h = embed(tokens[:, :-1], params["embed"]).to(cfg.adtype)
     h = apply_stack(params, h, cfg)

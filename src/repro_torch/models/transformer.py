@@ -22,6 +22,13 @@ activations are recomputed in the backward instead of kept.  The
 flash-attention kernel has no backward, in ``repro`` as here: on an
 unscanned stack under ``use_pallas`` the loss evaluates but does not
 differentiate.
+
+``loss_fn(..., policy=)`` trains tensor-parallel: ``params`` are this
+rank's slices (``sharding.specs.shard_tree``) and the blocks run
+column- / row-parallel over the policy's model group
+(``models.layers``), the embedding and the head (the tied embedding's
+transpose, or ``head``) vocab-parallel.  Multimodal prefix embeddings
+are whole on every rank.  The serving functions take no policy.
 """
 
 from __future__ import annotations
@@ -53,6 +60,7 @@ from repro_torch.models.layers import (
     swiglu,
     unstack_layers,
 )
+from repro_torch.sharding.collectives import copy_in
 
 
 # ---------------------------------------------------------------------------
@@ -101,12 +109,23 @@ def _layer(tree, i: int):
     return tree.layer(i)
 
 
-def _apply_head(h, params, cfg: ModelConfig, dispatch=None):
+def _vocab_policy(cfg: ModelConfig, policy):
+    """The policy where its model group splits the vocab, else None."""
+    if policy is not None and policy.splits(cfg.vocab):
+        return policy
+    return None
+
+
+def _apply_head(h, params, cfg: ModelConfig, dispatch=None, policy=None):
     """LM head: ``h @ head`` (or ``h @ embed.T`` when tied); a compressed
-    table's rows enumerate the vocab either way."""
+    table's rows enumerate the vocab either way.  Under a ``policy``
+    that splits the vocab: this rank's slice of the logits (``h``
+    enters the column-parallel region)."""
     w = params["embed"] if cfg.tie_embeddings else params["head"]
     if not isinstance(w, torch.Tensor):
         return w.matmul(h, dispatch)
+    if _vocab_policy(cfg, policy) is not None:
+        h = copy_in(h, policy)
     return h @ (w.T if cfg.tie_embeddings else w)
 
 
@@ -115,25 +134,29 @@ def _apply_head(h, params, cfg: ModelConfig, dispatch=None):
 # ---------------------------------------------------------------------------
 
 
-def _layer_fwd(h, lp, window: int, positions, cfg: ModelConfig, dispatch):
+def _layer_fwd(h, lp, window: int, positions, cfg: ModelConfig, dispatch,
+               policy=None):
     """One layer: (h, (k, v))."""
     a, kv = attn_block_train(rmsnorm(h, lp["ln1"]), lp["attn"], cfg,
                              window, positions, dispatch,
-                             static_window=not cfg.scan_layers)
+                             static_window=not cfg.scan_layers,
+                             policy=policy)
     h = h + a
-    h = h + swiglu(rmsnorm(h, lp["ln2"]), lp["mlp"], dispatch)
+    h = h + swiglu(rmsnorm(h, lp["ln2"]), lp["mlp"], dispatch, policy,
+                   cfg.d_ff)
     return h, kv
 
 
-def _layer_out(h, lp, window, positions, cfg, dispatch):
-    return _layer_fwd(h, lp, window, positions, cfg, dispatch)[0]
+def _layer_out(h, lp, window, positions, cfg, dispatch, policy=None):
+    return _layer_fwd(h, lp, window, positions, cfg, dispatch, policy)[0]
 
 
 def apply_stack(params, h, positions, cfg: ModelConfig, dispatch=None,
-                collect_kv: bool = False):
+                collect_kv: bool = False, policy=None):
     """Runs all layers.  Returns (h, (ks, vs) | None): per-layer lists of
     k, v [B, S, KV, hd].  Under ``cfg.remat``, a forward that autograd
-    records checkpoints each layer."""
+    records checkpoints each layer (its recompute replays the layer's
+    collectives, on every rank of the group alike)."""
     layers = unstack_layers(params["layers"], cfg.n_layers)
     checkpointed = cfg.remat and h.requires_grad and not collect_kv
     ks, vs = [], []
@@ -141,19 +164,21 @@ def apply_stack(params, h, positions, cfg: ModelConfig, dispatch=None,
         if checkpointed:
             h = remat(functools.partial(
                 _layer_out, lp=lp, window=int(w), positions=positions,
-                cfg=cfg, dispatch=dispatch), h)
+                cfg=cfg, dispatch=dispatch, policy=policy), h)
             continue
-        h, (k, v) = _layer_fwd(h, lp, int(w), positions, cfg, dispatch)
+        h, (k, v) = _layer_fwd(h, lp, int(w), positions, cfg, dispatch,
+                               policy)
         if collect_kv:
             ks.append(k)
             vs.append(v)
     return h, ((ks, vs) if collect_kv else None)
 
 
-def embed_inputs(params, batch: dict, cfg: ModelConfig):
+def embed_inputs(params, batch: dict, cfg: ModelConfig, policy=None):
     """Returns (h, n_prefix): token embeddings with optional multimodal
-    prefix embeddings prepended."""
-    h = embed(batch["tokens"], params["embed"]).to(cfg.adtype)
+    prefix embeddings prepended (whole on every rank)."""
+    h = embed(batch["tokens"], params["embed"], policy,
+              cfg.vocab).to(cfg.adtype)
     if "prefix_embeds" in batch:
         pre = batch["prefix_embeds"].to(cfg.adtype)
         return torch.cat([pre, h], dim=1), pre.shape[1]
@@ -171,27 +196,30 @@ def forward(params, batch: dict, cfg: ModelConfig, dispatch=None):
 
 
 def loss_fn(params, batch: dict, cfg: ModelConfig, dispatch=None,
-            loss_chunk: int = 1024):
+            loss_chunk: int = 1024, policy=None):
     """Next-token cross-entropy over the token segment (prefix
     embeddings are context only), ``repro``'s ``loss_fn``.  The LM head
     is applied in sequence chunks of ``loss_chunk`` so the [B, S, V]
     float32 logits are never formed whole; under ``cfg.remat`` each
     chunk is checkpointed, so its logits are not kept for the backward
-    either.  Returns (loss, {"ntokens": B * S})."""
+    either.  ``policy``: tensor-parallel over its model group (the
+    module's docstring); the loss is the same on every rank of the
+    group.  Returns (loss, {"ntokens": B * S})."""
     tokens = batch["tokens"]                          # [B, S + 1]
     inp = {**batch, "tokens": tokens[:, :-1]}
     labels = tokens[:, 1:].to(torch.int64)
-    h, n_prefix = embed_inputs(params, inp, cfg)
+    h, n_prefix = embed_inputs(params, inp, cfg, policy)
     B, S, _ = h.shape
     positions = prompt_positions(B, S, h.device)
-    h, _ = apply_stack(params, h, positions, cfg, dispatch)
+    h, _ = apply_stack(params, h, positions, cfg, dispatch, policy=policy)
     h = rmsnorm(h, params["final_norm"])
     if n_prefix:
         h = h[:, n_prefix:]
     head = functools.partial(_apply_head, params=params, cfg=cfg,
-                             dispatch=dispatch)
+                             dispatch=dispatch, policy=policy)
     loss = chunked_ce(h, head, labels, loss_chunk,
-                      cfg.remat and h.requires_grad)
+                      cfg.remat and h.requires_grad,
+                      _vocab_policy(cfg, policy))
     return loss, {"ntokens": B * h.shape[1]}
 
 

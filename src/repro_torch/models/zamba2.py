@@ -51,6 +51,7 @@ from repro_torch.models.layers import (
     unstack_layers,
 )
 from repro_torch.models.rwkv6 import GROUP_ELEMS
+from repro_torch.sharding.specs import refuse_model_axis
 
 
 # ---------------------------------------------------------------------------
@@ -334,8 +335,10 @@ def apply_stack(params, h, positions, cfg: ModelConfig, dispatch=None):
 
 
 def loss_fn(params, batch: dict, cfg: ModelConfig, dispatch=None,
-            loss_chunk: int = 1024):
+            loss_chunk: int = 1024, policy=None):
     """Next-token cross-entropy; returns (loss, {}) as ``repro``'s."""
+    if policy is not None:
+        refuse_model_axis(cfg.family, policy.size)
     tokens = batch["tokens"]
     h = embed(tokens[:, :-1], params["embed"]).to(cfg.adtype)
     B, S, _ = h.shape

@@ -8,16 +8,46 @@ dimensions past the tuple's length are not sharded.  Conventions
 out-features (``"model"`` on the last dim), row-parallel ones their
 in-features, embeddings the vocab.
 
-The port runs no tensor parallelism yet (ROADMAP queue 1 item 12), but
-the specs still decide which axis every leaf is compressed along
+The specs place each leaf on the ``model`` axis (a rank holds its
+slice: :func:`shard_layout`, :func:`shard_tree`, :func:`gather_tree`)
+and decide which axis every leaf is compressed along
 (``core.distributed._pick_axis`` keeps Top_k off the ``model`` axis), and
-so the wire bits.  ``repro``'s ``activation_policy`` has no counterpart:
-the port's model places nothing.
+so the wire bits, whatever the model axis's size.  The dense family
+runs tensor-parallel (ROADMAP queue 1 item 12a); the families in
+:data:`TP_PENDING` refuse a model axis above 1, naming their item.
+``activation_policy`` gives the model code its ``ShardingPolicy``: the
+mesh whose model group the port's own collectives run over, where
+``repro``'s hands XLA sharding constraints.
 """
 
 from __future__ import annotations
 
-from repro_torch.configs.base import ModelConfig
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, ShardingPolicy
+from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
+
+#: families whose tensor parallelism is not ported yet -> the ROADMAP
+#: queue 1 item that ports it
+TP_PENDING = {"moe": "12b", "rwkv6": "12c", "zamba2": "12c"}
+
+
+class PendingPort(NotImplementedError):
+    """A path refused until the ROADMAP item its message names ports it
+    (a family's tensor parallelism, serving or the fault runtime on a
+    model axis above 1)."""
+
+
+def refuse_model_axis(family: str, size: int) -> None:
+    """A family in :data:`TP_PENDING` refuses a model group above one."""
+    if size > 1 and family in TP_PENDING:
+        raise PendingPort(
+            f"tensor parallelism of the {family} family is not ported: a "
+            f"model axis of {size} (ROADMAP queue 1 item "
+            f"{TP_PENDING[family]})")
 
 
 def is_spec(z) -> bool:
@@ -194,3 +224,146 @@ def sanitize_spec(spec, shape, mesh) -> tuple:
             size *= mesh.shape[a]
         out.append(e if dim % size == 0 else None)
     return tuple(out)
+
+
+def activation_policy(cfg: ModelConfig, mesh=None, *,
+                      for_serving: bool = False) -> ShardingPolicy:
+    """The model code's ``ShardingPolicy`` on ``mesh`` (``repro``'s
+    function: there the activation constraints, here the mesh whose
+    ``model`` group the model's collectives run over).  ``ep_axis`` is
+    "model" for the MoE family where ``repro`` sets it.  Serving with a
+    model axis above 1 is refused (ROADMAP queue 1 item 12d); a family
+    not ported refuses it too (:func:`refuse_model_axis`)."""
+    size = 1 if mesh is None else mesh.model_size
+    if for_serving and size > 1:
+        raise PendingPort(
+            f"serving with a model axis of {size} is not ported (ROADMAP "
+            "queue 1 item 12d)")
+    refuse_model_axis(cfg.family, size)
+    return ShardingPolicy(
+        mesh=mesh if size > 1 else None,
+        ep_axis="model" if cfg.family == "moe" else None)
+
+
+def batch_specs(kind: str, data_axes=("data",)) -> dict:
+    """The batch's placement: rows over the data axes, replicated over
+    the model group (``repro``'s ``batch_specs``)."""
+    da = tuple(data_axes)
+    da = da[0] if len(da) == 1 else da
+    if kind == "train":
+        return {"tokens": (da, None, None)}
+    return {"tokens": (da, None)}
+
+
+def head_divisibility_note(cfg: ModelConfig, model_size: int) -> str:
+    """Roofline annotation: which shardings are limited by divisibility."""
+    notes = []
+    if cfg.family in ("dense", "moe"):
+        if (cfg.n_heads * cfg.hd) % model_size:
+            notes.append(f"attn out dim {cfg.n_heads * cfg.hd} !% {model_size}")
+        if (cfg.n_kv_heads * cfg.hd) % model_size:
+            notes.append(
+                f"kv dim {cfg.n_kv_heads * cfg.hd} !% {model_size} (replicated)"
+            )
+    return "; ".join(notes) or "clean"
+
+
+# ---------------------------------------------------------------------------
+# a rank's slices
+# ---------------------------------------------------------------------------
+
+
+def model_axis(spec, shape, mesh) -> Optional[int]:
+    """The axis of a leaf of whole ``shape`` that the model group splits
+    under :func:`sanitize_spec`, or None (the leaf is whole on every
+    rank of the group).  A spec that splits an axis over another mesh
+    axis too is refused: parameters shard over ``model`` only."""
+    if mesh.model_size == 1:
+        return None
+    out = None
+    for ax, e in enumerate(sanitize_spec(spec, shape, mesh)):
+        if e is None:
+            continue
+        if e != "model" and e != ("model",):
+            raise ValueError(f"spec {spec} splits axis {ax} over {e!r}: "
+                             "parameters shard over 'model' only")
+        if out is not None:
+            raise ValueError(f"spec {spec} splits two axes over 'model'")
+        out = ax
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardLayout:
+    """Where the model group splits each leaf of a tree (flatten order):
+    ``axes[i]`` the axis of leaf i, or None where it is whole on every
+    rank; ``shapes[i]`` its whole shape.  ``size`` / ``rank``: the model
+    group's (``mesh.model_size`` / ``mesh.model_rank``)."""
+
+    axes: tuple
+    shapes: tuple
+    size: int
+    rank: int
+
+    def numels(self) -> list:
+        """Each leaf's elements, whole."""
+        out = []
+        for shape in self.shapes:
+            k = 1
+            for d in shape:
+                k *= int(d)
+            out.append(k)
+        return out
+
+    def numel(self) -> int:
+        """The whole tree's elements (every leaf whole)."""
+        return sum(self.numels())
+
+    def own(self, x: torch.Tensor, i: int) -> torch.Tensor:
+        """This rank's slice of leaf i given whole (a view)."""
+        ax = self.axes[i]
+        if ax is None:
+            return x
+        n = x.shape[ax] // self.size
+        return x.narrow(ax, self.rank * n, n)
+
+
+def shard_layout(specs, tree, mesh) -> ShardLayout:
+    """The :class:`ShardLayout` of a whole tree (its leaves' shapes: a
+    ``meta`` tree will do) on ``mesh``'s model group."""
+    leaves = tree_leaves(tree)
+    spec_leaves = (tree_leaves(specs, is_leaf=is_spec) if specs is not None
+                   else [None] * len(leaves))
+    if len(spec_leaves) != len(leaves):
+        raise ValueError(f"{len(spec_leaves)} specs for {len(leaves)} "
+                         "leaves")
+    shapes = tuple(tuple(x.shape) for x in leaves)
+    return ShardLayout(
+        axes=tuple(model_axis(sp, sh, mesh)
+                   for sp, sh in zip(spec_leaves, shapes)),
+        shapes=shapes, size=mesh.model_size, rank=mesh.model_rank)
+
+
+def shard_tree(tree, layout: ShardLayout):
+    """This rank's slice of each leaf of a whole tree, a copy of its own
+    where the leaf is split (so the whole leaf can go)."""
+    leaves, spec = tree_flatten(tree)
+    return tree_unflatten(spec, [
+        x if layout.axes[i] is None else layout.own(x, i).clone()
+        for i, x in enumerate(leaves)])
+
+
+def gather_leaf(x: torch.Tensor, axis: Optional[int], mesh) -> torch.Tensor:
+    """A whole leaf from the model group's slices along ``axis`` (one
+    all-gather over the model group; None: ``x`` is whole)."""
+    if axis is None:
+        return x
+    return torch.cat(mesh.all_gather(x, over="model").unbind(0), dim=axis)
+
+
+def gather_tree(tree, layout: ShardLayout, mesh):
+    """The inverse of :func:`shard_tree`: the whole leaves, gathered from
+    the model group's slices.  Every rank of the group must call it."""
+    leaves, spec = tree_flatten(tree)
+    return tree_unflatten(spec, [gather_leaf(x, layout.axes[i], mesh)
+                                 for i, x in enumerate(leaves)])

@@ -18,6 +18,11 @@ state (queue, memories, ledgers) with the run's generator and a
 ``train_state`` manifest record; its ``state`` subtree restores in
 either package, its ``key`` only in the package that wrote it (a
 ``torch.Generator`` state here, a JAX PRNG key in ``repro``).
+
+A checkpoint always holds whole leaves: a tensor-parallel run gathers
+its model shards before ``save`` (``core.distributed.gather_master``),
+and a run that restores one at any mesh cuts its own shards out of the
+whole tree (``sharding.specs.shard_tree``; the launcher's ``--resume``).
 """
 
 from __future__ import annotations

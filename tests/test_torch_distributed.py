@@ -192,9 +192,14 @@ def test_from_spec_identity_and_unported(jx):
         pol.parse("norm->identity;.*->topk:k=40"), params)
     # an absolute k becomes the leaf fraction
     assert comp.ops["w"].k == pytest.approx(40 / 1024)
-    mesh = Mesh((1, 2), ("data", "model"))
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # a model axis above 1 runs the engine on model shards (which needs
+    # the whole parameters' layout); the fault runtime refuses it
+    mesh = Mesh((1, 2), ("data", "model"), world_size=2)
+    with pytest.raises(ValueError, match="layout="):
         D.make_dist_steps(None, sgd(), comp, constant(0.1), mesh)
+    with pytest.raises(NotImplementedError, match="item 12e"):
+        D.make_dist_fault_steps(None, sgd(), comp, constant(0.1), mesh,
+                                queue_depth=2)
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,8 @@ twins of ``tests/test_dryrun.py`` and the kernels' ``meta`` route.
 * ``repro``'s eight smoke combos at ``8x1`` with its reduced shapes:
   ``ok`` with FLOPs, storage and collectives (``yi-34b x long_500k``
   skipped); the sparse wire; a ``model`` axis above 1 recorded as an
-  error naming ROADMAP item 12; the CLI writing its records.
+  error naming its ROADMAP item where it is not ported (the other
+  families' training, serving); the CLI writing its records.
 * The eight kernel wrappers on ``meta`` tensors: the plain versions'
   output shapes and dtypes, one count each in ``LAUNCHES``, the
   launch's ``roofline.kernel_cost`` in the measured step, and no call
@@ -37,6 +38,7 @@ from repro_torch.kernels.launch_stats import (LAUNCHES, TUNE_CACHE,
                                               reset_launches,
                                               reset_tune_cache)
 from repro_torch.launch import dryrun as dr
+from repro_torch.sharding import specs as sp
 from repro_torch.launch import roofline as rl
 from repro_torch.launch.mesh import dry_mesh, run_local_ranks
 from repro_torch.models import get_model
@@ -148,14 +150,69 @@ def test_dryrun_sparse_allgather():
     assert set(sync["launches"]) == {"topk_compact"}
 
 
+#: the records a model axis above 1 refuses: a family whose tensor
+#: parallelism is not ported (training), and serving
+UNPORTED_TP = {"train_4k": ("rwkv6-3b", "12c"), "decode_32k": ("yi-6b", "12d")}
+
+
 @pytest.mark.parametrize("shape", ["train_4k", "decode_32k"])
 def test_model_axis_is_an_error_record(shape):
-    rec = dr.run_one("yi-6b", shape, shape=SHAPES[shape], smoke=True,
+    arch, item = UNPORTED_TP[shape]
+    rec = dr.run_one(arch, shape, shape=SHAPES[shape], smoke=True,
                      mesh="4x2")
     assert rec["status"] == "error"
-    assert rec["error"].startswith("NotImplementedError")
-    assert "ROADMAP queue 1 item 12" in rec["error"]
-    assert rec["mesh"] == "4x2"
+    assert rec["error"].startswith("PendingPort")
+    assert f"ROADMAP queue 1 item {item}" in rec["error"]
+    assert rec["mesh"] == "4x2" and rec["pending"] and dr.pending(rec)
+
+
+@pytest.mark.parametrize("exc, pending", [
+    (sp.PendingPort("not ported (ROADMAP queue 1 item 12c)"), True),
+    (NotImplementedError("not ported (ROADMAP queue 1 item 12c)"), False)])
+def test_pending_is_the_refusal_type(exc, pending, monkeypatch):
+    """A record is pending (no failure of the CLI) by the type of its
+    refusal, ``PendingPort``, not by its text."""
+    def refuse(*args, **kw):
+        raise exc
+
+    monkeypatch.setattr(dr, "lower_train", refuse)
+    rec = dr.run_one("yi-6b", "train_4k", shape=SHAPES["train_4k"],
+                     smoke=True, mesh="8x1")
+    assert rec["status"] == "error" and "item 12c" in rec["error"]
+    assert dr.pending(rec) is pending
+
+
+def test_tensor_parallel_records(tmp_path, monkeypatch):
+    """With no ``--mesh`` a training shape runs on ``dp256`` and on
+    ``repro``'s production mesh ``16x16``: the dense family's record is
+    ``ok``, its rank holding 1/16 of each split leaf (the arguments: the
+    step's state, within the few small leaves a model group keeps whole,
+    the norms, and the batch), its tensor-parallel collectives apart
+    from the data group's; a family not ported records the error naming
+    its item and is no failure of the run."""
+    monkeypatch.chdir(tmp_path)
+    recs = dr.main(["--arch", "yi-6b", "--shape", "train_4k", "--smoke"],
+                   shapes=SHAPES)
+    assert [r["mesh"] for r in recs] == ["dp256", "16x16"]
+    dp, tp = recs
+    assert tp["status"] == "ok", tp.get("error")
+    assert (tp["model_axis"], tp["n_workers"], tp["n_devices"]) == (
+        16, 16, 256)
+    assert tp["head_divisibility_note"] == "clean"
+    for name in ("sync_step", "local_step"):
+        a = dp["steps"][name]["memory"]["argument_bytes"]
+        b = tp["steps"][name]["memory"]["argument_bytes"]
+        assert a / 16 < b < 1.1 * a / 16, (name, a, b)
+        groups = tp["steps"][name]["collectives_by_group"]
+        assert groups["model"]["all-reduce"] > 0
+        assert groups["model"]["all-gather"] > 0   # 8 heads on 16 ranks
+        assert groups["data"]["total"] > 0
+        assert (groups["model"]["total"] + groups["data"]["total"]
+                == tp["steps"][name]["collectives"]["total"])
+        assert set(dp["steps"][name]["collectives_by_group"]) == {"data"}
+    recs = dr.main(["--arch", "rwkv6-3b", "--shape", "train_4k",
+                    "--smoke", "--mesh", "16x16"], shapes=SHAPES)
+    assert dr.pending(recs[0]) and "item 12c" in recs[0]["error"]
 
 
 def test_default_meshes():
@@ -173,16 +230,15 @@ def test_main_writes_records(tmp_path, monkeypatch, capsys):
     """The CLI over every arch and shape (the reduced shapes: the smoke
     configs' 32-wide query chunks make the full ones' hundreds of
     thousands of meta ops) writes a record each, and the roofline report
-    reads them.  ``--all`` runs over two archs here, each with a shape
-    it skips: the combos above drive every family's steps."""
+    reads them.  ``--all`` runs over one arch here, with a shape it
+    skips: the combos above drive every family's steps."""
     monkeypatch.chdir(tmp_path)
-    monkeypatch.setattr(dr, "ARCHS", {a: ARCHS[a]
-                                      for a in ("stablelm-3b", "yi-34b")})
+    monkeypatch.setattr(dr, "ARCHS", {"yi-34b": ARCHS["yi-34b"]})
     recs = dr.main(["--all", "--smoke", "--mesh", "8x1"], shapes=SHAPES)
     files = sorted(os.listdir(tmp_path / "artifacts" / "dryrun"))
-    assert len(files) == len(recs) == 2 * 4
+    assert len(files) == len(recs) == 4
     assert {r["status"] for r in recs} == {"ok", "skipped"}
-    assert sum(r["status"] == "skipped" for r in recs) == 2
+    assert sum(r["status"] == "skipped" for r in recs) == 1
     assert "[ok     ] yi-34b x train_4k x 8x1" in capsys.readouterr().out
     with open(tmp_path / "artifacts" / "dryrun" / files[0]) as f:
         assert json.load(f) == recs[0]

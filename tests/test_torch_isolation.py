@@ -15,7 +15,8 @@ PKG = os.path.join(REPO, "src", "repro_torch")
 SMOKE = os.path.join(REPO, "chip_smoke.py")
 TOOLS = [os.path.join(REPO, "tools", f) for f in
          ("profile_torch_sync.py", "profile_torch_serve.py",
-          "profile_torch_lm.py", "bench_flash_kernels.py")]
+          "profile_torch_lm.py", "bench_flash_kernels.py",
+          "check_nccl_rounds.py")]
 
 
 def port_files() -> list:

@@ -2,6 +2,7 @@
 """The distributed LM launcher's round runtime over NCCL, one rank a GPU.
 
     python3 tools/check_nccl_rounds.py [--ranks 4] [--scenario preset:dropout]
+    python3 tools/check_nccl_rounds.py --mesh 2x2
 
 Runs ``repro_torch.launch.train`` on the gemma3-1b smoke model at
 ``--mesh Nx1`` with the NCCL backend, ``chip_smoke.py``'s LM_RANKS steps
@@ -14,6 +15,13 @@ runtime's.  Prints each run's ms a step and ms a round.  With
 ``--scenario SPEC`` it then runs both wires again under that fleet
 scenario (partial participation on the mesh, ``--aggregate mean_S``).
 Needs N GPUs.
+
+With ``--mesh DxM`` (M > 1: tensor parallelism, D * M GPUs) it runs the
+launcher on both wires at ``DxM`` and at its ``Dx1`` twin (the same
+seed, steps and H), NCCL one rank a GPU, and fails unless the twins'
+kinds and both ledgers are equal, their losses within rtol 1e-5 and
+their masters within 1e-5 of each leaf's largest entry (the smoke
+model is float32); prints both runs' ms a step.
 """
 
 from __future__ import annotations
@@ -35,7 +43,13 @@ def main() -> int:
     ap.add_argument("--ranks", type=int, default=4)
     ap.add_argument("--scenario", default=None,
                     help="also run under this fleet scenario")
+    ap.add_argument("--mesh", default=None,
+                    help="DxM: the tensor-parallel mesh against its Dx1 "
+                         "twin in place of the round check")
     args = ap.parse_args()
+    if args.mesh is not None:
+        from repro_torch.launch.mesh import mesh_ranks
+        args.ranks = mesh_ranks(args.mesh)
     if torch.cuda.device_count() < args.ranks:
         print(f"needs {args.ranks} CUDA devices, found "
               f"{torch.cuda.device_count()}", file=sys.stderr)
@@ -55,6 +69,8 @@ def main() -> int:
     build = os.path.join(cs.SRC, "repro_torch", "kernels", "build")
     os.makedirs(build, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build) as tmp:
+        if args.mesh is not None:
+            return check_mesh(args.mesh, tmp, like)
         cells = [(wire, ()) for wire in ("sparse_allgather", "dense_psum")]
         if args.scenario:
             cells += [(wire, ("--scenario", args.scenario, "--aggregate",
@@ -92,6 +108,39 @@ def main() -> int:
                       "kind": g["kind"],
                       "bits_up": g["bits_up"][-1]}), flush=True)
     print(json.dumps({"ok": True, "ranks": args.ranks}))
+    return 0
+
+
+def check_mesh(text: str, tmp: str, like) -> int:
+    """``--mesh DxM`` against ``Dx1`` on both wires (the module's
+    docstring)."""
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    from repro_torch.train import checkpoint
+    from repro_torch.tree import tree_leaves
+    twin = text.rsplit("x", 1)[0] + "x1"
+    H = cs.LM_RANKS["H"]
+    for wire in ("sparse_allgather", "dense_psum"):
+        runs = {m: cs._rank_run(tmp, f"{wire}_{m}", wire, "kernel", "round",
+                                backend="nccl", mesh=m)
+                for m in (text, twin)}
+        a, b = runs[text], runs[twin]
+        for key in ("kind", "bits_up", "bits_down", "launches_per_sync"):
+            if a[key] != b[key]:
+                raise AssertionError(f"{wire} {text}: {key} {a[key]} / "
+                                     f"{twin}: {b[key]}")
+        np.testing.assert_allclose(a["loss"], b["loss"], rtol=1e-5)
+        for x, y in zip(tree_leaves(checkpoint.restore(a["ckpt"], like)),
+                        tree_leaves(checkpoint.restore(b["ckpt"], like))):
+            torch.testing.assert_close(
+                x, y, rtol=0, atol=1e-5 * float(y.abs().max()) + 1e-12)
+        print(f"nccl mesh {wire}: {text} equals {twin} (kinds, ledgers; "
+              "losses, masters within 1e-5); " + json.dumps({
+                  f"{m}_ms_per_step_median":
+                      float(np.median(runs[m]["ms"][2 * H:]))
+                  for m in (text, twin)}), flush=True)
+    print(json.dumps({"ok": True, "mesh": text}))
     return 0
 
 
