@@ -149,6 +149,26 @@ Phases, each of which exits non-zero on failure:
    ranks run beside step 7's multi-rank phases, which time nothing on
    the card; the twins before them and the kernel checks after them in
    this process);
+7c. expert parallelism (``phase_ep``): qwen3-moe-30b-a3b at full width
+   (128 experts of 768, top-8), cut to 1 layer, through the launcher at
+   ``--mesh 1x2`` (two gloo ranks, 64 experts a rank) under
+   ``preset:uniform_topk``, 2 steps (H = 2: the last a sync) on both
+   wires, against its ``1x1`` eager twin: kinds equal, the ledgers
+   within EP_BITS_RTOL, the losses within EP_LOSS_RTOL; each rank's EP
+   region (its experts' float32 partials summed over the group) within
+   2^-7 of each row's largest of the whole region on the same inputs,
+   ``dropped`` equal; the first step's gradient of each expert, router
+   and attention leaf, gathered, within EP_GRAD_RTOL of the whole
+   model's (beside it the witness with the batch rows swapped); 10
+   ``topk_compact`` / ``topk_compress`` launches a sync a rank at the
+   six shapes ``launch_plans(shards=)`` gives, each held against its
+   plain version; per shard against whole leaves on a full-size delta
+   of the expert stacks, bit for bit; each rank's local and sync step
+   of the dry run's ``1x2`` cell (dense wire) within DRY_PEAK_TOL, its
+   FLOPs and launches equal, its profiled collectives equal to the
+   record's model-group bytes (the ranks run after step 7b's in the
+   same worker thread, beside step 7's multi-rank phases; the twins
+   before them);
 8. checkpoints from trainer to server, gemma3-1b at full width: step
    6's compressed unscanned tree, saved as a compact-v1 checkpoint as
    soon as step 6 has served it and then dropped, loaded by
@@ -3022,6 +3042,58 @@ def tp_twins(dev) -> dict:
     return twins
 
 
+def against_twin(rec: dict, twin: dict, what: str, bits_rtol: float,
+                 loss_rtol: float, faults: list) -> tuple:
+    """A rank's launcher record at 1x2 against its ``1x1`` twin's: kinds
+    and rounds equal, the ledgers (up and down) within ``bits_rtol``,
+    every loss within ``loss_rtol`` and finite.  Returns (the ledgers'
+    largest relative gap, each loss's)."""
+    import numpy as np
+    for k in ("kind", "rounds"):
+        if rec[k] != twin[k]:
+            faults.append(f"{what}: {k} {rec[k]} at 1x2, {twin[k]} at 1x1")
+    bits_rel = max(abs(a - b) / max(abs(b), 1.0) for a, b in zip(
+        rec["bits_up"] + rec["bits_down"],
+        twin["bits_up"] + twin["bits_down"]))
+    if bits_rel > bits_rtol:
+        faults.append(f"{what}: ledgers {bits_rel:.3g} apart "
+                      f"(> {bits_rtol})")
+    loss_rel = [abs(a - b) / abs(b)
+                for a, b in zip(rec["loss"], twin["loss"])]
+    if max(loss_rel) > loss_rtol or not all(np.isfinite(rec["loss"])):
+        faults.append(f"{what}: losses {rec['loss']} against "
+                      f"{twin['loss']}")
+    return bits_rel, loss_rel
+
+
+def against_dry(steps: dict, dry_steps: dict, what: str,
+                faults: list) -> None:
+    """A rank's eager steps, measured as the dry run measures, against
+    the dry run's record of each: FLOPs and launches equal, the peak,
+    the bytes live at the step's start and the peak over them within
+    DRY_PEAK_TOL of its argument + temp bytes, argument bytes and temp
+    bytes.  Each step's entry gains its gaps and the prediction."""
+    for name, got in steps.items():
+        want = dry_steps[name]
+        mem = want["memory"]
+        if got["flops"] != want["flops"]:
+            faults.append(f"{what} {name}: {got['flops']} FLOPs, "
+                          f"{want['flops']} in the dry run")
+        if got["launches"] != want["launches"]:
+            faults.append(f"{what} {name}: launches {got['launches']}, "
+                          f"{want['launches']} dry")
+        got["rel_gap"] = _near(
+            got["peak_bytes"], mem["argument_bytes"] + mem["temp_bytes"],
+            f"{what} {name} peak", faults)
+        got["rel_gap_arguments"] = _near(
+            got["live_before_bytes"], mem["argument_bytes"],
+            f"{what} {name} arguments", faults)
+        got["rel_gap_temp"] = _near(
+            got["peak_bytes"] - got["live_before_bytes"], mem["temp_bytes"],
+            f"{what} {name} temporaries", faults)
+        got["predicted"] = mem
+
+
 def phase_tp(dev, dry: dict, twins: dict, ranks: list) -> tuple:
     """Tensor parallelism on the card (``--mesh 1x2``: TP's gemma3-1b job,
     two gloo ranks sharing the card, each its model shard, collectives
@@ -3067,27 +3139,14 @@ def phase_tp(dev, dry: dict, twins: dict, ranks: list) -> tuple:
         for r in ranks:
             run = r["runs"][wire]
             rec = run["rec"]
-            for k in ("kind", "rounds"):
-                if rec[k] != twin[k]:
-                    faults.append(f"tp {wire} rank {r['rank']}: {k} "
-                                  f"{rec[k]} at 1x2, {twin[k]} at 1x1")
-            bits_rel = max(abs(a - b) / max(abs(b), 1.0) for a, b in zip(
-                rec["bits_up"] + rec["bits_down"],
-                twin["bits_up"] + twin["bits_down"]))
-            if bits_rel > TP_BITS_RTOL:
-                faults.append(f"tp {wire} rank {r['rank']}: ledgers "
-                              f"{bits_rel:.3g} apart (> {TP_BITS_RTOL})")
+            bits_rel, loss_rel = against_twin(
+                rec, twin, f"tp {wire} rank {r['rank']}", TP_BITS_RTOL,
+                TP_LOSS_RTOL, faults)
             if rec["bits_up"] != ranks[0]["runs"]["sparse_allgather"][
                     "rec"]["bits_up"]:
                 faults.append(f"tp {wire} rank {r['rank']}: bits up "
                               f"{rec['bits_up']} differ between the wires "
                               "or the ranks")
-            loss_rel = [abs(a - b) / abs(b)
-                        for a, b in zip(rec["loss"], twin["loss"])]
-            if max(loss_rel) > TP_LOSS_RTOL or not all(
-                    np.isfinite(rec["loss"])):
-                faults.append(f"tp {wire} rank {r['rank']}: losses "
-                              f"{rec['loss']} against {twin['loss']}")
             n_syncs = rec["kind"].count("sync")
             for counts in rec["launches_per_sync"]:
                 got = {k: v for k, v in counts.items() if v}
@@ -3153,26 +3212,8 @@ def phase_tp(dev, dry: dict, twins: dict, ranks: list) -> tuple:
     want_coll = dry["steps"]["sync_step"]["collectives_by_group"].get(
         "model", {"total": 0})
     for r in ranks:
-        for name, got in r["steps"].items():
-            want = dry["steps"][name]
-            mem = want["memory"]
-            if got["flops"] != want["flops"]:
-                faults.append(f"tp rank {r['rank']} {name}: {got['flops']} "
-                              f"FLOPs, {want['flops']} in the dry run")
-            if got["launches"] != want["launches"]:
-                faults.append(f"tp rank {r['rank']} {name}: launches "
-                              f"{got['launches']}, {want['launches']} dry")
-            got["rel_gap"] = _near(
-                got["peak_bytes"], mem["argument_bytes"] + mem["temp_bytes"],
-                f"tp rank {r['rank']} {name} peak", faults)
-            got["rel_gap_arguments"] = _near(
-                got["live_before_bytes"], mem["argument_bytes"],
-                f"tp rank {r['rank']} {name} arguments", faults)
-            got["rel_gap_temp"] = _near(
-                got["peak_bytes"] - got["live_before_bytes"],
-                mem["temp_bytes"], f"tp rank {r['rank']} {name} temporaries",
-                faults)
-            got["predicted"] = mem
+        against_dry(r["steps"], dry["steps"], f"tp rank {r['rank']}",
+                    faults)
         if r["collectives"] != want_coll or not want_coll["total"]:
             faults.append(f"tp rank {r['rank']}: collectives "
                           f"{r['collectives']} in the trace, {want_coll} "
@@ -3200,6 +3241,598 @@ def phase_tp(dev, dry: dict, twins: dict, ranks: list) -> tuple:
             print(f"kernel check tp {name}", json.dumps(row), flush=True)
     print(f"tp: {time.perf_counter() - t0:.1f}s", flush=True)
     return compact, dense, totals
+
+#: expert parallelism (``phase_ep``): qwen3-moe-30b-a3b at full width (d
+#: 2048; 128 experts of 768 at top-8; vocab 151,936; 32 / 4 heads of
+#: 128), cut to 1 layer for memory, through the launcher at ``1x2``: two
+#: gloo ranks sharing the card, 64 experts a rank, under
+#: preset:uniform_topk (Top_k on the expert shards) on both wires, batch
+#: 2 of 1024, 2 steps at H = 2 (the last a sync), against its ``1x1``
+#: eager twin of the same settings
+EP = {"arch": "qwen3-moe-30b-a3b", "mesh": "1x2", "ranks": 2, "layers": 1,
+      "batch": 2, "seq": 1024, "steps": 2, "H": 2,
+      "policy": "preset:uniform_topk"}
+#: the 1x2 run's ledger and losses against the twin's, relative: the
+#: dense family's limits (TP_BITS_RTOL, TP_LOSS_RTOL), for the same
+#: reasons (ties in a sync's bf16 delta; bf16 partial sums in another
+#: order)
+EP_BITS_RTOL = TP_BITS_RTOL
+EP_LOSS_RTOL = TP_LOSS_RTOL
+#: the first step's gradient of each expert, router and attention leaf at
+#: 1x2, gathered, against the whole model's on the same weights and
+#: batch (as the 1x1 run computes it, and with the experts' backward
+#: hand-written as the ranks run it), relative L2.  Set from the
+#: readings (an H100 at 700 W, PERF.md §6): 0.0302 (the router; experts
+#: 0.024, attention 0.004-0.010) against either; the whole region on
+#: the same inputs 2.4e-7, the two 1x1 backwards 0.0036 apart: the gap
+#: is the residual stream's other sum order reaching the router, whose
+#: top-8 picks and capacity drops are discontinuous
+EP_GRAD_RTOL = 2.0 ** -4
+EP_GRAD_LEAVES = ("layers.attn.", "layers.moe.")
+#: each rank's EP region (its experts' float32 partials summed over the
+#: group) against the whole region on the same bf16 inputs: within
+#: 2^-7 of each row's largest output
+EP_REGION_TOL = 2.0 ** -7
+#: each rank: the launcher on both wires (the per-step composition; the
+#: launches' shapes through launch_stats.SINK); each rank's EP region
+#: on one x against the whole region; the first step's gradient per
+#: shard, gathered, against the whole model's (rank 0, from the file
+#: ``ep_twins`` wrote); the dry run's cell at 1x2 on the dense wire (one
+#: eager local and sync step measured as the dry run measures, one sync
+#: step profiled for its collectives); then the uplink on a full-size
+#: delta of the expert stacks (two bf16 iterates: ties in its rows), per
+#: shard against the whole leaves on this rank
+EP_CODE = r"""
+import dataclasses, json, os, sys
+sys.path.insert(0, {src!r})
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from repro_torch.configs import get_config, get_policy_preset
+from repro_torch.configs.base import InputShape
+from repro_torch.core import policy as pol
+from repro_torch.core.distributed import ModelShards, ShardCompressor
+from repro_torch.data import LMTokenStream
+from repro_torch.kernels import launch_stats
+from repro_torch.launch import dryrun as dr
+from repro_torch.launch import train as lt
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.roofline_parse import (collective_bytes,
+                                              events_from_profile)
+from repro_torch.models import moe
+from repro_torch.sharding import specs as sp
+from repro_torch.tree import (tree_flatten_with_path, tree_leaves, tree_map,
+                              value_and_grad)
+
+WIRES = ("sparse_allgather", "dense_psum")
+
+
+def rel_l2(a, b):
+    num = float(torch.linalg.vector_norm(a.float() - b.float()))
+    den = float(torch.linalg.vector_norm(b.float()))
+    return num / den if den else (0.0 if num == 0 else float("inf"))
+
+
+mesh = make_mesh({mesh!r}, device="cuda", backend="gloo")
+dev = mesh.device
+cfg = dataclasses.replace(get_config({arch!r}), n_layers={layers})
+out = {{"rank": mesh.rank, "runs": {{}}, "steps": {{}}}}
+try:
+    shapes = []
+    launch_stats.SINK = lambda kernel, shape: shapes.append(
+        [kernel, shape["rows"], shape["n"]])
+    for wire in WIRES:
+        del shapes[:]
+        argv = ["--arch", {arch!r}, "--mesh", {mesh!r}, "--backend",
+                "gloo", "--policy", {policy!r}, "--batch", "{batch}",
+                "--seq", "{seq}", "--steps", "{steps}", "--H", "{H}",
+                "--wire", wire, "--dispatch", {dispatch!r}, "--runtime",
+                "step"]
+        args = lt.parser().parse_args(argv)
+        rec = lt._run(args, lt.resolve_policy_arg(args), mesh, {layers})
+        out["runs"][wire] = {{"rec": rec, "launched": list(shapes)}}
+    launch_stats.SINK = None
+    whole = moe.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                            device=dev)
+    specs = sp.param_specs(cfg)
+    layout = sp.shard_layout(specs, whole, mesh)
+    policy = sp.activation_policy(cfg, mesh)
+    paths = [".".join(map(str, p)) for p, _ in
+             tree_flatten_with_path(whole)[0]]
+    # the EP region against the whole region on the same inputs
+    lay = whole["layers"]["moe"]
+    own = {{k: layout.own(lay[k], paths.index("layers.moe." + k))[0]
+           for k in ("w1", "w3", "w2")}}
+    g = torch.Generator(device=dev).manual_seed(3)
+    T = {batch} * {seq}
+    x = torch.randn((T, cfg.d_model), generator=g, device=dev).to(cfg.adtype)
+    eids, w, _ = moe._route(x, lay["router"][0], cfg)
+    C = moe._capacity(T * cfg.moe_top_k, cfg.n_experts, cfg.capacity_factor)
+    got, dropped = moe.ep_apply(x, eids, w, own["w1"], own["w3"], own["w2"],
+                                policy, C)
+    want, want_dropped = moe._expert_compute_local(
+        x, eids, w, lay["w1"][0], lay["w3"][0], lay["w2"][0], 0,
+        cfg.n_experts, C)
+    row = want.abs().amax(dim=-1, keepdim=True)
+    out["region"] = {{
+        "row_gap": float(((got - want).abs() / row.clamp_min(1e-30)).max()),
+        "dropped": [int(dropped), int(want_dropped)], "C": C, "T": T}}
+    del got, want, row, x, eids, w, own
+    # the first step's gradient per shard (the launcher's weights from
+    # --seed 0 and its first batch), gathered, against the whole
+    # model's: rank 0 reads it from the file the parent wrote
+    tokens = next(LMTokenStream(vocab=cfg.vocab, R=1, order=64, seed=0)
+                  .batches({batch}, {seq}, {steps}, seed=1))["tokens"][0]
+    batch = {{"tokens": torch.from_numpy(tokens).to(dev)}}
+    mine = sp.shard_tree(whole, layout)
+    del whole, lay
+    seen, plain_route = [], moe._route
+
+    def route(x2d, router, cfg_):
+        out = plain_route(x2d, router, cfg_)
+        if not seen:
+            seen.append(out[0].detach().clone())
+        return out
+
+    moe._route = route
+    loss, grads = value_and_grad(
+        lambda p, b: moe.loss_fn(p, b, cfg, policy=policy)[0])(mine, batch)
+    moe._route = plain_route
+    with torch.no_grad():
+        dropped = float(moe.loss_fn(mine, batch, cfg, policy=policy)[1][
+            "dropped"])
+    del mine, batch
+    want = (torch.load({grads!r}, map_location="cpu") if mesh.rank == 0
+            else None)
+    rels = {{"autograd": {{}}, "hand": {{}}}}
+    for path, gr, ax in zip(paths, tree_leaves(grads), layout.axes):
+        if path.startswith({leaves!r}):
+            full = sp.gather_leaf(gr, ax, mesh)
+            if mesh.rank == 0:
+                for k in rels:
+                    rels[k][path] = rel_l2(full, want[k][path].to(dev))
+            del full
+    out["grad"] = {{"loss": float(loss), "rel_l2": rels, "dropped": dropped}}
+    if mesh.rank == 0:
+        # the first MoE layer's routing against the whole model's
+        flip = seen[0].cpu() != want["eids"]
+        out["grad"]["flipped"] = [int(flip.sum()), int(flip.any(-1).sum()),
+                                  flip.numel()]
+    del grads, want
+    # the dry run's cell on the card, on the dense wire (the sparse
+    # wire's sync takes seconds here: the script's time)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    shape = InputShape("ep_cell", {seq}, {batch}, "train")
+    job = dr.build_train({arch!r}, cfg, mesh, shape, device=dev,
+                         aggregate="dense_psum", policy={policy!r})
+    state = dr.steady_state(job.init_fn(job.params))
+    del job.params
+    for name in ("local_step", "sync_step"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        live = torch.cuda.memory_allocated(dev) - base
+        result, got = dr.measure(job.steps[name], (state, job.batch), mesh)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        del result
+        out["steps"][name] = {{"flops": got["flops"],
+                               "launches": got["launches"],
+                               "live_before_bytes": live, "peak_bytes": peak}}
+    # a sync step profiled alone (under measure's dispatch mode the
+    # trace's collective records carry no dtypes)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU],
+            record_shapes=True) as prof:
+        result = job.steps["sync_step"](state, job.batch)
+        torch.cuda.synchronize()
+    del result, job, state
+    out["collectives"] = collective_bytes(events_from_profile(prof))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    # the uplink per shard against whole leaves on one full-size delta of
+    # the expert stacks
+    gen = torch.Generator(device=dev).manual_seed(7)
+    whole = moe.init_params(gen, cfg, device=dev)
+    names = ("w1", "w2", "w3")
+    experts = {{"layers": {{"moe": {{k: whole["layers"]["moe"][k]
+                                   for k in names}}}}}}
+    del whole
+    delta = tree_map(lambda x: x.float() - (
+        x.float() - 1e-3 * torch.randn(x.shape, generator=gen, device=dev)
+    ).to(x.dtype).float(), experts)
+    del experts
+    specs = {{"layers": {{"moe": {{k: sp.param_specs(cfg)["layers"]["moe"][k]
+                                 for k in names}}}}}}
+    comp = ShardCompressor.from_spec(pol.as_channel_spec(get_policy_preset(
+        {preset!r})).uplink, delta, dispatch={dispatch!r})
+    layout = sp.shard_layout(specs, delta, mesh)
+    mine = sp.shard_tree(delta, layout)
+    shards = ModelShards(layout, mesh)
+    q_mine, bits_mine = comp(mine, specs, shards=shards)
+    cbits_mine = comp.compact(mine, specs, shards=shards)[2]
+    q_whole, bits_whole = comp(delta, specs)
+    cbits_whole = comp.compact(delta, specs)[2]
+    same = [bool(torch.equal(sp.gather_leaf(a, ax, mesh), b))
+            for a, b, ax in zip(tree_leaves(q_mine), tree_leaves(q_whole),
+                                layout.axes)]
+    out["whole"] = {{"bits": [float(bits_mine), float(bits_whole)],
+                     "compact_bits": [float(cbits_mine), float(cbits_whole)],
+                     "leaves_equal": same,
+                     "split": [ax is not None for ax in layout.axes]}}
+finally:
+    mesh.close()
+print("EP " + json.dumps(out), flush=True)
+"""
+
+
+def rel_l2(a, b) -> float:
+    """||a - b|| / ||b|| in float32 (0 where both are zero)."""
+    import torch
+    num = float(torch.linalg.vector_norm(a.float() - b.float()))
+    den = float(torch.linalg.vector_norm(b.float()))
+    return num / den if den else (0.0 if num == 0 else float("inf"))
+
+
+def ep_config():
+    """EP's model: the arch's full config at EP's depth."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(EP["arch"]), n_layers=EP["layers"])
+
+
+def ep_argv(wire: str, mesh: str) -> list:
+    return ["--arch", EP["arch"], "--mesh", mesh, "--policy", EP["policy"],
+            "--batch", str(EP["batch"]), "--seq", str(EP["seq"]),
+            "--steps", str(EP["steps"]), "--H", str(EP["H"]),
+            "--wire", wire, "--dispatch", DISPATCH, "--runtime", "step"]
+
+
+def ep_plans() -> dict:
+    """The launches a rank makes a sync, by wire: ``launch_plans(shards=)``
+    of EP's uplink on a rank's model shards (on meta), one (kernel,
+    rows, row length, k) a distinct shape."""
+    from repro_torch.configs import get_policy_preset
+    from repro_torch.core import policy as pol
+    from repro_torch.core.distributed import ModelShards, ShardCompressor
+    from repro_torch.launch.mesh import dry_mesh
+    from repro_torch.models import moe
+    from repro_torch.sharding import specs as sp
+    cfg = ep_config()
+    whole = moe.init_params(None, cfg, "meta")
+    comp = ShardCompressor.from_spec(pol.as_channel_spec(get_policy_preset(
+        EP["policy"][len("preset:"):])).uplink, whole)
+    specs = sp.param_specs(cfg)
+    mesh = dry_mesh(EP["mesh"])
+    layout = sp.shard_layout(specs, whole, mesh)
+    mine = sp.shard_tree(whole, layout)
+    return {wire: sorted(
+        (key.kernel, key.rows, key.row_len, key.k) for key in
+        comp.launch_plans(mine, specs, compact=wire == "sparse_allgather",
+                          shards=ModelShards(layout, mesh)))
+        for wire in ("sparse_allgather", "dense_psum")}
+
+
+@contextlib.contextmanager
+def first_routing():
+    """Yields a list that receives the experts the first ``moe._route``
+    call under it picks ([T, K] ``eids``): the first MoE layer's routing
+    of a loss."""
+    from repro_torch.models import moe
+    plain, seen = moe._route, []
+
+    def route(x2d, router, cfg):
+        out = plain(x2d, router, cfg)
+        if not seen:
+            seen.append(out[0].detach().clone())
+        return out
+
+    moe._route = route
+    try:
+        yield seen
+    finally:
+        moe._route = plain
+
+
+@contextlib.contextmanager
+def hand_written_experts():
+    """The whole model's expert region through ``_EPApply`` on a group of
+    one rank (its hand-written float32 backward, no collective) where
+    autograd records, in place of autograd of the bf16 region: the
+    ``1x1`` twin of the 1x2 run's arithmetic.  ``_EPApply``'s forward
+    runs with autograd off and takes the plain region."""
+    import torch
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import moe
+    plain, one = moe._expert_compute_local, Mesh((1, 1), ("data", "model"))
+
+    def region(x2d, eids, weights, w1, w3, w2, e_start, E_loc, C):
+        if not torch.is_grad_enabled():
+            return plain(x2d, eids, weights, w1, w3, w2, e_start, E_loc, C)
+        return moe._EPApply.apply(x2d, eids, weights, w1, w3, w2, one,
+                                  e_start, E_loc, C)
+
+    moe._expert_compute_local = region
+    try:
+        yield
+    finally:
+        moe._expert_compute_local = plain
+
+
+def ep_twins(dev, grad_path: str) -> dict:
+    """EP's ``1x1`` twins: the same job at ``--mesh 1x1``, eager, in this
+    process, by wire, and "swapped" (the sparse wire's twin with the
+    batch rows swapped, :func:`swapped_rows`); then the first step's
+    gradient of the whole model (the launcher's weights and first
+    batch), as the ``1x1`` run computes it ("autograd") and with the
+    experts' backward hand-written (:func:`hand_written_experts`,
+    "hand"), their expert, router and attention leaves written to
+    ``grad_path`` for the ranks; the witnesses against "autograd",
+    relative L2 by leaf: "hand" and the gradient with the batch rows
+    swapped; the dropped assignments of both orders."""
+    import torch
+    from repro_torch.data import LMTokenStream
+    from repro_torch.launch import train as lt
+    from repro_torch.models import moe
+    from repro_torch.tree import (tree_flatten_with_path, tree_leaves,
+                                  value_and_grad)
+    twins = {}
+    with untuned():
+        for wire in ("sparse_allgather", "dense_psum"):
+            _free_graphs()
+            twins[wire] = lt.main(ep_argv(wire, "1x1"),
+                                  n_layers=EP["layers"])
+        with swapped_rows():
+            twins["swapped"] = lt.main(ep_argv("sparse_allgather", "1x1"),
+                                       n_layers=EP["layers"])
+    _free_graphs()
+    cfg = ep_config()
+    whole = moe.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                            device=dev)
+    tokens = next(LMTokenStream(vocab=cfg.vocab, R=1, order=64, seed=0)
+                  .batches(EP["batch"], EP["seq"], EP["steps"],
+                           seed=1))["tokens"][0]
+    batches = {"first": {"tokens": torch.from_numpy(tokens).to(dev)}}
+    batches["swapped"] = {"tokens": batches["first"]["tokens"].flip(0)}
+    paths = [".".join(map(str, p)) for p, _ in
+             tree_flatten_with_path(whole)[0]]
+    fn = value_and_grad(lambda p, b: moe.loss_fn(p, b, cfg)[0])
+
+    def first_grads(batch):
+        loss, grads = fn(whole, batch)
+        return float(loss), {p: g for p, g in zip(paths, tree_leaves(grads))
+                             if p.startswith(EP_GRAD_LEAVES)}
+
+    want, rel, loss = {}, {}, {}
+    with first_routing() as routed:
+        loss["autograd"], want["autograd"] = first_grads(batches["first"])
+    with hand_written_experts():
+        loss["hand"], want["hand"] = first_grads(batches["first"])
+    loss["swapped"], swapped = first_grads(batches["swapped"])
+    for name, got in (("hand", want["hand"]), ("swapped", swapped)):
+        rel[name] = {p: rel_l2(g, want["autograd"][p])
+                     for p, g in got.items()}
+    del swapped
+    with torch.no_grad():
+        dropped = {k: float(moe.loss_fn(whole, b, cfg)[1]["dropped"])
+                   for k, b in batches.items()}
+    twins["grad"] = {"loss": loss, "rel_l2": rel, "dropped": dropped}
+    del whole, batches
+    want = {k: {p: g.cpu() for p, g in v.items()} for k, v in want.items()}
+    want["eids"] = routed[0].cpu()
+    torch.save(want, grad_path)
+    del want
+    _free_graphs()
+    return twins
+
+
+def ep_ranks(grad_path: str) -> list:
+    """EP's ranks, spawned from here: each rank's EP_CODE result, in rank
+    order."""
+    from repro_torch.launch.mesh import run_local_ranks
+    code = EP_CODE.format(
+        src=SRC, mesh=EP["mesh"], arch=EP["arch"], layers=EP["layers"],
+        batch=EP["batch"], seq=EP["seq"], steps=EP["steps"], H=EP["H"],
+        policy=EP["policy"], preset=EP["policy"][len("preset:"):],
+        dispatch=DISPATCH, grads=grad_path, leaves=EP_GRAD_LEAVES)
+    procs = run_local_ranks([sys.executable, "-c", code], EP["ranks"],
+                            env=dict(os.environ, PYTHONPATH=SRC),
+                            timeout=900)
+    outs = []
+    for r, (rc, text, err) in enumerate(procs):
+        if rc != 0:
+            raise AssertionError(f"expert-parallel rank {r} exited {rc}:\n"
+                                 f"{err[-3000:]}")
+        line = next(l for l in text.splitlines() if l.startswith("EP "))
+        outs.append(json.loads(line[3:]))
+    return outs
+
+
+def phase_ep(dev, dry: dict, twins: dict, ranks: list) -> tuple:
+    """Expert parallelism on the card (``--mesh 1x2``: EP's qwen3-moe job,
+    two gloo ranks sharing the card, 64 experts a rank, the model's
+    collectives staged through host memory): ``ranks`` (``ep_ranks``)
+    against ``twins`` (``ep_twins``).  On both wires: each rank's record
+    against its twin's: kinds and rounds equal, the ledgers within
+    EP_BITS_RTOL, every loss within EP_LOSS_RTOL and finite; each wire's
+    bits up equal on both ranks (the two wires' part where a row ties
+    past kcap, at 1x1 too: printed).  Each rank's EP region within
+    EP_REGION_TOL of the whole region on the same inputs, ``dropped``
+    equal.  The backward: each expert, router and attention leaf's
+    first-step gradient, gathered, within EP_GRAD_RTOL of the whole
+    model's (relative L2), the witnesses and the first layer's flipped
+    routing beside it.  The launches a sync: the dry record's count of
+    the wire's kernel, at the distinct shapes ``ep_plans`` gives; each
+    shape then held against its plain version here.  The dry run's cell
+    (``dry``: EP's ``1x2`` records by wire): each rank's eager local and
+    sync step on the dense wire, FLOPs and launches equal, the peak,
+    arguments and temporaries within DRY_PEAK_TOL; the collective bytes
+    of one profiled sync step, by kind, equal to the record's
+    model-group bytes.  The uplink per shard against whole
+    leaves on a full-size delta of the expert stacks: bits of both forms
+    and the output, bit for bit.  ms a step printed, labelled as gloo
+    through host memory.  Returns (the ``topk_compact`` and the
+    ``topk_compress`` check rows at EP's shapes, each with its launches
+    on the path, the launches by kernel)."""
+    import numpy as np
+    from repro_torch.kernels import dispatch as dsp
+    t0 = time.perf_counter()
+    wires = ("sparse_allgather", "dense_psum")
+    for wire in wires:
+        _ok(dry[wire], f"the 1x2 EP cell on {wire}")
+    plans = ep_plans()
+    faults, totals, at = [], {}, {}
+    out = {"card": card(), "arch": EP["arch"], "layers": EP["layers"],
+           "mesh": EP["mesh"], "policy": EP["policy"], "wires": {},
+           "ranks": [], "plans": plans}
+    for wire in wires:
+        twin = twins[wire]
+        kern = ("topk_compact" if wire == "sparse_allgather"
+                else "topk_compress")
+        per_sync = dry[wire]["steps"]["sync_step"]["launches"]
+        want_shapes = sorted({(k, rows, n) for k, rows, n, _ in plans[wire]})
+        row = {"losses_1x1": twin["loss"], "bits_up_1x1": twin["bits_up"],
+               "bits_down_1x1": twin["bits_down"],
+               "ms_per_step_1x1": float(np.median(twin["ms"])),
+               "launches_per_sync": per_sync, "ranks": []}
+        for r in ranks:
+            run = r["runs"][wire]
+            rec = run["rec"]
+            bits_rel, loss_rel = against_twin(
+                rec, twin, f"ep {wire} rank {r['rank']}", EP_BITS_RTOL,
+                EP_LOSS_RTOL, faults)
+            if rec["bits_up"] != ranks[0]["runs"][wire]["rec"]["bits_up"]:
+                faults.append(f"ep {wire} rank {r['rank']}: bits up "
+                              f"{rec['bits_up']} differ between the ranks")
+            n_syncs = rec["kind"].count("sync")
+            for counts in rec["launches_per_sync"]:
+                got = {k: v for k, v in counts.items() if v}
+                if got != per_sync or set(got) != {kern}:
+                    faults.append(f"ep {wire}: a sync launched {got}, the "
+                                  f"dry run {per_sync}")
+            launched = [tuple(x) for x in run["launched"]]
+            if (sorted(set(launched)) != want_shapes
+                    or len(launched) != n_syncs * per_sync.get(kern, -1)):
+                faults.append(f"ep {wire}: launched {launched}, planned "
+                              f"{plans[wire]}")
+            totals[kern] = totals.get(kern, 0) + len(launched)
+            for key in launched:
+                at[key] = at.get(key, 0) + 1
+            ms = float(np.median(rec["ms"]))
+            row["ranks"].append({
+                "rank": r["rank"], "loss": rec["loss"],
+                "loss_rel_diff": loss_rel, "bits_up": rec["bits_up"],
+                "bits_down": rec["bits_down"], "ledger_rel_diff": bits_rel,
+                "fused": rec["fused"], "model_axis": rec["model_axis"],
+                "peak_device_bytes": rec.get("peak_device_bytes"),
+                "ms_per_step_median_gloo_host": ms})
+        out["wires"][wire] = row
+        print(f"ep {wire}: ms a step "
+              f"{[x['ms_per_step_median_gloo_host'] for x in row['ranks']]}"
+              f" at 1x2 over gloo through host memory, "
+              f"{row['ms_per_step_1x1']:.1f} at 1x1 eager alone",
+              flush=True)
+    # the wires' uplinks part at 1x1 as at 1x2: the sparse wire emits at
+    # most kcap survivors a row, the dense one every tied survivor
+    out["wire_gap"] = {
+        m: (runs["dense_psum"]["bits_up"][-1]
+            - runs["sparse_allgather"]["bits_up"][-1])
+        / runs["dense_psum"]["bits_up"][-1]
+        for m, runs in (("1x1", twins), ("1x2", {
+            w: ranks[0]["runs"][w]["rec"] for w in wires}))}
+    for r in ranks:
+        reg = r["region"]
+        if (reg["row_gap"] > EP_REGION_TOL
+                or reg["dropped"][0] != reg["dropped"][1]):
+            faults.append(f"ep rank {r['rank']}: the EP region {reg} "
+                          "against the whole region")
+    out["region"] = [r["region"] for r in ranks]
+    # the backward: each leaf's gathered gradient against the whole
+    # model's, with the experts' backward hand-written as at 1x2 ("hand")
+    # and as the 1x1 run computes it ("autograd"); the witnesses (the
+    # whole model: "hand" against "autograd", the batch rows swapped)
+    # beside them, not held
+    grad, wgrad = ranks[0]["grad"], twins["grad"]
+    first = twins["sparse_allgather"]["loss"][0]
+    worst = {k: max(v, key=v.get) for k, v in grad["rel_l2"].items()}
+    for k in ("hand", "autograd"):
+        if (grad["rel_l2"][k][worst[k]] > EP_GRAD_RTOL
+                or set(grad["rel_l2"][k]) != set(wgrad["rel_l2"]["hand"])):
+            faults.append(f"ep gradient against {k}: {worst[k]} "
+                          f"{grad['rel_l2'][k][worst[k]]:.3g} "
+                          f"(> {EP_GRAD_RTOL})")
+    if abs(grad["loss"] - first) > EP_LOSS_RTOL * abs(first):
+        faults.append(f"ep gradient: loss {grad['loss']} against {first}")
+    swap = twins["swapped"]
+    out["backward"] = {
+        "rel_l2_1x2": grad["rel_l2"], "witness_rel_l2": wgrad["rel_l2"],
+        "max_rel_l2": {
+            **{f"1x2_vs_{k}": v[worst[k]] for k, v in grad["rel_l2"].items()},
+            **{f"{k}_vs_autograd": max(v.values())
+               for k, v in wgrad["rel_l2"].items()}},
+        "loss": {"1x2": grad["loss"], **wgrad["loss"], "launcher_1x1": first},
+        "dropped": {**wgrad["dropped"], "1x2": grad["dropped"]},
+        "flipped_assignments": grad["flipped"]}
+    out["witness_swapped_1x1"] = {
+        "loss": swap["loss"],
+        "loss_rel_diff": [abs(a - b) / abs(b) for a, b in
+                          zip(swap["loss"],
+                              twins["sparse_allgather"]["loss"])],
+        "bits_up": swap["bits_up"],
+        "ledger_rel_diff": max(abs(a - b) / max(abs(b), 1.0) for a, b in
+                               zip(swap["bits_up"],
+                                   twins["sparse_allgather"]["bits_up"]))}
+    mx = out["backward"]["max_rel_l2"]
+    print(f"ep backward: gathered gradients within "
+          f"{mx['1x2_vs_hand']:.3g} of the whole model's with the experts' "
+          f"backward hand-written (worst {worst['hand']}), "
+          f"{mx['1x2_vs_autograd']:.3g} of its autograd one (worst "
+          f"{worst['autograd']}); witnesses: hand-written against autograd "
+          f"{mx['hand_vs_autograd']:.3g}, the batch rows swapped "
+          f"{mx['swapped_vs_autograd']:.3g} (dropped {wgrad['dropped']}, "
+          f"{grad['dropped']} at 1x2); the first layer's routing at 1x2: "
+          f"{grad['flipped'][0]} of {grad['flipped'][2]} assignments "
+          f"({grad['flipped'][1]} tokens) on other experts; "
+          f"the swapped run's losses "
+          f"{out['witness_swapped_1x1']['loss_rel_diff']}, ledger "
+          f"{out['witness_swapped_1x1']['ledger_rel_diff']:.3g}",
+          flush=True)
+    want_coll = dry["dense_psum"]["steps"]["sync_step"][
+        "collectives_by_group"].get("model", {"total": 0})
+    for r in ranks:
+        against_dry(r["steps"], dry["dense_psum"]["steps"],
+                    f"ep rank {r['rank']}", faults)
+        if r["collectives"] != want_coll or not want_coll["total"]:
+            faults.append(f"ep rank {r['rank']}: collectives "
+                          f"{r['collectives']} in the trace, {want_coll} "
+                          "in the dry run")
+        whole = r["whole"]
+        if (len(set(whole["bits"])) != 1 or len(set(whole["compact_bits"]))
+                != 1 or not all(whole["leaves_equal"])
+                or not all(whole["split"])):
+            faults.append(f"ep rank {r['rank']}: per shard against whole "
+                          f"leaves: {whole}")
+        out["ranks"].append({"rank": r["rank"], "steps": r["steps"],
+                             "collectives": r["collectives"],
+                             "whole": whole})
+    out["dry_collectives_model"] = want_coll
+    print("ep", json.dumps(out), flush=True)
+    _raise(faults)
+    compact, dense = [], []
+    for _, rows, n, k in plans["sparse_allgather"]:
+        compact.append(check_compact(dev, rows, n, k, dsp.capacity(k, n),
+                                     False, 10))
+        compact[-1]["launches"] = at.get(("topk_compact", rows, n), 0)
+    for _, rows, n, k in plans["dense_psum"]:
+        dense.append(check_topk(dev, rows, n, k, False, 10))
+        dense[-1]["launches"] = at.get(("topk_compress", rows, n), 0)
+    for name, rows in (("topk_compact", compact), ("topk_compress", dense)):
+        for row in rows:
+            print(f"kernel check ep {name}", json.dumps(row), flush=True)
+    print(f"ep: {time.perf_counter() - t0:.1f}s", flush=True)
+    return compact, dense, totals
+
 
 #: the mesh fault runtime on gemma3-1b (the wire's queue at depth 3: on
 #: dense_psum 3 x 999,812,736 float32 payload values), and the
@@ -4309,6 +4942,17 @@ def _ranks_shape():
                       "train")
 
 
+def ep_dry_records() -> dict:
+    """The dry run's records of EP's cell at ``1x2`` by wire (on meta)."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun as dr
+    shape = InputShape("ep_cell", EP["seq"], EP["batch"], "train")
+    return {wire: dr.run_one(EP["arch"], shape=shape, mesh=EP["mesh"],
+                             cfg_overrides={"n_layers": EP["layers"]},
+                             aggregate=wire, policy=EP["policy"])
+            for wire in ("sparse_allgather", "dense_psum")}
+
+
 def dry_records() -> dict:
     """Every dry-run record ``phase_dryrun`` holds against the card, on
     the ``meta`` device: host work only, run in a process of its own
@@ -4328,7 +4972,8 @@ def dry_records() -> dict:
                LM["arch"], shape=_ranks_shape(), smoke=True,
                mesh=f"{DRY_RANKS['ranks']}x1", aggregate=wire)
                for wire in ("dense_psum", "sparse_allgather")},
-           "tp": dr.run_one(LM["arch"], shape=shape, mesh=TP["mesh"], **kw)}
+           "tp": dr.run_one(LM["arch"], shape=shape, mesh=TP["mesh"], **kw),
+           "ep": ep_dry_records()}
     out["seconds"] = time.perf_counter() - t
     return out
 
@@ -4553,6 +5198,15 @@ def phase_dryrun(dev, records: dict, ranks: dict) -> dict:
             "collectives": dry_collectives(records["ranks"], ranks)}
 
 
+def waited(future, what: str, timeout: float):
+    """``future``'s result, printing the seconds this process waited for
+    it (the run's budget: a background part the main path waits on)."""
+    t = time.perf_counter()
+    out = future.result(timeout=timeout)
+    print(f"phase wait {what}: {time.perf_counter() - t:.1f}s", flush=True)
+    return out
+
+
 def timed_phase(fn, *args):
     """``fn(*args)``, printing the seconds it took (the run's budget by
     phase)."""
@@ -4644,9 +5298,18 @@ def main() -> int:
     # (d)'s run beside the smoke model's multi-rank phases, which time
     # nothing on the card; the 1x1 twins run before them, alone, and
     # phase_tp's kernel checks after them
+    # the expert-parallel ranks (2 x ~17 GB) run after the tensor-parallel
+    # ones in the same worker thread, the card not holding both at once;
+    # their twins run first, alone
+    ep_tmp = tempfile.mkdtemp(dir=os.path.join(SRC, "repro_torch",
+                                               "kernels", "build"))
+    atexit.register(shutil.rmtree, ep_tmp, True)
+    ep_grads = os.path.join(ep_tmp, "grads.pt")
+    ep_twin = timed_phase(ep_twins, dev, ep_grads)
     twins = timed_phase(tp_twins, dev)
     tp_pool = ThreadPoolExecutor(1)
     tp_pending = tp_pool.submit(tp_ranks)
+    ep_pending = tp_pool.submit(ep_ranks, ep_grads)
     ranks_pool = ThreadPoolExecutor(1)
     ranks_pending = ranks_pool.submit(rank_collectives)
     timed_phase(phase_lm_ranks, dev)
@@ -4655,11 +5318,16 @@ def main() -> int:
     ranks_pool.shutdown()
     dry = dry_pending.get(timeout=600)
     tp_compact, tp_dense, tp_totals = timed_phase(
-        phase_tp, dev, dry["tp"], twins, tp_pending.result(timeout=900))
+        phase_tp, dev, dry["tp"], twins, waited(tp_pending, "tp_ranks", 900))
+    ep_compact, ep_dense, ep_totals = timed_phase(
+        phase_ep, dev, dry["ep"], ep_twin, waited(ep_pending, "ep_ranks", 900))
     tp_pool.shutdown()
-    compact, lm_topk = compact + tp_compact, lm_topk + tp_dense
-    for k, v in tp_totals.items():
-        lm_totals[k] = lm_totals.get(k, 0) + v
+    shutil.rmtree(ep_tmp, ignore_errors=True)
+    compact = compact + tp_compact + ep_compact
+    lm_topk = lm_topk + tp_dense + ep_dense
+    for more in (tp_totals, ep_totals):
+        for k, v in more.items():
+            lm_totals[k] = lm_totals.get(k, 0) + v
     family_fa, family_fd = timed_phase(phase_family_kernels, dev)
     for more, into in ((timed_phase(phase_family_serve, dev), serve_totals),
                        (timed_phase(phase_family_train, dev), lm_totals)):

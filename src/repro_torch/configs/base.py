@@ -26,10 +26,10 @@ class ShardingPolicy:
     ``mesh`` is a ``launch.mesh.Mesh`` (or None: no model group); the
     model's collectives (``sharding/collectives.py``) run over its
     ``model`` group through its methods.  ``ep_axis``: the mesh axis of
-    explicit expert parallelism (MoE), refused above one model rank
-    until ROADMAP queue 1 item 12b ports it.  With a model group of one
-    every collective is the identity and the model runs as without a
-    policy."""
+    explicit expert parallelism (MoE: "model"; ``models.moe.moe_ffn``
+    splits the experts over the model group where it divides them).
+    With a model group of one every collective is the identity and the
+    model runs as without a policy."""
 
     mesh: Any = None
     ep_axis: Optional[str] = None

@@ -11,13 +11,25 @@ buffers filled by a stable sort of the assignments (``_assignments``;
 the overflow is dropped and counted) and the experts' SwiGLUs as
 batched matmuls over all E experts on this rank.
 
-``repro``'s expert-parallel path (a nested ``shard_map`` over the
-``model`` axis with a hand-written VJP) is ROADMAP queue 1 item 12 and
-is refused (``moe_ffn``'s ``ep_axis``); its training path, ported here,
-differentiates the local computation with plain autograd.  Nothing in a
-loss reads a value back to the host, so a training round captures as
-one CUDA graph; every scatter writes each slot at most once, so the
-backward is deterministic.
+``loss_fn(..., policy=)`` trains on the ``model`` group, as ``repro``
+does on its ``model`` axis: the attention, the dense / shared SwiGLUs,
+the embedding and the head run tensor-parallel as the dense family's
+(``models.layers``), and the experts are split over the group
+(``sharding.specs._moe_specs``: axis 1 of the [nper, E, ...] stacks).
+Tokens stay whole on every rank; each rank computes its experts'
+contribution to every token (``_expert_compute_local`` with its
+``e_start``), and the float32 partials are summed over the group before
+the cast to the activation dtype (``_EPApply``, ``repro``'s
+``_make_ep_apply``: one [T, d] all-reduce a MoE layer forward; its
+hand-written backward, ``_expert_bwd_local``, sums dx and the routing
+weights' gradient over the group and keeps the experts' own).  A
+group that does not divide E leaves the experts whole on every rank
+(``sanitize_spec``), and every rank runs the whole-E path.  The serving
+functions take no policy (ROADMAP queue 1 item 12d).
+
+Without a model group nothing in a loss reads a value back to the host,
+so a training round captures as one CUDA graph; every scatter writes
+each slot at most once, so the backward is deterministic.
 
 The periods are scanned in ``repro`` (their windows are traced), so
 prefill attention runs ``chunked_attention``; decode runs the
@@ -35,7 +47,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShardingPolicy
 from repro_torch.core.operators import top_k_indices
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import (
@@ -56,7 +68,7 @@ from repro_torch.models.layers import (
     swiglu,
     unstack_layers,
 )
-from repro_torch.sharding.specs import PendingPort, refuse_model_axis
+from repro_torch.models.transformer import _apply_head, _vocab_policy
 
 
 # ---------------------------------------------------------------------------
@@ -170,54 +182,169 @@ def _assignments(eids, e_start: int, E_loc: int, C: int):
             torch.where(keep, pos, zero))
 
 
-def _expert_compute_local(x2d, eids, weights, w1, w3, w2, e_start: int,
-                          E_loc: int, C: int):
-    """Contribution of experts [e_start, e_start + E_loc) to every token
-    ([T, d] float32) and the count of dropped assignments.  Each (expert,
-    slot) receives at most one kept assignment; the rest write a sink
-    row that nothing reads, and a token's K contributions are added in
-    order."""
-    T, K = eids.shape
-    d = x2d.shape[-1]
+def _acc(dtype: torch.dtype) -> torch.dtype:
+    """The expert products' accumulation dtype: float32 (float64 for
+    float64 inputs, as a gradient check gives)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def _slots(eids, e_start: int, E_loc: int, C: int):
+    """(local, keep, slot): each assignment's buffer row ``le * C + pos``
+    where it is kept, else the sink row ``E_loc * C`` that nothing
+    reads."""
     _tok, local, keep, le, pos = _assignments(eids, e_start, E_loc, C)
     sink = E_loc * C
-    slot = torch.where(keep, le * C + pos, torch.full_like(le, sink))
+    return local, keep, torch.where(keep, le * C + pos,
+                                    torch.full_like(le, sink))
+
+
+def _experts_fwd(x2d, slot, w1, w3, w2, E_loc: int, C: int):
+    """The experts' SwiGLUs on their capacity buffers: (buf [E_loc, C,
+    d], pre1, pre3, h, o [E_loc * C + 1, d] with the sink's zero row
+    last).  Each (expert, slot) receives at most one kept assignment;
+    the rest write the sink row."""
+    T = x2d.shape[0]
+    K = slot.shape[0] // T
+    d = x2d.shape[-1]
+    acc = _acc(x2d.dtype)
+    sink = E_loc * C
     # token t's row for each of its K assignments (assignments are
     # token-major), without a gather whose backward would add K rows
     rows = x2d[:, None, :].expand(T, K, d).reshape(T * K, d)
     buf = x2d.new_zeros((sink + 1, d)).index_put((slot,), rows)
     buf = buf[:sink].reshape(E_loc, C, d)
-    h = F.silu(torch.bmm(buf, w1).to(torch.float32)) \
-        * torch.bmm(buf, w3).to(torch.float32)
-    o = torch.bmm(h.to(x2d.dtype), w2).to(torch.float32).reshape(sink, d)
-    o = torch.cat([o, o.new_zeros((1, d))])
+    pre1 = torch.bmm(buf, w1).to(acc)
+    pre3 = torch.bmm(buf, w3).to(acc)
+    h = F.silu(pre1) * pre3
+    o = torch.bmm(h.to(x2d.dtype), w2).to(acc).reshape(sink, d)
+    return buf, pre1, pre3, h, torch.cat([o, o.new_zeros((1, d))])
+
+
+def _token_sum(rows, T: int, K: int):
+    """[T * K, d] rows, token-major -> [T, d]: a token's K rows added in
+    order."""
+    rows = rows.reshape(T, K, -1)
+    out = rows[:, 0]
+    for j in range(1, K):
+        out = out + rows[:, j]
+    return out
+
+
+def _expert_compute_local(x2d, eids, weights, w1, w3, w2, e_start: int,
+                          E_loc: int, C: int):
+    """Contribution of experts [e_start, e_start + E_loc) to every token
+    ([T, d] float32) and the count of dropped assignments (``repro``'s
+    function: ``w1`` / ``w3`` / ``w2`` are those experts' stacks)."""
+    T, K = eids.shape
+    local, keep, slot = _slots(eids, e_start, E_loc, C)
+    o = _experts_fwd(x2d, slot, w1, w3, w2, E_loc, C)[-1]
     wk = torch.where(keep, weights.reshape(T * K),
                      torch.zeros_like(weights.reshape(T * K)))
-    contrib = (o[slot] * wk[:, None]).reshape(T, K, d)
-    out = contrib[:, 0]
-    for j in range(1, K):
-        out = out + contrib[:, j]
-    return out, (local & ~keep).sum()
+    return _token_sum(o[slot] * wk[:, None], T, K), (local & ~keep).sum()
 
 
-def moe_ffn(x, mp, cfg: ModelConfig, ep_axis: Optional[str] = None):
+def _expert_bwd_local(x2d, eids, weights, w1, w3, w2, e_start: int,
+                      E_loc: int, C: int, dout):
+    """The hand-written VJP of :func:`_expert_compute_local` on one
+    shard (``repro``'s): the forward's residuals recomputed from the
+    inputs, then (dx2d partial [T, d], dweights partial [T, K], dw1,
+    dw3, dw2), all float32.  The partials are this shard's experts'
+    part of the gradients; the experts' gradients are whole."""
+    T, K = eids.shape
+    d = x2d.shape[-1]
+    acc = _acc(x2d.dtype)
+    sink = E_loc * C
+    _local, keep, slot = _slots(eids, e_start, E_loc, C)
+    buf, pre1, pre3, h, o = _experts_fwd(x2d, slot, w1, w3, w2, E_loc, C)
+    dcontrib = dout.to(acc)[:, None, :].expand(T, K, d).reshape(T * K, d)
+    wk = torch.where(keep, weights.reshape(T * K).to(acc),
+                     torch.zeros((), dtype=acc, device=x2d.device))
+    # contrib = o[slot] * w  =>  dw = <dout, o[slot]> where kept
+    dweights = ((dcontrib * o[slot]).sum(dim=-1) * keep).reshape(T, K)
+    do = dcontrib.new_zeros((sink + 1, d)).index_put(
+        (slot,), dcontrib * wk[:, None])[:sink].reshape(E_loc, C, d)
+    dh = torch.bmm(do, w2.to(acc).transpose(1, 2))
+    dw2 = torch.bmm(h.to(x2d.dtype).to(acc).transpose(1, 2), do)
+    sig = torch.sigmoid(pre1)
+    dpre3 = dh * F.silu(pre1)
+    dpre1 = dh * pre3 * (sig * (1 + pre1 * (1 - sig)))
+    dbuf = (torch.bmm(dpre1, w1.to(acc).transpose(1, 2))
+            + torch.bmm(dpre3, w3.to(acc).transpose(1, 2)))
+    bw = buf.to(acc).transpose(1, 2)
+    dw1 = torch.bmm(bw, dpre1)
+    dw3 = torch.bmm(bw, dpre3)
+    dbuf = torch.cat([dbuf.reshape(sink, d), dbuf.new_zeros((1, d))])
+    return (_token_sum(dbuf[slot], T, K), dweights, dw1, dw3, dw2)
+
+
+class _EPApply(torch.autograd.Function):
+    """``repro``'s ``_make_ep_apply`` on the model group: this rank's
+    experts' contribution to every token, the float32 partials summed
+    over the group (and the dropped count, as an integer); backward,
+    :func:`_expert_bwd_local` with dx and the routing weights' gradient
+    summed over the group in float32, the experts' gradients kept on
+    their rank, none for ``eids``.  It keeps only its inputs for the
+    backward, as ``repro``'s residuals are its inputs."""
+
+    @staticmethod
+    def forward(ctx, x2d, eids, weights, w1, w3, w2, mesh, e_start, E_loc,
+                C):
+        out, dropped = _expert_compute_local(x2d, eids, weights, w1, w3,
+                                             w2, e_start, E_loc, C)
+        out = mesh.all_reduce_sum(out, over="model")
+        dropped = mesh.all_reduce_sum(dropped.to(torch.int64),
+                                      over="model")
+        ctx.save_for_backward(x2d, eids, weights, w1, w3, w2)
+        ctx.shard = (mesh, e_start, E_loc, C)
+        ctx.mark_non_differentiable(dropped)
+        return out, dropped
+
+    @staticmethod
+    def backward(ctx, dout, _ddropped):
+        x2d, eids, weights, w1, w3, w2 = ctx.saved_tensors
+        mesh, e_start, E_loc, C = ctx.shard
+        dx, dwts, dw1, dw3, dw2 = _expert_bwd_local(
+            x2d, eids, weights, w1, w3, w2, e_start, E_loc, C, dout)
+        dx = mesh.all_reduce_sum(dx, over="model")
+        dwts = mesh.all_reduce_sum(dwts, over="model")
+        return (dx.to(x2d.dtype), None, dwts.to(weights.dtype),
+                dw1.to(w1.dtype), dw3.to(w3.dtype), dw2.to(w2.dtype),
+                None, None, None, None)
+
+
+def ep_apply(x2d, eids, weights, w1, w3, w2, policy: ShardingPolicy,
+             C: int):
+    """The experts' output summed over the policy's model group, which
+    splits them (``_EPApply``): ([T, d] float32, dropped, int64)."""
+    E_loc = w1.shape[0]
+    return _EPApply.apply(x2d, eids, weights, w1, w3, w2, policy.mesh,
+                          policy.rank * E_loc, E_loc, C)
+
+
+def moe_ffn(x, mp, cfg: ModelConfig, policy: Optional[ShardingPolicy] = None):
     """x: [B, S, d] -> ([B, S, d], {"aux_loss", "dropped"} as float32
-    tensors).  ``ep_axis`` (``repro``'s ``policy.ep_axis``, the expert
-    parallel path over the ``model`` axis) is not ported."""
-    if ep_axis is not None:
-        raise PendingPort(
-            "expert parallelism (ep_axis) is not ported to repro_torch "
-            "yet: ROADMAP queue 1 item 12b")
+    tensors).  Under a ``policy`` whose model group splits the E experts
+    (``policy.ep_axis``, "model"), ``mp``'s expert stacks are this
+    rank's E / M and the experts run expert-parallel (:func:`ep_apply`);
+    the router is whole, so every rank routes alike, and the capacity
+    comes from the global T and E.  Without one (or where the group does
+    not divide E) every expert runs here."""
     B, S, d = x.shape
     x2d = x.reshape(B * S, d)
     eids, w, aux = _route(x2d, mp["router"], cfg)
     E = cfg.n_experts
     C = _capacity(B * S * cfg.moe_top_k, E, cfg.capacity_factor)
-    out, dropped = _expert_compute_local(x2d, eids, w, mp["w1"], mp["w3"],
-                                         mp["w2"], 0, E, C)
+    if policy is not None and policy.ep_axis is not None \
+            and policy.splits(E):
+        out, dropped = ep_apply(x2d, eids, w, mp["w1"], mp["w3"], mp["w2"],
+                                policy, C)
+    else:
+        out, dropped = _expert_compute_local(x2d, eids, w, mp["w1"],
+                                             mp["w3"], mp["w2"], 0, E, C)
     out = out.to(x.dtype)
     if cfg.shared_expert:
-        out = out + swiglu(x2d, mp["shared"])
+        out = out + swiglu(x2d, mp["shared"], None, policy,
+                           cfg.dense_ff or cfg.d_ff)
     return out.reshape(B, S, d), {"aux_loss": aux,
                                   "dropped": dropped.to(torch.float32)}
 
@@ -243,18 +370,21 @@ def _periods(params, cfg: ModelConfig) -> list:
 
 
 def _period(h, layers, dense, experts, windows, positions, cfg, dispatch,
-            collect_kv: bool = False):
-    """One period: (h, aux, dropped, [(k, v)] per layer if collected)."""
+            collect_kv: bool = False, policy=None):
+    """One period: (h, aux, dropped, [(k, v)] per layer if collected).
+    ``policy``: the attention and the dense SwiGLUs tensor-parallel, the
+    experts expert-parallel (:func:`moe_ffn`)."""
     kvs = []
     for j, lp in enumerate(layers):
         a, kv = attn_block_train(rmsnorm(h, lp["ln1"]), lp["attn"], cfg,
-                                 windows[j], positions, dispatch)
+                                 windows[j], positions, dispatch,
+                                 policy=policy)
         h = h + a
         hn = rmsnorm(h, lp["ln2"])
         if j == len(layers) - 1:
-            f, metrics = moe_ffn(hn, experts, cfg)
+            f, metrics = moe_ffn(hn, experts, cfg, policy)
         else:
-            f = swiglu(hn, dense[j])
+            f = swiglu(hn, dense[j], None, policy, cfg.dense_ff or cfg.d_ff)
         h = h + f
         if collect_kv:
             kvs.append(kv)
@@ -262,17 +392,19 @@ def _period(h, layers, dense, experts, windows, positions, cfg, dispatch,
 
 
 def _period_out(h, layers, dense, experts, windows, positions, cfg,
-                dispatch):
+                dispatch, policy=None):
     return _period(h, layers, dense, experts, windows, positions, cfg,
-                   dispatch)[:3]
+                   dispatch, policy=policy)[:3]
 
 
 def apply_stack(params, h, positions, cfg: ModelConfig, dispatch=None,
-                collect_kv: bool = False):
+                collect_kv: bool = False, policy=None):
     """The periods in order.  Returns (h, per-layer [(k, v)] or None,
     {"aux_loss": the periods' mean, "dropped": their sum}).  Under
     ``cfg.remat`` a forward that autograd records checkpoints each
-    period, as ``repro`` checkpoints its scan body."""
+    period, as ``repro`` checkpoints its scan body (its recompute
+    replays the period's collectives, the experts' all-reduce among
+    them, on every rank of the group alike)."""
     P_ = cfg.moe_interleave
     wins = [int(w) for w in cfg.layer_windows()]
     checkpointed = cfg.remat and h.requires_grad and not collect_kv
@@ -283,11 +415,11 @@ def apply_stack(params, h, positions, cfg: ModelConfig, dispatch=None,
             h, aux, dropped = remat(functools.partial(
                 _period_out, layers=layers, dense=dense, experts=experts,
                 windows=windows, positions=positions, cfg=cfg,
-                dispatch=dispatch), h)
+                dispatch=dispatch, policy=policy), h)
         else:
             h, aux, dropped, kv = _period(h, layers, dense, experts,
                                           windows, positions, cfg, dispatch,
-                                          collect_kv)
+                                          collect_kv, policy)
             kvs += kv
         auxs.append(aux)
         drops.append(dropped)
@@ -300,18 +432,25 @@ def loss_fn(params, batch: dict, cfg: ModelConfig, dispatch=None,
             loss_chunk: int = 1024, policy=None):
     """Next-token cross-entropy plus ``router_aux_weight`` times the
     load-balance loss.  Returns (loss, {"aux_loss", "dropped"}), both
-    device tensors."""
-    if policy is not None:
-        refuse_model_axis(cfg.family, policy.size)
+    device tensors.  ``policy``: on this rank's model shards
+    (``sharding.specs.shard_tree``), the module's docstring; the
+    embedding and the head vocab-parallel.  The loss, ``aux_loss``
+    (from the whole router) and ``dropped`` (the group's sum) are the
+    same on every rank of the group."""
     tokens = batch["tokens"]
-    h = embed(tokens[:, :-1], params["embed"]).to(cfg.adtype)
+    h = embed(tokens[:, :-1], params["embed"], policy,
+              cfg.vocab).to(cfg.adtype)
     B, S, _ = h.shape
     h, _, metrics = apply_stack(params, h,
                                 prompt_positions(B, S, h.device), cfg,
-                                dispatch)
+                                dispatch, policy=policy)
     h = rmsnorm(h, params["final_norm"])
-    ce = chunked_ce(h, params["head"], tokens[:, 1:], loss_chunk,
-                    cfg.remat and h.requires_grad)
+    vocab = _vocab_policy(cfg, policy)
+    head = params["head"] if vocab is None else functools.partial(
+        _apply_head, params=params, cfg=cfg, dispatch=dispatch,
+        policy=policy)
+    ce = chunked_ce(h, head, tokens[:, 1:], loss_chunk,
+                    cfg.remat and h.requires_grad, vocab)
     return ce + cfg.router_aux_weight * metrics["aux_loss"], metrics
 
 

@@ -32,7 +32,7 @@ from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
 
 #: families whose tensor parallelism is not ported yet -> the ROADMAP
 #: queue 1 item that ports it
-TP_PENDING = {"moe": "12b", "rwkv6": "12c", "zamba2": "12c"}
+TP_PENDING = {"rwkv6": "12c", "zamba2": "12c"}
 
 
 class PendingPort(NotImplementedError):
@@ -231,9 +231,10 @@ def activation_policy(cfg: ModelConfig, mesh=None, *,
     """The model code's ``ShardingPolicy`` on ``mesh`` (``repro``'s
     function: there the activation constraints, here the mesh whose
     ``model`` group the model's collectives run over).  ``ep_axis`` is
-    "model" for the MoE family where ``repro`` sets it.  Serving with a
-    model axis above 1 is refused (ROADMAP queue 1 item 12d); a family
-    not ported refuses it too (:func:`refuse_model_axis`)."""
+    "model" for the MoE family, as ``repro`` sets it: its experts run
+    expert-parallel over the model group.  Serving with a model axis
+    above 1 is refused (ROADMAP queue 1 item 12d); a family not ported
+    refuses it too (:func:`refuse_model_axis`)."""
     size = 1 if mesh is None else mesh.model_size
     if for_serving and size > 1:
         raise PendingPort(

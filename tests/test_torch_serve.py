@@ -31,9 +31,11 @@ from repro_torch.convert import params_from_jax
 from repro_torch.kernels import dispatch as dsp
 from repro_torch.kernels.launch_stats import LAUNCHES, reset_launches
 from repro_torch.kernels.sparse_gemm import qdq_gemm, sparse_gemm
+from repro_torch.launch.mesh import dry_mesh
 from repro_torch.models import get_model, moe, transformer as tf
 from repro_torch.serve import compressed as sc
 from repro_torch.serve.engine import ServeEngine
+from repro_torch.sharding.specs import activation_policy
 from repro_torch.tree import tree_leaves
 
 KERNEL = dsp.DispatchConfig(mode="kernel")
@@ -276,12 +278,11 @@ def test_get_model_and_unported_paths_raise():
     assert m.prefill is tf.prefill and m.decode_step is tf.decode_step
     # the LM loss is ported (tests/test_torch_lm.py holds it to repro)
     assert m.loss_fn is tf.loss_fn
-    # every family is ported; MoE's expert-parallel path is item 12
+    # every family is ported; serving above one model rank is item 12d
     mcfg = get_config("qwen3-moe-30b-a3b", smoke=True)
     assert get_model(mcfg).module is moe
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        moe.moe_ffn(torch.zeros((1, 2, mcfg.d_model)), None, mcfg,
-                    ep_axis="model")
+    with pytest.raises(NotImplementedError, match="queue 1 item 12d"):
+        activation_policy(mcfg, dry_mesh("4x2"), for_serving=True)
     # unscanned stacks are ported: repro's list of per-layer dicts
     flat = dataclasses.replace(cfg, scan_layers=False)
     got = tf.init_params(torch.Generator(), flat, "cpu")

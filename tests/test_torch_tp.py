@@ -509,10 +509,13 @@ def test_layout_and_shards_on_a_mesh():
 
 def test_policy_refusals():
     mesh = dry_mesh("4x2")
-    for arch, item in (("qwen3-moe-30b-a3b", "12b"), ("rwkv6-3b", "12c"),
-                       ("zamba2-7b", "12c")):
+    for arch, item in (("rwkv6-3b", "12c"), ("zamba2-7b", "12c")):
         with pytest.raises(sp.PendingPort, match=f"item {item}"):
             sp.activation_policy(get_config(arch, smoke=True), mesh)
+    # the MoE family trains expert-parallel on the model group (item 12b)
+    moe_policy = sp.activation_policy(
+        get_config("qwen3-moe-30b-a3b", smoke=True), mesh)
+    assert (moe_policy.size, moe_policy.ep_axis) == (2, "model")
     cfg = get_config("yi-6b", smoke=True)
     with pytest.raises(sp.PendingPort, match="item 12d"):
         sp.activation_policy(cfg, mesh, for_serving=True)
