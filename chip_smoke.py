@@ -129,46 +129,40 @@ Phases, each of which exits non-zero on failure:
    against the dense one (masters within 1e-5), the round runtime
    (per-step fallback under gloo) against ``--runtime step`` (equal),
    and both wires under the same scenario (equal kinds and bits);
-7b. tensor parallelism (``phase_tp``): gemma3-1b at full width and depth
-   through the launcher at ``--mesh 1x2``, two gloo ranks sharing the
-   card (each its model shard, the model's collectives staged through
-   host memory), 2 steps (H = 4: the last a sync) on both wires,
+7b-7d. model parallelism (``phase_ranks``, one job of RANK_JOBS each,
+   printed as ``phase_tp``, ``phase_ep`` and ``phase_tp_ssm``): each
+   arch through the launcher at ``--mesh 1x2``, two gloo ranks sharing
+   the card (each its model shards, the model's collectives staged
+   through host memory), 2 steps (the last a sync) on the job's wires,
    against its ``1x1`` eager twin: kinds equal, the ledgers within
-   TP_BITS_RTOL (ties in the bf16 deltas), both steps' losses within
-   TP_LOSS_RTOL, the first step's gradient of every leaf, gathered,
-   within TP_GRAD_RTOL of the whole model's (beside it the witness: the
-   ``1x1`` run with the batch rows swapped, the same sums in another
-   order); 7
-   ``topk_compact`` / ``topk_compress`` launches a sync a rank at
-   [89856 | 13312 | 3328, 1152] rows, each shape held against its plain
-   version; per shard against the whole tree at full size, the uplink's
-   bits and output bit for bit; each rank's local and sync step of the
-   dry run's cell within DRY_PEAK_TOL of the dry run's ``1x2`` record
-   (peak, arguments, temporaries), FLOPs and launches equal, and its
-   profiled collectives equal to the record's model-group bytes (the
-   ranks run beside step 7's multi-rank phases, which time nothing on
-   the card; the twins before them and the kernel checks after them in
-   this process);
-7c. expert parallelism (``phase_ep``): qwen3-moe-30b-a3b at full width
-   (128 experts of 768, top-8), cut to 1 layer, through the launcher at
-   ``--mesh 1x2`` (two gloo ranks, 64 experts a rank) under
-   ``preset:uniform_topk``, 2 steps (H = 2: the last a sync) on both
-   wires, against its ``1x1`` eager twin: kinds equal, the ledgers
-   within EP_BITS_RTOL, the losses within EP_LOSS_RTOL; each rank's EP
-   region (its experts' float32 partials summed over the group) within
-   2^-7 of each row's largest of the whole region on the same inputs,
-   ``dropped`` equal; the first step's gradient of each expert, router
-   and attention leaf, gathered, within EP_GRAD_RTOL of the whole
-   model's (beside it the witness with the batch rows swapped); 10
-   ``topk_compact`` / ``topk_compress`` launches a sync a rank at the
-   six shapes ``launch_plans(shards=)`` gives, each held against its
-   plain version; per shard against whole leaves on a full-size delta
-   of the expert stacks, bit for bit; each rank's local and sync step
-   of the dry run's ``1x2`` cell (dense wire) within DRY_PEAK_TOL, its
-   FLOPs and launches equal, its profiled collectives equal to the
-   record's model-group bytes (the ranks run after step 7b's in the
-   same worker thread, beside step 7's multi-rank phases; the twins
-   before them);
+   TP_BITS_RTOL (ties in the bf16 deltas), the losses within
+   TP_LOSS_RTOL; the first step's gradient of every held leaf, gathered,
+   within the job's limit of the whole model's (beside it the witness:
+   the ``1x1`` run with the batch rows swapped, the same sums in another
+   order), every leaf whole on both ranks with one gradient bit for
+   bit; the wire kernel's launches a sync a rank the dry record counts,
+   at the shapes ``launch_plans(shards=)`` gives, each held against its
+   plain version; per shard against whole leaves on a full-size delta,
+   the uplink's bits and output bit for bit; each rank's local and sync
+   step of the dry run's ``1x2`` cell within DRY_PEAK_TOL (peak,
+   arguments, temporaries), FLOPs and launches equal, and where the job
+   profiles, its collectives equal to the record's model-group bytes.
+   7b (``tp``): gemma3-1b at full width and depth, batch 2 of 1024, H =
+   4, on both wires (the dry cell on the sparse one), within
+   TP_GRAD_RTOL.  7c (``ep``):
+   qwen3-moe-30b-a3b at full width (128 experts of 768, top-8), cut to 1
+   layer, 64 experts a rank, under ``preset:uniform_topk`` on both wires
+   (the dry cell on the dense one); each rank's EP region (its experts'
+   float32 partials summed over the group) within 2^-7 of each row's
+   largest of the whole region on the same inputs, ``dropped`` equal;
+   the expert, router and attention leaves within EP_GRAD_RTOL; the
+   uplink check on the expert stacks.  7d (``tp_ssm``): rwkv6-3b and
+   zamba2-7b at full width, cut to 1 layer (zamba2's shared block
+   before it), under ``preset:arch`` on the dense wire, within
+   TP_GRAD_RTOL.  The twins run alone before step 7's multi-rank
+   phases, the ranks beside them in worker threads (7b then 7c in one,
+   7d in another once 7b's ranks and step 7's phases are done), the
+   kernel checks after them;
 8. checkpoints from trainer to server, gemma3-1b at full width: step
    6's compressed unscanned tree, saved as a compact-v1 checkpoint as
    soon as step 6 has served it and then dropped, loaded by
@@ -198,7 +192,8 @@ Phases, each of which exits non-zero on failure:
    logits within 2^-7 of the plain path's; the smoke configs in float32
    with dispatch "kernel" against "reference" (the same tokens); then the
    three trained through the launcher at full width, the depth cut for
-   the card's memory (qwen3-moe 1 layer, rwkv6-3b and zamba2-7b 12), R
+   the card's memory and the script's time (qwen3-moe 1 layer, rwkv6-3b
+   and zamba2-7b 6), R
    = 1 over NCCL, ``preset:arch`` on the sparse wire, batch 2 of 1024, 8
    steps at H = 4, graphed against ``--runtime step`` (the same record),
    the policy's per-leaf table printed and checked against its rule, and
@@ -2798,209 +2793,181 @@ def phase_lm(dev, ckpt: str = None):
     return totals
 
 
-#: the tensor-parallel run: phase_lm's job (gemma3-1b full(), batch 2 of
-#: 2048, H = 4, preset:arch, seed 0) for ``steps`` steps (the last one a
-#: sync) at
-#: ``1x2``, two gloo ranks sharing the card, each holding its model
-#: shard, against its ``1x1`` eager twin of the same settings; the
-#: ``topk_compact`` rows a rank launches a sync (3 x w1 / w2 / w3, 2 x
-#: wq / wo, 2 x wk / wv: half of phase_lm's rows each)
-TP = {"mesh": "1x2", "ranks": 2, "steps": 2,
-      "rows": {89856: 3, 13312: 2, 3328: 2}, "n": 1152, "k": 12,
-      "kcap": 128}
-#: the 1x2 run's ledger against its 1x1 twin's, relative: a sync's delta
-#: is the difference of two bf16 iterates, whose rows tie at the k-th
-#: magnitude often, and a tie keeps every tied survivor, so where the
-#: two runs' deltas part (bf16 partial sums in another order) the
-#: counts do (on an H100 at 700 W: 4.0e-4 at the first sync, at most
-#: 2.4e-3 a sync over three; the 1x1 run with the batch rows swapped:
-#: 1.1e-4; PERF.md §6)
+#: the model-parallel runs' ledgers against their ``1x1`` twins',
+#: relative: a sync's delta is the difference of two bf16 iterates,
+#: whose rows tie at the k-th magnitude often, and a tie keeps every
+#: tied survivor, so where the two runs' deltas part (bf16 partial sums
+#: in another order) the counts do (gemma3-1b on an H100 at 700 W: 4.0e-4
+#: at the first sync, at most 2.4e-3 a sync over three; the 1x1 run with
+#: the batch rows swapped: 1.1e-4; PERF.md §6)
 TP_BITS_RTOL = 0.01
-#: the 1x2 run's losses against the twin's, relative, at each of the 2
-#: steps (on an H100 at 700 W: 1.07e-4 at the first, one forward of the
-#: same weights; 8.1e-4 at the second, after the first update; the 1x1
-#: run with the batch rows swapped: 0 and 7.4e-5)
+#: the runs' losses against the twin's, relative, at each of the 2
+#: steps (gemma3-1b on an H100 at 700 W: 1.07e-4 at the first, one
+#: forward of the same weights; 8.1e-4 at the second, after the first
+#: update; the 1x1 run with the batch rows swapped: 0 and 7.4e-5)
 TP_LOSS_RTOL = 2.0 ** -9
 #: each leaf's first-step gradient at 1x2, gathered, against the whole
-#: model's on the same weights and batch: ||g - g_1x1|| / ||g_1x1|| (on
-#: an H100 at 700 W: at most 0.0118, wk; the 1x1 run with the batch
-#: rows swapped, the same sums in another order, 0.0122; a collective
-#: missing from the backward leaves a leaf's gradient half or wrong,
-#: O(1) off; PERF.md §6)
+#: model's on the same weights and batch: ||g - g_1x1|| / ||g_1x1||
+#: (gemma3-1b on an H100 at 700 W: at most 0.0118, wk; the 1x1 run with
+#: the batch rows swapped, the same sums in another order, 0.0122; a
+#: collective missing from the backward leaves a leaf's gradient half or
+#: wrong, O(1) off; PERF.md §6)
 TP_GRAD_RTOL = 2.0 ** -5
-#: each rank: the launcher on both wires (the per-step composition; the
-#: launches' shapes through launch_stats.SINK); the first step's
-#: gradient per shard, gathered (rank 0: against the whole model's, and
-#: the whole model's with the batch rows swapped); the dry run's cell at
-#: 1x2 (one eager local and sync step measured as the dry run measures,
-#: one sync step profiled for its collectives); then preset:arch's
-#: uplink on a whole-size delta of two bf16 iterates (ties in its rows),
-#: per shard against the whole tree on this rank: bits of both forms and
-#: the dense output gathered, equal
-TP_CODE = r"""
-import json, os, sys, time
-sys.path.insert(0, {src!r})
-import numpy as np
-import torch
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
-from repro_torch.configs import get_config, get_policy_preset
-from repro_torch.configs.base import InputShape
-from repro_torch.core import policy as pol
-from repro_torch.core.distributed import ModelShards, ShardCompressor
-from repro_torch.data import LMTokenStream
-from repro_torch.kernels import launch_stats
-from repro_torch.launch import dryrun as dr
-from repro_torch.launch import train as lt
-from repro_torch.launch.mesh import make_mesh
-from repro_torch.launch.roofline_parse import (collective_bytes,
-                                              events_from_profile)
-from repro_torch.models import get_model
-from repro_torch.sharding import specs as sp
-from repro_torch.tree import (tree_flatten_with_path, tree_leaves, tree_map,
-                              value_and_grad)
+#: the MoE family's first-step gradient of each expert, router and
+#: attention leaf at 1x2, gathered, against the whole model's on the
+#: same weights and batch (as the 1x1 run computes it, and with the
+#: experts' backward hand-written as the ranks run it), relative L2.
+#: Set from the readings (an H100 at 700 W, PERF.md §6): 0.0302 (the
+#: router; experts 0.024, attention 0.004-0.010) against either; the
+#: whole region on the same inputs 2.4e-7, the two 1x1 backwards 0.0036
+#: apart: the gap is the residual stream's other sum order reaching the
+#: router, whose top-8 picks and capacity drops are discontinuous
+EP_GRAD_RTOL = 2.0 ** -4
+#: the MoE family's leaves whose gradient is held (its embedding and
+#: head are the dense family's, held by ``phase_tp``)
+EP_GRAD_LEAVES = ("layers.attn.", "layers.moe.")
+#: the MoE family's uplink check runs on its expert stacks (the rows
+#: mode of ``ModelShards``; the card's memory)
+EP_EXPERTS = ("w1", "w2", "w3")
+#: each rank's EP region (its experts' float32 partials summed over the
+#: group) against the whole region on the same bf16 inputs: within
+#: 2^-7 of each row's largest output
+EP_REGION_TOL = 2.0 ** -7
+#: the model-parallel rank jobs (``phase_tp``, ``phase_ep``,
+#: ``phase_tp_ssm``, each :func:`phase_ranks`): each arch through the
+#: launcher at ``RANK_MESH``, two gloo ranks sharing the card, each
+#: holding its model shards (the model's collectives staged through
+#: host memory), ``steps`` steps (the last a sync) on each of ``wires``,
+#: against its ``1x1`` eager twin of the same settings, held to
+#: TP_BITS_RTOL, TP_LOSS_RTOL and ``grad_rtol``.  ``dry_wire``: the wire
+#: of the dry run's cell each rank measures, with one sync step
+#: profiled for its collectives where ``profile``.
+#: tp: phase_lm's job (gemma3-1b full(), batch 2, H = 4, preset:arch,
+#: seed 0) at 1024 tokens a row, half phase_lm's (the script's time:
+#: every step sends the model's activations through gloo).
+#: ep: qwen3-moe-30b-a3b at full width (d 2048; 128 experts of 768 at
+#: top-8; vocab 151,936; 32 / 4 heads of 128), cut to 1 layer for
+#: memory, 64 experts a rank, under preset:uniform_topk (Top_k on the
+#: expert shards); its dry cell on the dense wire (the sparse wire's 1x2
+#: sync takes ~10 s over gloo); its gradient held on EP_GRAD_LEAVES.
+#: tp_ssm: rwkv6-3b and zamba2-7b full() at full width, cut to 1 layer
+#: for time (zamba2's shared block runs before layer 0), preset:arch
+#: (SignTop_k) on the dense wire
+RANK_MESH = "1x2"
+RANK_JOBS = {
+    "tp": {"archs": (LM["arch"],), "layers": None, "batch": LM["batch"],
+           "seq": 1024, "steps": 2, "H": LM["H"],
+           "policy": "preset:arch",
+           "wires": ("sparse_allgather", "dense_psum"),
+           "dry_wire": "sparse_allgather", "profile": True,
+           "grad_rtol": TP_GRAD_RTOL},
+    "ep": {"archs": ("qwen3-moe-30b-a3b",), "layers": 1, "batch": 2,
+           "seq": 1024, "steps": 2, "H": 2, "policy": "preset:uniform_topk",
+           "wires": ("sparse_allgather", "dense_psum"),
+           "dry_wire": "dense_psum", "profile": True,
+           "grad_rtol": EP_GRAD_RTOL},
+    "tp_ssm": {"archs": ("rwkv6-3b", "zamba2-7b"), "layers": 1, "batch": 2,
+               "seq": 1024, "steps": 2, "H": 2, "policy": "preset:arch",
+               "wires": ("dense_psum",), "dry_wire": "dense_psum",
+               "profile": False, "grad_rtol": TP_GRAD_RTOL},
+}
 
 
-def rel_l2(a, b):
-    # ||a - b|| / ||b|| in float32 (0 where both are zero)
+def rel_l2(a, b) -> float:
+    """||a - b|| / ||b|| in float32 (0 where both are zero)."""
+    import torch
     num = float(torch.linalg.vector_norm(a.float() - b.float()))
     den = float(torch.linalg.vector_norm(b.float()))
     return num / den if den else (0.0 if num == 0 else float("inf"))
 
 
-mesh = make_mesh({mesh!r}, device="cuda", backend="gloo")
-dev = mesh.device
-out = {{"rank": mesh.rank, "runs": {{}}, "steps": {{}}}}
-try:
-    shapes = []
-    launch_stats.SINK = lambda kernel, shape: shapes.append(
-        [kernel, shape["rows"], shape["n"]])
-    for wire in ("sparse_allgather", "dense_psum"):
-        del shapes[:]
-        argv = ["--arch", {arch!r}, "--mesh", {mesh!r}, "--backend",
-                "gloo", "--policy", "preset:arch", "--batch", "{batch}",
-                "--seq", "{seq}", "--steps", "{steps}", "--H", "{H}",
-                "--wire", wire, "--dispatch", {dispatch!r}, "--runtime",
-                "step"]
-        args = lt.parser().parse_args(argv)
-        rec = lt._run(args, lt.resolve_policy_arg(args), mesh)
-        out["runs"][wire] = {{"rec": rec, "launched": list(shapes)}}
-    launch_stats.SINK = None
-    # the backward at full size: the first step's gradient (the
-    # launcher's weights from --seed 0 and its first batch) per shard,
-    # gathered, against the whole model's on rank 0; the witness there:
-    # the whole model's with the batch's two rows swapped (the same
-    # mean, each weight gradient's sum over tokens in another order)
-    cfg = get_config({arch!r})
-    model = get_model(cfg)
-    whole = model.init_params(torch.Generator(device=dev).manual_seed(0),
-                              cfg, device=dev)
+def rank_config(job: dict, arch: str):
+    """A rank job's model: the arch's full config at the job's depth."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return (dataclasses.replace(cfg, n_layers=job["layers"])
+            if job["layers"] else cfg)
+
+
+def rank_argv(job: dict, arch: str, wire: str, mesh: str) -> list:
+    return ["--arch", arch, "--mesh", mesh, "--policy", job["policy"],
+            "--batch", str(job["batch"]), "--seq", str(job["seq"]),
+            "--steps", str(job["steps"]), "--H", str(job["H"]),
+            "--wire", wire, "--dispatch", DISPATCH, "--runtime", "step"]
+
+
+def _held(cfg, path: str) -> bool:
+    """Is this leaf's first-step gradient held against the whole
+    model's?  Every leaf; the MoE family's EP_GRAD_LEAVES."""
+    return cfg.family != "moe" or path.startswith(EP_GRAD_LEAVES)
+
+
+def first_batch(job: dict, cfg, dev) -> dict:
+    """The launcher's first batch of the job (``--seed 0``)."""
+    import torch
+    from repro_torch.data import LMTokenStream
     tokens = next(LMTokenStream(vocab=cfg.vocab, R=1, order=64, seed=0)
-                  .batches({batch}, {seq}, {steps}, seed=1))["tokens"][0]
-    batch = {{"tokens": torch.from_numpy(tokens).to(dev)}}
-    layout = sp.shard_layout(sp.param_specs(cfg), whole, mesh)
-    policy = sp.activation_policy(cfg, mesh)
-    loss_tp, grads = value_and_grad(
-        lambda p, b: model.loss_fn(p, b, cfg, policy=policy)[0])(
-            sp.shard_tree(whole, layout), batch)
-    grads = [sp.gather_leaf(g, ax, mesh)
-             for g, ax in zip(tree_leaves(grads), layout.axes)]
-    if mesh.rank == 0:
-        plain = value_and_grad(lambda p, b: model.loss_fn(p, b, cfg)[0])
-        loss_1, want = plain(whole, batch)
-        want = tree_leaves(want)
-        out["grad"] = {{
-            "leaves": [".".join(map(str, path)) for path, _ in
-                       tree_flatten_with_path(whole)[0]],
-            "loss": [float(loss_tp), float(loss_1)],
-            "rel_l2": [rel_l2(g, w) for g, w in zip(grads, want)]}}
-        del grads
-        loss_s, swapped = plain(whole, {{"tokens": batch["tokens"].flip(0)}})
-        out["grad"]["loss_swapped"] = float(loss_s)
-        out["grad"]["rel_l2_swapped"] = [
-            rel_l2(g, w) for g, w in zip(tree_leaves(swapped), want)]
-        del swapped, want
-    else:
-        del grads
-    del whole, batch
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    base = torch.cuda.memory_allocated(dev)
-    shape = InputShape("lm_cell", {seq}, {batch}, "train")
-    job = dr.build_train({arch!r}, get_config({arch!r}), mesh, shape,
-                         device=dev, aggregate="sparse_allgather",
-                         policy="preset:arch")
-    state = dr.steady_state(job.init_fn(job.params))
-    del job.params
-    for name in ("local_step", "sync_step"):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        live = torch.cuda.memory_allocated(dev) - base
-        result, got = dr.measure(job.steps[name], (state, job.batch), mesh)
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated(dev) - base
-        del result
-        out["steps"][name] = {{"flops": got["flops"],
-                               "launches": got["launches"],
-                               "live_before_bytes": live,
-                               "peak_bytes": peak}}
-    # a sync step profiled alone (under measure's dispatch mode the
-    # trace's collective records carry no dtypes)
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CPU],
-            record_shapes=True) as prof:
-        result = job.steps["sync_step"](state, job.batch)
-        torch.cuda.synchronize()
-    del result, job, state
-    out["collectives"] = collective_bytes(events_from_profile(prof))
-    cfg = get_config({arch!r})
-    gen = torch.Generator(device=dev).manual_seed(7)
-    whole = get_model(cfg).init_params(gen, cfg, device=dev)
-    delta = tree_map(lambda x: x.float() - (
-        x.float() - 1e-3 * torch.randn(x.shape, generator=gen, device=dev)
-    ).to(x.dtype).float(), whole)
-    del whole
-    comp = ShardCompressor.from_spec(pol.as_channel_spec(get_policy_preset(
-        "arch", arch={arch!r})).uplink, delta, dispatch={dispatch!r})
-    specs = sp.param_specs(cfg)
-    layout = sp.shard_layout(specs, delta, mesh)
-    mine = sp.shard_tree(delta, layout)
-    shards = ModelShards(layout, mesh)
-    rng = lambda: torch.Generator(device=dev).manual_seed(5)
-    q_mine, bits_mine = comp(mine, specs, rng=rng(), shards=shards)
-    cbits_mine = comp.compact(mine, specs, rng=rng(), shards=shards)[2]
-    q_whole, bits_whole = comp(delta, specs, rng=rng())
-    cbits_whole = comp.compact(delta, specs, rng=rng())[2]
-    same = [bool(torch.equal(sp.gather_leaf(a, ax, mesh), b))
-            for a, b, ax in zip(tree_leaves(q_mine), tree_leaves(q_whole),
-                                layout.axes)]
-    out["whole"] = {{"bits": [float(bits_mine), float(bits_whole)],
-                     "compact_bits": [float(cbits_mine), float(cbits_whole)],
-                     "leaves_equal": same}}
-finally:
-    mesh.close()
-print("TP " + json.dumps(out), flush=True)
-"""
+                  .batches(job["batch"], job["seq"], job["steps"],
+                           seed=1))["tokens"][0]
+    return {"tokens": torch.from_numpy(tokens).to(dev)}
 
 
-def tp_ranks() -> list:
-    """TP's ranks, spawned from here: each rank's TP_CODE result, in rank
-    order."""
-    from repro_torch.launch.mesh import run_local_ranks
-    code = TP_CODE.format(src=SRC, mesh=TP["mesh"], arch=LM["arch"],
-                          batch=LM["batch"], seq=LM["seq"],
-                          steps=TP["steps"], H=LM["H"], dispatch=DISPATCH)
-    procs = run_local_ranks([sys.executable, "-c", code], TP["ranks"],
-                            env=dict(os.environ, PYTHONPATH=SRC),
-                            timeout=900)
-    outs = []
-    for r, (rc, text, err) in enumerate(procs):
-        if rc != 0:
-            raise AssertionError(f"tensor-parallel rank {r} exited {rc}:\n"
-                                 f"{err[-3000:]}")
-        line = next(l for l in text.splitlines() if l.startswith("TP "))
-        outs.append(json.loads(line[3:]))
-    return outs
+def uplink_tree(cfg, tree, specs) -> tuple:
+    """(the leaves of ``tree`` the uplink check compresses, their specs):
+    every leaf; the MoE family's expert stacks (EP_EXPERTS)."""
+    if cfg.family != "moe":
+        return tree, specs
+    return ({"layers": {"moe": {k: tree["layers"]["moe"][k]
+                                for k in EP_EXPERTS}}},
+            {"layers": {"moe": {k: specs["layers"]["moe"][k]
+                                for k in EP_EXPERTS}}})
+
+
+def rank_plans(name: str) -> dict:
+    """The launches a rank of a job makes a sync, by arch and wire:
+    ``launch_plans(shards=)`` of the job's uplink on a rank's model
+    shards (on meta), one (kernel, rows, row length, k, sign) a distinct
+    shape."""
+    from repro_torch.configs import get_policy_preset
+    from repro_torch.core import policy as pol
+    from repro_torch.core.distributed import ModelShards, ShardCompressor
+    from repro_torch.launch.mesh import dry_mesh
+    from repro_torch.models import get_model
+    from repro_torch.sharding import specs as sp
+    job, out = RANK_JOBS[name], {}
+    for arch in job["archs"]:
+        cfg = rank_config(job, arch)
+        whole = get_model(cfg).init_params(None, cfg, "meta")
+        comp = ShardCompressor.from_spec(pol.as_channel_spec(
+            get_policy_preset(job["policy"][len("preset:"):], arch=arch)
+        ).uplink, whole)
+        specs = sp.param_specs(cfg)
+        mesh = dry_mesh(RANK_MESH)
+        layout = sp.shard_layout(specs, whole, mesh)
+        mine = sp.shard_tree(whole, layout)
+        out[arch] = {wire: sorted(
+            (key.kernel, key.rows, key.row_len, key.k, key.sign)
+            for key in comp.launch_plans(
+                mine, specs, compact=wire == "sparse_allgather",
+                shards=ModelShards(layout, mesh)))
+            for wire in job["wires"]}
+    return out
+
+
+def rank_dry_records(name: str) -> dict:
+    """The dry run's records of a job's cell at ``RANK_MESH``, by arch and
+    wire (on meta)."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun as dr
+    job = RANK_JOBS[name]
+    shape = InputShape(f"{name}_cell", job["seq"], job["batch"], "train")
+    over = {"n_layers": job["layers"]} if job["layers"] else None
+    return {arch: {wire: dr.run_one(arch, shape=shape, mesh=RANK_MESH,
+                                    cfg_overrides=over, aggregate=wire,
+                                    policy=job["policy"])
+                   for wire in job["wires"]}
+            for arch in job["archs"]}
 
 
 @contextlib.contextmanager
@@ -3023,502 +2990,11 @@ def swapped_rows():
         lt.LMTokenStream = stream
 
 
-def tp_twins(dev) -> dict:
-    """TP's ``1x1`` twins: the same job at ``--mesh 1x1``, eager, in this
-    process, by wire (each record with its median ms a step); and the
-    witness, "swapped": the sparse wire's twin with the batch rows
-    swapped (:func:`swapped_rows`), a ``1x1`` run whose reductions run
-    in another order."""
-    twins = {}
-    with untuned():
-        for wire in ("sparse_allgather", "dense_psum"):
-            row, _, twins[wire] = lm_run(wire, dev, None, "step",
-                                         steps=TP["steps"])
-            twins[wire]["ms_per_step_median"] = row["ms_per_step_median"]
-        with swapped_rows():
-            twins["swapped"] = lm_run("sparse_allgather", dev, None, "step",
-                                      steps=TP["steps"])[2]
-    _free_graphs()
-    return twins
-
-
-def against_twin(rec: dict, twin: dict, what: str, bits_rtol: float,
-                 loss_rtol: float, faults: list) -> tuple:
-    """A rank's launcher record at 1x2 against its ``1x1`` twin's: kinds
-    and rounds equal, the ledgers (up and down) within ``bits_rtol``,
-    every loss within ``loss_rtol`` and finite.  Returns (the ledgers'
-    largest relative gap, each loss's)."""
-    import numpy as np
-    for k in ("kind", "rounds"):
-        if rec[k] != twin[k]:
-            faults.append(f"{what}: {k} {rec[k]} at 1x2, {twin[k]} at 1x1")
-    bits_rel = max(abs(a - b) / max(abs(b), 1.0) for a, b in zip(
-        rec["bits_up"] + rec["bits_down"],
-        twin["bits_up"] + twin["bits_down"]))
-    if bits_rel > bits_rtol:
-        faults.append(f"{what}: ledgers {bits_rel:.3g} apart "
-                      f"(> {bits_rtol})")
-    loss_rel = [abs(a - b) / abs(b)
-                for a, b in zip(rec["loss"], twin["loss"])]
-    if max(loss_rel) > loss_rtol or not all(np.isfinite(rec["loss"])):
-        faults.append(f"{what}: losses {rec['loss']} against "
-                      f"{twin['loss']}")
-    return bits_rel, loss_rel
-
-
-def against_dry(steps: dict, dry_steps: dict, what: str,
-                faults: list) -> None:
-    """A rank's eager steps, measured as the dry run measures, against
-    the dry run's record of each: FLOPs and launches equal, the peak,
-    the bytes live at the step's start and the peak over them within
-    DRY_PEAK_TOL of its argument + temp bytes, argument bytes and temp
-    bytes.  Each step's entry gains its gaps and the prediction."""
-    for name, got in steps.items():
-        want = dry_steps[name]
-        mem = want["memory"]
-        if got["flops"] != want["flops"]:
-            faults.append(f"{what} {name}: {got['flops']} FLOPs, "
-                          f"{want['flops']} in the dry run")
-        if got["launches"] != want["launches"]:
-            faults.append(f"{what} {name}: launches {got['launches']}, "
-                          f"{want['launches']} dry")
-        got["rel_gap"] = _near(
-            got["peak_bytes"], mem["argument_bytes"] + mem["temp_bytes"],
-            f"{what} {name} peak", faults)
-        got["rel_gap_arguments"] = _near(
-            got["live_before_bytes"], mem["argument_bytes"],
-            f"{what} {name} arguments", faults)
-        got["rel_gap_temp"] = _near(
-            got["peak_bytes"] - got["live_before_bytes"], mem["temp_bytes"],
-            f"{what} {name} temporaries", faults)
-        got["predicted"] = mem
-
-
-def phase_tp(dev, dry: dict, twins: dict, ranks: list) -> tuple:
-    """Tensor parallelism on the card (``--mesh 1x2``: TP's gemma3-1b job,
-    two gloo ranks sharing the card, each its model shard, collectives
-    staged through host memory): ``ranks`` (``tp_ranks``, run beside the
-    smoke model's rank phases) against ``twins`` (``tp_twins``).  On
-    both wires: each rank's record against its twin's: kinds equal, the
-    ledgers within TP_BITS_RTOL, every loss within TP_LOSS_RTOL and
-    finite; the two wires' ledgers at 1x2 equal (the same survivors).
-    The backward: each leaf's first-step gradient, gathered, within
-    TP_GRAD_RTOL of the whole model's (relative L2), the witness (the
-    ``1x1`` run with the batch rows swapped: its gradients, losses and
-    ledger against the twin's) printed beside it;
-    7 ``topk_compact`` (sparse wire) / ``topk_compress`` (dense wire)
-    launches a sync a rank, at TP's rows of 1152 with k = 12, each shape
-    then held against its plain version here.  The ledger's arithmetic
-    at full size: preset:arch's uplink on a whole-size delta of two bf16
-    iterates, per shard against the whole tree, the same bits on both
-    forms and the same dense output, bit for bit.  Each rank's one
-    eager local and sync step of the dry run's cell measured as the dry
-    run measures: FLOPs and launches equal to the dry run's ``1x2``
-    record (``dry``), the peak, the bytes live at the step's start and
-    the peak over them within DRY_PEAK_TOL of its argument + temp
-    bytes, argument bytes and temp bytes; the collective bytes of one
-    profiled sync step, by kind, equal to the record's model-group
-    bytes (at ``1x2`` every collective is the model group's: the data
-    group is one rank).  ms a step printed, labelled as gloo through
-    host memory.  Returns (the ``topk_compact`` and the
-    ``topk_compress`` check rows at TP's shapes, each with its launches
-    on the path, the launches by kernel)."""
-    import numpy as np
-    t0 = time.perf_counter()
-    _ok(dry, "the 1x2 LM cell")
-    faults, totals, at = [], {}, {}
-    out = {"card": card(), "mesh": TP["mesh"], "wires": {}, "ranks": []}
-    want_rows = sorted(r for r, n in TP["rows"].items() for _ in range(n))
-    for wire in ("sparse_allgather", "dense_psum"):
-        twin = twins[wire]
-        kern = ("topk_compact" if wire == "sparse_allgather"
-                else "topk_compress")
-        row = {"losses_1x1": twin["loss"], "bits_up_1x1": twin["bits_up"],
-               "bits_down_1x1": twin["bits_down"],
-               "ms_per_step_1x1": twin["ms_per_step_median"], "ranks": []}
-        for r in ranks:
-            run = r["runs"][wire]
-            rec = run["rec"]
-            bits_rel, loss_rel = against_twin(
-                rec, twin, f"tp {wire} rank {r['rank']}", TP_BITS_RTOL,
-                TP_LOSS_RTOL, faults)
-            if rec["bits_up"] != ranks[0]["runs"]["sparse_allgather"][
-                    "rec"]["bits_up"]:
-                faults.append(f"tp {wire} rank {r['rank']}: bits up "
-                              f"{rec['bits_up']} differ between the wires "
-                              "or the ranks")
-            n_syncs = rec["kind"].count("sync")
-            for counts in rec["launches_per_sync"]:
-                got = {k: v for k, v in counts.items() if v}
-                if got != {kern: sum(TP["rows"].values())}:
-                    faults.append(f"tp {wire}: a sync launched {got}")
-            launched = sorted(rows for kernel, rows, n in run["launched"]
-                              if kernel == kern and n == TP["n"])
-            if launched != sorted(want_rows * n_syncs) or len(
-                    run["launched"]) != len(launched):
-                faults.append(f"tp {wire}: launched {run['launched']}")
-            totals[kern] = totals.get(kern, 0) + len(launched)
-            for rows in launched:
-                at[kern, rows] = at.get((kern, rows), 0) + 1
-            ms = float(np.median(rec["ms"][1:]))
-            row["ranks"].append({
-                "rank": r["rank"], "loss": rec["loss"],
-                "loss_rel_diff": loss_rel, "bits_up": rec["bits_up"],
-                "bits_down": rec["bits_down"], "ledger_rel_diff": bits_rel,
-                "fused": rec["fused"], "model_axis": rec["model_axis"],
-                "peak_device_bytes": rec.get("peak_device_bytes"),
-                "ms_per_step_median_gloo_host": ms})
-        out["wires"][wire] = row
-        print(f"tp {wire}: ms a step "
-              f"{[x['ms_per_step_median_gloo_host'] for x in row['ranks']]}"
-              f" at 1x2 over gloo through host memory (beside the smoke "
-              f"model's rank phases), {twin['ms_per_step_median']:.1f} at "
-              "1x1 eager alone", flush=True)
-    # the backward: each leaf's gathered gradient against the whole
-    # model's; the witness (the 1x1 run with the batch rows swapped)
-    # beside it, not held
-    grad = ranks[0]["grad"]
-    worst = max(range(len(grad["rel_l2"])), key=grad["rel_l2"].__getitem__)
-    first = ranks[0]["runs"]["sparse_allgather"]["rec"]["loss"][0]
-    if grad["rel_l2"][worst] > TP_GRAD_RTOL or abs(
-            grad["loss"][0] - first) > TP_LOSS_RTOL * abs(first):
-        faults.append(f"tp gradient: {grad['leaves'][worst]} "
-                      f"{grad['rel_l2'][worst]:.3g} from the whole model's "
-                      f"(> {TP_GRAD_RTOL}); loss {grad['loss']}")
-    base, swap = twins["sparse_allgather"], twins["swapped"]
-    out["backward"] = {
-        "leaves": grad["leaves"], "rel_l2_1x2": grad["rel_l2"],
-        "rel_l2_swapped": grad["rel_l2_swapped"],
-        "max_rel_l2": {"1x2": grad["rel_l2"][worst],
-                       "swapped": max(grad["rel_l2_swapped"])},
-        "loss": {"1x2": grad["loss"][0], "1x1": grad["loss"][1],
-                 "swapped": grad["loss_swapped"]}}
-    out["witness_swapped_1x1"] = {
-        "loss": swap["loss"],
-        "loss_rel_diff": [abs(a - b) / abs(b)
-                          for a, b in zip(swap["loss"], base["loss"])],
-        "bits_up": swap["bits_up"],
-        "ledger_rel_diff": max(abs(a - b) / max(abs(b), 1.0)
-                               for a, b in zip(swap["bits_up"],
-                                               base["bits_up"]))}
-    print(f"tp backward: gathered gradients within "
-          f"{grad['rel_l2'][worst]:.3g} of the whole model's (worst "
-          f"{grad['leaves'][worst]}); witness, the 1x1 run with the batch "
-          f"rows swapped: gradients within "
-          f"{out['backward']['max_rel_l2']['swapped']:.3g}, losses "
-          f"{out['witness_swapped_1x1']['loss_rel_diff']}, ledger "
-          f"{out['witness_swapped_1x1']['ledger_rel_diff']:.3g}",
-          flush=True)
-    want_coll = dry["steps"]["sync_step"]["collectives_by_group"].get(
-        "model", {"total": 0})
-    for r in ranks:
-        against_dry(r["steps"], dry["steps"], f"tp rank {r['rank']}",
-                    faults)
-        if r["collectives"] != want_coll or not want_coll["total"]:
-            faults.append(f"tp rank {r['rank']}: collectives "
-                          f"{r['collectives']} in the trace, {want_coll} "
-                          "in the dry run")
-        whole = r["whole"]
-        if (len(set(whole["bits"])) != 1 or len(set(whole["compact_bits"]))
-                != 1 or not all(whole["leaves_equal"])):
-            faults.append(f"tp rank {r['rank']}: per shard against whole "
-                          f"leaves: {whole}")
-        out["ranks"].append({"rank": r["rank"], "steps": r["steps"],
-                             "collectives": r["collectives"],
-                             "whole": whole})
-    out["dry_collectives_model"] = want_coll
-    print("tp", json.dumps(out), flush=True)
-    _raise(faults)
-    compact, dense = [], []
-    for n_rows in TP["rows"]:
-        compact.append(check_compact(dev, n_rows, TP["n"], TP["k"],
-                                     TP["kcap"], False, 10))
-        compact[-1]["launches"] = at.get(("topk_compact", n_rows), 0)
-        dense.append(check_topk(dev, n_rows, TP["n"], TP["k"], False, 10))
-        dense[-1]["launches"] = at.get(("topk_compress", n_rows), 0)
-    for name, rows in (("topk_compact", compact), ("topk_compress", dense)):
-        for row in rows:
-            print(f"kernel check tp {name}", json.dumps(row), flush=True)
-    print(f"tp: {time.perf_counter() - t0:.1f}s", flush=True)
-    return compact, dense, totals
-
-#: expert parallelism (``phase_ep``): qwen3-moe-30b-a3b at full width (d
-#: 2048; 128 experts of 768 at top-8; vocab 151,936; 32 / 4 heads of
-#: 128), cut to 1 layer for memory, through the launcher at ``1x2``: two
-#: gloo ranks sharing the card, 64 experts a rank, under
-#: preset:uniform_topk (Top_k on the expert shards) on both wires, batch
-#: 2 of 1024, 2 steps at H = 2 (the last a sync), against its ``1x1``
-#: eager twin of the same settings
-EP = {"arch": "qwen3-moe-30b-a3b", "mesh": "1x2", "ranks": 2, "layers": 1,
-      "batch": 2, "seq": 1024, "steps": 2, "H": 2,
-      "policy": "preset:uniform_topk"}
-#: the 1x2 run's ledger and losses against the twin's, relative: the
-#: dense family's limits (TP_BITS_RTOL, TP_LOSS_RTOL), for the same
-#: reasons (ties in a sync's bf16 delta; bf16 partial sums in another
-#: order)
-EP_BITS_RTOL = TP_BITS_RTOL
-EP_LOSS_RTOL = TP_LOSS_RTOL
-#: the first step's gradient of each expert, router and attention leaf at
-#: 1x2, gathered, against the whole model's on the same weights and
-#: batch (as the 1x1 run computes it, and with the experts' backward
-#: hand-written as the ranks run it), relative L2.  Set from the
-#: readings (an H100 at 700 W, PERF.md §6): 0.0302 (the router; experts
-#: 0.024, attention 0.004-0.010) against either; the whole region on
-#: the same inputs 2.4e-7, the two 1x1 backwards 0.0036 apart: the gap
-#: is the residual stream's other sum order reaching the router, whose
-#: top-8 picks and capacity drops are discontinuous
-EP_GRAD_RTOL = 2.0 ** -4
-EP_GRAD_LEAVES = ("layers.attn.", "layers.moe.")
-#: each rank's EP region (its experts' float32 partials summed over the
-#: group) against the whole region on the same bf16 inputs: within
-#: 2^-7 of each row's largest output
-EP_REGION_TOL = 2.0 ** -7
-#: each rank: the launcher on both wires (the per-step composition; the
-#: launches' shapes through launch_stats.SINK); each rank's EP region
-#: on one x against the whole region; the first step's gradient per
-#: shard, gathered, against the whole model's (rank 0, from the file
-#: ``ep_twins`` wrote); the dry run's cell at 1x2 on the dense wire (one
-#: eager local and sync step measured as the dry run measures, one sync
-#: step profiled for its collectives); then the uplink on a full-size
-#: delta of the expert stacks (two bf16 iterates: ties in its rows), per
-#: shard against the whole leaves on this rank
-EP_CODE = r"""
-import dataclasses, json, os, sys
-sys.path.insert(0, {src!r})
-import torch
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
-from repro_torch.configs import get_config, get_policy_preset
-from repro_torch.configs.base import InputShape
-from repro_torch.core import policy as pol
-from repro_torch.core.distributed import ModelShards, ShardCompressor
-from repro_torch.data import LMTokenStream
-from repro_torch.kernels import launch_stats
-from repro_torch.launch import dryrun as dr
-from repro_torch.launch import train as lt
-from repro_torch.launch.mesh import make_mesh
-from repro_torch.launch.roofline_parse import (collective_bytes,
-                                              events_from_profile)
-from repro_torch.models import moe
-from repro_torch.sharding import specs as sp
-from repro_torch.tree import (tree_flatten_with_path, tree_leaves, tree_map,
-                              value_and_grad)
-
-WIRES = ("sparse_allgather", "dense_psum")
-
-
-def rel_l2(a, b):
-    num = float(torch.linalg.vector_norm(a.float() - b.float()))
-    den = float(torch.linalg.vector_norm(b.float()))
-    return num / den if den else (0.0 if num == 0 else float("inf"))
-
-
-mesh = make_mesh({mesh!r}, device="cuda", backend="gloo")
-dev = mesh.device
-cfg = dataclasses.replace(get_config({arch!r}), n_layers={layers})
-out = {{"rank": mesh.rank, "runs": {{}}, "steps": {{}}}}
-try:
-    shapes = []
-    launch_stats.SINK = lambda kernel, shape: shapes.append(
-        [kernel, shape["rows"], shape["n"]])
-    for wire in WIRES:
-        del shapes[:]
-        argv = ["--arch", {arch!r}, "--mesh", {mesh!r}, "--backend",
-                "gloo", "--policy", {policy!r}, "--batch", "{batch}",
-                "--seq", "{seq}", "--steps", "{steps}", "--H", "{H}",
-                "--wire", wire, "--dispatch", {dispatch!r}, "--runtime",
-                "step"]
-        args = lt.parser().parse_args(argv)
-        rec = lt._run(args, lt.resolve_policy_arg(args), mesh, {layers})
-        out["runs"][wire] = {{"rec": rec, "launched": list(shapes)}}
-    launch_stats.SINK = None
-    whole = moe.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
-                            device=dev)
-    specs = sp.param_specs(cfg)
-    layout = sp.shard_layout(specs, whole, mesh)
-    policy = sp.activation_policy(cfg, mesh)
-    paths = [".".join(map(str, p)) for p, _ in
-             tree_flatten_with_path(whole)[0]]
-    # the EP region against the whole region on the same inputs
-    lay = whole["layers"]["moe"]
-    own = {{k: layout.own(lay[k], paths.index("layers.moe." + k))[0]
-           for k in ("w1", "w3", "w2")}}
-    g = torch.Generator(device=dev).manual_seed(3)
-    T = {batch} * {seq}
-    x = torch.randn((T, cfg.d_model), generator=g, device=dev).to(cfg.adtype)
-    eids, w, _ = moe._route(x, lay["router"][0], cfg)
-    C = moe._capacity(T * cfg.moe_top_k, cfg.n_experts, cfg.capacity_factor)
-    got, dropped = moe.ep_apply(x, eids, w, own["w1"], own["w3"], own["w2"],
-                                policy, C)
-    want, want_dropped = moe._expert_compute_local(
-        x, eids, w, lay["w1"][0], lay["w3"][0], lay["w2"][0], 0,
-        cfg.n_experts, C)
-    row = want.abs().amax(dim=-1, keepdim=True)
-    out["region"] = {{
-        "row_gap": float(((got - want).abs() / row.clamp_min(1e-30)).max()),
-        "dropped": [int(dropped), int(want_dropped)], "C": C, "T": T}}
-    del got, want, row, x, eids, w, own
-    # the first step's gradient per shard (the launcher's weights from
-    # --seed 0 and its first batch), gathered, against the whole
-    # model's: rank 0 reads it from the file the parent wrote
-    tokens = next(LMTokenStream(vocab=cfg.vocab, R=1, order=64, seed=0)
-                  .batches({batch}, {seq}, {steps}, seed=1))["tokens"][0]
-    batch = {{"tokens": torch.from_numpy(tokens).to(dev)}}
-    mine = sp.shard_tree(whole, layout)
-    del whole, lay
-    seen, plain_route = [], moe._route
-
-    def route(x2d, router, cfg_):
-        out = plain_route(x2d, router, cfg_)
-        if not seen:
-            seen.append(out[0].detach().clone())
-        return out
-
-    moe._route = route
-    loss, grads = value_and_grad(
-        lambda p, b: moe.loss_fn(p, b, cfg, policy=policy)[0])(mine, batch)
-    moe._route = plain_route
-    with torch.no_grad():
-        dropped = float(moe.loss_fn(mine, batch, cfg, policy=policy)[1][
-            "dropped"])
-    del mine, batch
-    want = (torch.load({grads!r}, map_location="cpu") if mesh.rank == 0
-            else None)
-    rels = {{"autograd": {{}}, "hand": {{}}}}
-    for path, gr, ax in zip(paths, tree_leaves(grads), layout.axes):
-        if path.startswith({leaves!r}):
-            full = sp.gather_leaf(gr, ax, mesh)
-            if mesh.rank == 0:
-                for k in rels:
-                    rels[k][path] = rel_l2(full, want[k][path].to(dev))
-            del full
-    out["grad"] = {{"loss": float(loss), "rel_l2": rels, "dropped": dropped}}
-    if mesh.rank == 0:
-        # the first MoE layer's routing against the whole model's
-        flip = seen[0].cpu() != want["eids"]
-        out["grad"]["flipped"] = [int(flip.sum()), int(flip.any(-1).sum()),
-                                  flip.numel()]
-    del grads, want
-    # the dry run's cell on the card, on the dense wire (the sparse
-    # wire's sync takes seconds here: the script's time)
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    base = torch.cuda.memory_allocated(dev)
-    shape = InputShape("ep_cell", {seq}, {batch}, "train")
-    job = dr.build_train({arch!r}, cfg, mesh, shape, device=dev,
-                         aggregate="dense_psum", policy={policy!r})
-    state = dr.steady_state(job.init_fn(job.params))
-    del job.params
-    for name in ("local_step", "sync_step"):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        live = torch.cuda.memory_allocated(dev) - base
-        result, got = dr.measure(job.steps[name], (state, job.batch), mesh)
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated(dev) - base
-        del result
-        out["steps"][name] = {{"flops": got["flops"],
-                               "launches": got["launches"],
-                               "live_before_bytes": live, "peak_bytes": peak}}
-    # a sync step profiled alone (under measure's dispatch mode the
-    # trace's collective records carry no dtypes)
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CPU],
-            record_shapes=True) as prof:
-        result = job.steps["sync_step"](state, job.batch)
-        torch.cuda.synchronize()
-    del result, job, state
-    out["collectives"] = collective_bytes(events_from_profile(prof))
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    # the uplink per shard against whole leaves on one full-size delta of
-    # the expert stacks
-    gen = torch.Generator(device=dev).manual_seed(7)
-    whole = moe.init_params(gen, cfg, device=dev)
-    names = ("w1", "w2", "w3")
-    experts = {{"layers": {{"moe": {{k: whole["layers"]["moe"][k]
-                                   for k in names}}}}}}
-    del whole
-    delta = tree_map(lambda x: x.float() - (
-        x.float() - 1e-3 * torch.randn(x.shape, generator=gen, device=dev)
-    ).to(x.dtype).float(), experts)
-    del experts
-    specs = {{"layers": {{"moe": {{k: sp.param_specs(cfg)["layers"]["moe"][k]
-                                 for k in names}}}}}}
-    comp = ShardCompressor.from_spec(pol.as_channel_spec(get_policy_preset(
-        {preset!r})).uplink, delta, dispatch={dispatch!r})
-    layout = sp.shard_layout(specs, delta, mesh)
-    mine = sp.shard_tree(delta, layout)
-    shards = ModelShards(layout, mesh)
-    q_mine, bits_mine = comp(mine, specs, shards=shards)
-    cbits_mine = comp.compact(mine, specs, shards=shards)[2]
-    q_whole, bits_whole = comp(delta, specs)
-    cbits_whole = comp.compact(delta, specs)[2]
-    same = [bool(torch.equal(sp.gather_leaf(a, ax, mesh), b))
-            for a, b, ax in zip(tree_leaves(q_mine), tree_leaves(q_whole),
-                                layout.axes)]
-    out["whole"] = {{"bits": [float(bits_mine), float(bits_whole)],
-                     "compact_bits": [float(cbits_mine), float(cbits_whole)],
-                     "leaves_equal": same,
-                     "split": [ax is not None for ax in layout.axes]}}
-finally:
-    mesh.close()
-print("EP " + json.dumps(out), flush=True)
-"""
-
-
-def rel_l2(a, b) -> float:
-    """||a - b|| / ||b|| in float32 (0 where both are zero)."""
-    import torch
-    num = float(torch.linalg.vector_norm(a.float() - b.float()))
-    den = float(torch.linalg.vector_norm(b.float()))
-    return num / den if den else (0.0 if num == 0 else float("inf"))
-
-
-def ep_config():
-    """EP's model: the arch's full config at EP's depth."""
-    import dataclasses
-    from repro_torch.configs import get_config
-    return dataclasses.replace(get_config(EP["arch"]), n_layers=EP["layers"])
-
-
-def ep_argv(wire: str, mesh: str) -> list:
-    return ["--arch", EP["arch"], "--mesh", mesh, "--policy", EP["policy"],
-            "--batch", str(EP["batch"]), "--seq", str(EP["seq"]),
-            "--steps", str(EP["steps"]), "--H", str(EP["H"]),
-            "--wire", wire, "--dispatch", DISPATCH, "--runtime", "step"]
-
-
-def ep_plans() -> dict:
-    """The launches a rank makes a sync, by wire: ``launch_plans(shards=)``
-    of EP's uplink on a rank's model shards (on meta), one (kernel,
-    rows, row length, k) a distinct shape."""
-    from repro_torch.configs import get_policy_preset
-    from repro_torch.core import policy as pol
-    from repro_torch.core.distributed import ModelShards, ShardCompressor
-    from repro_torch.launch.mesh import dry_mesh
-    from repro_torch.models import moe
-    from repro_torch.sharding import specs as sp
-    cfg = ep_config()
-    whole = moe.init_params(None, cfg, "meta")
-    comp = ShardCompressor.from_spec(pol.as_channel_spec(get_policy_preset(
-        EP["policy"][len("preset:"):])).uplink, whole)
-    specs = sp.param_specs(cfg)
-    mesh = dry_mesh(EP["mesh"])
-    layout = sp.shard_layout(specs, whole, mesh)
-    mine = sp.shard_tree(whole, layout)
-    return {wire: sorted(
-        (key.kernel, key.rows, key.row_len, key.k) for key in
-        comp.launch_plans(mine, specs, compact=wire == "sparse_allgather",
-                          shards=ModelShards(layout, mesh)))
-        for wire in ("sparse_allgather", "dense_psum")}
-
-
 @contextlib.contextmanager
 def first_routing():
     """Yields a list that receives the experts the first ``moe._route``
     call under it picks ([T, K] ``eids``): the first MoE layer's routing
-    of a loss."""
+    of a loss (none outside the MoE family)."""
     from repro_torch.models import moe
     plain, seen = moe._route, []
 
@@ -3560,277 +3036,598 @@ def hand_written_experts():
         moe._expert_compute_local = plain
 
 
-def ep_twins(dev, grad_path: str) -> dict:
-    """EP's ``1x1`` twins: the same job at ``--mesh 1x1``, eager, in this
-    process, by wire, and "swapped" (the sparse wire's twin with the
-    batch rows swapped, :func:`swapped_rows`); then the first step's
-    gradient of the whole model (the launcher's weights and first
-    batch), as the ``1x1`` run computes it ("autograd") and with the
-    experts' backward hand-written (:func:`hand_written_experts`,
-    "hand"), their expert, router and attention leaves written to
-    ``grad_path`` for the ranks; the witnesses against "autograd",
-    relative L2 by leaf: "hand" and the gradient with the batch rows
-    swapped; the dropped assignments of both orders."""
+def rank_twins(dev, name: str, grad_path: str) -> dict:
+    """A job's ``1x1`` twins by arch: the same job at ``--mesh 1x1``,
+    eager, in this process, by wire, and "swapped" (the first wire's
+    twin with the batch rows swapped, :func:`swapped_rows`); then the
+    first step's gradient of the whole model (the launcher's weights and
+    first batch, the leaves :func:`_held`), as the ``1x1`` run computes
+    it ("autograd") and in the MoE family with the experts' backward
+    hand-written too (:func:`hand_written_experts`, "hand"), written to
+    ``grad_path`` (``{arch}`` in it) for the ranks with the MoE family's
+    first routing; the witnesses against "autograd", relative L2 by
+    leaf: the gradient with the batch rows swapped (and "hand"); the
+    MoE family's dropped assignments of both orders."""
     import torch
-    from repro_torch.data import LMTokenStream
     from repro_torch.launch import train as lt
-    from repro_torch.models import moe
+    from repro_torch.models import get_model
     from repro_torch.tree import (tree_flatten_with_path, tree_leaves,
                                   value_and_grad)
-    twins = {}
-    with untuned():
-        for wire in ("sparse_allgather", "dense_psum"):
-            _free_graphs()
-            twins[wire] = lt.main(ep_argv(wire, "1x1"),
-                                  n_layers=EP["layers"])
-        with swapped_rows():
-            twins["swapped"] = lt.main(ep_argv("sparse_allgather", "1x1"),
-                                       n_layers=EP["layers"])
-    _free_graphs()
-    cfg = ep_config()
-    whole = moe.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
-                            device=dev)
-    tokens = next(LMTokenStream(vocab=cfg.vocab, R=1, order=64, seed=0)
-                  .batches(EP["batch"], EP["seq"], EP["steps"],
-                           seed=1))["tokens"][0]
-    batches = {"first": {"tokens": torch.from_numpy(tokens).to(dev)}}
-    batches["swapped"] = {"tokens": batches["first"]["tokens"].flip(0)}
-    paths = [".".join(map(str, p)) for p, _ in
-             tree_flatten_with_path(whole)[0]]
-    fn = value_and_grad(lambda p, b: moe.loss_fn(p, b, cfg)[0])
+    job, twins = RANK_JOBS[name], {}
+    for arch in job["archs"]:
+        out = twins[arch] = {}
+        with untuned():
+            for wire in job["wires"]:
+                _free_graphs()
+                out[wire] = lt.main(rank_argv(job, arch, wire, "1x1"),
+                                    n_layers=job["layers"])
+            with swapped_rows():
+                out["swapped"] = lt.main(
+                    rank_argv(job, arch, job["wires"][0], "1x1"),
+                    n_layers=job["layers"])
+        _free_graphs()
+        cfg = rank_config(job, arch)
+        model = get_model(cfg)
+        moe = cfg.family == "moe"
+        whole = model.init_params(torch.Generator(device=dev).manual_seed(0),
+                                  cfg, device=dev)
+        batches = {"first": first_batch(job, cfg, dev)}
+        batches["swapped"] = {"tokens": batches["first"]["tokens"].flip(0)}
+        paths = [".".join(map(str, p)) for p, _ in
+                 tree_flatten_with_path(whole)[0]]
+        fn = value_and_grad(lambda p, b: model.loss_fn(p, b, cfg)[0])
 
-    def first_grads(batch):
-        loss, grads = fn(whole, batch)
-        return float(loss), {p: g for p, g in zip(paths, tree_leaves(grads))
-                             if p.startswith(EP_GRAD_LEAVES)}
+        def first_grads(batch):
+            loss, grads = fn(whole, batch)
+            return float(loss), {p: g for p, g in
+                                 zip(paths, tree_leaves(grads))
+                                 if _held(cfg, p)}
 
-    want, rel, loss = {}, {}, {}
-    with first_routing() as routed:
-        loss["autograd"], want["autograd"] = first_grads(batches["first"])
-    with hand_written_experts():
-        loss["hand"], want["hand"] = first_grads(batches["first"])
-    loss["swapped"], swapped = first_grads(batches["swapped"])
-    for name, got in (("hand", want["hand"]), ("swapped", swapped)):
-        rel[name] = {p: rel_l2(g, want["autograd"][p])
-                     for p, g in got.items()}
-    del swapped
-    with torch.no_grad():
-        dropped = {k: float(moe.loss_fn(whole, b, cfg)[1]["dropped"])
-                   for k, b in batches.items()}
-    twins["grad"] = {"loss": loss, "rel_l2": rel, "dropped": dropped}
-    del whole, batches
-    want = {k: {p: g.cpu() for p, g in v.items()} for k, v in want.items()}
-    want["eids"] = routed[0].cpu()
-    torch.save(want, grad_path)
-    del want
-    _free_graphs()
+        want, loss = {}, {}
+        with first_routing() as routed:
+            loss["autograd"], want["autograd"] = first_grads(
+                batches["first"])
+        if moe:
+            with hand_written_experts():
+                loss["hand"], want["hand"] = first_grads(batches["first"])
+        loss["swapped"], swapped = first_grads(batches["swapped"])
+        rel = {k: {p: rel_l2(g, want["autograd"][p]) for p, g in v.items()}
+               for k, v in (("swapped", swapped), ("hand", want.get("hand")))
+               if v is not None}
+        del swapped
+        out["grad"] = {"loss": loss, "rel_l2": rel}
+        if moe:
+            with torch.no_grad():
+                out["grad"]["dropped"] = {
+                    k: float(model.loss_fn(whole, b, cfg)[1]["dropped"])
+                    for k, b in batches.items()}
+        del whole, batches
+        save = {"refs": {k: {p: g.cpu() for p, g in v.items()}
+                         for k, v in want.items()},
+                "eids": routed[0].cpu() if routed else None}
+        del want
+        torch.save(save, grad_path.format(arch=arch))
+        del save
+        _free_graphs()
     return twins
 
 
-def ep_ranks(grad_path: str) -> list:
-    """EP's ranks, spawned from here: each rank's EP_CODE result, in rank
-    order."""
+def rank_job(name: str, grad_path: str, gate: str = None) -> None:
+    """One rank of a job (``RANK_JOBS[name]``), in a process of its own
+    (:func:`rank_runs`).  For each arch: the launcher on each wire (the
+    per-step composition; the launches' shapes through
+    launch_stats.SINK); the MoE family's EP region on one x against the
+    whole region; the first step's gradient per shard (the launcher's
+    weights from --seed 0 and its first batch), gathered, against the
+    whole model's from the file :func:`rank_twins` wrote (rank 0), every
+    leaf whole on both ranks compared between them bit for bit; the dry
+    run's cell on ``dry_wire`` (one eager local and sync step measured
+    as the dry run measures; with ``profile`` one sync step profiled for
+    its collectives); then the uplink per shard against whole leaves on
+    a full-size delta of two bf16 iterates (ties in its rows), on this
+    rank.  ``gate``: a file whose existence lets the job start, the rank
+    made ready before it (the process group joined, the card's context
+    and cuBLAS made, ``torch._dynamo``, which the launcher's first
+    checkpointed layer imports, imported: seconds on a slow host).
+    Records each part's seconds.  Prints its result as one line:
+    "RANKS " and JSON."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.configs import get_policy_preset
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core import policy as pol
+    from repro_torch.core.distributed import ModelShards, ShardCompressor
+    from repro_torch.kernels import launch_stats
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch import train as lt
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.roofline_parse import (collective_bytes,
+                                                  events_from_profile)
+    from repro_torch.models import get_model
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.sharding import specs as sp
+    from repro_torch.tree import (tree_flatten_with_path, tree_leaves,
+                                  tree_map, value_and_grad)
+
+    def settle():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    import torch._dynamo  # noqa: F401
+    job = RANK_JOBS[name]
+    mesh = make_mesh(RANK_MESH, device="cuda", backend="gloo")
+    dev = mesh.device
+    torch.ones((8, 8), device=dev) @ torch.ones((8, 8), device=dev)
+    while gate and not os.path.exists(gate):
+        time.sleep(0.2)
+    out = {"rank": mesh.rank, "archs": {}}
+    try:
+        for arch in job["archs"]:
+            row = out["archs"][arch] = {"runs": {}, "steps": {},
+                                        "seconds": {}}
+            t = time.perf_counter()
+
+            def lap(part):
+                nonlocal t
+                now = time.perf_counter()
+                row["seconds"][part] = now - t
+                t = now
+
+            cfg = rank_config(job, arch)
+            model = get_model(cfg)
+            moe = cfg.family == "moe"
+            shapes = []
+            launch_stats.SINK = lambda kernel, shape: shapes.append(
+                [kernel, shape["rows"], shape["n"]])
+            for wire in job["wires"]:
+                del shapes[:]
+                args = lt.parser().parse_args(
+                    rank_argv(job, arch, wire, RANK_MESH)
+                    + ["--backend", "gloo"])
+                rec = lt._run(args, lt.resolve_policy_arg(args), mesh,
+                              job["layers"])
+                row["runs"][wire] = {"rec": rec, "launched": list(shapes)}
+                lap(f"launcher {wire}")
+            launch_stats.SINK = None
+            whole = model.init_params(
+                torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+            specs = sp.param_specs(cfg)
+            layout = sp.shard_layout(specs, whole, mesh)
+            policy = sp.activation_policy(cfg, mesh)
+            paths = [".".join(map(str, p)) for p, _ in
+                     tree_flatten_with_path(whole)[0]]
+            if moe:
+                # the EP region against the whole region on the same
+                # inputs
+                lay = whole["layers"]["moe"]
+                own = {k: layout.own(lay[k], paths.index("layers.moe." + k))[0]
+                       for k in EP_EXPERTS}
+                g = torch.Generator(device=dev).manual_seed(3)
+                T = job["batch"] * job["seq"]
+                x = torch.randn((T, cfg.d_model), generator=g,
+                                device=dev).to(cfg.adtype)
+                eids, w, _ = moe_lib._route(x, lay["router"][0], cfg)
+                C = moe_lib._capacity(T * cfg.moe_top_k, cfg.n_experts,
+                                      cfg.capacity_factor)
+                got, dropped = moe_lib.ep_apply(
+                    x, eids, w, own["w1"], own["w3"], own["w2"], policy, C)
+                want, want_dropped = moe_lib._expert_compute_local(
+                    x, eids, w, lay["w1"][0], lay["w3"][0], lay["w2"][0], 0,
+                    cfg.n_experts, C)
+                big = want.abs().amax(dim=-1, keepdim=True)
+                row["region"] = {
+                    "row_gap": float(((got - want).abs()
+                                      / big.clamp_min(1e-30)).max()),
+                    "dropped": [int(dropped), int(want_dropped)], "C": C,
+                    "T": T}
+                del got, want, big, x, eids, w, own, lay
+                lap("region")
+            # the first step's gradient per shard, gathered, against the
+            # whole model's: rank 0 reads it from the file the parent
+            # wrote; the leaves whole on both ranks compared between them
+            batch = first_batch(job, cfg, dev)
+            mine = sp.shard_tree(whole, layout)
+            del whole
+            with first_routing() as seen:
+                loss, grads = value_and_grad(lambda p, b: model.loss_fn(
+                    p, b, cfg, policy=policy)[0])(mine, batch)
+            grad = {"loss": float(loss)}
+            if moe:
+                with torch.no_grad():
+                    grad["dropped"] = float(model.loss_fn(
+                        mine, batch, cfg, policy=policy)[1]["dropped"])
+            del mine, batch
+            want = (torch.load(grad_path.format(arch=arch),
+                               map_location="cpu")
+                    if mesh.rank == 0 else None)
+            refs = want["refs"] if want else {}
+            rels, same = {k: {} for k in refs}, {}
+            for path, gr, ax in zip(paths, tree_leaves(grads), layout.axes):
+                if ax is None:
+                    both = mesh.all_gather(gr, over="model")
+                    same[path] = bool(torch.equal(both[0], both[1]))
+                    del both
+                if _held(cfg, path):
+                    full = sp.gather_leaf(gr, ax, mesh)
+                    for k, ref in refs.items():
+                        rels[k][path] = rel_l2(full, ref[path].to(dev))
+                    del full
+            grad.update(rel_l2=rels, whole_equal=same,
+                        split=[ax is not None for ax in layout.axes])
+            if want is not None and want["eids"] is not None:
+                # the first MoE layer's routing against the whole model's
+                flip = seen[0].cpu() != want["eids"]
+                grad["flipped"] = [int(flip.sum()), int(flip.any(-1).sum()),
+                                   flip.numel()]
+            row["grad"] = grad
+            del grads, want, refs
+            lap("gradient")
+            # the dry run's cell on the card
+            settle()
+            base = torch.cuda.memory_allocated(dev)
+            shape = InputShape(f"{name}_cell", job["seq"], job["batch"],
+                               "train")
+            built = dr.build_train(arch, cfg, mesh, shape, device=dev,
+                                   aggregate=job["dry_wire"],
+                                   policy=job["policy"])
+            state = dr.steady_state(built.init_fn(built.params))
+            del built.params
+            for step in ("local_step", "sync_step"):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                live = torch.cuda.memory_allocated(dev) - base
+                result, got = dr.measure(built.steps[step],
+                                         (state, built.batch), mesh)
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated(dev) - base
+                del result
+                row["steps"][step] = {"flops": got["flops"],
+                                      "launches": got["launches"],
+                                      "live_before_bytes": live,
+                                      "peak_bytes": peak}
+                lap(f"dry {step}")
+            if job["profile"]:
+                # a sync step profiled alone (under measure's dispatch
+                # mode the trace's collective records carry no dtypes)
+                with torch.profiler.profile(
+                        activities=[torch.profiler.ProfilerActivity.CPU],
+                        record_shapes=True) as prof:
+                    result = built.steps["sync_step"](state, built.batch)
+                    torch.cuda.synchronize()
+                del result
+                row["collectives"] = collective_bytes(
+                    events_from_profile(prof))
+                lap("profiled sync")
+            del built, state
+            settle()
+            # the uplink per shard against whole leaves on one full-size
+            # delta of two bf16 iterates
+            gen = torch.Generator(device=dev).manual_seed(7)
+            tree, tree_specs = uplink_tree(
+                cfg, model.init_params(gen, cfg, device=dev), specs)
+            delta = tree_map(lambda x: x.float() - (
+                x.float() - 1e-3 * torch.randn(x.shape, generator=gen,
+                                               device=dev)
+            ).to(x.dtype).float(), tree)
+            del tree
+            comp = ShardCompressor.from_spec(pol.as_channel_spec(
+                get_policy_preset(job["policy"][len("preset:"):], arch=arch)
+            ).uplink, delta, dispatch=DISPATCH)
+            layout = sp.shard_layout(tree_specs, delta, mesh)
+            mine = sp.shard_tree(delta, layout)
+            shards = ModelShards(layout, mesh)
+            rng = lambda: torch.Generator(device=dev).manual_seed(5)  # noqa
+            q_mine, bits_mine = comp(mine, tree_specs, rng=rng(),
+                                     shards=shards)
+            cbits_mine = comp.compact(mine, tree_specs, rng=rng(),
+                                      shards=shards)[2]
+            q_whole, bits_whole = comp(delta, tree_specs, rng=rng())
+            cbits_whole = comp.compact(delta, tree_specs, rng=rng())[2]
+            row["whole"] = {
+                "bits": [float(bits_mine), float(bits_whole)],
+                "compact_bits": [float(cbits_mine), float(cbits_whole)],
+                "leaves_equal": [
+                    bool(torch.equal(sp.gather_leaf(a, ax, mesh), b))
+                    for a, b, ax in zip(tree_leaves(q_mine),
+                                        tree_leaves(q_whole), layout.axes)],
+                "split": [ax is not None for ax in layout.axes]}
+            del delta, mine, q_mine, q_whole
+            settle()
+            lap("uplink")
+    finally:
+        mesh.close()
+    print("RANKS " + json.dumps(out), flush=True)
+
+
+def rank_runs(name: str, grad_path: str, gate: str = None) -> list:
+    """A job's ranks, spawned from here (:func:`rank_job` in each, with
+    ``gate``): each rank's result, in rank order."""
     from repro_torch.launch.mesh import run_local_ranks
-    code = EP_CODE.format(
-        src=SRC, mesh=EP["mesh"], arch=EP["arch"], layers=EP["layers"],
-        batch=EP["batch"], seq=EP["seq"], steps=EP["steps"], H=EP["H"],
-        policy=EP["policy"], preset=EP["policy"][len("preset:"):],
-        dispatch=DISPATCH, grads=grad_path, leaves=EP_GRAD_LEAVES)
-    procs = run_local_ranks([sys.executable, "-c", code], EP["ranks"],
+    code = (f"import sys; sys.path[:0] = [{SRC!r}, {HERE!r}]; "
+            f"import chip_smoke; chip_smoke.rank_job({name!r}, "
+            f"{grad_path!r}, {gate!r})")
+    procs = run_local_ranks([sys.executable, "-c", code], 2,
                             env=dict(os.environ, PYTHONPATH=SRC),
                             timeout=900)
     outs = []
     for r, (rc, text, err) in enumerate(procs):
         if rc != 0:
-            raise AssertionError(f"expert-parallel rank {r} exited {rc}:\n"
+            raise AssertionError(f"{name} rank {r} exited {rc}:\n"
                                  f"{err[-3000:]}")
-        line = next(l for l in text.splitlines() if l.startswith("EP "))
-        outs.append(json.loads(line[3:]))
+        line = next(l for l in text.splitlines() if l.startswith("RANKS "))
+        outs.append(json.loads(line[len("RANKS "):]))
     return outs
 
 
-def phase_ep(dev, dry: dict, twins: dict, ranks: list) -> tuple:
-    """Expert parallelism on the card (``--mesh 1x2``: EP's qwen3-moe job,
-    two gloo ranks sharing the card, 64 experts a rank, the model's
-    collectives staged through host memory): ``ranks`` (``ep_ranks``)
-    against ``twins`` (``ep_twins``).  On both wires: each rank's record
-    against its twin's: kinds and rounds equal, the ledgers within
-    EP_BITS_RTOL, every loss within EP_LOSS_RTOL and finite; each wire's
-    bits up equal on both ranks (the two wires' part where a row ties
-    past kcap, at 1x1 too: printed).  Each rank's EP region within
-    EP_REGION_TOL of the whole region on the same inputs, ``dropped``
-    equal.  The backward: each expert, router and attention leaf's
-    first-step gradient, gathered, within EP_GRAD_RTOL of the whole
-    model's (relative L2), the witnesses and the first layer's flipped
-    routing beside it.  The launches a sync: the dry record's count of
-    the wire's kernel, at the distinct shapes ``ep_plans`` gives; each
-    shape then held against its plain version here.  The dry run's cell
-    (``dry``: EP's ``1x2`` records by wire): each rank's eager local and
-    sync step on the dense wire, FLOPs and launches equal, the peak,
-    arguments and temporaries within DRY_PEAK_TOL; the collective bytes
-    of one profiled sync step, by kind, equal to the record's
-    model-group bytes.  The uplink per shard against whole
-    leaves on a full-size delta of the expert stacks: bits of both forms
-    and the output, bit for bit.  ms a step printed, labelled as gloo
-    through host memory.  Returns (the ``topk_compact`` and the
-    ``topk_compress`` check rows at EP's shapes, each with its launches
-    on the path, the launches by kernel)."""
+def against_twin(rec: dict, twin: dict, what: str, faults: list) -> tuple:
+    """A rank's launcher record at 1x2 against its ``1x1`` twin's: kinds
+    and rounds equal, the ledgers (up and down) within TP_BITS_RTOL,
+    every loss within TP_LOSS_RTOL and finite.  Returns (the ledgers'
+    largest relative gap, each loss's)."""
+    import numpy as np
+    for k in ("kind", "rounds"):
+        if rec[k] != twin[k]:
+            faults.append(f"{what}: {k} {rec[k]} at 1x2, {twin[k]} at 1x1")
+    bits_rel = max(abs(a - b) / max(abs(b), 1.0) for a, b in zip(
+        rec["bits_up"] + rec["bits_down"],
+        twin["bits_up"] + twin["bits_down"]))
+    if bits_rel > TP_BITS_RTOL:
+        faults.append(f"{what}: ledgers {bits_rel:.3g} apart "
+                      f"(> {TP_BITS_RTOL})")
+    loss_rel = [abs(a - b) / abs(b)
+                for a, b in zip(rec["loss"], twin["loss"])]
+    if max(loss_rel) > TP_LOSS_RTOL or not all(np.isfinite(rec["loss"])):
+        faults.append(f"{what}: losses {rec['loss']} against "
+                      f"{twin['loss']}")
+    return bits_rel, loss_rel
+
+
+def against_dry(steps: dict, dry_steps: dict, what: str,
+                faults: list) -> None:
+    """A rank's eager steps, measured as the dry run measures, against
+    the dry run's record of each: FLOPs and launches equal, the peak,
+    the bytes live at the step's start and the peak over them within
+    DRY_PEAK_TOL of its argument + temp bytes, argument bytes and temp
+    bytes.  Each step's entry gains its gaps and the prediction."""
+    for name, got in steps.items():
+        want = dry_steps[name]
+        mem = want["memory"]
+        if got["flops"] != want["flops"]:
+            faults.append(f"{what} {name}: {got['flops']} FLOPs, "
+                          f"{want['flops']} in the dry run")
+        if got["launches"] != want["launches"]:
+            faults.append(f"{what} {name}: launches {got['launches']}, "
+                          f"{want['launches']} dry")
+        got["rel_gap"] = _near(
+            got["peak_bytes"], mem["argument_bytes"] + mem["temp_bytes"],
+            f"{what} {name} peak", faults)
+        got["rel_gap_arguments"] = _near(
+            got["live_before_bytes"], mem["argument_bytes"],
+            f"{what} {name} arguments", faults)
+        got["rel_gap_temp"] = _near(
+            got["peak_bytes"] - got["live_before_bytes"], mem["temp_bytes"],
+            f"{what} {name} temporaries", faults)
+        got["predicted"] = mem
+
+
+def _kernel(wire: str) -> str:
+    return "topk_compact" if wire == "sparse_allgather" else "topk_compress"
+
+
+def phase_ranks(dev, name: str, dry: dict, twins: dict,
+                ranks: list) -> tuple:
+    """A model-parallel job on the card (``RANK_JOBS[name]`` at
+    ``RANK_MESH``: two gloo ranks sharing the card, each its model
+    shards, the model's collectives staged through host memory):
+    ``ranks`` (:func:`rank_runs`) against ``twins`` (:func:`rank_twins`),
+    by arch.  On each wire, each rank's record against its twin's
+    (:func:`against_twin`); its bits up equal on both ranks, and where
+    the twin's wires agree, the wires' at 1x2 too (the same survivors).
+    The launches a sync: the dry record's count of the wire's kernel and
+    no other, at the distinct shapes ``rank_plans`` gives; each shape
+    then held against its plain version here.  The MoE family's EP
+    region within EP_REGION_TOL of the whole region on the same inputs,
+    ``dropped`` equal.  The backward: each held leaf's first-step
+    gradient, gathered, within the job's ``grad_rtol`` of the whole
+    model's (relative L2; in the MoE family also of the whole model's
+    with the experts' backward hand-written), the witnesses (the ``1x1``
+    run with the batch rows swapped: its gradients, losses and ledger)
+    printed beside it; every leaf whole on both ranks with a gradient
+    equal bit for bit between them.  The dry run's cell (``dry``: the
+    job's records by arch and wire): each rank's eager local and sync
+    step on ``dry_wire`` (:func:`against_dry`), and with ``profile`` the
+    collective bytes of one profiled sync step, by kind, equal to the
+    record's model-group bytes (at ``1x2`` every collective is the model
+    group's: the data group is one rank).  The uplink per shard against
+    whole leaves on a full-size delta: bits of both forms and the
+    output, bit for bit.  ms a step printed, labelled as gloo through
+    host memory.  Returns (the ``topk_compact`` and the
+    ``topk_compress`` check rows at the job's shapes, each with its
+    launches on the path, the launches by kernel)."""
     import numpy as np
     from repro_torch.kernels import dispatch as dsp
     t0 = time.perf_counter()
-    wires = ("sparse_allgather", "dense_psum")
-    for wire in wires:
-        _ok(dry[wire], f"the 1x2 EP cell on {wire}")
-    plans = ep_plans()
+    job = RANK_JOBS[name]
+    plans = rank_plans(name)
     faults, totals, at = [], {}, {}
-    out = {"card": card(), "arch": EP["arch"], "layers": EP["layers"],
-           "mesh": EP["mesh"], "policy": EP["policy"], "wires": {},
-           "ranks": [], "plans": plans}
-    for wire in wires:
-        twin = twins[wire]
-        kern = ("topk_compact" if wire == "sparse_allgather"
-                else "topk_compress")
-        per_sync = dry[wire]["steps"]["sync_step"]["launches"]
-        want_shapes = sorted({(k, rows, n) for k, rows, n, _ in plans[wire]})
-        row = {"losses_1x1": twin["loss"], "bits_up_1x1": twin["bits_up"],
-               "bits_down_1x1": twin["bits_down"],
-               "ms_per_step_1x1": float(np.median(twin["ms"])),
-               "launches_per_sync": per_sync, "ranks": []}
-        for r in ranks:
-            run = r["runs"][wire]
-            rec = run["rec"]
-            bits_rel, loss_rel = against_twin(
-                rec, twin, f"ep {wire} rank {r['rank']}", EP_BITS_RTOL,
-                EP_LOSS_RTOL, faults)
-            if rec["bits_up"] != ranks[0]["runs"][wire]["rec"]["bits_up"]:
-                faults.append(f"ep {wire} rank {r['rank']}: bits up "
-                              f"{rec['bits_up']} differ between the ranks")
-            n_syncs = rec["kind"].count("sync")
-            for counts in rec["launches_per_sync"]:
-                got = {k: v for k, v in counts.items() if v}
-                if got != per_sync or set(got) != {kern}:
-                    faults.append(f"ep {wire}: a sync launched {got}, the "
-                                  f"dry run {per_sync}")
-            launched = [tuple(x) for x in run["launched"]]
-            if (sorted(set(launched)) != want_shapes
-                    or len(launched) != n_syncs * per_sync.get(kern, -1)):
-                faults.append(f"ep {wire}: launched {launched}, planned "
-                              f"{plans[wire]}")
-            totals[kern] = totals.get(kern, 0) + len(launched)
-            for key in launched:
-                at[key] = at.get(key, 0) + 1
-            ms = float(np.median(rec["ms"]))
-            row["ranks"].append({
-                "rank": r["rank"], "loss": rec["loss"],
-                "loss_rel_diff": loss_rel, "bits_up": rec["bits_up"],
-                "bits_down": rec["bits_down"], "ledger_rel_diff": bits_rel,
-                "fused": rec["fused"], "model_axis": rec["model_axis"],
-                "peak_device_bytes": rec.get("peak_device_bytes"),
-                "ms_per_step_median_gloo_host": ms})
-        out["wires"][wire] = row
-        print(f"ep {wire}: ms a step "
-              f"{[x['ms_per_step_median_gloo_host'] for x in row['ranks']]}"
-              f" at 1x2 over gloo through host memory, "
-              f"{row['ms_per_step_1x1']:.1f} at 1x1 eager alone",
+    out = {"card": card(), "mesh": RANK_MESH, "layers": job["layers"],
+           "policy": job["policy"], "archs": {}}
+    for arch in job["archs"]:
+        what = f"{name} {arch}"
+        for wire in job["wires"]:
+            _ok(dry[arch][wire], f"the {RANK_MESH} {arch} cell on {wire}")
+        twin = twins[arch]
+        row = {"wires": {}, "ranks": [], "plans": plans[arch]}
+        first = [r["archs"][arch] for r in ranks]
+        for wire in job["wires"]:
+            kern = _kernel(wire)
+            per_sync = dry[arch][wire]["steps"]["sync_step"]["launches"]
+            want_shapes = sorted({(k, rows, n)
+                                  for k, rows, n, _, _ in plans[arch][wire]})
+            wrow = {"losses_1x1": twin[wire]["loss"],
+                    "bits_up_1x1": twin[wire]["bits_up"],
+                    "bits_down_1x1": twin[wire]["bits_down"],
+                    "ms_per_step_1x1": float(np.median(twin[wire]["ms"])),
+                    "launches_per_sync": per_sync, "ranks": []}
+            for r, got in zip(ranks, first):
+                run = got["runs"][wire]
+                rec = run["rec"]
+                who = f"{what} {wire} rank {r['rank']}"
+                bits_rel, loss_rel = against_twin(rec, twin[wire], who,
+                                                  faults)
+                if rec["bits_up"] != first[0]["runs"][wire]["rec"]["bits_up"]:
+                    faults.append(f"{who}: bits up {rec['bits_up']} differ "
+                                  "between the ranks")
+                n_syncs = rec["kind"].count("sync")
+                for counts in rec["launches_per_sync"]:
+                    seen = {k: v for k, v in counts.items() if v}
+                    if seen != per_sync or set(seen) != {kern}:
+                        faults.append(f"{who}: a sync launched {seen}, the "
+                                      f"dry run {per_sync}")
+                launched = [tuple(x) for x in run["launched"]]
+                if (sorted(set(launched)) != want_shapes or len(launched)
+                        != n_syncs * per_sync.get(kern, -1)):
+                    faults.append(f"{who}: launched {launched}, planned "
+                                  f"{plans[arch][wire]}")
+                totals[kern] = totals.get(kern, 0) + len(launched)
+                for key in launched:
+                    at[key] = at.get(key, 0) + 1
+                wrow["ranks"].append({
+                    "rank": r["rank"], "loss": rec["loss"],
+                    "loss_rel_diff": loss_rel, "bits_up": rec["bits_up"],
+                    "bits_down": rec["bits_down"],
+                    "ledger_rel_diff": bits_rel, "fused": rec["fused"],
+                    "model_axis": rec["model_axis"],
+                    "peak_device_bytes": rec.get("peak_device_bytes"),
+                    "ms_per_step_median_gloo_host":
+                        float(np.median(rec["ms"]))})
+            row["wires"][wire] = wrow
+            print(f"{what} {wire}: ms a step "
+                  f"{[x['ms_per_step_median_gloo_host'] for x in wrow['ranks']]}"
+                  f" at 1x2 over gloo through host memory, "
+                  f"{wrow['ms_per_step_1x1']:.1f} at 1x1 eager alone",
+                  flush=True)
+        if len(job["wires"]) > 1:
+            # the wires' uplinks: where they agree at 1x1, they do at 1x2
+            # (the sparse wire emits at most kcap survivors a row, the
+            # dense one every tied survivor)
+            gap = {m: (runs["dense_psum"]["bits_up"][-1]
+                       - runs["sparse_allgather"]["bits_up"][-1])
+                   / runs["dense_psum"]["bits_up"][-1]
+                   for m, runs in (("1x1", twin), ("1x2", {
+                       w: first[0]["runs"][w]["rec"] for w in job["wires"]}))}
+            row["wire_gap"] = gap
+            if gap["1x1"] == 0 and gap["1x2"] != 0:
+                faults.append(f"{what}: the wires' ledgers part at 1x2 "
+                              f"({gap['1x2']:.3g}), not at 1x1")
+        if "region" in first[0]:
+            for r, got in zip(ranks, first):
+                reg = got["region"]
+                if (reg["row_gap"] > EP_REGION_TOL
+                        or reg["dropped"][0] != reg["dropped"][1]):
+                    faults.append(f"{what} rank {r['rank']}: the EP region "
+                                  f"{reg} against the whole region")
+            row["region"] = [got["region"] for got in first]
+        # the backward: each leaf's gathered gradient against the whole
+        # model's; the witnesses beside it, not held
+        grad, wgrad = first[0]["grad"], twin["grad"]
+        loss0 = twin[job["wires"][0]]["loss"][0]
+        worst = {k: max(v, key=v.get) for k, v in grad["rel_l2"].items()}
+        for k, leaf in worst.items():
+            if grad["rel_l2"][k][leaf] > job["grad_rtol"] or set(
+                    grad["rel_l2"][k]) != set(wgrad["rel_l2"]["swapped"]):
+                faults.append(f"{what} gradient against {k}: {leaf} "
+                              f"{grad['rel_l2'][k][leaf]:.3g} "
+                              f"(> {job['grad_rtol']})")
+        if not worst or abs(grad["loss"] - loss0) > TP_LOSS_RTOL * abs(loss0):
+            faults.append(f"{what} gradient: loss {grad['loss']} against "
+                          f"{loss0}")
+        for r, got in zip(ranks, first):
+            if not all(got["grad"]["whole_equal"].values()):
+                faults.append(f"{what} rank {r['rank']}: whole leaves' "
+                              f"gradients differ between the ranks: "
+                              f"{got['grad']['whole_equal']}")
+        swap = twin["swapped"]
+        base = twin[job["wires"][0]]
+        row["backward"] = {
+            "rel_l2_1x2": grad["rel_l2"], "witness_rel_l2": wgrad["rel_l2"],
+            "max_rel_l2": {
+                **{f"1x2_vs_{k}": grad["rel_l2"][k][v]
+                   for k, v in worst.items()},
+                **{f"{k}_vs_autograd": max(v.values())
+                   for k, v in wgrad["rel_l2"].items()}},
+            "worst": worst,
+            "loss": {"1x2": grad["loss"], **wgrad["loss"],
+                     "launcher_1x1": loss0},
+            "whole_leaves": len(grad["whole_equal"]),
+            "split_leaves": sum(grad["split"])}
+        if "dropped" in grad:
+            row["backward"]["dropped"] = {**wgrad["dropped"],
+                                          "1x2": grad["dropped"]}
+            row["backward"]["flipped_assignments"] = grad["flipped"]
+        row["witness_swapped_1x1"] = {
+            "loss": swap["loss"],
+            "loss_rel_diff": [abs(a - b) / abs(b)
+                              for a, b in zip(swap["loss"], base["loss"])],
+            "bits_up": swap["bits_up"],
+            "ledger_rel_diff": max(abs(a - b) / max(abs(b), 1.0)
+                                   for a, b in zip(swap["bits_up"],
+                                                   base["bits_up"]))}
+        mx = row["backward"]["max_rel_l2"]
+        print(f"{what} backward: gathered gradients within "
+              f"{ {k: round(v, 6) for k, v in mx.items() if k.startswith('1x2')} }"
+              f" of the whole model's (worst {worst}); witnesses "
+              f"{ {k: round(v, 6) for k, v in mx.items() if not k.startswith('1x2')} }"
+              f", the swapped run's losses "
+              f"{row['witness_swapped_1x1']['loss_rel_diff']}, ledger "
+              f"{row['witness_swapped_1x1']['ledger_rel_diff']:.3g}"
+              + (f"; the first layer's routing at 1x2: "
+                 f"{grad['flipped'][0]} of {grad['flipped'][2]} assignments"
+                 f" on other experts" if "flipped" in grad else ""),
               flush=True)
-    # the wires' uplinks part at 1x1 as at 1x2: the sparse wire emits at
-    # most kcap survivors a row, the dense one every tied survivor
-    out["wire_gap"] = {
-        m: (runs["dense_psum"]["bits_up"][-1]
-            - runs["sparse_allgather"]["bits_up"][-1])
-        / runs["dense_psum"]["bits_up"][-1]
-        for m, runs in (("1x1", twins), ("1x2", {
-            w: ranks[0]["runs"][w]["rec"] for w in wires}))}
-    for r in ranks:
-        reg = r["region"]
-        if (reg["row_gap"] > EP_REGION_TOL
-                or reg["dropped"][0] != reg["dropped"][1]):
-            faults.append(f"ep rank {r['rank']}: the EP region {reg} "
-                          "against the whole region")
-    out["region"] = [r["region"] for r in ranks]
-    # the backward: each leaf's gathered gradient against the whole
-    # model's, with the experts' backward hand-written as at 1x2 ("hand")
-    # and as the 1x1 run computes it ("autograd"); the witnesses (the
-    # whole model: "hand" against "autograd", the batch rows swapped)
-    # beside them, not held
-    grad, wgrad = ranks[0]["grad"], twins["grad"]
-    first = twins["sparse_allgather"]["loss"][0]
-    worst = {k: max(v, key=v.get) for k, v in grad["rel_l2"].items()}
-    for k in ("hand", "autograd"):
-        if (grad["rel_l2"][k][worst[k]] > EP_GRAD_RTOL
-                or set(grad["rel_l2"][k]) != set(wgrad["rel_l2"]["hand"])):
-            faults.append(f"ep gradient against {k}: {worst[k]} "
-                          f"{grad['rel_l2'][k][worst[k]]:.3g} "
-                          f"(> {EP_GRAD_RTOL})")
-    if abs(grad["loss"] - first) > EP_LOSS_RTOL * abs(first):
-        faults.append(f"ep gradient: loss {grad['loss']} against {first}")
-    swap = twins["swapped"]
-    out["backward"] = {
-        "rel_l2_1x2": grad["rel_l2"], "witness_rel_l2": wgrad["rel_l2"],
-        "max_rel_l2": {
-            **{f"1x2_vs_{k}": v[worst[k]] for k, v in grad["rel_l2"].items()},
-            **{f"{k}_vs_autograd": max(v.values())
-               for k, v in wgrad["rel_l2"].items()}},
-        "loss": {"1x2": grad["loss"], **wgrad["loss"], "launcher_1x1": first},
-        "dropped": {**wgrad["dropped"], "1x2": grad["dropped"]},
-        "flipped_assignments": grad["flipped"]}
-    out["witness_swapped_1x1"] = {
-        "loss": swap["loss"],
-        "loss_rel_diff": [abs(a - b) / abs(b) for a, b in
-                          zip(swap["loss"],
-                              twins["sparse_allgather"]["loss"])],
-        "bits_up": swap["bits_up"],
-        "ledger_rel_diff": max(abs(a - b) / max(abs(b), 1.0) for a, b in
-                               zip(swap["bits_up"],
-                                   twins["sparse_allgather"]["bits_up"]))}
-    mx = out["backward"]["max_rel_l2"]
-    print(f"ep backward: gathered gradients within "
-          f"{mx['1x2_vs_hand']:.3g} of the whole model's with the experts' "
-          f"backward hand-written (worst {worst['hand']}), "
-          f"{mx['1x2_vs_autograd']:.3g} of its autograd one (worst "
-          f"{worst['autograd']}); witnesses: hand-written against autograd "
-          f"{mx['hand_vs_autograd']:.3g}, the batch rows swapped "
-          f"{mx['swapped_vs_autograd']:.3g} (dropped {wgrad['dropped']}, "
-          f"{grad['dropped']} at 1x2); the first layer's routing at 1x2: "
-          f"{grad['flipped'][0]} of {grad['flipped'][2]} assignments "
-          f"({grad['flipped'][1]} tokens) on other experts; "
-          f"the swapped run's losses "
-          f"{out['witness_swapped_1x1']['loss_rel_diff']}, ledger "
-          f"{out['witness_swapped_1x1']['ledger_rel_diff']:.3g}",
-          flush=True)
-    want_coll = dry["dense_psum"]["steps"]["sync_step"][
-        "collectives_by_group"].get("model", {"total": 0})
-    for r in ranks:
-        against_dry(r["steps"], dry["dense_psum"]["steps"],
-                    f"ep rank {r['rank']}", faults)
-        if r["collectives"] != want_coll or not want_coll["total"]:
-            faults.append(f"ep rank {r['rank']}: collectives "
-                          f"{r['collectives']} in the trace, {want_coll} "
-                          "in the dry run")
-        whole = r["whole"]
-        if (len(set(whole["bits"])) != 1 or len(set(whole["compact_bits"]))
-                != 1 or not all(whole["leaves_equal"])
-                or not all(whole["split"])):
-            faults.append(f"ep rank {r['rank']}: per shard against whole "
-                          f"leaves: {whole}")
-        out["ranks"].append({"rank": r["rank"], "steps": r["steps"],
-                             "collectives": r["collectives"],
-                             "whole": whole})
-    out["dry_collectives_model"] = want_coll
-    print("ep", json.dumps(out), flush=True)
+        dry_steps = dry[arch][job["dry_wire"]]["steps"]
+        want_coll = dry_steps["sync_step"]["collectives_by_group"].get(
+            "model", {"total": 0})
+        for r, got in zip(ranks, first):
+            who = f"{what} rank {r['rank']}"
+            against_dry(got["steps"], dry_steps, who, faults)
+            if job["profile"] and (got["collectives"] != want_coll
+                                   or not want_coll["total"]):
+                faults.append(f"{who}: collectives {got['collectives']} in "
+                              f"the trace, {want_coll} in the dry run")
+            whole = got["whole"]
+            if (len(set(whole["bits"])) != 1
+                    or len(set(whole["compact_bits"])) != 1
+                    or not all(whole["leaves_equal"])):
+                faults.append(f"{who}: per shard against whole leaves: "
+                              f"{whole}")
+            row["ranks"].append({"rank": r["rank"], "steps": got["steps"],
+                                 "collectives": got.get("collectives"),
+                                 "whole": whole, "seconds": got["seconds"]})
+        row["dry_collectives_model"] = want_coll
+        out["archs"][arch] = row
+        print(f"{what} rank 0 seconds by part: "
+              f"{ {k: round(v, 1) for k, v in first[0]['seconds'].items()} }",
+              flush=True)
+    print(name, json.dumps(out), flush=True)
     _raise(faults)
     compact, dense = [], []
-    for _, rows, n, k in plans["sparse_allgather"]:
-        compact.append(check_compact(dev, rows, n, k, dsp.capacity(k, n),
-                                     False, 10))
-        compact[-1]["launches"] = at.get(("topk_compact", rows, n), 0)
-    for _, rows, n, k in plans["dense_psum"]:
-        dense.append(check_topk(dev, rows, n, k, False, 10))
-        dense[-1]["launches"] = at.get(("topk_compress", rows, n), 0)
-    for name, rows in (("topk_compact", compact), ("topk_compress", dense)):
-        for row in rows:
-            print(f"kernel check ep {name}", json.dumps(row), flush=True)
-    print(f"ep: {time.perf_counter() - t0:.1f}s", flush=True)
+    for arch in job["archs"]:
+        for wire in job["wires"]:
+            for kern, rows, n, k, sign in plans[arch][wire]:
+                if kern == "topk_compact":
+                    compact.append(check_compact(
+                        dev, rows, n, k, dsp.capacity(k, n), sign, 10))
+                    got = compact[-1]
+                else:
+                    dense.append(check_topk(dev, rows, n, k, sign, 10))
+                    got = dense[-1]
+                got["launches"] = at.get((kern, rows, n), 0)
+                got["model"] = f"{arch} {RANK_MESH}"
+                print(f"kernel check {name} {kern}", json.dumps(got),
+                      flush=True)
+    print(f"{name}: {time.perf_counter() - t0:.1f}s", flush=True)
     return compact, dense, totals
 
 
@@ -4366,10 +4163,12 @@ FAMILY_SERVE = (
 #: path against the plain path within 2^-7 of each row's largest logit
 FAMILY_F32_LAYERS = {"rwkv6-3b": 4, "zamba2-7b": 12, "qwen3-moe-30b-a3b": 4}
 #: ... and trained through the launcher at full width, R = 1, the depth
-#: cut so that a run's peak stays under FAMILY_PEAK_BYTES
+#: cut so that a run's peak stays under FAMILY_PEAK_BYTES, and for the
+#: script's time (rwkv6-3b and zamba2-7b at 6 layers: zamba2's shared
+#: block then runs once, before layer 0)
 FAMILY_TRAIN = {"batch": 2, "seq": 1024, "steps": 8, "H": 4,
-                "layers": {"qwen3-moe-30b-a3b": 1, "rwkv6-3b": 12,
-                           "zamba2-7b": 12}}
+                "layers": {"qwen3-moe-30b-a3b": 1, "rwkv6-3b": 6,
+                           "zamba2-7b": 6}}
 FAMILY_PEAK_BYTES = 70 * 2 ** 30
 #: what each family's preset:arch resolves, by DSL rule (first match
 #: wins): (pattern, the operator of the leaves it matches, the operator
@@ -4942,17 +4741,6 @@ def _ranks_shape():
                       "train")
 
 
-def ep_dry_records() -> dict:
-    """The dry run's records of EP's cell at ``1x2`` by wire (on meta)."""
-    from repro_torch.configs.base import InputShape
-    from repro_torch.launch import dryrun as dr
-    shape = InputShape("ep_cell", EP["seq"], EP["batch"], "train")
-    return {wire: dr.run_one(EP["arch"], shape=shape, mesh=EP["mesh"],
-                             cfg_overrides={"n_layers": EP["layers"]},
-                             aggregate=wire, policy=EP["policy"])
-            for wire in ("sparse_allgather", "dense_psum")}
-
-
 def dry_records() -> dict:
     """Every dry-run record ``phase_dryrun`` holds against the card, on
     the ``meta`` device: host work only, run in a process of its own
@@ -4972,8 +4760,7 @@ def dry_records() -> dict:
                LM["arch"], shape=_ranks_shape(), smoke=True,
                mesh=f"{DRY_RANKS['ranks']}x1", aggregate=wire)
                for wire in ("dense_psum", "sparse_allgather")},
-           "tp": dr.run_one(LM["arch"], shape=shape, mesh=TP["mesh"], **kw),
-           "ep": ep_dry_records()}
+           "jobs": {name: rank_dry_records(name) for name in RANK_JOBS}}
     out["seconds"] = time.perf_counter() - t
     return out
 
@@ -5207,12 +4994,13 @@ def waited(future, what: str, timeout: float):
     return out
 
 
-def timed_phase(fn, *args):
+def timed_phase(fn, *args, name: str = None):
     """``fn(*args)``, printing the seconds it took (the run's budget by
-    phase)."""
+    phase) under ``name`` (default ``fn``'s)."""
     t = time.perf_counter()
     out = fn(*args)
-    print(f"phase {fn.__name__}: {time.perf_counter() - t:.1f}s", flush=True)
+    print(f"phase {name or fn.__name__}: {time.perf_counter() - t:.1f}s",
+          flush=True)
     return out
 
 
@@ -5293,41 +5081,52 @@ def main() -> int:
     for more in (flash_totals, ckpt_totals):
         for k, v in more.items():
             serve_totals[k] = serve_totals.get(k, 0) + v
-    # the tensor-parallel ranks (gloo through host memory; 2 x 19 GB on
-    # the card, which beside the fault phase ran out of memory) and
-    # (d)'s run beside the smoke model's multi-rank phases, which time
-    # nothing on the card; the 1x1 twins run before them, alone, and
-    # phase_tp's kernel checks after them
-    # the expert-parallel ranks (2 x ~17 GB) run after the tensor-parallel
-    # ones in the same worker thread, the card not holding both at once;
-    # their twins run first, alone
-    ep_tmp = tempfile.mkdtemp(dir=os.path.join(SRC, "repro_torch",
-                                               "kernels", "build"))
-    atexit.register(shutil.rmtree, ep_tmp, True)
-    ep_grads = os.path.join(ep_tmp, "grads.pt")
-    ep_twin = timed_phase(ep_twins, dev, ep_grads)
-    twins = timed_phase(tp_twins, dev)
-    tp_pool = ThreadPoolExecutor(1)
-    tp_pending = tp_pool.submit(tp_ranks)
-    ep_pending = tp_pool.submit(ep_ranks, ep_grads)
+    # the model-parallel ranks (gloo through host memory) run beside the
+    # smoke model's multi-rank phases, which time nothing on the card;
+    # the 1x1 twins before them, alone, and the phases' kernel checks
+    # after them.  The tensor-parallel ranks (beside the fault phase the
+    # card ran out of memory) and then the expert-parallel ones (2 x ~17
+    # GB) in one worker thread, the card not holding both at once; the
+    # RWKV-6 / Zamba2 ranks (2 x ~8 GB) in a thread of their own, started
+    # when the tensor-parallel ranks are done and let run when the smoke
+    # model's rank phases are too (beside both the card ran out of
+    # memory)
+    jobs_tmp = tempfile.mkdtemp(dir=os.path.join(SRC, "repro_torch",
+                                                 "kernels", "build"))
+    atexit.register(shutil.rmtree, jobs_tmp, True)
+    grads = {name: os.path.join(jobs_tmp, name + "_{arch}.pt")
+             for name in RANK_JOBS}
+    twins = {name: timed_phase(rank_twins, dev, name, grads[name],
+                               name=f"{name}_twins")
+             for name in RANK_JOBS}
+    tp_pool, ssm_pool = ThreadPoolExecutor(1), ThreadPoolExecutor(1)
+    pending = {name: tp_pool.submit(rank_runs, name, grads[name])
+               for name in ("tp", "ep")}
+    smoke_done = os.path.join(jobs_tmp, "smoke_done")
+    pending["tp_ssm"] = ssm_pool.submit(
+        lambda: (pending["tp"].exception(),
+                 rank_runs("tp_ssm", grads["tp_ssm"], smoke_done))[1])
     ranks_pool = ThreadPoolExecutor(1)
     ranks_pending = ranks_pool.submit(rank_collectives)
-    timed_phase(phase_lm_ranks, dev)
-    timed_phase(phase_lm_ranks_mesh, dev)
+    try:
+        timed_phase(phase_lm_ranks, dev)
+        timed_phase(phase_lm_ranks_mesh, dev)
+    finally:
+        open(smoke_done, "w").close()
     ranks = ranks_pending.result(timeout=600)
     ranks_pool.shutdown()
     dry = dry_pending.get(timeout=600)
-    tp_compact, tp_dense, tp_totals = timed_phase(
-        phase_tp, dev, dry["tp"], twins, waited(tp_pending, "tp_ranks", 900))
-    ep_compact, ep_dense, ep_totals = timed_phase(
-        phase_ep, dev, dry["ep"], ep_twin, waited(ep_pending, "ep_ranks", 900))
-    tp_pool.shutdown()
-    shutil.rmtree(ep_tmp, ignore_errors=True)
-    compact = compact + tp_compact + ep_compact
-    lm_topk = lm_topk + tp_dense + ep_dense
-    for more in (tp_totals, ep_totals):
-        for k, v in more.items():
+    for name in RANK_JOBS:
+        job_compact, job_dense, job_totals = timed_phase(
+            phase_ranks, dev, name, dry["jobs"][name], twins[name],
+            waited(pending[name], f"{name}_ranks", 900),
+            name=f"phase_{name}")
+        compact, lm_topk = compact + job_compact, lm_topk + job_dense
+        for k, v in job_totals.items():
             lm_totals[k] = lm_totals.get(k, 0) + v
+    tp_pool.shutdown()
+    ssm_pool.shutdown()
+    shutil.rmtree(jobs_tmp, ignore_errors=True)
     family_fa, family_fd = timed_phase(phase_family_kernels, dev)
     for more, into in ((timed_phase(phase_family_serve, dev), serve_totals),
                        (timed_phase(phase_family_train, dev), lm_totals)):
@@ -5352,7 +5151,7 @@ def main() -> int:
          "rows": [{"k": r["k"], "sign": r["sign"], **{
              k: r[k] for k in ("shape", "live", "max_abs_err", "ms",
                                "plain_ms", "bound_ms", "bound_by",
-                               "library_ms", "launches") if k in r}}
+                               "library_ms", "launches", "model") if k in r}}
              for r in topk + lm_topk + convex_checks["topk"]
              if r is not head_topk]},
         {"name": "qsgd_quantize", "route": "cuda",

@@ -35,10 +35,10 @@ data-parallel, ``256x1`` (record name ``dp256``) and ``2x128x1`` under
 production meshes too, ``16x16`` (and ``2x16x16``): R = P * D workers of
 M tensor-parallel ranks, rank 0 holding its model shard of every leaf;
 ``--mesh DxM|PxDxM`` names another.  A record carries the model axis's
-``head_divisibility_note``.  The families not yet tensor-parallel
-(``sharding.specs.TP_PENDING``) and serving with a model axis above 1
-give a record with ``status: "error"``, ``pending: true`` and the
-``PendingPort`` naming their ROADMAP item.  A training worker takes ``global_batch / R``
+``head_divisibility_note``.  Every family trains on a model axis;
+serving with a model axis above 1 gives a record with ``status:
+"error"``, ``pending: true`` and the ``PendingPort`` naming its ROADMAP
+item.  A training worker takes ``global_batch / R``
 sequences; a serving batch is split over the workers where it divides,
 else every device serves it whole (``repro``'s rule).
 
@@ -339,8 +339,7 @@ def build_train(arch: str, cfg, mesh, shape, *, zero1: bool = False,
     ``batch``): a step is ``step(state, batch)``, its stochastic
     operators drawing from the job's generator (on meta they draw
     nothing).  Above one model rank ``params`` are the rank's model
-    shards and the loss runs tensor-parallel (``activation_policy``;
-    a family not ported for it raises)."""
+    shards and the loss runs tensor-parallel (``activation_policy``)."""
     model = get_model(cfg)
     sharding = activation_policy(cfg, mesh)
     gen = (None if torch.device(device).type == "meta"
@@ -567,7 +566,7 @@ def run_one(arch: str, shape_name: Optional[str] = None, *,
 
 def pending(record: dict) -> bool:
     """Is an error record a refusal that names the ROADMAP item still to
-    port it (a family's tensor parallelism, serving on a model axis)?"""
+    port it (serving on a model axis)?"""
     return record.get("status") == "error" and record.get("pending", False)
 
 

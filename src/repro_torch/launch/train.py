@@ -13,6 +13,9 @@ RWKV-6, Zamba2), one process per worker:
   # eight GPUs, four workers of two tensor-parallel ranks each
   PYTHONPATH=src torchrun --nproc-per-node 8 -m repro_torch.launch.train \\
       --arch gemma3-1b --mesh 4x2 --policy preset:arch
+  # RWKV-6 or Zamba2 the same way (either wire, --zero1, --resume)
+  PYTHONPATH=src torchrun --nproc-per-node 8 -m repro_torch.launch.train \\
+      --arch rwkv6-3b --mesh 4x2 --policy preset:arch --zero1
   # the CPU, at the smoke size
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b \\
       --smoke --mesh 1x1 --device cpu --steps 4 --H 2
@@ -46,8 +49,8 @@ Only rank 0 prints and writes ``--ckpt`` (every rank joins the master's
 gather first under ``--zero1`` or a model axis above 1).
 
 A mesh ``DxM`` / ``PxDxM`` takes ``P * D * M`` ranks: R = P * D workers of
-M tensor-parallel ranks each (the dense family; the other families
-refuse M > 1, naming their ROADMAP item).  The parameters are drawn
+M tensor-parallel ranks each (every family: the MoE experts split over
+the group, RWKV-6 and Zamba2 as ``repro``'s specs place them).  The parameters are drawn
 whole from ``--seed`` (or restored whole from ``--resume``) and each
 rank keeps its model shard, so a run equals its ``Dx1`` twin within
 rounding, with the same ledgers; a worker's batch rows (its data

@@ -55,7 +55,6 @@ from repro_torch.models.layers import (
     attn_block_train,
     attn_params,
     cache_prefill,
-    chunked_ce,
     dense_init,
     embed,
     init_kv_cache,
@@ -68,7 +67,7 @@ from repro_torch.models.layers import (
     swiglu,
     unstack_layers,
 )
-from repro_torch.models.transformer import _apply_head, _vocab_policy
+from repro_torch.models.transformer import lm_loss
 
 
 # ---------------------------------------------------------------------------
@@ -444,13 +443,7 @@ def loss_fn(params, batch: dict, cfg: ModelConfig, dispatch=None,
     h, _, metrics = apply_stack(params, h,
                                 prompt_positions(B, S, h.device), cfg,
                                 dispatch, policy=policy)
-    h = rmsnorm(h, params["final_norm"])
-    vocab = _vocab_policy(cfg, policy)
-    head = params["head"] if vocab is None else functools.partial(
-        _apply_head, params=params, cfg=cfg, dispatch=dispatch,
-        policy=policy)
-    ce = chunked_ce(h, head, tokens[:, 1:], loss_chunk,
-                    cfg.remat and h.requires_grad, vocab)
+    ce = lm_loss(h, params, tokens[:, 1:], cfg, loss_chunk, dispatch, policy)
     return ce + cfg.router_aux_weight * metrics["aux_loss"], metrics
 
 

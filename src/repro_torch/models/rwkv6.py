@@ -18,6 +18,22 @@ Decode is the O(1) recurrence.
 Every function takes and returns tensors on the parameters' device;
 there are no kernels on this path (``repro`` has no Pallas kernel here
 either).
+
+``loss_fn(..., policy=)`` trains on the policy's model group, as
+``repro`` places the leaves (``sharding.specs._rwkv_specs``): ``params``
+are this rank's shards (``sharding.specs.shard_tree``); a leaf the group
+does not divide stays whole.  The embedding and head are
+vocab-parallel.  The time mix: ``wr`` / ``wk`` / ``wv`` / ``wg``
+column-parallel after ``copy_in`` of the token-shift mixes, the decay
+computed whole on every rank from its whole LoRA; where the group
+divides the heads each rank runs the WKV and the group norm on its own
+heads (``bonus``'s slice, the decay's and ``ln_x``'s through
+``split_features``), else it gathers r / k / v whole, runs every head
+and keeps its features after the norm; ``wo`` row-parallel, then
+``reduce_out``.  The channel mix: ``ck`` column-, ``cv`` row-parallel
+(``kk @ cv`` reduced), ``cr`` column-parallel with the gate gathered
+whole (``gather_whole``), so the product is formed whole with no
+collective in its backward.  The serving functions take no policy.
 """
 
 from __future__ import annotations
@@ -28,11 +44,14 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import NO_SHARDING, ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.layers import (chunked_ce, dense_init, embed, remat,
-                                       rmsnorm, unstack_layers)
-from repro_torch.sharding.specs import refuse_model_axis
+from repro_torch.models.layers import (dense_init, embed, remat, rmsnorm,
+                                       unstack_layers)
+from repro_torch.models.transformer import lm_loss
+from repro_torch.sharding.collectives import (copy_in, copy_in_all,
+                                              gather_whole, reduce_out,
+                                              split_features)
 
 #: elements of the largest per-group intra-chunk tensor (one float32
 #: [chunks, B, H, c, c, N] decay table): bounds the chunks batched at once
@@ -213,55 +232,86 @@ def _decay(xw, lp):
     return torch.exp(-torch.exp(lp["w0"] + dd))
 
 
-def _time_mix(h, lp, cfg: ModelConfig, x_prev):
-    """Returns (out, the last position's input, the final wkv state)."""
+def _time_mix(h, lp, cfg: ModelConfig, x_prev, policy=None):
+    """Returns (out, the last position's input, the final wkv state: of
+    every head, or under a policy that splits the heads this rank's).
+    ``policy``: on this rank's shards (the module's docstring); every
+    collective is the identity where the group does not split
+    ``d_model``."""
     B, S, d = h.shape
     N = cfg.ssm_head_dim
     H = d // N
     sh = _shift(h, x_prev)
+    policy = policy or NO_SHARDING
+    tp = policy if policy.splits(d) else NO_SHARDING
+    straddle = tp.active and not tp.splits(H)
 
     def mx(m):
         return h + (sh - h) * lp[m].to(h.dtype)
 
-    r = (mx("mix_r") @ lp["wr"]).reshape(B, S, H, N)
-    k = (mx("mix_k") @ lp["wk"]).reshape(B, S, H, N)
-    v = (mx("mix_v") @ lp["wv"]).reshape(B, S, H, N)
-    g = F.silu(mx("mix_g") @ lp["wg"])
-    w = _decay(mx("mix_w"), lp).reshape(B, S, H, N)
+    xr, xk, xv, xg = copy_in_all(
+        [mx("mix_r"), mx("mix_k"), mx("mix_v"), mx("mix_g")], tp)
+    r, k, v = xr @ lp["wr"], xk @ lp["wk"], xv @ lp["wv"]
+    g = F.silu(xg @ lp["wg"])
+    w = _decay(mx("mix_w"), lp)                       # whole, alike
+    ln_x = lp["ln_x"]
+    if straddle:
+        # heads straddle ranks: every head on every rank, alike
+        r, k, v = gather_whole(torch.stack([r, k, v]), tp).unbind(0)
+    else:
+        # whole heads a rank: its slice of the decay, bonus and gain
+        w, ln_x = split_features(w, tp), split_features(ln_x, tp)
+    Hl = r.shape[-1] // N
+    r, k, v, w = (t.reshape(B, S, Hl, N) for t in (r, k, v, w))
     out, state = wkv6_chunked(r, k, v, w, lp["bonus"], return_state=True)
-    out = _group_norm(out, lp["ln_x"], d).to(h.dtype) * g
-    return out @ lp["wo"], h[:, -1], state
+    out = _group_norm(out, ln_x, Hl * N)
+    if straddle:
+        out = split_features(out, tp)
+    out = out.to(h.dtype) * g
+    return reduce_out(out @ lp["wo"], tp), h[:, -1], state
 
 
-def _channel_mix(h, lp, x_prev):
+def _channel_mix(h, lp, cfg: ModelConfig, x_prev, policy=None):
+    """Under a policy: ``ck`` / ``cv`` split where the group divides
+    ``d_ff``, ``cr`` where it divides ``d_model``."""
     sh = _shift(h, x_prev)
     xk = h + (sh - h) * lp["cmix_k"].to(h.dtype)
     xr = h + (sh - h) * lp["cmix_r"].to(h.dtype)
-    kk = torch.square(F.relu(xk @ lp["ck"]))
-    return torch.sigmoid(xr @ lp["cr"]) * (kk @ lp["cv"]), h[:, -1]
+    policy = policy or NO_SHARDING
+    ff = policy if policy.splits(cfg.d_ff) else NO_SHARDING
+    col = policy if policy.splits(cfg.d_model) else NO_SHARDING
+    if ff.active and col.active:
+        xk, xr = copy_in_all([xk, xr], policy)
+    else:
+        xk, xr = copy_in(xk, ff), copy_in(xr, col)
+    kv = reduce_out(torch.square(F.relu(xk @ lp["ck"])) @ lp["cv"], ff)
+    r = gather_whole(torch.sigmoid(xr @ lp["cr"]), col)
+    return r * kv, h[:, -1]
 
 
-def _layer(h, lp, cfg: ModelConfig):
+def _layer(h, lp, cfg: ModelConfig, policy=None):
     """One layer from zero shift states: (h, time-mix shift, channel-mix
     shift, wkv state)."""
     z = torch.zeros((h.shape[0], h.shape[2]), dtype=h.dtype, device=h.device)
-    a, tm, state = _time_mix(rmsnorm(h, lp["ln1"]), lp, cfg, z)
+    a, tm, state = _time_mix(rmsnorm(h, lp["ln1"]), lp, cfg, z, policy)
     h = h + a
-    b, cm = _channel_mix(rmsnorm(h, lp["ln2"]), lp, z)
+    b, cm = _channel_mix(rmsnorm(h, lp["ln2"]), lp, cfg, z, policy)
     return h + b, tm, cm, state
 
 
-def _layer_out(h, lp, cfg):
-    return _layer(h, lp, cfg)[0]
+def _layer_out(h, lp, cfg, policy=None):
+    return _layer(h, lp, cfg, policy)[0]
 
 
-def apply_stack(params, h, cfg: ModelConfig):
+def apply_stack(params, h, cfg: ModelConfig, policy=None):
     """All layers; under ``cfg.remat`` a forward that autograd records
-    checkpoints each layer."""
+    checkpoints each layer (its recompute replays the layer's
+    collectives, on every rank of the group alike)."""
     checkpointed = cfg.remat and h.requires_grad
     for lp in unstack_layers(params["layers"], cfg.n_layers):
-        h = (remat(functools.partial(_layer_out, lp=lp, cfg=cfg), h)
-             if checkpointed else _layer_out(h, lp, cfg))
+        h = (remat(functools.partial(_layer_out, lp=lp, cfg=cfg,
+                                     policy=policy), h)
+             if checkpointed else _layer_out(h, lp, cfg, policy))
     return h
 
 
@@ -269,15 +319,15 @@ def loss_fn(params, batch: dict, cfg: ModelConfig, dispatch=None,
             loss_chunk: int = 1024, policy=None):
     """Next-token cross-entropy; returns (loss, {}) as ``repro``'s.
     ``dispatch`` is accepted for the family interface (nothing on this
-    path dispatches)."""
-    if policy is not None:
-        refuse_model_axis(cfg.family, policy.size)
+    path dispatches).  ``policy``: on this rank's model shards (the
+    module's docstring); the loss is the same on every rank of the
+    group."""
     tokens = batch["tokens"]
-    h = embed(tokens[:, :-1], params["embed"]).to(cfg.adtype)
-    h = apply_stack(params, h, cfg)
-    h = rmsnorm(h, params["final_norm"])
-    return chunked_ce(h, params["head"], tokens[:, 1:], loss_chunk,
-                      cfg.remat and h.requires_grad), {}
+    h = embed(tokens[:, :-1], params["embed"], policy,
+              cfg.vocab).to(cfg.adtype)
+    h = apply_stack(params, h, cfg, policy)
+    return lm_loss(h, params, tokens[:, 1:], cfg, loss_chunk,
+                   policy=policy), {}
 
 
 # ---------------------------------------------------------------------------

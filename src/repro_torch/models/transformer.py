@@ -129,6 +129,25 @@ def _apply_head(h, params, cfg: ModelConfig, dispatch=None, policy=None):
     return h @ (w.T if cfg.tie_embeddings else w)
 
 
+def lm_loss(h, params, labels, cfg: ModelConfig, loss_chunk: int,
+            dispatch=None, policy=None, n_prefix: int = 0):
+    """The final norm and the mean next-token cross-entropy of final
+    hidden states h [B, S, d] against ``labels``, every family's: the LM
+    head (:func:`_apply_head`) applied in sequence chunks of
+    ``loss_chunk`` (``layers.chunked_ce``; under ``cfg.remat`` each
+    chunk is checkpointed), vocab-parallel where the policy's model
+    group divides the vocab.  The first ``n_prefix`` positions (prefix
+    embeddings, context only) are left out."""
+    h = rmsnorm(h, params["final_norm"])
+    if n_prefix:
+        h = h[:, n_prefix:]
+    head = functools.partial(_apply_head, params=params, cfg=cfg,
+                             dispatch=dispatch, policy=policy)
+    return chunked_ce(h, head, labels, loss_chunk,
+                      cfg.remat and h.requires_grad,
+                      _vocab_policy(cfg, policy))
+
+
 # ---------------------------------------------------------------------------
 # forward (prefill)
 # ---------------------------------------------------------------------------
@@ -212,15 +231,9 @@ def loss_fn(params, batch: dict, cfg: ModelConfig, dispatch=None,
     B, S, _ = h.shape
     positions = prompt_positions(B, S, h.device)
     h, _ = apply_stack(params, h, positions, cfg, dispatch, policy=policy)
-    h = rmsnorm(h, params["final_norm"])
-    if n_prefix:
-        h = h[:, n_prefix:]
-    head = functools.partial(_apply_head, params=params, cfg=cfg,
-                             dispatch=dispatch, policy=policy)
-    loss = chunked_ce(h, head, labels, loss_chunk,
-                      cfg.remat and h.requires_grad,
-                      _vocab_policy(cfg, policy))
-    return loss, {"ntokens": B * h.shape[1]}
+    loss = lm_loss(h, params, labels, cfg, loss_chunk, dispatch, policy,
+                   n_prefix)
+    return loss, {"ntokens": B * (S - n_prefix)}
 
 
 # ---------------------------------------------------------------------------

@@ -19,6 +19,23 @@ block (one parameter set) applied before layers 0, ``attn_every``,
 its output projected back by ``w_back``.  Its window is static (one
 Python int, ``repro``'s), so under ``cfg.use_pallas`` its prefill runs
 the flash-attention kernel and its decode the flash-decode kernel.
+
+``loss_fn(..., policy=)`` trains on the policy's model group, as
+``repro`` places the leaves (``sharding.specs._zamba_specs``): ``params``
+are this rank's shards; a leaf the group does not divide stays whole.
+The mixer: ``w_z`` / ``w_x`` column-parallel by channel (with
+``conv_x``, ``conv_bx`` and ``ln_y``), ``w_dt`` by head (with
+``dt_bias``, ``A_log`` and ``D``); B and C computed whole on every
+rank from their whole weights.  Where the group divides the heads each
+rank runs the SSD on its own heads, B and C entering through
+``copy_in``; else it gathers x whole, runs every head and keeps its
+channels.  The gated norm over the split channels sums its mean square
+over the group (:func:`group_rmsnorm`); ``w_out`` row-parallel, then
+``reduce_out``.  The shared block: ``w_cat`` column-parallel, its
+output gathered whole (``gather_whole``) for the attention and SwiGLU
+under the policy (``layers``' dense blocks), ``w_back`` row-parallel on
+its slice (``split_features``).  The embedding and head are
+vocab-parallel.  The serving functions take no policy.
 """
 
 from __future__ import annotations
@@ -29,7 +46,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import NO_SHARDING, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import (
     KVCache,
@@ -37,7 +54,6 @@ from repro_torch.models.layers import (
     attn_block_train,
     attn_params,
     cache_prefill,
-    chunked_ce,
     dense_init,
     embed,
     init_kv_cache,
@@ -51,7 +67,10 @@ from repro_torch.models.layers import (
     unstack_layers,
 )
 from repro_torch.models.rwkv6 import GROUP_ELEMS
-from repro_torch.sharding.specs import refuse_model_axis
+from repro_torch.models.transformer import lm_loss
+from repro_torch.sharding.collectives import (copy_in, copy_in_all,
+                                              gather_whole, reduce_out,
+                                              split_features)
 
 
 # ---------------------------------------------------------------------------
@@ -195,30 +214,62 @@ def _causal_conv(x, w, b):
     return F.silu(y + b)
 
 
-def mamba_block(h, mp, cfg: ModelConfig, return_state: bool = False):
+def group_rmsnorm(x, w, policy, n: int, eps: float = 1e-6):
+    """``rmsnorm`` over ``n`` features the policy's model group splits:
+    ``x`` [..., n / M] and ``w`` this rank's slices, the mean square
+    from the group's summed squares (all-reduced both ways: the total
+    feeds each rank's own features)."""
+    xf = x.to(torch.float32)
+    ss = reduce_out((xf * xf).sum(dim=-1, keepdim=True), policy)
+    var = copy_in(ss, policy) / n
+    out = xf * torch.rsqrt(var + eps) * (1.0 + w.to(torch.float32))
+    return out.to(x.dtype)
+
+
+def mamba_block(h, mp, cfg: ModelConfig, return_state: bool = False,
+                policy=None):
     """Full-sequence Mamba2 block, h: [Bt, S, d].  Returns y, or (y, ssm
     state, conv state) with ``return_state``: the conv state is the last
-    K - 1 pre-activation columns of [x | B | C]."""
+    K - 1 pre-activation columns of [x | B | C].  ``policy``: on this
+    rank's shards (the module's docstring; every collective the identity
+    where the group does not split the channels, and no state returned
+    where it does)."""
     Bt, S, d = h.shape
     din = cfg.ssm_expand * d
     P = cfg.ssm_head_dim
     H = din // P
+    policy = policy or NO_SHARDING
+    tp = policy if policy.splits(din) else NO_SHARDING
+    if return_state and tp.active:
+        raise ValueError("a split mamba block returns no state")
+    straddle = tp.active and not tp.splits(H)
     hn = rmsnorm(h, mp["ln"])
-    z = hn @ mp["w_z"]
-    x_raw = hn @ mp["w_x"]
+    hc = copy_in(hn, tp)                              # column-parallel in
+    z = hc @ mp["w_z"]
+    x_raw = hc @ mp["w_x"]
     B_raw = hn @ mp["w_B"]
     C_raw = hn @ mp["w_C"]
-    dt = hn @ mp["w_dt"]
-    xs = _causal_conv(x_raw, mp["conv_x"], mp["conv_bx"]).reshape(
-        Bt, S, H, P)
+    xs = _causal_conv(x_raw, mp["conv_x"], mp["conv_bx"])
     Bm = _causal_conv(B_raw, mp["conv_B"], mp["conv_bB"])
     Cm = _causal_conv(C_raw, mp["conv_C"], mp["conv_bC"])
+    if straddle:
+        # heads straddle ranks: every head on every rank, alike
+        xs, dt = gather_whole(xs, tp), hn @ mp["w_dt"]
+    else:
+        # whole heads a rank: B and C read by every rank's heads
+        Bm, Cm = copy_in_all([Bm, Cm], tp)
+        dt = hc @ mp["w_dt"]
     dt = F.softplus(dt.to(torch.float32) + mp["dt_bias"])
     A = -torch.exp(mp["A_log"])
-    y, ssm_state = ssd_chunked(xs, dt, A, Bm, Cm, mp["D"],
-                               return_state=True)
-    y = y.reshape(Bt, S, din).to(h.dtype)
-    y = rmsnorm(y * F.silu(z), mp["ln_y"]) @ mp["w_out"]
+    y, ssm_state = ssd_chunked(xs.reshape(Bt, S, -1, P), dt, A, Bm, Cm,
+                               mp["D"], return_state=True)
+    y = y.reshape(Bt, S, -1)
+    if straddle:
+        y = split_features(y, tp)
+    y = y.to(h.dtype) * F.silu(z)
+    y = (group_rmsnorm(y, mp["ln_y"], tp, din) if tp.active
+         else rmsnorm(y, mp["ln_y"]))
+    y = reduce_out(y @ mp["w_out"], tp)
     if not return_state:
         return y
     K = cfg.ssm_conv
@@ -296,57 +347,67 @@ def _shared_window(cfg: ModelConfig) -> int:
     return cfg.swa_pattern[0] if cfg.swa_pattern else -1
 
 
-def _shared_block(h, h0, sp, cfg: ModelConfig, positions, dispatch=None):
+def _shared_block(h, h0, sp, cfg: ModelConfig, positions, dispatch=None,
+                  policy=None):
     """Returns (h, (k, v)): the block's attention runs the prefill kernel
-    under ``cfg.use_pallas`` (its window is static)."""
-    x = torch.cat([h, h0], dim=-1) @ sp["w_cat"]
+    under ``cfg.use_pallas`` (its window is static).  ``policy``: on
+    this rank's shards (the module's docstring)."""
+    tp = policy if policy is not None and policy.splits(cfg.d_model) \
+        else NO_SHARDING
+    x = torch.cat([h, h0], dim=-1)
+    x = gather_whole(copy_in(x, tp) @ sp["w_cat"], tp)
     a, kv = attn_block_train(rmsnorm(x, sp["ln1"]), sp["attn"], cfg,
                              _shared_window(cfg), positions, dispatch,
-                             static_window=True)
+                             static_window=True, policy=policy)
     x = x + a
-    x = x + swiglu(rmsnorm(x, sp["ln2"]), sp["mlp"])
-    return h + x @ sp["w_back"], kv
+    x = x + swiglu(rmsnorm(x, sp["ln2"]), sp["mlp"], dispatch, policy,
+                   cfg.d_ff)
+    return h + reduce_out(split_features(x, tp) @ sp["w_back"], tp), kv
 
 
-def _shared_out(h, h0, sp, cfg, positions, dispatch):
-    return _shared_block(h, h0, sp, cfg, positions, dispatch)[0]
+def _shared_out(h, h0, sp, cfg, positions, dispatch, policy=None):
+    return _shared_block(h, h0, sp, cfg, positions, dispatch, policy)[0]
 
 
-def _mamba_layer(h, mp, cfg):
-    return h + mamba_block(h, mp, cfg)
+def _mamba_layer(h, mp, cfg, policy=None):
+    return h + mamba_block(h, mp, cfg, policy=policy)
 
 
-def apply_stack(params, h, positions, cfg: ModelConfig, dispatch=None):
+def apply_stack(params, h, positions, cfg: ModelConfig, dispatch=None,
+                policy=None):
     """The stack for training: the shared block before each of
     ``shared_apps``' layers, each Mamba layer residual.  Under
     ``cfg.remat`` a forward that autograd records checkpoints each Mamba
-    layer and each shared-block application."""
+    layer and each shared-block application (a recompute replays its
+    collectives, on every rank of the group alike)."""
     checkpointed = cfg.remat and h.requires_grad
     apps = set(shared_apps(cfg))
     h0 = h
     for i, mp in enumerate(unstack_layers(params["layers"], cfg.n_layers)):
         if i in apps:
             fn = functools.partial(_shared_out, sp=params["shared"], cfg=cfg,
-                                   positions=positions, dispatch=dispatch)
+                                   positions=positions, dispatch=dispatch,
+                                   policy=policy)
             h = remat(fn, h, h0) if checkpointed else fn(h, h0)
-        h = (remat(functools.partial(_mamba_layer, mp=mp, cfg=cfg), h)
-             if checkpointed else _mamba_layer(h, mp, cfg))
+        layer = functools.partial(_mamba_layer, mp=mp, cfg=cfg,
+                                  policy=policy)
+        h = remat(layer, h) if checkpointed else layer(h)
     return h
 
 
 def loss_fn(params, batch: dict, cfg: ModelConfig, dispatch=None,
             loss_chunk: int = 1024, policy=None):
-    """Next-token cross-entropy; returns (loss, {}) as ``repro``'s."""
-    if policy is not None:
-        refuse_model_axis(cfg.family, policy.size)
+    """Next-token cross-entropy; returns (loss, {}) as ``repro``'s.
+    ``policy``: on this rank's model shards (the module's docstring); the
+    loss is the same on every rank of the group."""
     tokens = batch["tokens"]
-    h = embed(tokens[:, :-1], params["embed"]).to(cfg.adtype)
+    h = embed(tokens[:, :-1], params["embed"], policy,
+              cfg.vocab).to(cfg.adtype)
     B, S, _ = h.shape
     h = apply_stack(params, h, prompt_positions(B, S, h.device), cfg,
-                    dispatch)
-    h = rmsnorm(h, params["final_norm"])
-    return chunked_ce(h, params["head"], tokens[:, 1:], loss_chunk,
-                      cfg.remat and h.requires_grad), {}
+                    dispatch, policy)
+    return lm_loss(h, params, tokens[:, 1:], cfg, loss_chunk, dispatch,
+                   policy), {}
 
 
 # ---------------------------------------------------------------------------

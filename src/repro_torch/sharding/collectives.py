@@ -19,6 +19,27 @@ written out:
 * :func:`vocab_nll` — cross entropy over vocab-sharded logits: the
   global max, log-sum-exp and gold logit, each by all-reduce.
 
+Two more for the RWKV-6 and Zamba2 families, whose blocks hand values
+between work every rank does alike and work split over the group:
+
+* :func:`split_features` — a whole value every rank computes alike, cut
+  to this rank's slice for per-rank work: the slice forward; backward,
+  the slices' gradients all-gathered into the whole gradient, equal on
+  every rank (``own_features`` leaves zeros outside the slice, right
+  only where the whole value's gradient is then summed over the group);
+* :func:`gather_whole` — the group's slices made whole for work every
+  rank then does alike: an all-gather forward; backward, this rank's
+  slice of the whole gradient, which every rank holds in full
+  (``gather_features``' sum would count it M times).
+
+(Partial sums whose total feeds per-rank work, as the mean square of a
+norm over split features, are ``copy_in(reduce_out(x))``: all-reduced
+forward and backward.)  The rule behind them: a leaf whole on every rank must get the same
+whole gradient on every rank (``core.distributed.ModelShards`` counts
+it once), so every value such a leaf reaches is either computed alike
+with its gradient whole on every rank, or per rank, and each crossing
+between the two is one of these regions.
+
 Each goes through the ``launch.mesh.Mesh`` methods (``over="model"``), so
 a dry run's ``DryMesh`` records it.  Under a policy with a model group
 of one every function is the identity (or the plain lookup / loss), and
@@ -68,6 +89,33 @@ class _GatherFeatures(torch.autograd.Function):
         return total.narrow(-1, mesh.model_rank * n, n).contiguous(), None
 
 
+class _SplitFeatures(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        n = x.shape[-1] // mesh.model_size
+        return x.narrow(-1, mesh.model_rank * n, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        parts = ctx.mesh.all_gather(g.contiguous(), over="model")
+        return torch.cat(parts.unbind(0), dim=-1), None
+
+
+class _GatherWhole(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        parts = mesh.all_gather(x.contiguous(), over="model")
+        return torch.cat(parts.unbind(0), dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh = ctx.mesh
+        n = g.shape[-1] // mesh.model_size
+        return g.narrow(-1, mesh.model_rank * n, n).contiguous(), None
+
+
 def copy_in(x: torch.Tensor, policy: ShardingPolicy) -> torch.Tensor:
     """``x`` entering a column-parallel region (all-reduce backward)."""
     return _CopyIn.apply(x, policy.mesh) if policy.active else x
@@ -91,6 +139,28 @@ def own_features(x: torch.Tensor, policy: ShardingPolicy) -> torch.Tensor:
         return x
     n = x.shape[-1] // policy.size
     return x.narrow(-1, policy.rank * n, n)
+
+
+def copy_in_all(xs: list, policy: ShardingPolicy) -> list:
+    """:func:`copy_in` of each of ``xs`` (tensors of one shape), their
+    gradients all-reduced together in one collective."""
+    if not policy.active:
+        return list(xs)
+    return list(copy_in(torch.stack(xs), policy).unbind(0))
+
+
+def split_features(x: torch.Tensor,
+                   policy: ShardingPolicy) -> torch.Tensor:
+    """This rank's slice of a whole ``x`` every rank computes alike,
+    along its last axis; its gradient, all-gathered, is whole and equal
+    on every rank."""
+    return _SplitFeatures.apply(x, policy.mesh) if policy.active else x
+
+
+def gather_whole(x: torch.Tensor, policy: ShardingPolicy) -> torch.Tensor:
+    """The model group's slices of ``x`` along its last axis, whole, for
+    work every rank does alike (its gradient: this rank's slice)."""
+    return _GatherWhole.apply(x, policy.mesh) if policy.active else x
 
 
 def _local_ids(ids: torch.Tensor, n_local: int, policy: ShardingPolicy):

@@ -12,9 +12,9 @@ The specs place each leaf on the ``model`` axis (a rank holds its
 slice: :func:`shard_layout`, :func:`shard_tree`, :func:`gather_tree`)
 and decide which axis every leaf is compressed along
 (``core.distributed._pick_axis`` keeps Top_k off the ``model`` axis), and
-so the wire bits, whatever the model axis's size.  The dense family
-runs tensor-parallel (ROADMAP queue 1 item 12a); the families in
-:data:`TP_PENDING` refuse a model axis above 1, naming their item.
+so the wire bits, whatever the model axis's size.  Every family trains
+tensor-parallel: the dense family (ROADMAP queue 1 item 12a), the MoE
+family expert-parallel (12b), RWKV-6 and Zamba2 (12c).
 ``activation_policy`` gives the model code its ``ShardingPolicy``: the
 mesh whose model group the port's own collectives run over, where
 ``repro``'s hands XLA sharding constraints.
@@ -30,24 +30,9 @@ import torch
 from repro_torch.configs.base import ModelConfig, ShardingPolicy
 from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
 
-#: families whose tensor parallelism is not ported yet -> the ROADMAP
-#: queue 1 item that ports it
-TP_PENDING = {"rwkv6": "12c", "zamba2": "12c"}
-
-
 class PendingPort(NotImplementedError):
     """A path refused until the ROADMAP item its message names ports it
-    (a family's tensor parallelism, serving or the fault runtime on a
-    model axis above 1)."""
-
-
-def refuse_model_axis(family: str, size: int) -> None:
-    """A family in :data:`TP_PENDING` refuses a model group above one."""
-    if size > 1 and family in TP_PENDING:
-        raise PendingPort(
-            f"tensor parallelism of the {family} family is not ported: a "
-            f"model axis of {size} (ROADMAP queue 1 item "
-            f"{TP_PENDING[family]})")
+    (serving or the fault runtime on a model axis above 1)."""
 
 
 def is_spec(z) -> bool:
@@ -233,14 +218,12 @@ def activation_policy(cfg: ModelConfig, mesh=None, *,
     ``model`` group the model's collectives run over).  ``ep_axis`` is
     "model" for the MoE family, as ``repro`` sets it: its experts run
     expert-parallel over the model group.  Serving with a model axis
-    above 1 is refused (ROADMAP queue 1 item 12d); a family not ported
-    refuses it too (:func:`refuse_model_axis`)."""
+    above 1 is refused (ROADMAP queue 1 item 12d)."""
     size = 1 if mesh is None else mesh.model_size
     if for_serving and size > 1:
         raise PendingPort(
             f"serving with a model axis of {size} is not ported (ROADMAP "
             "queue 1 item 12d)")
-    refuse_model_axis(cfg.family, size)
     return ShardingPolicy(
         mesh=mesh if size > 1 else None,
         ep_axis="model" if cfg.family == "moe" else None)

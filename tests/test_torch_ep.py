@@ -543,7 +543,8 @@ def test_launcher_equals_its_dx1_twin(ranks, ep, twin, run):
 
 def test_refusals_that_stand():
     """The mesh fault runtime and serving above one model rank still
-    raise, naming their items; a family not ported names its own."""
+    raise, naming their items; the other families now take a policy of
+    the model group's size (item 12c)."""
     mesh = dry_mesh("4x2")
     for arch in (QWEN, LLAMA):
         cfg = get_config(arch, smoke=True)
@@ -553,8 +554,8 @@ def test_refusals_that_stand():
     with pytest.raises(sp.PendingPort, match="item 12e"):
         lt.main(["--arch", QWEN, "--smoke", "--device", "cpu", "--mesh",
                  "1x2", "--faults", "preset:lossy"])
-    with pytest.raises(sp.PendingPort, match="item 12c"):
-        sp.activation_policy(get_config("zamba2-7b", smoke=True), mesh)
+    assert sp.activation_policy(get_config("zamba2-7b", smoke=True),
+                                mesh).size == 2
 
 
 # ---------------------------------------------------------------------------
